@@ -1,0 +1,106 @@
+"""Build the port's CUDA sources with nvcc and load them through ctypes.
+
+Each source under ``csrc/`` compiles to one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``, into
+``build/`` at the root of the checkout. The library's name carries a hash of
+the source and the flags, so a stale build is never loaded and a finished one
+is reused. ``load(name)`` builds on first use; ``build_all()`` starts one nvcc
+per source, all at once, and waits for them. Nothing is built at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = {"paged_attention": "paged_attention.cu"}
+FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+]
+
+# seconds each library took to build in this process (absent: loaded from disk)
+build_seconds: Dict[str, float] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels are "
+            "built on the machine with the card"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed (ptxas registers/spills included) for ``name``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def _start(name: str):
+    so = library_path(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return name, proc, tmp, so, time.perf_counter()
+
+
+def _finish(started) -> None:
+    name, proc, tmp, so, t0 = started
+    out, _ = proc.communicate()
+    so.with_suffix(".log").write_text(out)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{out}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    build_seconds[name] = time.perf_counter() - t0
+
+
+def build_all() -> List[Path]:
+    """Compile every source that has no current library, all nvcc processes in
+    parallel; returns the library paths."""
+    with _lock:
+        started = [s for s in (_start(n) for n in SOURCES) if s is not None]
+        try:
+            for s in started:
+                _finish(s)
+        finally:
+            for s in started:
+                if s[1].poll() is None:
+                    s[1].kill()
+                    s[1].wait()
+    return [library_path(n) for n in SOURCES]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            started = _start(name)
+            if started is not None:
+                _finish(started)
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,198 @@
+"""GQA self-attention of the port: monolithic prefill and the paged serving
+paths (one-token decode, one prefill chunk).
+
+Port of the paged half of ``repro.models.attention``. Page pools are
+(num_pages, Hkv, page_size, Dh) per layer. Where the reference returns new
+pools (JAX donates the old buffers), the port writes the pools IN PLACE with
+``index_put_`` / ``index_copy_`` and returns the same tensors.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .layers import ParamSpec, apply_rope
+
+
+# ---------------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------------
+def attn_specs(cfg) -> Dict[str, ParamSpec]:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.param_dtype
+    s = {
+        "wq": ParamSpec((d, h, dh), dt),
+        "wk": ParamSpec((d, hkv, dh), dt),
+        "wv": ParamSpec((d, hkv, dh), dt),
+        "wo": ParamSpec((h, dh, d), dt),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((h, dh), torch.float32, "zeros")
+        s["bk"] = ParamSpec((hkv, dh), torch.float32, "zeros")
+        s["bv"] = ParamSpec((hkv, dh), torch.float32, "zeros")
+    return s
+
+
+def paged_cache_specs(cfg, num_pages: int, page_size: int) -> Dict[str, ParamSpec]:
+    """One layer's page pool: page-major, (page_size, head_dim) innermost."""
+    shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    return {
+        "k": ParamSpec(shape, cfg.param_dtype, "zeros"),
+        "v": ParamSpec(shape, cfg.param_dtype, "zeros"),
+    }
+
+
+def pack_kv_pages(pool: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                  pages: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Scatter freshly prefilled K/V into pool pages, in place.
+
+    pool k/v: (L, num_pages, Hkv, ps, Dh); k/v: (L, 1, Hkv, S, Dh) with S a
+    multiple of ps; pages: (n,) physical ids of the sequence's logical pages
+    0..n-1, n == S // ps."""
+    l, _, hkv, s, dh = k.shape
+    ps = pool["k"].shape[3]
+    n = s // ps
+    idx = pages.to(device=pool["k"].device, dtype=torch.long)
+    for name, x in (("k", k), ("v", v)):
+        xp = x[:, 0].reshape(l, hkv, n, ps, dh).transpose(1, 2)  # (L, n, Hkv, ps, Dh)
+        pool[name].index_copy_(1, idx, xp.to(pool[name].dtype))
+    return pool
+
+
+def pack_kv_cache(cfg, k: torch.Tensor, v: torch.Tensor, *,
+                  max_len: Optional[int]) -> Dict[str, torch.Tensor]:
+    """Prefilled K/V (B, Hkv, S, Dh) padded along S to ``max_len`` (token p at
+    slot p), in the param dtype."""
+    s = k.shape[2]
+    cap = max_len if max_len is not None else s
+    if cap > s:
+        pad = (0, 0, 0, cap - s)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    return {"k": k.to(cfg.param_dtype), "v": v.to(cfg.param_dtype)}
+
+
+# ---------------------------------------------------------------------------------
+# projections
+# ---------------------------------------------------------------------------------
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("btd,dhk->bhtk", x, w) as one matmul."""
+    b, t, d = x.shape
+    _, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(b, t, h, k).transpose(1, 2)
+
+
+def _project_qkv(cfg, p, x: torch.Tensor):
+    """(B, H, T, Dh) x 3 from x (B, T, D), biases added when the config has them."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)[None, :, None, :]
+        k = k + p["bk"].to(x.dtype)[None, :, None, :]
+        v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    return q, k, v
+
+
+def _out_proj(p, attn_out: torch.Tensor, x_dtype) -> torch.Tensor:
+    """einsum("bhtk,hkd->btd", attn_out, wo) as one matmul."""
+    b, h, t, k = attn_out.shape
+    wo = p["wo"].to(x_dtype)
+    return attn_out.transpose(1, 2).reshape(b, t, h * k) @ wo.reshape(h * k, wo.shape[-1])
+
+
+# ---------------------------------------------------------------------------------
+# self-attention paths
+# ---------------------------------------------------------------------------------
+def self_attention(cfg, p, x: torch.Tensor, *, causal: bool = True,
+                   window: Optional[int] = None, pos_offset: int = 0,
+                   return_kv: bool = False):
+    """Full-sequence self-attention (forward / monolithic prefill), plain
+    PyTorch attention as in the reference. x: (B, T, D)."""
+    t = x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)
+    pos = torch.arange(t, device=x.device) + pos_offset
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    out = ops.attention(q, k, v, causal=causal, window=window, q_offset=pos_offset)
+    y = _out_proj(p, out, x.dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                                block_tables: torch.Tensor, context_lens: torch.Tensor):
+    """One-token decode against one layer's page pool.
+
+    x: (B, 1, D); cache k/v: (num_pages, Hkv, ps, Dh); block_tables (B,
+    max_pages) int32; context_lens (B,) int32 tokens already cached. The new
+    token's K/V is written IN PLACE at position context_lens[b] (page
+    block_tables[b, len // ps], slot len % ps), then attention covers
+    positions < len + 1."""
+    b = x.shape[0]
+    ps = cache["k"].shape[2]
+    q, k, v = _project_qkv(cfg, p, x)
+    pos = context_lens.to(torch.int32)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    page = block_tables[rows, (pos // ps).long()].long()
+    slot = (pos % ps).long()
+    cache["k"][page, :, slot, :] = k[:, :, 0, :].to(cache["k"].dtype)
+    cache["v"][page, :, slot, :] = v[:, :, 0, :].to(cache["v"].dtype)
+    out = ops.paged_decode_attention(
+        q.contiguous(), cache["k"], cache["v"], block_tables, pos + 1,
+    )
+    return _out_proj(p, out, x.dtype), cache
+
+
+def _scatter_chunk_pages(cache: Dict[str, torch.Tensor], kp: torch.Tensor,
+                         vp: torch.Tensor, dest: torch.Tensor) -> None:
+    """Scatter whole chunk pages into the pool in place. kp/vp: (B, nP, Hkv,
+    ps, Dh) page-factored chunk K/V; dest: (B, nP) physical destinations
+    (invalid entries already routed to the null page 0)."""
+    b, npg = dest.shape
+    hkv, ps, dh = kp.shape[2:]
+    flat = dest.reshape(-1).long()
+    for name, x in (("k", kp), ("v", vp)):
+        cache[name].index_copy_(0, flat, x.reshape(b * npg, hkv, ps, dh).to(cache[name].dtype))
+
+
+def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor,
+                                       cache: Dict[str, torch.Tensor],
+                                       block_tables: torch.Tensor,
+                                       write_tables: torch.Tensor, cursors: torch.Tensor,
+                                       n_new: torch.Tensor):
+    """One prefill CHUNK against one layer's page pool.
+
+    x: (B, C, D), C a page multiple; block_tables: the READ view (every
+    resident page, shared ones included); write_tables: the WRITE view, with
+    adopted shared pages and unallocated entries nulled to page 0; cursors
+    (B,) page-aligned tokens resident before the chunk; n_new (B,) valid new
+    tokens (pages past it route to the null page). The chunk's K/V is
+    scattered IN PLACE into its pages, then its queries attend the past (pool
+    positions < cursor) and the chunk's own K/V (causal)."""
+    b, c, _ = x.shape
+    ps = cache["k"].shape[2]
+    npg = c // ps
+    max_pages = block_tables.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)
+    ar_c = torch.arange(c, device=x.device)
+    pos = cursors[:, None] + ar_c[None, :]  # (B, C)
+    q = apply_rope(q, pos, cfg.rope_theta).contiguous()
+    k = apply_rope(k, pos, cfg.rope_theta).contiguous()
+    v = v.contiguous()
+    hkv, dh = k.shape[1], k.shape[3]
+    kp = k.reshape(b, hkv, npg, ps, dh).transpose(1, 2)  # (B, nP, Hkv, ps, Dh)
+    vp = v.reshape(b, hkv, npg, ps, dh).transpose(1, 2)
+    ar_p = torch.arange(npg, device=x.device)
+    logical = (cursors[:, None] // ps + ar_p[None, :]).clamp(0, max_pages - 1).long()
+    gathered = torch.gather(write_tables, 1, logical)
+    valid = ar_p[None, :] * ps < n_new[:, None]
+    dest = torch.where(valid, gathered, torch.zeros_like(gathered))
+    _scatter_chunk_pages(cache, kp, vp, dest)
+    out = ops.paged_prefill_chunk_attention(
+        q, k, v, cache["k"], cache["v"], block_tables, cursors
+    )
+    return _out_proj(p, out, x.dtype), cache

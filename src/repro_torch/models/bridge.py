@@ -1,0 +1,49 @@
+"""Weight bridge: the reference's parameter pytree (as numpy) -> the port's.
+
+The input is ``jax.tree.map(np.asarray, params)`` of a ``repro`` Model: every
+per-layer leaf is stacked with a leading n_layers dim. The port keeps the
+same leaf names and layouts (wq stays (d, h, k), wo (h, k, d), ...) and one
+dict per layer, so the bridge only splits the layer dim and copies
+dtype-for-dtype to the device. This module imports neither JAX nor repro.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import resolve_device
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: reinterpret the bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def from_jax_params(np_tree, cfg, device=None):
+    """Port parameters from a numpy copy of the reference's parameter pytree
+    for the dense config ``cfg``: {"embed", "blocks": [[layer dict] * L],
+    "final_norm"} on ``device`` (CUDA unless the caller names one)."""
+    device = resolve_device(device)
+    if cfg.family != "dense" or len(np_tree["blocks"]) != 1:
+        raise NotImplementedError(f"bridge covers the dense family, got {cfg.family!r}")
+    stacked = _map(np_tree["blocks"][0], lambda a: _tensor(a, device))
+    layers = [_map(stacked, lambda t, l=l: t[l]) for l in range(cfg.n_layers)]
+    return {
+        "embed": _map(np_tree["embed"], lambda a: _tensor(a, device)),
+        "blocks": [layers],
+        "final_norm": _tensor(np_tree["final_norm"], device),
+    }

@@ -1,0 +1,174 @@
+"""Requests, their engine-side state, and the FIFO admission queue.
+
+Port of ``repro.serving.engine.request`` for single-branch requests: a
+Request names WHAT to generate from (rid, prompt, arrival time), its
+GenerationParams HOW; a RequestState tracks one request through the engine.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, List, Optional, Sequence as Seq, Tuple
+
+from repro_torch.serving.params import FINISH_EOS, FINISH_LENGTH, GenerationParams, Sequence
+from repro_torch.serving.sampling import SamplingParams
+
+
+def page_hash_chain(tokens: Seq[int], page_size: int) -> List[Tuple]:
+    """Chain hashes of page-granular token chunks — the prefix-sharing keys.
+
+    Entry ``i`` identifies the content of logical page ``i`` given everything
+    before it, so equal keys imply equal full token prefixes. A trailing
+    partial chunk gets a final entry keyed by its exact tokens (identical
+    prompts share even their partial last page; copy-on-write resolves the
+    first divergent append)."""
+    chain: List[Tuple] = []
+    h: Tuple = ("kv-prefix", page_size)
+    n_full = len(tokens) // page_size
+    for i in range(n_full):
+        h = (hash(h), tuple(int(t) for t in tokens[i * page_size:(i + 1) * page_size]))
+        chain.append(h)
+    rem = tokens[n_full * page_size:]
+    if rem:
+        chain.append((hash(h), tuple(int(t) for t in rem), "partial"))
+    return chain
+
+
+class Request:
+    """One generation request: identity (rid), prompt, arrival time and policy."""
+
+    def __init__(self, rid: int, prompt: Seq[int], params: Optional[GenerationParams] = None,
+                 *, arrival_time: float = 0.0):
+        self.rid = int(rid)
+        self.prompt = [int(t) for t in prompt]
+        self.params = params if params is not None else GenerationParams()
+        self.arrival_time = float(arrival_time)
+        if not self.prompt:
+            raise ValueError("empty prompt")
+
+    @property
+    def max_new_tokens(self) -> int:
+        return self.params.max_new_tokens
+
+    @property
+    def eos_id(self) -> Optional[int]:
+        return self.params.eos_id
+
+    @property
+    def sampling(self) -> SamplingParams:
+        return self.params.sampling
+
+    def __repr__(self):
+        return f"Request(rid={self.rid}, prompt=<{len(self.prompt)} tokens>, params={self.params})"
+
+
+# RequestState.phase values: QUEUED -> PREFILLING (admitted, context KV
+# materializing chunk by chunk) -> DECODING (context resident, one token per
+# step). The monolithic engine admits and prefills in one step.
+QUEUED = "queued"
+PREFILLING = "prefilling"
+DECODING = "decoding"
+
+
+@dataclasses.dataclass
+class RequestState:
+    """Engine-side lifecycle of one request (survives preemption)."""
+
+    request: Request
+    generated: List[int] = dataclasses.field(default_factory=list)
+    slot: Optional[int] = None  # batch slot while running, None while queued
+    # chunked prefill: tokens of context whose KV is computed and resident for
+    # the current residency; None once the prefill completes (or always, in
+    # the monolithic engine). Preemption resets it (recompute policy).
+    chunk_cursor: Optional[int] = None
+    admit_time: Optional[float] = None
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    n_preemptions: int = 0
+    error: Optional[str] = None  # set when the engine fails the request
+    finish_reason: Optional[str] = None  # "eos" | "length" | "error"; None while running
+    cum_logprob: float = 0.0
+    # memoized prefix-sharing keys for (page_size, len(context))
+    _chain_key: Optional[Tuple[int, int]] = dataclasses.field(default=None, repr=False,
+                                                              compare=False)
+    _chain: List[Tuple] = dataclasses.field(default_factory=list, repr=False, compare=False)
+
+    def hash_chain(self, page_size: int) -> List[Tuple]:
+        """Prefix-sharing keys of the context as it would be (re-)prefilled
+        now; recomputed only when the context has grown."""
+        key = (page_size, len(self.context))
+        if self._chain_key != key:
+            self._chain_key = key
+            self._chain = page_hash_chain(self.context, page_size)
+        return self._chain
+
+    @property
+    def context(self) -> List[int]:
+        """Tokens that must be in the KV cache: prompt + everything generated
+        (after preemption all of it is re-prefilled)."""
+        return self.request.prompt + self.generated
+
+    @property
+    def sampling(self) -> SamplingParams:
+        return self.request.sampling
+
+    @property
+    def phase(self) -> str:
+        if self.slot is None:
+            return QUEUED
+        return PREFILLING if self.chunk_cursor is not None else DECODING
+
+    def release(self) -> None:
+        """Drop residency on preemption or finish: the slot and the cursor."""
+        self.slot = None
+        self.chunk_cursor = None
+
+    @property
+    def done(self) -> bool:
+        if self.finish_reason is not None:
+            return True
+        if len(self.generated) >= self.request.max_new_tokens:
+            return True
+        eos = self.request.eos_id
+        return eos is not None and bool(self.generated) and self.generated[-1] == eos
+
+    def finished_reason(self) -> str:
+        """The reason ``done`` holds (stamped on first call)."""
+        if self.finish_reason is None:
+            eos = self.request.eos_id
+            self.finish_reason = (
+                FINISH_EOS if eos is not None and self.generated and self.generated[-1] == eos
+                else FINISH_LENGTH
+            )
+        return self.finish_reason
+
+    @property
+    def sequences(self) -> List[Sequence]:
+        return [Sequence(tokens=list(self.generated), logprobs={},
+                         cumulative_logprob=self.cum_logprob,
+                         finish_reason=self.finish_reason)]
+
+
+class RequestQueue:
+    """FIFO with front-requeue for preempted requests."""
+
+    def __init__(self):
+        self._q: Deque[RequestState] = deque()
+
+    def push(self, state: RequestState) -> None:
+        self._q.append(state)
+
+    def requeue_front(self, state: RequestState) -> None:
+        self._q.appendleft(state)
+
+    def peek(self) -> Optional[RequestState]:
+        return self._q[0] if self._q else None
+
+    def pop(self) -> RequestState:
+        return self._q.popleft()
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def __bool__(self) -> bool:
+        return bool(self._q)

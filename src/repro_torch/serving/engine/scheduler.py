@@ -1,0 +1,141 @@
+"""Step-level admission/eviction policy for the continuous-batching engine.
+
+Port of ``repro.serving.engine.scheduler`` for single-branch requests. Each
+engine step the scheduler:
+  1. admits queued requests FIFO while a batch slot is free AND the pool can
+     hold the whole context plus a one-page decode headroom (watermark);
+     pages a request can adopt from the prefix index cost nothing;
+  2. guarantees every running sequence a page it may WRITE for its next token
+     (append at page boundaries, copy-on-write a shared target page),
+     preempting the most recently admitted other sequence when the pool runs
+     dry. Preemption is recompute-style: the victim releases its pages and
+     requeues at the front with its generated tokens kept.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+from .cache import PagedKVCache
+from .request import RequestQueue, RequestState
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    max_batch: int
+    watermark_pages: int = 1  # free pages kept back at admission for decode growth
+
+
+class Scheduler:
+    def __init__(self, cache: PagedKVCache, config: SchedulerConfig):
+        self.cache = cache
+        self.config = config
+        self.running: Dict[int, RequestState] = {}  # slot -> state, admission order
+        self.trace = None  # serving.telemetry.EngineTrace, attached by the engine
+
+    def _chain_of(self, state: RequestState):
+        if not self.cache.prefix_sharing:
+            return None
+        return state.hash_chain(self.cache.page_size)
+
+    def free_slots(self) -> List[int]:
+        return [s for s in range(self.config.max_batch) if s not in self.running]
+
+    def fits(self, state: RequestState) -> bool:
+        need = self.cache.new_pages_needed(state.context, chain=self._chain_of(state))
+        # no watermark with an empty batch: nothing to collide with, and an
+        # unadmittable head with nothing running would deadlock
+        watermark = self.config.watermark_pages if self.running else 0
+        return need + watermark <= self.cache.num_free
+
+    def impossible(self, state: RequestState) -> bool:
+        """True when the context needs more pages than the whole pool holds."""
+        return self.cache.pages_for(len(state.context) + 1) > self.cache.num_pages - 1
+
+    def reject_impossible(self, queue: RequestQueue) -> List[RequestState]:
+        """Pop every queue-head request impossible() condemns, stamping .error."""
+        failed = []
+        while queue:
+            state = queue.peek()
+            if not self.impossible(state):
+                break
+            queue.pop()
+            state.error = (
+                f"request {state.request.rid} needs "
+                f"{self.cache.pages_for(len(state.context) + 1)} pages for its "
+                f"{len(state.context)}-token context but the pool only has "
+                f"{self.cache.num_pages - 1} — raise num_pages or shorten the request"
+            )
+            if self.trace is not None:
+                self.trace.instant("reject", rid=state.request.rid, context=len(state.context))
+            failed.append(state)
+        return failed
+
+    def admit(self, queue: RequestQueue, now: float,
+              publish: bool = True) -> List[Tuple[int, RequestState]]:
+        """Pop admissible requests, allocate their context pages (+1 headroom
+        so the first decode token has a slot), bind batch slots."""
+        admitted = []
+        slots = self.free_slots()
+        while queue and slots:
+            state = queue.peek()
+            if state.request.arrival_time > now or not self.fits(state):
+                break
+            queue.pop()
+            slot = slots.pop(0)
+            ctx = state.context
+            self.cache.allocate(
+                slot, self.cache.pages_for(len(ctx) + 1), tokens=ctx,
+                chain=self._chain_of(state), publish=publish,
+            )
+            state.slot = slot
+            state.admit_time = now
+            self.running[slot] = state
+            admitted.append((slot, state))
+        return admitted
+
+    def _preempt_one(self, queue: RequestQueue, keep_slot: int) -> Optional[RequestState]:
+        victims = [s for s in self.running if s != keep_slot]
+        if not victims:
+            return None
+        slot = victims[-1]  # most recently admitted
+        state = self.running.pop(slot)
+        if self.trace is not None:
+            self.trace.instant(
+                "preempt", slot, rid=state.request.rid,
+                n_preemptions=state.n_preemptions + 1, keep_slot=keep_slot,
+            )
+        self.cache.free_slot(slot)
+        state.release()
+        state.n_preemptions += 1
+        queue.requeue_front(state)
+        return state
+
+    def ensure_decode_page(self, slot: int, queue: RequestQueue) -> None:
+        """Make sure ``slot`` owns a WRITABLE page covering position lens[slot]:
+        append a page at page boundaries and copy-on-write a shared target
+        page, preempting later arrivals if either needs a page the pool
+        cannot give."""
+        pos = int(self.cache.lens[slot])
+        while pos >= len(self.cache.pages_of[slot]) * self.cache.page_size:
+            if self.cache.append_page(slot):
+                continue
+            if self._preempt_one(queue, keep_slot=slot) is None:
+                raise RuntimeError(
+                    "KV pool exhausted with a single running sequence — "
+                    "num_pages is too small for this request"
+                )
+        while self.cache.needs_cow(slot):
+            if self.cache.cow_page(slot):
+                continue
+            if self._preempt_one(queue, keep_slot=slot) is None:
+                raise RuntimeError(
+                    "KV pool exhausted while copy-on-write needed a page — "
+                    "num_pages is too small for this request"
+                )
+
+    def finish(self, slot: int) -> RequestState:
+        state = self.running.pop(slot)
+        self.cache.free_slot(slot)
+        state.release()
+        return state
