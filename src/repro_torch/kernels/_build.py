@@ -21,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu", "quant_matmul": "quant_matmul.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -4,8 +4,10 @@
 // PyTorch versions these kernels are held against).
 //
 // What they replace (the JAX reference package's Pallas TPU kernels):
-//   paged_decode_kernel  <- src/repro/kernels/paged_attention.py::paged_flash_decode
-//   paged_chunk_kernel   <- src/repro/kernels/paged_attention.py::paged_flash_prefill_chunk
+//   paged_decode_kernel<DensePool>   <- src/repro/kernels/paged_attention.py::paged_flash_decode
+//   paged_chunk_kernel<DensePool>    <- src/repro/kernels/paged_attention.py::paged_flash_prefill_chunk
+//   paged_decode_kernel<QuantPool>   <- src/repro/kernels/paged_attention.py::paged_flash_decode_quant
+//   paged_chunk_kernel<QuantPool>    <- src/repro/kernels/paged_attention.py::paged_flash_prefill_chunk_quant
 // Same math as the reference's _flash_update: scores (q . k) * scale, an online
 // softmax with f32 (m, l, acc) per query row, and rows with l == 0 output 0.
 //
@@ -14,6 +16,18 @@
 // sequence b to a physical page (entries past the allocation point at the null
 // page 0 and are never read: the page loops stop at the live length). Every
 // sum runs in f32; outputs are written in q's type.
+//
+// Quantized pools (the accessor customization point composed with the paged
+// layout): (num_pages, Hkv, page_size, Dq) int8 bytes, Dq = D for int8 or D / 2
+// for int4 packed split-half (byte d holds feature d in the lo nibble and
+// d + D/2 in the hi, each sign-extended), plus one f32 scale per (physical
+// page, KV head), (num_pages, Hkv). A QuantPool stages a tile's page scales in
+// shared memory once, then writes float(q) * scale as f32 into the same shared
+// tile a dense pool fills, so flash_tile runs unchanged. In the chunk kernel
+// only the past goes through the pool; the present (the chunk's own K/V) stays
+// in q's type. The bytes read per token drop 2x (int8) / 4x (int4) against
+// bf16 pages; the arithmetic is the dense kernels' plus one multiply per
+// staged element.
 //
 // What bounds them on an H100: bytes. Decode reads each live K/V page once,
 // plus q and out (a few MB per step at B = 8, ~2k tokens: microseconds at
@@ -40,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -78,23 +93,93 @@ __host__ __device__ inline int tile_pages(int page_size) {
 }
 
 // Stage NT token slots of K and V in shared memory as f32. ``src(t)`` gives
-// the element offset of slot t's row in the source arrays, or -1 for a slot
-// that holds nothing (it is zero-filled and masked dead by the caller).
+// the row index (in units of one head vector) of slot t in the source arrays,
+// or -1 for a slot that holds nothing (it is zero-filled and masked dead by
+// the caller).
 template <typename T, int D, typename Src>
 __device__ inline void load_kv_tile(const T* __restrict__ k, const T* __restrict__ v,
                                     float* k_s, float* v_s, int NT, Src src) {
   for (int i = threadIdx.x; i < NT * D; i += blockDim.x) {
     const int t = i / D, d = i - t * D;
-    const long long off = src(t);
+    const long long row = src(t);
     float kv = 0.f, vv = 0.f;
-    if (off >= 0) {
-      kv = to_f32(k[off + d]);
-      vv = to_f32(v[off + d]);
+    if (row >= 0) {
+      kv = to_f32(k[row * D + d]);
+      vv = to_f32(v[row * D + d]);
     }
     k_s[t * (D + 1) + d] = kv;
     v_s[t * D + d] = vv;
   }
 }
+
+// A pool of dense pages in T (the unquantized kernels).
+template <typename T, int D>
+struct DensePool {
+  const T* k;
+  const T* v;
+  template <typename Src>
+  __device__ void stage(float* k_s, float* v_s, float* /*scale_s*/, int NT, int /*page_size*/,
+                        Src src) const {
+    load_kv_tile<T, D>(k, v, k_s, v_s, NT, src);
+  }
+};
+
+__device__ __forceinline__ float signed_nibble(int b) {
+  const int n = b & 0xF;
+  return static_cast<float>(n >= 8 ? n - 16 : n);
+}
+
+// A pool of intN pages with one f32 scale per (page, head). ``stage`` takes a
+// whole number of pages (NT / page_size of them): it reads each staged page's
+// two scales once into scale_s (2 * NT / page_size floats), then dequantizes
+// the bytes as float(q) * scale, the reference's dequantize_pages.
+template <int BITS, int D>
+struct QuantPool {
+  static_assert(BITS == 8 || (BITS == 4 && D % 2 == 0), "int8, or int4 with an even D");
+  static constexpr int DQ = BITS == 8 ? D : D / 2;
+  const int8_t* k;
+  const float* k_scale;
+  const int8_t* v;
+  const float* v_scale;
+  template <typename Src>
+  __device__ void stage(float* k_s, float* v_s, float* scale_s, int NT, int page_size,
+                        Src src) const {
+    const int np = NT / page_size;
+    for (int p = threadIdx.x; p < np; p += blockDim.x) {
+      const long long row = src(p * page_size);
+      // row = (page * Hkv + head) * page_size + slot: the scale index is row / page_size
+      const long long ph = row >= 0 ? row / page_size : -1;
+      scale_s[p] = ph >= 0 ? k_scale[ph] : 0.f;
+      scale_s[np + p] = ph >= 0 ? v_scale[ph] : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < NT * DQ; i += blockDim.x) {
+      const int t = i / DQ, j = i - t * DQ;
+      const long long row = src(t);
+      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+      if (row >= 0) {
+        const int p = t / page_size;
+        const float sk = scale_s[p], sv = scale_s[np + p];
+        const int kb = k[row * DQ + j], vb = v[row * DQ + j];
+        if (BITS == 8) {
+          k0 = static_cast<float>(kb) * sk;
+          v0 = static_cast<float>(vb) * sv;
+        } else {
+          k0 = signed_nibble(kb) * sk;
+          k1 = signed_nibble(kb >> 4) * sk;
+          v0 = signed_nibble(vb) * sv;
+          v1 = signed_nibble(vb >> 4) * sv;
+        }
+      }
+      k_s[t * (D + 1) + j] = k0;
+      v_s[t * D + j] = v0;
+      if (BITS == 4) {
+        k_s[t * (D + 1) + j + D / 2] = k1;
+        v_s[t * D + j + D / 2] = v1;
+      }
+    }
+  }
+};
 
 // One online-softmax accumulation over a staged (NT, D) K/V tile for R query
 // rows (the reference's _flash_update). Dead (row, slot) pairs are masked by
@@ -154,14 +239,14 @@ __device__ inline void flash_tile(const float* q_s, const float* k_s, const floa
 
 struct PagedSrc {
   const int* row;  // this sequence's block-table row
-  int j0, n_pages, page_size, num_pages, hkv, h, head_dim;
+  int j0, n_pages, page_size, num_pages, hkv, h;
   __device__ long long operator()(int t) const {
     const int j = j0 + t / page_size;
     if (j >= n_pages) return -1;
     int page = row[j];
     page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
     const int slot = t - (t / page_size) * page_size;
-    return ((static_cast<long long>(page) * hkv + h) * page_size + slot) * head_dim;
+    return (static_cast<long long>(page) * hkv + h) * page_size + slot;
   }
 };
 
@@ -170,10 +255,9 @@ struct DecodeLive {
   __device__ bool operator()(int, int t) const { return base + t < len; }
 };
 
-template <typename T, int D>
+template <typename T, int D, typename Pool>
 __global__ void __launch_bounds__(kDecodeThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ block_tables,
+paged_decode_kernel(const T* __restrict__ q, Pool pool, const int* __restrict__ block_tables,
                     const int* __restrict__ context_lens, T* __restrict__ out,
                     int hkv, int group, int page_size, int num_pages, int max_pages,
                     float scale) {
@@ -190,6 +274,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float* m_s = acc_s + G * D;           // G
   float* l_s = m_s + G;                 // G
   float* alpha_s = l_s + G;             // G
+  float* scale_s = alpha_s + G;         // 2 * np_tile (quantized pools)
 
   const int len = context_lens[b];
   int n_pages = len > 0 ? (len + page_size - 1) / page_size : 0;
@@ -207,8 +292,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   __syncthreads();
   const int* row = block_tables + static_cast<size_t>(b) * max_pages;
   for (int j0 = 0; j0 < n_pages; j0 += np_tile) {
-    load_kv_tile<T, D>(k_pool, v_pool, k_s, v_s, NT,
-                       PagedSrc{row, j0, n_pages, page_size, num_pages, hkv, h, D});
+    pool.stage(k_s, v_s, scale_s, NT, page_size,
+               PagedSrc{row, j0, n_pages, page_size, num_pages, hkv, h});
     __syncthreads();
     flash_tile<D>(q_s, k_s, v_s, s_s, m_s, l_s, alpha_s, acc_s, G, NT, scale,
                   DecodeLive{j0 * page_size, len});
@@ -225,11 +310,11 @@ struct PastLive {
 };
 
 struct ChunkSrc {
-  long long base;  // element offset of chunk key 0 for (b, h)
-  int tk0, chunk, head_dim;
+  long long base;  // row index of chunk key 0 for (b, h)
+  int tk0, chunk;
   __device__ long long operator()(int t) const {
     const int tk = tk0 + t;
-    return tk < chunk ? base + static_cast<long long>(tk) * head_dim : -1;
+    return tk < chunk ? base + tk : -1;
   }
 };
 
@@ -242,11 +327,11 @@ struct PresentLive {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, typename Pool>
 __global__ void __launch_bounds__(kChunkThreads)
 paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ chunk_k,
-                   const T* __restrict__ chunk_v, const T* __restrict__ k_pool,
-                   const T* __restrict__ v_pool, const int* __restrict__ block_tables,
+                   const T* __restrict__ chunk_v, Pool pool,
+                   const int* __restrict__ block_tables,
                    const int* __restrict__ cursors, T* __restrict__ out,
                    int hkv, int group, int chunk, int page_size, int num_pages,
                    int max_pages, float scale) {
@@ -267,6 +352,7 @@ paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ chunk_k,
   float* m_s = acc_s + R * D;           // R
   float* l_s = m_s + R;                 // R
   float* alpha_s = l_s + R;             // R
+  float* scale_s = alpha_s + R;         // 2 * np_tile (quantized pools)
 
   const int hq = hkv * G;
   // q / out (B, Hq, C, D): row r of this tile is query t = (row0 + r) / G of head h*G + g
@@ -292,17 +378,18 @@ paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ chunk_k,
     if (n_pages > max_pages) n_pages = max_pages;
     const int* row = block_tables + static_cast<size_t>(b) * max_pages;
     for (int j0 = 0; j0 < n_pages; j0 += np_tile) {
-      load_kv_tile<T, D>(k_pool, v_pool, k_s, v_s, NT,
-                         PagedSrc{row, j0, n_pages, page_size, num_pages, hkv, h, D});
+      pool.stage(k_s, v_s, scale_s, NT, page_size,
+                 PagedSrc{row, j0, n_pages, page_size, num_pages, hkv, h});
       __syncthreads();
       flash_tile<D>(q_s, k_s, v_s, s_s, m_s, l_s, alpha_s, acc_s, R, NT, scale,
                     PastLive{j0 * page_size, cursor, rows_valid});
     }
-    // present, applied last: the chunk's own K/V, causal within the chunk
+    // present, applied last: the chunk's own K/V (q's type, never read through
+    // the pool), causal within the chunk
     const int t_hi = (row0 + rows_valid - 1) / G;
-    const long long cbase = (static_cast<long long>(b) * hkv + h) * chunk * D;
+    const long long cbase = (static_cast<long long>(b) * hkv + h) * chunk;
     for (int tk0 = 0; tk0 <= t_hi; tk0 += NT) {
-      load_kv_tile<T, D>(chunk_k, chunk_v, k_s, v_s, NT, ChunkSrc{cbase, tk0, chunk, D});
+      load_kv_tile<T, D>(chunk_k, chunk_v, k_s, v_s, NT, ChunkSrc{cbase, tk0, chunk});
       __syncthreads();
       flash_tile<D>(q_s, k_s, v_s, s_s, m_s, l_s, alpha_s, acc_s, R, NT, scale,
                     PresentLive{tk0, row0, G, rows_valid, chunk});
@@ -338,49 +425,108 @@ cudaError_t set_smem(Kernel kern, size_t smem, size_t* opted) {
   return e;
 }
 
-template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* k_pool, const void* v_pool,
-                          const void* block_tables, const void* context_lens, void* out,
-                          int batch, int hq, int hkv, int page_size, int num_pages,
-                          int max_pages, float scale, cudaStream_t stream) {
+template <typename T, int D, typename Pool>
+cudaError_t launch_decode(const void* q, Pool pool, const void* block_tables,
+                          const void* context_lens, void* out, int batch, int hq, int hkv,
+                          int page_size, int num_pages, int max_pages, float scale,
+                          cudaStream_t stream) {
   const int G = hq / hkv;
-  const int NT = tile_pages<D>(page_size) * page_size;
+  const int np_tile = tile_pages<D>(page_size);
+  const int NT = np_tile * page_size;
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(G) * D * 2 + static_cast<size_t>(NT) * (2 * D + 1) +
-       static_cast<size_t>(G) * NT + 3 * G);
-  auto kern = paged_decode_kernel<T, D>;
+       static_cast<size_t>(G) * NT + 3 * G + 2 * np_tile);
+  auto kern = paged_decode_kernel<T, D, Pool>;
   static size_t opted[kMaxDevices] = {};
   cudaError_t e = set_smem(kern, smem, opted);
   if (e != cudaSuccess) return e;
   kern<<<dim3(hkv, batch), kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(block_tables), static_cast<const int*>(context_lens),
-      static_cast<T*>(out), hkv, G, page_size, num_pages, max_pages, scale);
+      static_cast<const T*>(q), pool, static_cast<const int*>(block_tables),
+      static_cast<const int*>(context_lens), static_cast<T*>(out), hkv, G, page_size,
+      num_pages, max_pages, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_chunk(const void* q, const void* chunk_k, const void* chunk_v,
-                         const void* k_pool, const void* v_pool, const void* block_tables,
-                         const void* cursors, void* out, int batch, int hq, int hkv,
-                         int chunk, int page_size, int num_pages, int max_pages,
-                         float scale, cudaStream_t stream) {
+template <typename T, int D, typename Pool>
+cudaError_t launch_chunk(const void* q, const void* chunk_k, const void* chunk_v, Pool pool,
+                         const void* block_tables, const void* cursors, void* out, int batch,
+                         int hq, int hkv, int chunk, int page_size, int num_pages,
+                         int max_pages, float scale, cudaStream_t stream) {
   const int G = hq / hkv;
-  const int NT = tile_pages<D>(page_size) * page_size;
+  const int np_tile = tile_pages<D>(page_size);
+  const int NT = np_tile * page_size;
   const size_t R = kChunkRows;
   const size_t smem = sizeof(float) *
-      (R * D * 2 + static_cast<size_t>(NT) * (2 * D + 1) + R * NT + 3 * R);
-  auto kern = paged_chunk_kernel<T, D>;
+      (R * D * 2 + static_cast<size_t>(NT) * (2 * D + 1) + R * NT + 3 * R + 2 * np_tile);
+  auto kern = paged_chunk_kernel<T, D, Pool>;
   static size_t opted[kMaxDevices] = {};
   cudaError_t e = set_smem(kern, smem, opted);
   if (e != cudaSuccess) return e;
   const int tiles = (chunk * G + kChunkRows - 1) / kChunkRows;
   kern<<<dim3(tiles, hkv, batch), kChunkThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(chunk_k), static_cast<const T*>(chunk_v),
-      static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(block_tables), static_cast<const int*>(cursors),
+      pool, static_cast<const int*>(block_tables), static_cast<const int*>(cursors),
       static_cast<T*>(out), hkv, G, chunk, page_size, num_pages, max_pages, scale);
   return cudaGetLastError();
+}
+
+// Per-(T, D) entry points: build the pool policy the C interface names.
+template <typename T, int D>
+cudaError_t decode_dense(const void* q, const void* k_pool, const void* v_pool,
+                         const void* block_tables, const void* context_lens, void* out,
+                         int batch, int hq, int hkv, int page_size, int num_pages,
+                         int max_pages, float scale, cudaStream_t stream) {
+  const DensePool<T, D> pool{static_cast<const T*>(k_pool), static_cast<const T*>(v_pool)};
+  return launch_decode<T, D>(q, pool, block_tables, context_lens, out, batch, hq, hkv,
+                             page_size, num_pages, max_pages, scale, stream);
+}
+
+template <typename T, int D>
+cudaError_t chunk_dense(const void* q, const void* chunk_k, const void* chunk_v,
+                        const void* k_pool, const void* v_pool, const void* block_tables,
+                        const void* cursors, void* out, int batch, int hq, int hkv, int chunk,
+                        int page_size, int num_pages, int max_pages, float scale,
+                        cudaStream_t stream) {
+  const DensePool<T, D> pool{static_cast<const T*>(k_pool), static_cast<const T*>(v_pool)};
+  return launch_chunk<T, D>(q, chunk_k, chunk_v, pool, block_tables, cursors, out, batch, hq,
+                            hkv, chunk, page_size, num_pages, max_pages, scale, stream);
+}
+
+template <int BITS, int D>
+QuantPool<BITS, D> quant_pool(const void* k_q, const void* k_scale, const void* v_q,
+                              const void* v_scale) {
+  return QuantPool<BITS, D>{static_cast<const int8_t*>(k_q), static_cast<const float*>(k_scale),
+                            static_cast<const int8_t*>(v_q), static_cast<const float*>(v_scale)};
+}
+
+template <typename T, int D>
+cudaError_t decode_quant(int bits, const void* q, const void* k_q, const void* k_scale,
+                         const void* v_q, const void* v_scale, const void* block_tables,
+                         const void* context_lens, void* out, int batch, int hq, int hkv,
+                         int page_size, int num_pages, int max_pages, float scale,
+                         cudaStream_t stream) {
+  if (bits == 8)
+    return launch_decode<T, D>(q, quant_pool<8, D>(k_q, k_scale, v_q, v_scale), block_tables,
+                               context_lens, out, batch, hq, hkv, page_size, num_pages,
+                               max_pages, scale, stream);
+  return launch_decode<T, D>(q, quant_pool<4, D>(k_q, k_scale, v_q, v_scale), block_tables,
+                             context_lens, out, batch, hq, hkv, page_size, num_pages,
+                             max_pages, scale, stream);
+}
+
+template <typename T, int D>
+cudaError_t chunk_quant(int bits, const void* q, const void* chunk_k, const void* chunk_v,
+                        const void* k_q, const void* k_scale, const void* v_q,
+                        const void* v_scale, const void* block_tables, const void* cursors,
+                        void* out, int batch, int hq, int hkv, int chunk, int page_size,
+                        int num_pages, int max_pages, float scale, cudaStream_t stream) {
+  if (bits == 8)
+    return launch_chunk<T, D>(q, chunk_k, chunk_v, quant_pool<8, D>(k_q, k_scale, v_q, v_scale),
+                              block_tables, cursors, out, batch, hq, hkv, chunk, page_size,
+                              num_pages, max_pages, scale, stream);
+  return launch_chunk<T, D>(q, chunk_k, chunk_v, quant_pool<4, D>(k_q, k_scale, v_q, v_scale),
+                            block_tables, cursors, out, batch, hq, hkv, chunk, page_size,
+                            num_pages, max_pages, scale, stream);
 }
 
 #define REPRO_DISPATCH(FN, ...)                                              \
@@ -400,8 +546,9 @@ cudaError_t launch_chunk(const void* q, const void* chunk_k, const void* chunk_v
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). Returns the
-// cudaError_t of the launch (0 on success); nothing here synchronizes.
+// dtype: 0 = float32, 1 = bfloat16 (q, dense pools, chunk K/V and out share
+// it); bits: 8 or 4 for the intN pools. Each returns the cudaError_t of the
+// launch (0 on success); nothing here synchronizes.
 int repro_paged_decode(int dtype, const void* q, const void* k_pool, const void* v_pool,
                        const void* block_tables, const void* context_lens, void* out,
                        int batch, int hq, int hkv, int head_dim, int page_size,
@@ -412,7 +559,7 @@ int repro_paged_decode(int dtype, const void* q, const void* k_pool, const void*
   }
   (void)cudaGetLastError();  // attribute only this launch's error to it
   auto run = [&]() -> cudaError_t {
-    REPRO_DISPATCH(launch_decode, q, k_pool, v_pool, block_tables, context_lens, out,
+    REPRO_DISPATCH(decode_dense, q, k_pool, v_pool, block_tables, context_lens, out,
                    batch, hq, hkv, page_size, num_pages, max_pages, scale,
                    static_cast<cudaStream_t>(stream))
   };
@@ -431,9 +578,47 @@ int repro_paged_prefill_chunk(int dtype, const void* q, const void* chunk_k,
   }
   (void)cudaGetLastError();
   auto run = [&]() -> cudaError_t {
-    REPRO_DISPATCH(launch_chunk, q, chunk_k, chunk_v, k_pool, v_pool, block_tables, cursors,
+    REPRO_DISPATCH(chunk_dense, q, chunk_k, chunk_v, k_pool, v_pool, block_tables, cursors,
                    out, batch, hq, hkv, chunk, page_size, num_pages, max_pages, scale,
                    static_cast<cudaStream_t>(stream))
+  };
+  return static_cast<int>(run());
+}
+
+int repro_paged_decode_quant(int dtype, int bits, const void* q, const void* k_q,
+                             const void* k_scale, const void* v_q, const void* v_scale,
+                             const void* block_tables, const void* context_lens, void* out,
+                             int batch, int hq, int hkv, int head_dim, int page_size,
+                             int num_pages, int max_pages, float scale, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (bits != 8 && bits != 4) || hkv <= 0 || hq % hkv != 0 ||
+      page_size <= 0 || num_pages <= 0 || max_pages <= 0 || batch <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  (void)cudaGetLastError();
+  auto run = [&]() -> cudaError_t {
+    REPRO_DISPATCH(decode_quant, bits, q, k_q, k_scale, v_q, v_scale, block_tables,
+                   context_lens, out, batch, hq, hkv, page_size, num_pages, max_pages, scale,
+                   static_cast<cudaStream_t>(stream))
+  };
+  return static_cast<int>(run());
+}
+
+int repro_paged_prefill_chunk_quant(int dtype, int bits, const void* q, const void* chunk_k,
+                                    const void* chunk_v, const void* k_q, const void* k_scale,
+                                    const void* v_q, const void* v_scale,
+                                    const void* block_tables, const void* cursors, void* out,
+                                    int batch, int hq, int hkv, int chunk, int head_dim,
+                                    int page_size, int num_pages, int max_pages, float scale,
+                                    void* stream) {
+  if ((dtype != 0 && dtype != 1) || (bits != 8 && bits != 4) || hkv <= 0 || hq % hkv != 0 ||
+      page_size <= 0 || num_pages <= 0 || max_pages <= 0 || batch <= 0 || chunk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  (void)cudaGetLastError();
+  auto run = [&]() -> cudaError_t {
+    REPRO_DISPATCH(chunk_quant, bits, q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale,
+                   block_tables, cursors, out, batch, hq, hkv, chunk, page_size, num_pages,
+                   max_pages, scale, static_cast<cudaStream_t>(stream))
   };
   return static_cast<int>(run());
 }

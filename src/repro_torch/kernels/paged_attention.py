@@ -14,6 +14,18 @@ This is the port of ``repro.kernels.paged_attention``:
   paged_flash_prefill_chunk      <- paged_flash_prefill_chunk (Pallas) —
                                     launches paged_chunk_kernel
 
+and over quantized pools (int8 or int4 page bytes with one f32 scale per
+(physical page, KV head), serving.engine.kvquant.PagedQuantSpec's encoding):
+
+  pack_int4_splithalf, unpack_int4_splithalf, dequantize_pages
+  paged_decode_attention_quant_torch   <- paged_decode_attention_quant_jnp
+  paged_prefill_chunk_quant_torch      <- paged_prefill_chunk_quant_jnp
+  paged_flash_decode_quant             <- paged_flash_decode_quant (Pallas) —
+                                          the decode kernel over intN pages
+  paged_flash_prefill_chunk_quant      <- paged_flash_prefill_chunk_quant
+                                          (Pallas) — the chunk kernel, past
+                                          over intN pages
+
 A wrapper given CUDA tensors launches its kernel (or raises on what the kernel
 does not take); given CPU tensors it returns its plain version, which is how
 the CPU tests reach it. Nothing falls back from the kernel to the plain
@@ -24,13 +36,40 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
+
+from repro_torch.core.distributed import as_int8_bits, signed_nibble
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------------
+# int4 nibble packing (split-half) and page dequantization
+# ---------------------------------------------------------------------------------
+def pack_int4_splithalf(q: torch.Tensor) -> torch.Tensor:
+    """Signed int4 values (last dim D even) two per byte, split-half: byte d
+    holds value d in the lo nibble and value d + D/2 in the hi nibble, so a
+    token's K/V row maps to whole bytes of its own."""
+    d = q.shape[-1]
+    q = q.to(torch.int16)
+    return as_int8_bits((q[..., :d // 2] & 0x0F) | ((q[..., d // 2:] & 0x0F) << 4))
+
+
+def unpack_int4_splithalf(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4_splithalf, sign-extending each nibble."""
+    return torch.cat([signed_nibble(b & 0x0F), signed_nibble((b >> 4) & 0x0F)], dim=-1)
+
+
+def dequantize_pages(q: torch.Tensor, scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """q: (..., page_size, Dq) intN bytes; scale: (...) f32 per (page, head).
+    Returns f32 (..., page_size, D): float(q) * scale."""
+    if bits == 4:
+        q = unpack_int4_splithalf(q)
+    return q.float() * scale[..., None, None]
 
 
 # ---------------------------------------------------------------------------------
@@ -170,6 +209,31 @@ def paged_prefill_chunk_torch(
     return out.reshape(b, hq, c, d).to(q.dtype)
 
 
+def paged_decode_attention_quant_torch(q, k_q, k_scale, v_q, v_scale, block_tables,
+                                       context_lens, *, bits: int = 8,
+                                       scale: Optional[float] = None,
+                                       block_pages: Optional[int] = None) -> torch.Tensor:
+    """paged_decode_attention_torch over an intN pool: k_q/v_q (num_pages,
+    Hkv, ps, Dq) int8 with Dq = D (int8) or D / 2 (int4 split-half),
+    k_scale/v_scale (num_pages, Hkv) f32. Dequantizes the whole pool, then
+    runs the f32 path: the same semantics as the kernel, O(pool) memory."""
+    return paged_decode_attention_torch(
+        q, dequantize_pages(k_q, k_scale, bits=bits), dequantize_pages(v_q, v_scale, bits=bits),
+        block_tables, context_lens, scale=scale, block_pages=block_pages,
+    )
+
+
+def paged_prefill_chunk_quant_torch(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale,
+                                    block_tables, cursors, *, bits: int = 8,
+                                    scale: Optional[float] = None) -> torch.Tensor:
+    """paged_prefill_chunk_torch over an intN pool: the past dequantizes,
+    the present (the chunk's own K/V) stays in the compute dtype."""
+    return paged_prefill_chunk_torch(
+        q, chunk_k, chunk_v, dequantize_pages(k_q, k_scale, bits=bits),
+        dequantize_pages(v_q, v_scale, bits=bits), block_tables, cursors, scale=scale,
+    )
+
+
 # ---------------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------------
@@ -191,6 +255,14 @@ def _lib() -> ctypes.CDLL:
             i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
         ]
         lib.repro_paged_prefill_chunk.restype = i
+        lib.repro_paged_decode_quant.argtypes = [
+            i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
+        ]
+        lib.repro_paged_decode_quant.restype = i
+        lib.repro_paged_prefill_chunk_quant.argtypes = [
+            i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
+        ]
+        lib.repro_paged_prefill_chunk_quant.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -216,19 +288,25 @@ def _check(name: str, t: torch.Tensor, *, ndim: int, dtype=None, device=None) ->
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_attention_operands(q, k_pool, v_pool, block_tables, lens, lens_name):
+def _check_attention_operands(q, k_pool, v_pool, block_tables, lens, lens_name,
+                              bits: Optional[int] = None):
+    """Validate the operands a paged kernel reads; ``bits`` set means the
+    pools are intN bytes (int8, last dim D or D / 2 for int4)."""
     _check("q", q, ndim=4)
     dev = q.device
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    pool_dtype = q.dtype if bits is None else torch.int8
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        _check(name, t, ndim=4, dtype=q.dtype, device=dev)
+        _check(name, t, ndim=4, dtype=pool_dtype, device=dev)
     if k_pool.shape != v_pool.shape:
         raise ValueError(f"k_pool {tuple(k_pool.shape)} != v_pool {tuple(v_pool.shape)}")
     _check("block_tables", block_tables, ndim=2, dtype=torch.int32, device=dev)
     _check(lens_name, lens, ndim=1, dtype=torch.int32, device=dev)
     b, hq, _, d = q.shape
     _, hkv, _, dk = k_pool.shape
+    if bits == 4:
+        dk *= 2
     if d not in HEAD_DIMS or dk != d:
         raise ValueError(f"head dim {d} (pool {dk}) not supported: kernels take {HEAD_DIMS}")
     if hq % hkv:
@@ -330,16 +408,95 @@ def paged_flash_prefill_chunk(
 
 paged_flash_prefill_chunk.launches = 0
 
+
+def _check_scales(k_q, k_scale, v_scale, bits: int) -> None:
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(name, t, ndim=2, dtype=torch.float32, device=k_q.device)
+        if tuple(t.shape) != tuple(k_q.shape[:2]):
+            raise ValueError(f"{name} must be {tuple(k_q.shape[:2])}, got {tuple(t.shape)}")
+
+
+def paged_flash_decode_quant(q, k_q, k_scale, v_q, v_scale, block_tables, context_lens, *,
+                             bits: int = 8, scale: Optional[float] = None,
+                             block_pages: int = 1) -> torch.Tensor:
+    """One-token GQA decode against an intN paged pool (kernel:
+    paged_decode_kernel over a QuantPool, dequantizing each staged page as
+    float(q) * scale). Shapes as paged_decode_attention_quant_torch; on CUDA
+    q is float32/bfloat16, pools int8, scales float32, all contiguous.
+    ``block_pages`` as in paged_flash_decode."""
+    bp = max(1, int(block_pages))
+    if block_tables.shape[1] % bp:
+        raise ValueError(
+            f"block_pages {bp} must divide max_pages {block_tables.shape[1]} "
+            "(ops.effective_block_pages picks a valid divisor)"
+        )
+    if q.device.type == "cpu":
+        return paged_decode_attention_quant_torch(
+            q, k_q, k_scale, v_q, v_scale, block_tables, context_lens, bits=bits, scale=scale,
+        )
+    _check_attention_operands(q, k_q, v_q, block_tables, context_lens, "context_lens", bits)
+    _check_scales(k_q, k_scale, v_scale, bits)
+    b, hq, tq, d = q.shape
+    num_pages, hkv, ps, _ = k_q.shape
+    if tq != 1:
+        raise ValueError(f"decode wants one query token, got q {tuple(q.shape)}")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    rc = _lib().repro_paged_decode_quant(
+        _DTYPE_CODE[q.dtype], bits, q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
+        v_q.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
+        out.data_ptr(), b, hq, hkv, d, ps, num_pages, block_tables.shape[1], scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, "paged_decode_quant")
+    paged_flash_decode_quant.launches += 1
+    return out
+
+
+paged_flash_decode_quant.launches = 0
+
+
+def paged_flash_prefill_chunk_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale,
+                                    block_tables, cursors, *, bits: int = 8,
+                                    scale: Optional[float] = None) -> torch.Tensor:
+    """Chunked-prefill GQA attention with the past read from an intN pool
+    and dequantized per staged page; the present (chunk_k/chunk_v, q's dtype)
+    is never read through the pool (kernel: paged_chunk_kernel over a
+    QuantPool). Shapes as paged_prefill_chunk_quant_torch."""
+    if q.device.type == "cpu":
+        return paged_prefill_chunk_quant_torch(
+            q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale, block_tables, cursors,
+            bits=bits, scale=scale,
+        )
+    _check_attention_operands(q, k_q, v_q, block_tables, cursors, "cursors", bits)
+    _check_scales(k_q, k_scale, v_scale, bits)
+    b, hq, c, d = q.shape
+    num_pages, hkv, ps, _ = k_q.shape
+    for name, t in (("chunk_k", chunk_k), ("chunk_v", chunk_v)):
+        _check(name, t, ndim=4, dtype=q.dtype, device=q.device)
+        if tuple(t.shape) != (b, hkv, c, d):
+            raise ValueError(f"{name} must be {(b, hkv, c, d)}, got {tuple(t.shape)}")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    rc = _lib().repro_paged_prefill_chunk_quant(
+        _DTYPE_CODE[q.dtype], bits, q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
+        k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(),
+        block_tables.data_ptr(), cursors.data_ptr(), out.data_ptr(),
+        b, hq, hkv, c, d, ps, num_pages, block_tables.shape[1], scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, "paged_prefill_chunk_quant")
+    paged_flash_prefill_chunk_quant.launches += 1
+    return out
+
+
+paged_flash_prefill_chunk_quant.launches = 0
+
 KERNEL_WRAPPERS = {
     "paged_decode": paged_flash_decode,
     "paged_prefill_chunk": paged_flash_prefill_chunk,
+    "paged_decode_quant": paged_flash_decode_quant,
+    "paged_prefill_chunk_quant": paged_flash_prefill_chunk_quant,
 }
-
-
-def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0

@@ -2,7 +2,9 @@
 paths (one-token decode, one prefill chunk).
 
 Port of the paged half of ``repro.models.attention``. Page pools are
-(num_pages, Hkv, page_size, Dh) per layer. Where the reference returns new
+(num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
+(serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
+f32 per (page, head)} for each of k and v. Where the reference returns new
 pools (JAX donates the old buffers), the port writes the pools IN PLACE with
 ``index_put_`` / ``index_copy_`` and returns the same tensors.
 """
@@ -36,9 +38,20 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
     return s
 
 
-def paged_cache_specs(cfg, num_pages: int, page_size: int) -> Dict[str, ParamSpec]:
-    """One layer's page pool: page-major, (page_size, head_dim) innermost."""
-    shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+def paged_cache_specs(cfg, num_pages: int, page_size: int, kv_spec=None):
+    """One layer's page pool: page-major, (page_size, head_dim) innermost.
+    ``kv_spec`` swaps the element representation without touching the layout:
+    k and v each become {"q": intN page bytes, "scale": f32 per (page, head)}."""
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    if kv_spec is not None:
+        def quant():
+            return {
+                "q": ParamSpec((num_pages, hkv, page_size, kv_spec.packed_dim(dh)), torch.int8,
+                               "zeros"),
+                "scale": ParamSpec((num_pages, hkv), torch.float32, "zeros"),
+            }
+        return {"k": quant(), "v": quant()}
+    shape = (num_pages, hkv, page_size, dh)
     return {
         "k": ParamSpec(shape, cfg.param_dtype, "zeros"),
         "v": ParamSpec(shape, cfg.param_dtype, "zeros"),
@@ -59,6 +72,25 @@ def pack_kv_pages(pool: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tenso
     for name, x in (("k", k), ("v", v)):
         xp = x[:, 0].reshape(l, hkv, n, ps, dh).transpose(1, 2)  # (L, n, Hkv, ps, Dh)
         pool[name].index_copy_(1, idx, xp.to(pool[name].dtype))
+    return pool
+
+
+def pack_kv_pages_quant(pool, k: torch.Tensor, v: torch.Tensor, pages: torch.Tensor, *,
+                        spec) -> Dict[str, Dict[str, torch.Tensor]]:
+    """pack_kv_pages for a quantized pool, in place: each page is encoded
+    with a fresh scale per (page, head) (spec.encode_pages), bytes and scales
+    written together. pool k/v: {"q": (L, num_pages, Hkv, ps, Dq), "scale":
+    (L, num_pages, Hkv)}; k/v and pages as in pack_kv_pages. The zero pad of
+    a partial page takes part in its scale, so a page stays a pure function of
+    the tokens that hash to it."""
+    l, _, hkv, s, dh = k.shape
+    ps = pool["k"]["q"].shape[3]
+    n = s // ps
+    idx = pages.to(device=pool["k"]["q"].device, dtype=torch.long)
+    for name, x in (("k", k), ("v", v)):
+        enc = spec.encode_pages(x[:, 0].reshape(l, hkv, n, ps, dh).transpose(1, 2))
+        for part in ("q", "scale"):
+            pool[name][part].index_copy_(1, idx, enc[part])
     return pool
 
 
@@ -121,17 +153,36 @@ def self_attention(cfg, p, x: torch.Tensor, *, causal: bool = True,
     return y
 
 
-def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                                block_tables: torch.Tensor, context_lens: torch.Tensor):
+def _page_size(cache, kv_spec) -> int:
+    return (cache["k"]["q"] if kv_spec is not None else cache["k"]).shape[2]
+
+
+def _quant_append(buf: Dict[str, torch.Tensor], tok: torch.Tensor, page: torch.Tensor,
+                  slot: torch.Tensor, spec) -> None:
+    """Scatter one quantized token per batch row into its (page, slot), in
+    place. buf: {"q": (num_pages, Hkv, ps, Dq), "scale": (num_pages, Hkv)};
+    tok: (B, Hkv, Dh). Slot 0 means the page is brand new, so it takes a fresh
+    per-head scale from the token; any other slot re-quantizes with the
+    page's existing scale, clipped (read before it is written). Inactive rows
+    all target the null page 0, where their bytes and scales land harmlessly."""
+    fresh = (slot == 0)[:, None]
+    scale = torch.where(fresh, spec.token_scale(tok), buf["scale"][page])
+    buf["q"][page, :, slot, :] = spec.quantize_tokens(tok, scale)
+    buf["scale"][page] = scale
+
+
+def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: torch.Tensor,
+                                context_lens: torch.Tensor, kv_spec=None):
     """One-token decode against one layer's page pool.
 
-    x: (B, 1, D); cache k/v: (num_pages, Hkv, ps, Dh); block_tables (B,
-    max_pages) int32; context_lens (B,) int32 tokens already cached. The new
-    token's K/V is written IN PLACE at position context_lens[b] (page
-    block_tables[b, len // ps], slot len % ps), then attention covers
-    positions < len + 1."""
+    x: (B, 1, D); cache k/v: (num_pages, Hkv, ps, Dh), or with ``kv_spec``
+    {"q", "scale"} quantized pools; block_tables (B, max_pages) int32;
+    context_lens (B,) int32 tokens already cached. The new token's K/V is
+    written IN PLACE at position context_lens[b] (page block_tables[b, len //
+    ps], slot len % ps), quantized at scatter time over a quantized pool,
+    then attention covers positions < len + 1."""
     b = x.shape[0]
-    ps = cache["k"].shape[2]
+    ps = _page_size(cache, kv_spec)
     q, k, v = _project_qkv(cfg, p, x)
     pos = context_lens.to(torch.int32)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -139,31 +190,48 @@ def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache: Dict[str, torch.
     rows = torch.arange(b, device=x.device)
     page = block_tables[rows, (pos // ps).long()].long()
     slot = (pos % ps).long()
-    cache["k"][page, :, slot, :] = k[:, :, 0, :].to(cache["k"].dtype)
-    cache["v"][page, :, slot, :] = v[:, :, 0, :].to(cache["v"].dtype)
-    out = ops.paged_decode_attention(
-        q.contiguous(), cache["k"], cache["v"], block_tables, pos + 1,
-    )
+    if kv_spec is not None:
+        _quant_append(cache["k"], k[:, :, 0, :], page, slot, kv_spec)
+        _quant_append(cache["v"], v[:, :, 0, :], page, slot, kv_spec)
+        ck, cv = cache["k"], cache["v"]
+        out = ops.paged_decode_attention_quant(
+            q.contiguous(), ck["q"], ck["scale"], cv["q"], cv["scale"], block_tables, pos + 1,
+            bits=kv_spec.bits,
+        )
+    else:
+        cache["k"][page, :, slot, :] = k[:, :, 0, :].to(cache["k"].dtype)
+        cache["v"][page, :, slot, :] = v[:, :, 0, :].to(cache["v"].dtype)
+        out = ops.paged_decode_attention(
+            q.contiguous(), cache["k"], cache["v"], block_tables, pos + 1,
+        )
     return _out_proj(p, out, x.dtype), cache
 
 
-def _scatter_chunk_pages(cache: Dict[str, torch.Tensor], kp: torch.Tensor,
-                         vp: torch.Tensor, dest: torch.Tensor) -> None:
+def _scatter_chunk_pages(cache, kp: torch.Tensor, vp: torch.Tensor, dest: torch.Tensor,
+                         kv_spec=None) -> None:
     """Scatter whole chunk pages into the pool in place. kp/vp: (B, nP, Hkv,
     ps, Dh) page-factored chunk K/V; dest: (B, nP) physical destinations
-    (invalid entries already routed to the null page 0)."""
+    (invalid entries already routed to the null page 0, bytes and scales
+    alike). A quantized pool encodes each page with a fresh scale per (page,
+    head), pack_kv_pages_quant's law, so a chunk-written page equals a
+    monolithic-prefill one and the prefix index may share across the two."""
     b, npg = dest.shape
     hkv, ps, dh = kp.shape[2:]
     flat = dest.reshape(-1).long()
     for name, x in (("k", kp), ("v", vp)):
-        cache[name].index_copy_(0, flat, x.reshape(b * npg, hkv, ps, dh).to(cache[name].dtype))
+        x = x.reshape(b * npg, hkv, ps, dh)
+        if kv_spec is not None:
+            enc = kv_spec.encode_pages(x)
+            for part in ("q", "scale"):
+                cache[name][part].index_copy_(0, flat, enc[part])
+        else:
+            cache[name].index_copy_(0, flat, x.to(cache[name].dtype))
 
 
-def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor,
-                                       cache: Dict[str, torch.Tensor],
+def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor, cache,
                                        block_tables: torch.Tensor,
                                        write_tables: torch.Tensor, cursors: torch.Tensor,
-                                       n_new: torch.Tensor):
+                                       n_new: torch.Tensor, kv_spec=None):
     """One prefill CHUNK against one layer's page pool.
 
     x: (B, C, D), C a page multiple; block_tables: the READ view (every
@@ -172,9 +240,10 @@ def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor,
     (B,) page-aligned tokens resident before the chunk; n_new (B,) valid new
     tokens (pages past it route to the null page). The chunk's K/V is
     scattered IN PLACE into its pages, then its queries attend the past (pool
-    positions < cursor) and the chunk's own K/V (causal)."""
+    positions < cursor) and the chunk's own K/V (causal), which stays in the
+    compute dtype over a quantized pool (``kv_spec``)."""
     b, c, _ = x.shape
-    ps = cache["k"].shape[2]
+    ps = _page_size(cache, kv_spec)
     npg = c // ps
     max_pages = block_tables.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
@@ -191,8 +260,15 @@ def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor,
     gathered = torch.gather(write_tables, 1, logical)
     valid = ar_p[None, :] * ps < n_new[:, None]
     dest = torch.where(valid, gathered, torch.zeros_like(gathered))
-    _scatter_chunk_pages(cache, kp, vp, dest)
-    out = ops.paged_prefill_chunk_attention(
-        q, k, v, cache["k"], cache["v"], block_tables, cursors
-    )
+    _scatter_chunk_pages(cache, kp, vp, dest, kv_spec)
+    if kv_spec is not None:
+        ck, cv = cache["k"], cache["v"]
+        out = ops.paged_prefill_chunk_attention_quant(
+            q, k, v, ck["q"], ck["scale"], cv["q"], cv["scale"], block_tables, cursors,
+            bits=kv_spec.bits,
+        )
+    else:
+        out = ops.paged_prefill_chunk_attention(
+            q, k, v, cache["k"], cache["v"], block_tables, cursors
+        )
     return _out_proj(p, out, x.dtype), cache

@@ -4,7 +4,10 @@ The input is ``jax.tree.map(np.asarray, params)`` of a ``repro`` Model: every
 per-layer leaf is stacked with a leading n_layers dim. The port keeps the
 same leaf names and layouts (wq stays (d, h, k), wo (h, k, d), ...) and one
 dict per layer, so the bridge only splits the layer dim and copies
-dtype-for-dtype to the device. This module imports neither JAX nor repro.
+dtype-for-dtype to the device. Quantized weights ({"q", "scale"} leaves of a
+``build_model(cfg, quantized=True)`` model) come through the same way: int8
+stays int8, f32 scales stay f32, and both split on the layer dim. This
+module imports neither JAX nor repro.
 """
 from __future__ import annotations
 

@@ -2,18 +2,24 @@
 SwiGLU MLP, embedding and the tied LM head.
 
 Port of the dense half of ``repro.models.layers``; weights keep the
-reference's layouts (a dense linear is (d_in, d_out), applied as x @ w), so a
-bridged parameter tree is a dtype/device copy. Quantized linears, sharding and
-the other norms/activations wait for their slices.
+reference's layouts (a dense linear is (d_in, d_out), applied as x @ w; a
+quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
+through ``kernels.ops.matmul``), so a bridged parameter tree is a
+dtype/device copy. Sharding and the other norms/activations wait for their
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.accessors import QuantizedAccessor
+from repro_torch.core.distributed import quantize_array
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------------------------
@@ -22,18 +28,20 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """One parameter: shape, dtype and init name ("zeros" | "ones" | "embed" |
-    "normal" | "fan_in"), as in the reference's TensorSpec."""
+    "normal" | "fan_in"), as in the reference's TensorSpec. With ``quant`` set
+    the parameter is stored as that accessor's {"q", "scale"} buffers."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
     init: str = "fan_in"
+    quant: Optional[QuantizedAccessor] = None
 
 
 def init_param(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tensor:
     """Draw one parameter: zeros / ones, normal(0.02) for "embed"/"normal", and
     normal(1/sqrt(shape[-2])) for "fan_in" (shape[-1] for a vector), drawn in
-    f32 and cast — the reference's scheme. ``generator`` must live on
-    ``device``."""
+    f32 and cast — the reference's scheme; a quantized spec quantizes the f32
+    draw (``quantize_array``). ``generator`` must live on ``device``."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
@@ -47,6 +55,8 @@ def init_param(spec: ParamSpec, generator: torch.Generator, device) -> torch.Ten
         raise ValueError(f"unknown init {spec.init!r}")
     x = torch.empty(spec.shape, dtype=torch.float32, device=device)
     x.normal_(0.0, std, generator=generator)
+    if spec.quant is not None:
+        return quantize_array(x, spec.quant)
     return x.to(spec.dtype)
 
 
@@ -63,14 +73,36 @@ def rmsnorm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), torch.float32, "ones")
 
 
-def mlp_specs(cfg) -> Dict[str, ParamSpec]:
+def fit_quant(quant: Optional[QuantizedAccessor], d_in: int) -> Optional[QuantizedAccessor]:
+    """The largest block <= quant.block out of (quant.block, 128, 64, 32),
+    at least 16, that divides d_in; None (dense storage) when none does."""
+    if quant is None:
+        return None
+    for b in (quant.block, 128, 64, 32):
+        if b <= quant.block and d_in % b == 0 and b >= 16:
+            return dataclasses.replace(quant, block=b)
+    return None
+
+
+def linear_spec(d_in: int, d_out: int, *, dtype, quant: Optional[QuantizedAccessor] = None,
+                init: str = "fan_in") -> ParamSpec:
+    """Weight spec. Dense storage: (d_in, d_out). Quantized storage:
+    output-major (d_out, d_in) intN + per-(row, block) scales, the layout
+    quant_matmul reads."""
+    quant = fit_quant(quant, d_in)
+    if quant is not None:
+        return ParamSpec((d_out, d_in), dtype, init, quant)
+    return ParamSpec((d_in, d_out), dtype, init)
+
+
+def mlp_specs(cfg, quant: Optional[QuantizedAccessor] = None) -> Dict[str, ParamSpec]:
     if cfg.mlp_act != "swiglu":
         raise NotImplementedError(f"mlp_act {cfg.mlp_act!r}: only swiglu is ported")
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
     return {
-        "w_gate": ParamSpec((d, f), dt),
-        "w_up": ParamSpec((d, f), dt),
-        "w_down": ParamSpec((f, d), dt),
+        "w_gate": linear_spec(d, f, dtype=dt, quant=quant),
+        "w_up": linear_spec(d, f, dtype=dt, quant=quant),
+        "w_down": linear_spec(f, d, dtype=dt, quant=quant),
     }
 
 
@@ -84,7 +116,11 @@ def embed_specs(cfg) -> Dict[str, ParamSpec]:
 # ---------------------------------------------------------------------------------
 # apply functions
 # ---------------------------------------------------------------------------------
-def apply_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def apply_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """x (..., d_in) @ w: a dense (d_in, d_out) tensor, or quantized
+    {"q", "scale"} buffers read as int8, the reference's default accessor."""
+    if isinstance(w, dict):
+        return ops.matmul(x, w, QuantizedAccessor(x.dtype, bits=8))
     return torch.matmul(x, w.to(x.dtype))
 
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import importlib
 
+from repro_torch.core.accessors import QuantizedAccessor
+
 from .config import ModelConfig
 from .transformer import Model
 
@@ -45,6 +47,9 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
     return mod.smoke_config() if smoke else mod.config()
 
 
-def build_model(cfg: ModelConfig, *, device=None) -> Model:
-    """The model for ``cfg`` on ``device`` (CUDA unless the caller names one)."""
-    return Model(cfg, device=device)
+def build_model(cfg: ModelConfig, *, quantized: bool = False, device=None) -> Model:
+    """The model for ``cfg`` on ``device`` (CUDA unless the caller names one);
+    ``quantized`` stores the MLP weights as int8 with one scale per (row,
+    128-block), as the reference's serving weights."""
+    quant = QuantizedAccessor(cfg.param_dtype, bits=8, block=128) if quantized else None
+    return Model(cfg, quant=quant, device=device)

@@ -4,8 +4,10 @@ Port of the dense half of ``repro.models.transformer``. Parameters are plain
 nested dicts of tensors with the reference's leaf names and weight layouts;
 where the reference stacks a leading layer dim and scans, the port keeps one
 dict per layer (``params["blocks"][0][l]``) and loops. Page pools keep the
-stacked form, (L, num_pages, Hkv, ps, Dh), and per-layer views of them are
-updated in place.
+stacked form, (L, num_pages, Hkv, ps, Dh) (or its {"q", "scale"} quantized
+form, each leaf with the leading layer dim), and per-layer views of them are
+updated in place. ``Model(cfg, quant=...)`` stores the MLP weights through a
+QuantizedAccessor (int8 serving weights).
 """
 from __future__ import annotations
 
@@ -33,12 +35,12 @@ class DenseBlock:
     page pool in place."""
 
     @staticmethod
-    def specs(cfg):
+    def specs(cfg, quant=None):
         return {
             "ln_attn": rmsnorm_spec(cfg.d_model),
             "attn": attn.attn_specs(cfg),
             "ln_mlp": rmsnorm_spec(cfg.d_model),
-            "mlp": mlp_specs(cfg),
+            "mlp": mlp_specs(cfg, quant=quant),
         }
 
     @staticmethod
@@ -59,28 +61,38 @@ class DenseBlock:
         return x, attn.pack_kv_cache(cfg, k, v, max_len=max_len)
 
     @classmethod
-    def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens):
+    def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         y, _ = attn.self_attention_decode_paged(
-            cfg, p["attn"], h, cache, block_tables, context_lens,
+            cfg, p["attn"], h, cache, block_tables, context_lens, kv_spec=kv_spec,
         )
         return cls._mlp(cfg, p, x + y)
 
     @classmethod
     def prefill_chunk_paged(cls, cfg, p, x, cache, block_tables, write_tables,
-                            cursors, n_new):
+                            cursors, n_new, kv_spec=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         y, _ = attn.self_attention_prefill_chunk_paged(
             cfg, p["attn"], h, cache, block_tables, write_tables, cursors, n_new,
+            kv_spec=kv_spec,
         )
         return cls._mlp(cfg, p, x + y)
 
 
+def _layer(tree, l: int):
+    """Layer ``l``'s view of a stacked pool dict (nested for quantized pools)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
 class Model:
     """A dense decoder on one device. ``device`` defaults to CUDA and raises
-    without a GPU; pass ``device="cpu"`` to run the plain versions."""
+    without a GPU; pass ``device="cpu"`` to run the plain versions. ``quant``
+    (core.QuantizedAccessor) stores the MLP weights quantized, as the
+    reference's serving-weight accessor."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, quant=None, device=None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1: other families)"
@@ -88,6 +100,7 @@ class Model:
         if cfg.window is not None:
             raise NotImplementedError("local attention windows are not ported yet")
         self.cfg = cfg
+        self.quant = quant
         self.device = resolve_device(device)
 
     # ---- specs / init --------------------------------------------------------------
@@ -95,7 +108,7 @@ class Model:
         cfg = self.cfg
         return {
             "embed": embed_specs(cfg),
-            "blocks": [[DenseBlock.specs(cfg) for _ in range(cfg.n_layers)]],
+            "blocks": [[DenseBlock.specs(cfg, self.quant) for _ in range(cfg.n_layers)]],
             "final_norm": rmsnorm_spec(cfg.d_model),
         }
 
@@ -104,20 +117,21 @@ class Model:
         device) with the reference's init scheme."""
         return init_tree(self.param_specs(), generator, device or self.device)
 
-    def paged_cache_specs(self, num_pages: int, page_size: int):
-        return [attn.paged_cache_specs(self.cfg, num_pages, page_size)]
+    def paged_cache_specs(self, num_pages: int, page_size: int, kv_spec=None):
+        return [attn.paged_cache_specs(self.cfg, num_pages, page_size, kv_spec=kv_spec)]
 
-    def init_paged_cache(self, num_pages: int, page_size: int) -> List[Dict[str, torch.Tensor]]:
+    def init_paged_cache(self, num_pages: int, page_size: int, kv_spec=None) -> List[Dict]:
         """Zeroed page pools, one {"k", "v"} dict per block-program entry with a
-        leading layer dim: (L, num_pages, Hkv, ps, Dh)."""
-        out = []
-        for entry in self.paged_cache_specs(num_pages, page_size):
-            out.append({
-                name: torch.zeros((self.cfg.n_layers,) + s.shape, dtype=s.dtype,
-                                  device=self.device)
-                for name, s in entry.items()
-            })
-        return out
+        leading layer dim: (L, num_pages, Hkv, ps, Dh), or with ``kv_spec``
+        {"q": (L, num_pages, Hkv, ps, Dq) int8, "scale": (L, num_pages, Hkv)}
+        for each of k and v."""
+        def zeros(spec):
+            if isinstance(spec, dict):
+                return {k: zeros(v) for k, v in spec.items()}
+            return torch.zeros((self.cfg.n_layers,) + spec.shape, dtype=spec.dtype,
+                               device=self.device)
+
+        return [zeros(entry) for entry in self.paged_cache_specs(num_pages, page_size, kv_spec)]
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return apply_embed(params["embed"], tokens)
@@ -156,7 +170,7 @@ class Model:
 
     def decode_step_paged(self, params, caches, tokens: torch.Tensor,
                           block_tables: torch.Tensor, context_lens: torch.Tensor, *,
-                          write_tables=None, n_new=None,
+                          kv_spec=None, write_tables=None, n_new=None,
                           last_index=None, active=None):
         """The mixed serving step; the page pools in ``caches`` are updated in
         place and returned.
@@ -170,6 +184,10 @@ class Model:
         K/V scatter, ``n_new`` (B,) its valid tokens, ``last_index`` (B,) the
         row whose logits come back.
 
+        ``kv_spec`` (serving.engine.kvquant.PagedQuantSpec) says the pools are
+        quantized: appends and chunk scatters quantize, attention runs the
+        dequantizing kernels.
+
         Returns (logits (B, Vp), caches)."""
         cfg = self.cfg
         chunk = tokens.dim() == 2
@@ -180,14 +198,15 @@ class Model:
         x = self._embed(params, tokens if chunk else tokens[:, None])
         pool = caches[0]
         for l, p in enumerate(params["blocks"][0]):
-            cache = {"k": pool["k"][l], "v": pool["v"][l]}
+            cache = _layer(pool, l)
             if chunk:
                 x = DenseBlock.prefill_chunk_paged(
                     cfg, p, x, cache, block_tables, write_tables, context_lens, n_new,
+                    kv_spec=kv_spec,
                 )
             else:
                 x = DenseBlock.decode_paged(
-                    cfg, p, x, cache, block_tables, context_lens,
+                    cfg, p, x, cache, block_tables, context_lens, kv_spec=kv_spec,
                 )
         if chunk:
             # only each row's requested position pays the vocab matmul

@@ -19,6 +19,7 @@ from repro_torch.serving.telemetry import EngineTrace, MetricsRegistry, validate
 
 from .cache import PagedKVCache
 from .engine import EngineConfig, ServeEngine
+from .kvquant import KV_DTYPES, PagedQuantSpec
 from .request import DECODING, PREFILLING, QUEUED, Request, RequestQueue, RequestState
 from .scheduler import Scheduler, SchedulerConfig
 
@@ -31,9 +32,11 @@ __all__ = [
     "FINISH_LENGTH",
     "GREEDY",
     "GenerationParams",
+    "KV_DTYPES",
     "MetricsRegistry",
     "PREFILLING",
     "PagedKVCache",
+    "PagedQuantSpec",
     "QUEUED",
     "Request",
     "RequestHandle",

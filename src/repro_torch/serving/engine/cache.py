@@ -1,10 +1,17 @@
 """PagedKVCache: device page pools + the host page allocator.
 
-Port of ``repro.serving.engine.cache`` for unquantized pools. The device side
-is one page pool per block-program entry, (L, num_pages, Hkv, ps, Dh); every
-layer shares the same block table, so one host allocation covers the model.
-The host side is a free-list allocator over physical page ids plus the block
-table rows the kernels read.
+Port of ``repro.serving.engine.cache``. The device side is one page pool per
+block-program entry, (L, num_pages, Hkv, ps, Dh); every layer shares the same
+block table, so one host allocation covers the model. The host side is a
+free-list allocator over physical page ids plus the block table rows the
+kernels read.
+
+``kv_dtype`` ("f32" | "int8" | "int4") selects the pool's element
+representation (kvquant.PagedQuantSpec): quantized pools hold {"q", "scale"}
+dicts for k and v, prefill and the decode append quantize at scatter time,
+and every allocator law below is representation-blind because it keys on
+page ids and token hashes, never bytes. "f32" means dense pages in the
+model's dtype.
 
 Page 0 is the reserved NULL page: inactive batch slots and unallocated table
 entries point at it, so masked scatter writes always land somewhere harmless.
@@ -16,11 +23,13 @@ request's leading chain entries onto live pages (incref, no free-list pop).
 A page returns to the free list, and leaves the index, at refcount zero. A
 shared page is read-only: the first decode append into one copies it first
 (``needs_cow`` / ``cow_page``). Chunk-prefilled pages join the index as their
-chunks land (``publish_prefix``), never half-written.
+chunks land (``publish_prefix``), never half-written. A twin admitted in the
+same step as its donor adopts the donor's in-flight (allocated, unpublished)
+pages too, and waits to be chunked until the donor's written frontier covers
+them (``frontier_ready``); if the donor dies first, the twin is handed back to
+the engine for a clean re-admit (``take_broken``).
 
-Not ported yet: the host page tier, branch forks / beam row reorders, and the
-same-step twin adoption of in-flight pages (a co-admitted twin adopts only
-published pages here; tokens are the same either way).
+Not ported yet: the host page tier and branch forks / beam row reorders.
 """
 from __future__ import annotations
 
@@ -30,16 +39,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.attention import pack_kv_pages
+from repro_torch.models.attention import pack_kv_pages, pack_kv_pages_quant
 
+from .kvquant import KV_DTYPES, kv_pool_bytes, pool_leaves
 from .request import page_hash_chain
 
 
 class PagedKVCache:
     def __init__(self, model, *, num_pages: int, page_size: int, max_batch: int,
-                 max_pages_per_seq: int, prefix_sharing: bool = True):
+                 max_pages_per_seq: int, prefix_sharing: bool = True, kv_dtype: str = "f32"):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the reserved null page)")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {sorted(KV_DTYPES)}")
         self.cfg = model.cfg
         self.device = model.device
         self.page_size = page_size
@@ -47,7 +59,9 @@ class PagedKVCache:
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq
         self.prefix_sharing = prefix_sharing
-        self.pools = model.init_paged_cache(num_pages, page_size)
+        self.kv_dtype = kv_dtype
+        self.kv_spec = KV_DTYPES[kv_dtype]
+        self.pools = model.init_paged_cache(num_pages, page_size, kv_spec=self.kv_spec)
         self._free: deque = deque(range(1, num_pages))
         # block-table rows + live lengths by batch slot (null-page filled)
         self.tables = np.zeros((max_batch, max_pages_per_seq), np.int32)
@@ -69,6 +83,12 @@ class PagedKVCache:
         # chunked prefill: chain entries registered as their chunks land
         self._deferred: Dict[int, List[tuple]] = {}
         self._published: Dict[int, int] = {}
+        # same-step twin adoption: chain key -> (donor slot, page index) for
+        # every deferred, unpublished key; adopter -> (donor, pages it needs
+        # written); adopters whose donor died before writing them
+        self._inflight: Dict[tuple, Tuple[int, int]] = {}
+        self._frontier_deps: Dict[int, Tuple[int, int]] = {}
+        self._broken: set = set()
         self.pages_shared_total = 0
         self.cow_copies = 0
         self.peak_pages_in_use = 0
@@ -124,7 +144,9 @@ class PagedKVCache:
         the prefix index is adopted by reference, the rest pops from the free
         list. Fresh content-bearing pages are registered in the index at once
         (``publish``: monolithic prefill fills them this step) or deferred to
-        ``publish_prefix`` (chunked prefill)."""
+        ``publish_prefix`` (chunked prefill). A deferred allocation also
+        adopts, past that run, one donor's in-flight pages at matching page
+        indices (same-step twin adoption), gated by ``frontier_ready``."""
         if n_pages > self.max_pages_per_seq:
             raise RuntimeError(
                 f"sequence needs {n_pages} pages > max_pages_per_seq {self.max_pages_per_seq}"
@@ -133,28 +155,48 @@ class PagedKVCache:
             chain = self._chain(tokens)
         shared = self._match_prefix(chain)[:n_pages]
         base = len(shared)
-        n_new = n_pages - base
+        donor: Optional[int] = None
+        twin_pages: List[int] = []
+        if not publish and self.prefix_sharing:
+            while base + len(twin_pages) < min(len(chain), n_pages):
+                ent = self._inflight.get(chain[base + len(twin_pages)])
+                if ent is None:
+                    break
+                d_slot, d_idx = ent
+                if (d_idx != base + len(twin_pages) or d_slot == slot
+                        or (donor is not None and d_slot != donor)):
+                    break
+                donor = d_slot
+                twin_pages.append(self.pages_of[d_slot][d_idx])
+        adopted = base + len(twin_pages)
+        n_new = n_pages - adopted
         if n_new > len(self._free):
             raise RuntimeError(
-                f"pool exhausted: want {n_new} new pages ({n_pages} total, {base} shared), "
+                f"pool exhausted: want {n_new} new pages ({n_pages} total, {adopted} shared), "
                 f"free {len(self._free)}"
             )
-        for p in shared:
+        for p in shared + twin_pages:
             self.ref[p] += 1
-        self.pages_shared_total += base
-        pages = shared + [self._take_free() for _ in range(n_new)]
-        fresh_keys = list(chain[base:min(len(chain), n_pages)])
+        self.pages_shared_total += adopted
+        pages = shared + twin_pages + [self._take_free() for _ in range(n_new)]
+        if twin_pages:
+            self._frontier_deps[slot] = (donor, adopted)
+            if self.trace is not None:
+                self.trace.instant("twin_adopt", slot, donor=donor, pages=len(twin_pages))
+        fresh_keys = list(chain[adopted:min(len(chain), n_pages)])
         if publish:
-            self._register(fresh_keys, pages, base)
+            self._register(fresh_keys, pages, adopted)
         else:
             self._deferred[slot] = fresh_keys
+            for j, key in enumerate(fresh_keys):
+                self._inflight.setdefault(key, (slot, adopted + j))
         self.pages_of[slot] = pages
-        self._shared_upto[slot] = base
+        self._shared_upto[slot] = adopted
         self.tables[slot, :] = 0
         self.tables[slot, :len(pages)] = pages
         self._dirty_slots.add(slot)
         if self.trace is not None:
-            self.trace.instant("alloc", slot, pages=n_pages, shared=base, free=len(self._free))
+            self.trace.instant("alloc", slot, pages=n_pages, shared=adopted, free=len(self._free))
         return pages
 
     def _register(self, keys: List[tuple], pages: List[int], start: int) -> None:
@@ -166,7 +208,9 @@ class PagedKVCache:
     def publish_prefix(self, slot: int, written_pages: Optional[int] = None) -> None:
         """Register a chunk-prefilled slot's fresh pages in the prefix index as
         their content becomes final: pages with index < ``written_pages``
-        (None = all: the prefill completed)."""
+        (None = all: the prefill completed). Published keys leave the
+        in-flight map, and twins whose adopted run is now written are
+        released."""
         keys = self._deferred.get(slot)
         if not keys:
             return
@@ -175,11 +219,19 @@ class PagedKVCache:
         end = len(keys) if written_pages is None else max(0, min(written_pages - start, len(keys)))
         if end > done:
             self._register(keys[done:end], self.pages_of[slot], start + done)
+            for key in keys[done:end]:
+                ent = self._inflight.get(key)
+                if ent is not None and ent[0] == slot:
+                    self._inflight.pop(key)
         if end >= len(keys):
             self._deferred.pop(slot, None)
             self._published.pop(slot, None)
         elif end > done:
             self._published[slot] = end
+        final = start + end
+        for adopter, (d_slot, need) in list(self._frontier_deps.items()):
+            if d_slot == slot and need <= final:
+                self._frontier_deps.pop(adopter)
 
     def adopted_pages(self, slot: int) -> int:
         """Pages adopted from the prefix index at allocation: the compute-skip
@@ -226,12 +278,40 @@ class PagedKVCache:
             self.trace.instant("free_slot", slot, pages=len(released))
         for p in released:
             self._release_page(p)
+        self._drop_inflight(slot)
         self._shared_upto.pop(slot, None)
         self._deferred.pop(slot, None)
         self._published.pop(slot, None)
         self.tables[slot, :] = 0
         self.lens[slot] = 0
         self._dirty_slots.add(slot)
+
+    def _drop_inflight(self, slot: int) -> None:
+        """Unwind a dying slot's twin bookkeeping: its unpublished in-flight
+        keys leave the map, and adopters still waiting on it as a donor are
+        marked broken (their adopted pages were never written)."""
+        for key in self._deferred.get(slot, []):
+            ent = self._inflight.get(key)
+            if ent is not None and ent[0] == slot:
+                self._inflight.pop(key)
+        for adopter, (d_slot, _) in list(self._frontier_deps.items()):
+            if d_slot == slot:
+                self._frontier_deps.pop(adopter)
+                self._broken.add(adopter)
+        self._frontier_deps.pop(slot, None)
+        self._broken.discard(slot)
+
+    def frontier_ready(self, slot: int) -> bool:
+        """False while the slot waits on a twin donor's written frontier:
+        chunk dispatch skips it (its adopted pages are not written yet)."""
+        return slot not in self._frontier_deps
+
+    def take_broken(self) -> List[int]:
+        """Slots whose twin donor died before writing their adopted pages,
+        cleared on read; the engine preempts them back to the queue."""
+        out = sorted(self._broken)
+        self._broken.clear()
+        return out
 
     def check_conservation(self) -> None:
         """Refcount mass equals slot ownership; live + free covers the pool;
@@ -289,9 +369,8 @@ class PagedKVCache:
         pages = self.pages_of[slot]
         old = pages[pi]
         new = self._take_free()
-        for pool in self.pools:
-            for t in pool.values():
-                t[:, new] = t[:, old]
+        for t in pool_leaves(self.pools):  # a quantized page: its bytes AND its scales
+            t[:, new] = t[:, old]
         pages[pi] = new
         self.tables[slot, pi] = new
         self.ref[old] -= 1
@@ -304,9 +383,9 @@ class PagedKVCache:
     # -- device writes -----------------------------------------------------------
     def write_prefill(self, slot: int, caches) -> None:
         """Scatter a single-sequence prefill's KV ([{"k", "v": (L, 1, Hkv, S,
-        Dh)}], S == n_pages * ps) into this slot's pages, in place. Pages
-        adopted from the prefix index already hold these values, so only the
-        fresh tail is written."""
+        Dh)}], S == n_pages * ps) into this slot's pages, in place, quantizing
+        over a quantized pool. Pages adopted from the prefix index already
+        hold these values, so only the fresh tail is written."""
         ps = self.page_size
         n = caches[0]["k"].shape[3] // ps
         start = min(self._shared_upto.pop(slot, 0), n)
@@ -314,16 +393,25 @@ class PagedKVCache:
             return
         pages = torch.tensor(self.pages_of[slot][start:n], dtype=torch.long, device=self.device)
         for pool, c in zip(self.pools, caches):
-            pack_kv_pages(pool, c["k"][:, :, :, start * ps:], c["v"][:, :, :, start * ps:], pages)
+            k, v = c["k"][:, :, :, start * ps:], c["v"][:, :, :, start * ps:]
+            if self.kv_spec is None:
+                pack_kv_pages(pool, k, v, pages)
+            else:
+                pack_kv_pages_quant(pool, k, v, pages, spec=self.kv_spec)
 
     def dense_view(self, slot: int, entry: int = 0, layer: int = 0):
         """(k, v), each (Hkv, len, Dh): the slot's pages gathered in logical
-        order and cut at its length — a test's view of what the scatters wrote."""
+        order (decoded through the spec for a quantized pool) and cut at its
+        length — a test's view of what the scatters wrote."""
         pages = torch.tensor(self.pages_of[slot], dtype=torch.long, device=self.device)
         length = int(self.lens[slot])
         out = []
         for name in ("k", "v"):
-            g = self.pools[entry][name][layer][pages]  # (n, Hkv, ps, Dh)
+            leaf = self.pools[entry][name]
+            if self.kv_spec is None:
+                g = leaf[layer][pages]  # (n, Hkv, ps, Dh)
+            else:
+                g = self.kv_spec.decode_pages(leaf["q"][layer][pages], leaf["scale"][layer][pages])
             out.append(g.transpose(0, 1).reshape(g.shape[1], -1, g.shape[3])[:, :length])
         return out[0], out[1]
 
@@ -334,9 +422,7 @@ class PagedKVCache:
             "peak_pages_in_use": self.peak_pages_in_use,
             "pages_shared": self.pages_shared_total,
             "cow_copies": self.cow_copies,
-            "kv_pool_bytes": sum(
-                t.numel() * t.element_size() for pool in self.pools for t in pool.values()
-            ),
+            "kv_pool_bytes": kv_pool_bytes(self.pools),
         }
 
     def reset_stats(self) -> None:

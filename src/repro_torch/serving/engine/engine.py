@@ -29,8 +29,13 @@ mirrors beside the pools, sampling runs inside the step, and the only
 per-token device-to-host traffic is one packed (2, B) fetch of the sampled
 ids and their log-probabilities.
 
-Not ported yet (refused by EngineConfig, naming the ROADMAP item): quantized
-pools, speculative decoding, the host page tier, multi-step fused decode,
+Quantization composes with all of it: ``kv_dtype`` "int8" / "int4" stores the
+pages as intN bytes with per-(page, head) scales (kvquant.PagedQuantSpec), and
+a model built with ``build_model(cfg, quantized=True)`` runs its MLP on int8
+weights; the allocator, the prefix index and CoW never look at the bytes.
+
+Not ported yet (refused by EngineConfig, naming the ROADMAP item):
+speculative decoding, the host page tier, multi-step fused decode,
 grammar-constrained decoding, beam search, top-k logprobs, autotuning and
 logits recording.
 """
@@ -62,7 +67,6 @@ from .scheduler import Scheduler, SchedulerConfig
 # EngineConfig fields whose features wait for a later slice: field -> (value
 # that means "off", the ROADMAP Queue 1 item that ports it)
 _NOT_PORTED = {
-    "kv_dtype": ("f32", "item 1 (quantized KV pools and kernels 3-4)"),
     "spec_tokens": (0, "item 2 (speculative decoding)"),
     "host_pool_pages": (0, "item 2 (the host KV tier)"),
     "multi_step": (1, "item 2 (multi-step fused decode as a CUDA graph)"),
@@ -89,8 +93,8 @@ class EngineConfig:
     trace: bool = False  # record lifecycle events (serving.telemetry.EngineTrace)
     trace_capacity: int = 65536
     slow_step_threshold: float = 2.0  # StragglerPolicy threshold on decode steps
+    kv_dtype: str = "f32"  # "f32" | "int8" | "int4": the KV page representation
     # not ported yet: any value other than "off" raises (see _NOT_PORTED)
-    kv_dtype: str = "f32"
     spec_tokens: int = 0
     host_pool_pages: int = 0
     multi_step: int = 1
@@ -137,7 +141,7 @@ class ServeEngine:
         self.cache = PagedKVCache(
             model, num_pages=config.num_pages, page_size=config.page_size,
             max_batch=config.max_batch, max_pages_per_seq=config.max_pages_per_seq,
-            prefix_sharing=config.prefix_sharing,
+            prefix_sharing=config.prefix_sharing, kv_dtype=config.kv_dtype,
         )
         self.scheduler = Scheduler(
             self.cache, SchedulerConfig(config.max_batch, config.watermark_pages)
@@ -157,7 +161,7 @@ class ServeEngine:
         self._c_slow = self.registry.counter("slow_steps")
         self._straggler = StragglerPolicy(threshold=config.slow_step_threshold)
         self._vocab = model.cfg.vocab
-        self._step = make_paged_serve_step(model)
+        self._step = make_paged_serve_step(model, self.cache.kv_spec)
         self._prefill = make_prefill(model)
         # per-slot device vectors for the fused step: fed-back tokens + the
         # packed policy/phase arrays (slot_f32 (2, B): temperature, top_p;
@@ -181,7 +185,7 @@ class ServeEngine:
                     f"chunk_tokens {self._chunk_tokens} must be a multiple of page_size "
                     f"{config.page_size} (chunk boundaries are page-aligned)"
                 )
-            self._chunk_step = make_chunked_prefill_step(model)
+            self._chunk_step = make_chunked_prefill_step(model, self.cache.kv_spec)
         self.results: Dict[int, RequestState] = {}
         self._next_rid = 0
         self._t0 = time.perf_counter()
@@ -296,7 +300,9 @@ class ServeEngine:
         page-multiple bucket that holds it, zero-padded as a monolithic
         prefill pads, so chunk-written pages equal monolithic ones."""
         running = self.scheduler.running
-        prefilling = [s for s in sorted(running) if running[s].chunk_cursor is not None]
+        # twin adopters wait until the donor's written frontier covers them
+        prefilling = [s for s in sorted(running)
+                      if running[s].chunk_cursor is not None and self.cache.frontier_ready(s)]
         if not prefilling:
             return
         ps = self.cache.page_size
@@ -443,6 +449,10 @@ class ServeEngine:
         self._t0 = time.perf_counter()
         while self._pending or self.queue or self.scheduler.running:
             now = time.perf_counter() - self._t0
+            # a twin whose donor died before writing its adopted pages holds
+            # garbage there: back to the queue for a clean re-admit
+            for slot in self.cache.take_broken():
+                self.scheduler.preempt_slot(slot, self.queue)
             while self._pending and self._pending[0].request.arrival_time <= now:
                 state = self._pending.pop(0)
                 if self.trace is not None:

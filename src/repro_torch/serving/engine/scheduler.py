@@ -98,7 +98,14 @@ class Scheduler:
         victims = [s for s in self.running if s != keep_slot]
         if not victims:
             return None
-        slot = victims[-1]  # most recently admitted
+        return self.preempt_slot(victims[-1], queue, keep_slot=keep_slot)  # most recent
+
+    def preempt_slot(self, slot: int, queue: RequestQueue,
+                     keep_slot: int = -1) -> Optional[RequestState]:
+        """Evict ``slot``: release its pages and requeue it at the front with
+        its generated tokens kept (also the broken-twin recovery path)."""
+        if slot not in self.running:
+            return None
         state = self.running.pop(slot)
         if self.trace is not None:
             self.trace.instant(

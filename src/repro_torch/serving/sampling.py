@@ -10,8 +10,8 @@ Reproducibility contract:
   - a sampled request is a pure function of (seed, rid, position): the
     sampler's noise is keyed on the stream seed and the absolute position
     only, so a rerun, another batch composition, or a preempted-and-recomputed
-    request gives the same tokens. The noise is the port's own counter-based
-    hash, not JAX's threefry, so sampled tokens differ from the reference's.
+    request gives the same tokens. The noise is the reference's threefry
+    stream bit for bit (``kernels.ops.gumbel_noise``).
 """
 from __future__ import annotations
 

@@ -16,7 +16,9 @@ import torch
 from repro_torch.kernels import ops
 
 
-def make_paged_serve_step(model):
+def make_paged_serve_step(model, kv_spec=None):
+    """The fused decode step over the engine's pools (``kv_spec``: their
+    quantized element representation, None for dense pages)."""
     vocab = model.cfg.vocab
 
     def fused_serve_step(params, caches, tokens, block_tables, context_lens, slot_f32,
@@ -31,7 +33,7 @@ def make_paged_serve_step(model):
         int32, logits (B, Vp), new_lens (B,), caches, chosen_lp (B,) f32)."""
         active = slot_i32[0]
         logits, caches = model.decode_step_paged(
-            params, caches, tokens, block_tables, context_lens, active=active,
+            params, caches, tokens, block_tables, context_lens, kv_spec=kv_spec, active=active,
         )
         nxt = ops.sample_tokens(
             logits, slot_f32[0], slot_i32[1], slot_f32[1], slot_i32[2], context_lens + 1,
@@ -45,14 +47,15 @@ def make_paged_serve_step(model):
     return fused_serve_step
 
 
-def make_chunked_prefill_step(model):
+def make_chunked_prefill_step(model, kv_spec=None):
     def chunk_prefill_step(params, caches, tokens, block_tables, write_tables, cursors,
                            n_new, last_index):
         """One prefill chunk per row: tokens (B, C) -> (logits (B, Vp) at
         last_index, caches updated in place). ``block_tables`` is the read view
         (shared prefix included), ``write_tables`` the write view."""
         return model.decode_step_paged(
-            params, caches, tokens, block_tables, cursors, write_tables=write_tables, n_new=n_new, last_index=last_index,
+            params, caches, tokens, block_tables, cursors, kv_spec=kv_spec,
+            write_tables=write_tables, n_new=n_new, last_index=last_index,
         )
 
     return chunk_prefill_step

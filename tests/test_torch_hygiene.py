@@ -43,9 +43,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
 
 def test_package_mirrors_reference_names():
     root = Path(repro_torch.__file__).parent
-    for rel in ("kernels/ops.py", "kernels/paged_attention.py", "models/attention.py",
+    for rel in ("kernels/ops.py", "kernels/paged_attention.py", "kernels/quant_matmul.py",
+                "core/accessors.py", "core/distributed.py", "models/attention.py",
                 "models/transformer.py", "models/registry.py", "serving/step.py",
-                "serving/engine/engine.py", "serving/engine/cache.py", "runtime/health.py"):
+                "serving/engine/engine.py", "serving/engine/cache.py",
+                "serving/engine/kvquant.py", "runtime/health.py"):
         assert (root / rel).exists(), rel
         assert (SRC / "repro" / rel).exists(), rel
 

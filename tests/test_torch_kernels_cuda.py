@@ -1,4 +1,6 @@
-"""repro_torch's CUDA kernels against their plain PyTorch versions, on the card.
+"""repro_torch's CUDA kernels against their plain PyTorch versions, on the card:
+paged decode and chunked prefill over f32/bf16 and int8/int4 pools, and the
+quantized matmul.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -18,7 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
+from repro_torch.core import QuantizedAccessor, quantize_array
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import quant_matmul as qmm
 
 pytestmark = pytest.mark.cuda
 
@@ -140,35 +145,121 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         pa.paged_flash_decode(q, kp, vp, bt.cpu(), lens)
 
 
-def test_engine_on_cuda_matches_engine_on_cpu():
+# (batch, page_size, lens, hq, hkv, d) x bits, and (hq, hkv, d, ps, C,
+# max_pages, cursors) x bits, over intN pools
+QUANT_DECODE_CASES = [DECODE_CASES[i] for i in (0, 2, 3, 4, 5)]
+QUANT_CHUNK_CASES = [CHUNK_CASES[i] for i in (0, 2, 3, 4)]
+# (M, N, K, qblock): the serve shapes (decode rows, one 128-token chunk; the
+# MLP's 896 x 4864 and 4864 x 896) and ragged edges
+QMM_CASES = [(8, 4864, 896, 128), (128, 896, 4864, 128), (1, 70, 192, 64), (33, 130, 256, 32)]
+
+
+def _quantize_pool(pool, bits):
+    """An f32 pool encoded as the engine encodes pages (PagedQuantSpec)."""
+    from repro_torch.serving.engine import KV_DTYPES
+
+    enc = KV_DTYPES[f"int{bits}"].encode_pages(pool.float())
+    return enc["q"].contiguous(), enc["scale"].contiguous()
+
+
+@pytest.mark.parametrize("case", QUANT_DECODE_CASES, ids=_ids(QUANT_DECODE_CASES))
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_quant_kernel_matches_plain(case, bits, dtype):
+    q, kp, vp, bt, lens = _decode_inputs(*case, dtype=dtype)
+    args = (q, *_quantize_pool(kp, bits), *_quantize_pool(vp, bits), bt, lens)
+    n = pa.paged_flash_decode_quant.launches
+    got = pa.paged_flash_decode_quant(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode_quant.launches == n + 1 and got.dtype == dtype
+    want = pa.paged_decode_attention_quant_torch(*args, bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("case", QUANT_CHUNK_CASES, ids=_ids(QUANT_CHUNK_CASES))
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chunk_quant_kernel_matches_plain(case, bits, dtype):
+    q, ck, cv, kp, vp, bt, cur = _chunk_inputs(*case, dtype=dtype)
+    args = (q, ck, cv, *_quantize_pool(kp, bits), *_quantize_pool(vp, bits), bt, cur)
+    n = pa.paged_flash_prefill_chunk_quant.launches
+    got = pa.paged_flash_prefill_chunk_quant(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_prefill_chunk_quant.launches == n + 1
+    want = pa.paged_prefill_chunk_quant_torch(*args, bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("case", QMM_CASES, ids=_ids(QMM_CASES))
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_matmul_kernel_matches_plain(case, bits, dtype):
+    m, n, k, qblock = case
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    w = torch.randn(n, k, generator=g, device="cuda") / k ** 0.5
+    bufs = quantize_array(w, QuantizedAccessor(torch.float32, bits=bits, block=qblock))
+    launches = qmm.quant_matmul.launches
+    got = qmm.quant_matmul(x, bufs["q"], bufs["scale"], bits=bits)
+    torch.cuda.synchronize()
+    assert qmm.quant_matmul.launches == launches + 1 and got.dtype == dtype
+    want = qmm.quant_matmul_torch(x, bufs["q"], bufs["scale"], bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+def _engines_agree(kv_dtype: str, quantized: bool, need):
     """The smoke model's engine on the card (kernels) gives the CPU engine's
-    (plain versions) greedy tokens, and both kernels ran."""
+    (plain versions) greedy tokens, and every kernel in ``need`` ran."""
     from repro_torch.models import build_model, get_config
     from repro_torch.serving import GenerationParams
     from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
 
     cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
-    cpu = build_model(cfg, device="cpu")
+    cpu = build_model(cfg, quantized=quantized, device="cpu")
     params_cpu = cpu.init_params(torch.Generator().manual_seed(0))
-    gpu = build_model(cfg, device="cuda")
-    params_gpu = {
-        "embed": {k: v.cuda() for k, v in params_cpu["embed"].items()},
-        "blocks": [[{k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
-                         else v.cuda()) for k, v in layer.items()}
-                    for layer in params_cpu["blocks"][0]]],
-        "final_norm": params_cpu["final_norm"].cuda(),
-    }
+    gpu = build_model(cfg, quantized=quantized, device="cuda")
+
+    def to_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: to_cuda(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cuda(v) for v in tree]
+        return tree.cuda()
+
+    params_gpu = to_cuda(params_cpu)
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab, size=10).tolist()
     prompts = [rng.integers(0, cfg.vocab, size=L).tolist() for L in (5, 9, 16, 3, 12)]
     prompts += [list(prefix), list(prefix)]
-    kw = dict(num_pages=24, page_size=4, max_batch=4, max_pages_per_seq=8,
-              chunked_prefill=True, chunk_tokens=8)
-    mk = lambda: [Request(i, p, GenerationParams(max_new_tokens=6)) for i, p in enumerate(prompts)]
-    pa.reset_launch_counts()
-    res_gpu = ServeEngine(gpu, params_gpu, EngineConfig(**kw), device="cuda").run(mk())
-    counts = pa.launch_counts()
-    res_cpu = ServeEngine(cpu, params_cpu, EngineConfig(**kw), device="cpu").run(mk())
-    assert all(n > 0 for n in counts.values()), counts
-    for i in range(len(prompts)):
-        assert res_gpu[i].generated == res_cpu[i].generated, i
+    for chunked in (False, True):
+        kw = dict(num_pages=24, page_size=4, max_batch=4, max_pages_per_seq=8,
+                  kv_dtype=kv_dtype, chunked_prefill=chunked, chunk_tokens=8 if chunked else 0)
+        mk = lambda: [Request(i, p, GenerationParams(max_new_tokens=6))
+                      for i, p in enumerate(prompts)]
+        kernels.reset_launch_counts()
+        res_gpu = ServeEngine(gpu, params_gpu, EngineConfig(**kw), device="cuda").run(mk())
+        counts = kernels.launch_counts()
+        res_cpu = ServeEngine(cpu, params_cpu, EngineConfig(**kw), device="cpu").run(mk())
+        want = [k for k in need if chunked or "chunk" not in k]
+        assert all(counts[k] > 0 for k in want), counts
+        for i in range(len(prompts)):
+            assert res_gpu[i].generated == res_cpu[i].generated, (chunked, i)
+
+
+def test_engine_on_cuda_matches_engine_on_cpu():
+    _engines_agree("f32", False, ["paged_decode", "paged_prefill_chunk"])
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_engine_on_cuda_matches_engine_on_cpu(kv_dtype):
+    _engines_agree(kv_dtype, True,
+                   ["paged_decode_quant", "paged_prefill_chunk_quant", "quant_matmul"])

@@ -20,6 +20,7 @@ from repro.kernels.paged_attention import (
     paged_flash_prefill_chunk as jax_flash_chunk,
     paged_prefill_chunk_jnp,
 )
+from repro_torch import kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 
@@ -132,7 +133,7 @@ def test_attention_matches_reference(causal, window, q_offset):
 # =====================================================================================
 def test_cpu_wrappers_return_the_plain_versions():
     arrays = _decode_inputs(*DECODE_CASES[0])
-    before = tpa.launch_counts()
+    before = kernels.launch_counts()
     np.testing.assert_array_equal(
         tpa.paged_flash_decode(*_t(*arrays)).numpy(),
         tpa.paged_decode_attention_torch(*_t(*arrays)).numpy(),
@@ -142,7 +143,7 @@ def test_cpu_wrappers_return_the_plain_versions():
         tpa.paged_flash_prefill_chunk(*_t(*chunk)).numpy(),
         tpa.paged_prefill_chunk_torch(*_t(*chunk)).numpy(),
     )
-    assert tpa.launch_counts() == before  # no kernel launched on the CPU
+    assert kernels.launch_counts() == before  # no kernel launched on the CPU
 
 
 @pytest.mark.parametrize("impl", ["auto", "torch"])
@@ -246,6 +247,20 @@ def test_sample_mixed_greedy_and_sampled_rows():
         torch.tensor([9, 9]), torch.tensor([3, 3]), vocab=32,
     ).numpy()
     assert got[0] == np.argmax(x[0, :32])
+
+
+@pytest.mark.parametrize("width", [128, 151936])
+@pytest.mark.parametrize("seed", [0, 1, 2**31 + 5, 2**32 - 1])
+def test_gumbel_noise_is_bit_equal_to_jax_random(seed, width):
+    """The reference draws jax.random.gumbel(fold_in(PRNGKey(seed), pos),
+    (Vp,)) per row; the port's noise must be the same f32 bits."""
+    pos = [0, 1, 4095]
+    got = ops.gumbel_noise(torch.full((3,), seed, dtype=torch.int64), torch.tensor(pos),
+                           width).numpy()
+    for row, p in enumerate(pos):
+        key = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed)), np.int32(p))
+        want = np.asarray(jax.random.gumbel(key, (width,), jnp.float32))
+        np.testing.assert_array_equal(got[row].view(np.uint32), want.view(np.uint32))
 
 
 def test_gumbel_noise_is_standard_gumbel():

@@ -6,8 +6,9 @@ identical. The scenarios are the reference's own engine tests: mixed prompt
 lengths, preemption under page pressure, prefix sharing with forced
 copy-on-write, sharing under preemption, and chunked prefill with shared-prefix
 compute skip and mid-prefill preemption. Allocator invariants are checked
-after every decode step. Sampled-stream laws are checked on the port alone
-(its noise is not JAX's threefry stream).
+after every decode step. Sampled streams (temperature, top-k, top-p) are
+identical to the reference's too: the port's Gumbel noise is JAX's threefry
+stream bit for bit.
 """
 import dataclasses
 
@@ -79,6 +80,8 @@ def _scenarios(vocab):
 
 
 SCENARIOS = list(_scenarios(512))
+SAMPLING = dict(temperature=0.9, top_k=20, top_p=0.95, seed=11)
+SAMPLED_SCENARIOS = ("mixed_lengths", "preemption")
 
 
 @pytest.fixture(scope="module")
@@ -91,14 +94,18 @@ def setup():
     params = from_jax_params(jax.tree.map(np.asarray, params_j), cfg, device="cpu")
     scenarios = _scenarios(cfg.vocab)
     reference, reference_metrics = {}, {}
-    for name, (spec, kw) in scenarios.items():
+    runs = [(name, name, {}) for name in scenarios]
+    runs += [(("sampled", name), name, SAMPLING) for name in SAMPLED_SCENARIOS]
+    for key, name, gen in runs:
+        spec, kw = scenarios[name]
         eng = JaxServeEngine(model_j, params_j, JaxEngineConfig(**kw))
         res = eng.run([
-            JaxRequest(rid=i, prompt=list(p), params=JaxGenerationParams(max_new_tokens=n))
+            JaxRequest(rid=i, prompt=list(p),
+                       params=JaxGenerationParams(max_new_tokens=n, **gen))
             for i, (p, n) in enumerate(spec)
         ])
-        reference[name] = {i: list(res[i].generated) for i in res}
-        reference_metrics[name] = eng.metrics()
+        reference[key] = {i: list(res[i].generated) for i in res}
+        reference_metrics[key] = eng.metrics()
     return cfg, model, params, scenarios, reference, reference_metrics
 
 
@@ -145,20 +152,43 @@ def test_engine_greedy_tokens_identical_to_reference(setup, name):
         assert m["prefill_tokens_skipped"] > 0
 
 
-def test_twin_adoption_gap_is_metrics_only(setup):
-    """Known difference (ROADMAP Queue 3): the port does not adopt a donor's
-    in-flight (allocated, unpublished) pages, so on the staggered-prefix
-    workload it shares and skips less than the reference — with identical
-    tokens. When twin adoption is ported, the counts meet and this test
-    changes with it."""
+def test_twin_adoption_matches_reference_metrics(setup):
+    """Same-step twin adoption: on the staggered-prefix workload a twin
+    admitted with its donor adopts the donor's in-flight pages, so the port
+    shares and skips exactly as much as the reference, with identical
+    tokens."""
     cfg, model, params, scenarios, reference, reference_metrics = setup
     spec, kw = scenarios["chunked_skip"]
-    eng = ServeEngine(model, params, EngineConfig(**kw), device="cpu")
+    eng = ServeEngine(model, params, EngineConfig(**kw, trace=True), device="cpu")
     results = eng.run(_requests(spec))
     assert {i: results[i].generated for i in results} == reference["chunked_skip"]
     mine, ref = eng.metrics(), reference_metrics["chunked_skip"]
-    assert 0 < mine["prefill_tokens_skipped"] < ref["prefill_tokens_skipped"]
-    assert 0 < mine["pages_shared"] < ref["pages_shared"]
+    assert mine["prefill_tokens_skipped"] == ref["prefill_tokens_skipped"] > 0
+    assert mine["pages_shared"] == ref["pages_shared"] > 0
+    assert eng.trace.count("twin_adopt") >= 1
+
+
+def test_broken_twin_is_requeued_and_stays_exact(setup):
+    """A twin whose donor is preempted before writing the adopted pages is
+    evicted and re-admitted; its tokens stay the reference's."""
+    cfg, model, params, scenarios, reference, _ = setup
+    spec, kw = scenarios["chunked_skip"]
+    eng = ServeEngine(model, params, EngineConfig(**kw, trace=True), device="cpu")
+    cache, chunks = eng.cache, eng._prefill_chunks
+    killed = []
+
+    def chunks_then_kill_donor(now):
+        chunks(now)  # then preempt the donor, as a decode page shortage would
+        for adopter, (donor, _) in list(cache._frontier_deps.items()):
+            if not killed:
+                killed.append(adopter)
+                eng.scheduler.preempt_slot(donor, eng.queue)
+
+    eng._prefill_chunks = chunks_then_kill_donor
+    results = eng.run(_requests(spec))
+    assert killed and eng.trace.count("preempt") >= 2
+    assert {i: results[i].generated for i in results} == reference["chunked_skip"]
+    assert cache.num_free == cache.num_pages - 1 and not cache._inflight
 
 
 def test_chunked_preemption_hits_a_prefilling_slot(setup):
@@ -212,8 +242,17 @@ def test_cache_dense_view_matches_prefill(setup):
 
 def _sampled_run(model, params, spec, **kw):
     eng = ServeEngine(model, params, EngineConfig(**kw), device="cpu")
-    res = eng.run(_requests(spec, temperature=0.9, top_k=20, top_p=0.95, seed=11))
+    res = eng.run(_requests(spec, **SAMPLING))
     return {i: res[i].generated for i in res}, eng.metrics()
+
+
+@pytest.mark.parametrize("name", SAMPLED_SCENARIOS)
+def test_sampled_tokens_identical_to_reference(setup, name):
+    cfg, model, params, scenarios, reference, _ = setup
+    spec, kw = scenarios[name]
+    got, _ = _sampled_run(model, params, spec, **kw)
+    assert got == reference[("sampled", name)]
+    assert got != reference[name]  # sampling is really on
 
 
 def test_sampled_streams_reproduce_across_runs(setup):
@@ -245,7 +284,7 @@ def test_trace_exports_valid_chrome_json(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_dtype", "int8"), ("spec_tokens", 2), ("host_pool_pages", 8), ("multi_step", 4),
+    ("spec_tokens", 2), ("host_pool_pages", 8), ("multi_step", 4),
     ("grammar_states", 4), ("max_beam_width", 2), ("logprobs_k", 2), ("autotune", True),
     ("record_logits", True),
 ])
