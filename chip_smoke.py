@@ -53,6 +53,23 @@ lines; any failure raises and exits non-zero:
                 read just after; the three quantized kernels must have
                 launched, and the int8 pool must be >= 1.9x smaller than the
                 bf16 one. The kernels line reports the int8 run's counts.
+  paper         the paper-suite kernels behind the mdspan layout dispatch
+                (sum3d, stencil3d, tinymatsum static and dynamic, matvec
+                right and left), each against its plain version at the
+                reference's sizes (96^3, N 100k/200k of 3x3, 2048^2) and at
+                HBM-filling ones (512^3, N 8M, 16384^2), sum3d and
+                tinymatsum in bf16 too, with a library call as yardstick
+                (torch.sum, torch.add, torch.mv, conv3d + pad); sum3d must
+                repeat bit for bit, and runs at a ragged size too (95x97x99,
+                509x511x513) on inputs of mean 1. Then the zero-overhead comparison
+                (ops.sum3d / ops.matvec on an MdSpan against the raw kernel
+                call: host us and device ms per call, printed, not gated),
+                and the main path: the ops dispatchers on MdSpans at the
+                HBM sizes, counts zeroed just before and read just after,
+                every output checked against its plain version and every
+                kernel launched. Tolerances: sum3d 1e-5 * sum(|x|), stencil
+                1e-4, tinymatsum 1e-6 (bf16 2e-2), matvec 1e-5 *
+                sum_j |A_ij v_j| per row (sums of up to 16384 terms).
   kernels line  {"kernels": [...]} with each ported kernel's numbers, plus the
                 TPU kernels still to be ported.
 
@@ -79,6 +96,7 @@ SERVE_RUNS = 3  # serve runs in one process: the host-bound metrics spread from 
 NOMINAL_BW = 3.35e12  # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, data sheet
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+PAPER_SOURCE = "src/repro_torch/kernels/csrc/paper_suite.cu"
 PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "paged_decode": ("src/repro/kernels/paged_attention.py:151", ATTN_SOURCE),
     "paged_prefill_chunk": ("src/repro/kernels/paged_attention.py:575", ATTN_SOURCE),
@@ -86,20 +104,22 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "paged_prefill_chunk_quant": ("src/repro/kernels/paged_attention.py:756", ATTN_SOURCE),
     "quant_matmul": ("src/repro/kernels/quant_matmul.py:57",
                      "src/repro_torch/kernels/csrc/quant_matmul.cu"),
+    "sum3d": ("src/repro/kernels/sum3d.py:37", PAPER_SOURCE),
+    "stencil3d": ("src/repro/kernels/stencil3d.py:59", PAPER_SOURCE),
+    "tinymatsum_static": ("src/repro/kernels/tinymatsum.py:34", PAPER_SOURCE),
+    "tinymatsum_dynamic": ("src/repro/kernels/tinymatsum.py:65", PAPER_SOURCE),
+    "matvec_right": ("src/repro/kernels/matvec.py:33", PAPER_SOURCE),
+    "matvec_left": ("src/repro/kernels/matvec.py:64", PAPER_SOURCE),
 }
 DENSE_PATH = ("paged_decode", "paged_prefill_chunk")
 QUANT_PATH = ("paged_decode_quant", "paged_prefill_chunk_quant", "quant_matmul")
+PAPER_PATH = ("sum3d", "stencil3d", "tinymatsum_static", "tinymatsum_dynamic", "matvec_right",
+              "matvec_left")
 NOT_PORTED = [
     ("flash_attention", "src/repro/kernels/flash_attention.py:104"),
     ("flash_decode", "src/repro/kernels/flash_attention.py:222"),
     ("ssd_scan", "src/repro/kernels/ssd_scan.py:85"),
     ("rglru_scan", "src/repro/kernels/rglru_scan.py:50"),
-    ("matvec_right", "src/repro/kernels/matvec.py:33"),
-    ("matvec_left", "src/repro/kernels/matvec.py:64"),
-    ("sum3d_pallas", "src/repro/kernels/sum3d.py:37"),
-    ("stencil3d_pallas", "src/repro/kernels/stencil3d.py:59"),
-    ("tinymatsum_static", "src/repro/kernels/tinymatsum.py:34"),
-    ("tinymatsum_dynamic", "src/repro/kernels/tinymatsum.py:65"),
 ]
 
 
@@ -157,12 +177,19 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor):
     return float((d / ulp).max()), float((d - ulp - BF16_ATOL).max())
 
 
-def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case):
+def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
+                   tolerance=None, phase="kernels"):
+    """One kernel against its plain version on the same inputs, then timed
+    beside the plain version and the library call; ``tolerance(got, want)``
+    -> (ok, description) replaces the default f32 / bf16 rule."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
     err = float((got.float() - want.float()).abs().max())
-    if dtype == torch.float32:
+    if tolerance is not None:
+        ok, tol = tolerance(got, want)
+        extra = {}
+    elif dtype == torch.float32:
         ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
         tol = "allclose rtol=atol=2e-5"
         extra = {}
@@ -173,7 +200,7 @@ def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case)
         extra = {"max_bf16_ulps": ulps}
     t_bytes, t_ops = nbytes / bw, flops / PEAK_FLOPS[dtype]
     rec = {
-        "phase": "kernels", "kernel": name, "dtype": str(dtype).split(".")[1], **case,
+        "phase": phase, "kernel": name, "dtype": str(dtype).split(".")[1], **case,
         "max_abs_err": err, "tolerance": tol, "ok": ok, **extra,
         "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5),
         "library_ms": time_ms(library, reps=10),
@@ -344,6 +371,279 @@ def quant_matmul_checks(bw, g):
                 if (m, k, bits, dtype) == (8, 896, 8, torch.bfloat16):
                     out = rec
     return out
+
+
+# =====================================================================================
+# phase: paper (the paper-suite kernels behind the mdspan layout dispatch)
+# =====================================================================================
+PAPER_SIZES = {  # the reference's own (its benchmarks and tests), and HBM-filling ones
+    "reference": dict(cube=96, ragged=(95, 97, 99), tiny_n=(100_000, 200_000), mat=2048),
+    "hbm": dict(cube=512, ragged=(509, 511, 513), tiny_n=(8_000_000,), mat=16384),
+}  # ragged: a sum3d size that is no multiple of the first pass's unrolled stride
+TINY_JK = (3, 3)  # the paper's tiny matrices
+
+
+def _allclose(rtol, atol):
+    def tolerance(got, want):
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
+        return ok, f"allclose rtol={rtol} atol={atol}"
+    return tolerance
+
+
+def _sum_tolerance(x):
+    """A sum of ~1e8 terms differs from another order's by rounding that grows
+    with the terms' magnitudes: |got - want| <= 1e-5 * sum(|x|). The inputs
+    (``_sum_input``) have mean 1, so sum(|x|) is close to the sum itself and
+    the bound is relative: a lost block partial (1/1024 of it) fails."""
+    bound = 1e-5 * float(x.float().abs().sum())
+
+    def tolerance(got, want):
+        return abs(float(got) - float(want)) <= bound, f"|got - want| <= 1e-5 * sum(|x|) = {bound}"
+    return tolerance
+
+
+def _row_tolerance(a, v):
+    """matvec: each y_i is a sum of J products, whose rounding in another
+    order grows with their magnitudes: |got_i - want_i| <= 1e-5 *
+    sum_j |A_ij v_j| (the sum3d rule, row by row)."""
+    bound = 1e-5 * (a.float().abs() @ v.float().abs())
+
+    def tolerance(got, want):
+        ok = bool(((got.float() - want.float()).abs() <= bound).all())
+        return ok, "|got_i - want_i| <= 1e-5 * sum_j |A_ij v_j|"
+    return tolerance
+
+
+def _randn(g, *shape, dtype=torch.float32):
+    return torch.randn(*shape, generator=g, device=g.device).to(dtype)
+
+
+def _sum_input(g, *shape, dtype=torch.float32):
+    """Normal values of mean 1 and variance 1 (signs mixed), for the sums."""
+    return (torch.randn(*shape, generator=g, device=g.device) + 1.0).to(dtype)
+
+
+def paper_checks(bw, label, g):
+    """Each paper-suite kernel against its plain version at one size set
+    (PAPER_SIZES[label]), timed beside it and a library call: sum3d and
+    tinymatsum in f32 and bf16, stencil3d and matvec (both layouts) in f32.
+    sum3d must also repeat bit for bit, and is checked at a ragged size too.
+    Returns the f32 record of each kernel (tinymatsum: the last N)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import stencil3d as st
+    from repro_torch.kernels import sum3d as sm
+    from repro_torch.kernels import tinymatsum as tm
+
+    sizes = PAPER_SIZES[label]
+    recs = {}
+    n3 = sizes["cube"]
+    for dtype in (torch.float32, torch.bfloat16):
+        esz = torch.tensor([], dtype=dtype).element_size()
+        xr = _sum_input(g, *sizes["ragged"], dtype=dtype)
+        check_and_time("sum3d", dtype, lambda: sm.sum3d(xr), lambda: sm.sum3d_torch(xr),
+                       lambda: torch.sum(xr, dtype=torch.float32), xr.numel() * esz + 4,
+                       xr.numel(), bw, {"sizes": label, "shape": list(sizes["ragged"])},
+                       tolerance=_sum_tolerance(xr), phase="paper")
+        del xr
+        x = _sum_input(g, n3, n3, n3, dtype=dtype)
+        case = {"sizes": label, "shape": [n3] * 3}
+        rec = check_and_time("sum3d", dtype, lambda: sm.sum3d(x), lambda: sm.sum3d_torch(x),
+                             lambda: torch.sum(x, dtype=torch.float32), x.numel() * esz + 4,
+                             x.numel(), bw, case, tolerance=_sum_tolerance(x), phase="paper")
+        first, second = sm.sum3d(x), sm.sum3d(x)
+        same = torch.equal(first, second)
+        emit({"phase": "paper", "check": "sum3d_repeats_bit_for_bit", "sizes": label,
+              "dtype": str(dtype).split(".")[1], "values": [float(first), float(second)],
+              "equal": same})
+        if not same:
+            raise AssertionError(f"sum3d gave two results on one input: {first} {second}")
+        if dtype == torch.float32:
+            recs["sum3d"] = rec
+            ones = torch.ones(1, 1, 3, 3, 3, device=x.device)
+            recs["stencil3d"] = check_and_time(
+                "stencil3d", dtype, lambda: st.stencil3d(x), lambda: st.stencil3d_torch(x),
+                lambda: F.pad(F.conv3d(x[None, None], ones)[0, 0], (1, 1, 1, 1, 1, 1)),
+                2 * x.numel() * esz, 26 * (n3 - 2) ** 3, bw, case,
+                tolerance=_allclose(1e-4, 1e-4), phase="paper")
+        del x
+        for n in sizes["tiny_n"]:
+            o, s = _randn(g, n, *TINY_JK, dtype=dtype), _randn(g, n, *TINY_JK, dtype=dtype)
+            tol = 1e-6 if dtype == torch.float32 else 2e-2
+            for name, fn in (("tinymatsum_static", tm.tinymatsum_static),
+                             ("tinymatsum_dynamic", tm.tinymatsum_dynamic)):
+                rec = check_and_time(
+                    name, dtype, lambda: fn(o, s), lambda: tm.tinymatsum_torch(o, s),
+                    lambda: torch.add(o, s), 3 * o.numel() * esz, o.numel(), bw,
+                    {"sizes": label, "N": n, "J": TINY_JK[0], "K": TINY_JK[1]},
+                    tolerance=_allclose(tol, tol), phase="paper")
+                if dtype == torch.float32:
+                    recs[name] = rec
+            del o, s
+    m = sizes["mat"]
+    a, v = _randn(g, m, m), _randn(g, m)
+    at = a.t().contiguous()  # the same A stored column-major
+    for name, kernel, library in (
+            ("matvec_right", lambda: mv.matvec_right(a, v), lambda: torch.mv(a, v)),
+            ("matvec_left", lambda: mv.matvec_left(at, v), lambda: torch.mv(at.t(), v))):
+        recs[name] = check_and_time(
+            name, torch.float32, kernel, lambda: mv.matvec_torch(a, v), library,
+            (m * m + 2 * m) * 4, 2 * m * m, bw, {"sizes": label, "I": m, "J": m},
+            tolerance=_row_tolerance(a, v), phase="paper")
+    emit({"phase": "paper", "check": "matvec_right_over_left", "sizes": label,
+          "ms_ratio": recs["matvec_right"]["ms"] / recs["matvec_left"]["ms"]})
+    return recs
+
+
+def device_ms_per_call(fn, n=100, sleep_cycles=50_000_000):
+    """Device time per call of ``fn``: ``n`` calls enqueued behind a sleep
+    kernel, so the device runs them back to back however slow the host is."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def zero_overhead_check(g, reps=50):
+    """The paper's zero-overhead claim: ops.sum3d / ops.matvec on an MdSpan
+    (built by MdSpan.from_dense inside the call) against the same kernel
+    called on the raw buffer, LayoutRight and LayoutLeft, at the reference's
+    sizes. Host microseconds per call, alternating the two in one loop (a
+    synchronize before each timed call), and device ms per call. Both must
+    launch the same kernel; the times are printed, not gated."""
+    from repro_torch import kernels
+    from repro_torch.core import Extents, LayoutLeft, LayoutRight, MdSpan
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sum3d as sm
+
+    n3, m = PAPER_SIZES["reference"]["cube"], PAPER_SIZES["reference"]["mat"]
+    E = Extents.fully_dynamic
+    x_right = _randn(g, n3, n3, n3)
+    x_left = _randn(g, n3, n3, n3).permute(2, 1, 0)  # logical view of column-major storage
+    a_right, v = _randn(g, m, m), _randn(g, m)
+    a_left = _randn(g, m, m).t()
+    def span(t, layout):
+        return MdSpan.from_dense(t, layout=layout(E(*t.shape)))
+
+    pairs = {  # (kernel, layout) -> (the call through an MdSpan, the raw kernel call)
+        ("sum3d", "right"): (lambda: ops.sum3d(span(x_right, LayoutRight)),
+                             lambda: sm.sum3d(x_right)),
+        ("sum3d", "left"): (lambda: ops.sum3d(span(x_left, LayoutLeft)),
+                            lambda: sm.sum3d(x_left.permute(2, 1, 0))),
+        ("matvec", "right"): (lambda: ops.matvec(span(a_right, LayoutRight), v),
+                              lambda: mv.matvec_right(a_right, v)),
+        ("matvec", "left"): (lambda: ops.matvec(span(a_left, LayoutLeft), v),
+                             lambda: mv.matvec_left(a_left.t(), v)),
+    }
+    out = []
+    for (kernel, layout), (via_mdspan, raw) in pairs.items():
+        counts = []
+        for fn in (via_mdspan, raw):
+            kernels.reset_launch_counts()
+            fn()
+            counts.append(kernels.launch_counts())
+        torch.cuda.synchronize()
+        host = {"mdspan": [], "raw": []}
+        for _ in range(reps):
+            for key, fn in (("mdspan", via_mdspan), ("raw", raw)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host[key].append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        mds_us, raw_us = statistics.median(host["mdspan"]), statistics.median(host["raw"])
+        rec = {"phase": "paper_zero_overhead", "kernel": kernel, "layout": layout,
+               "same_kernel": counts[0] == counts[1] and sum(counts[0].values()) == 1,
+               "host_us_mdspan": mds_us, "host_us_raw": raw_us, "host_us_diff": mds_us - raw_us,
+               "device_ms_mdspan": device_ms_per_call(via_mdspan),
+               "device_ms_raw": device_ms_per_call(raw), "reps": reps}
+        emit(rec)
+        if not rec["same_kernel"]:
+            raise AssertionError(f"the MdSpan and raw calls launched different kernels: {counts}")
+        out.append(rec)
+    return out
+
+
+def paper_main_path(g, label="hbm"):
+    """The paper-suite path as a user drives it, at PAPER_SIZES[label]: the
+    ops dispatchers on MdSpans (sum3d and matvec, LayoutRight and LayoutLeft
+    over existing storage) and on tensors (stencil3d, tinymatsum static and
+    dynamic), launch counts zeroed just before and read just after. Every
+    output must agree with its plain version and every kernel must have
+    launched. Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import Extents, LayoutLeft, LayoutRight, MdSpan
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil3d as st
+    from repro_torch.kernels import sum3d as sm
+    from repro_torch.kernels import tinymatsum as tm
+
+    sizes = PAPER_SIZES[label]
+    E = Extents.fully_dynamic
+    n3, n, m = sizes["cube"], sizes["tiny_n"][-1], sizes["mat"]
+    x = _sum_input(g, n3, n3, n3)
+    x_left = _sum_input(g, n3, n3, n3).permute(2, 1, 0)  # logical view of column-major storage
+    o, s = _randn(g, n, *TINY_JK), _randn(g, n, *TINY_JK)
+    a, v = _randn(g, m, m), _randn(g, m)
+    a_left = _randn(g, m, m).t()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {
+        "sum3d_right": ops.sum3d(MdSpan.from_dense(x, layout=LayoutRight(E(n3, n3, n3)))),
+        "sum3d_left": ops.sum3d(MdSpan.from_dense(x_left, layout=LayoutLeft(E(n3, n3, n3)))),
+        "stencil3d": ops.stencil3d(x),
+        "tinymatsum_static": ops.tinymatsum(o, s, static_extents=True),
+        "tinymatsum_dynamic": ops.tinymatsum(o, s, static_extents=False),
+        "matvec_right": ops.matvec(MdSpan.from_dense(a, layout=LayoutRight(E(m, m))), v),
+        "matvec_left": ops.matvec(MdSpan.from_dense(a_left, layout=LayoutLeft(E(m, m))), v),
+    }
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    tiny = tm.tinymatsum_torch(o, s)
+    checks = {
+        "sum3d_right": _sum_tolerance(x)(out["sum3d_right"], sm.sum3d_torch(x))[0],
+        "sum3d_left": _sum_tolerance(x_left)(out["sum3d_left"], sm.sum3d_torch(x_left))[0],
+        "stencil3d": _allclose(1e-4, 1e-4)(out["stencil3d"], st.stencil3d_torch(x))[0],
+        "tinymatsum_static": _allclose(1e-6, 1e-6)(out["tinymatsum_static"], tiny)[0],
+        "tinymatsum_dynamic": _allclose(1e-6, 1e-6)(out["tinymatsum_dynamic"], tiny)[0],
+        "matvec_right": _row_tolerance(a, v)(out["matvec_right"], mv.matvec_torch(a, v))[0],
+        "matvec_left": _row_tolerance(a_left, v)(out["matvec_left"],
+                                                 mv.matvec_torch(a_left, v))[0],
+    }
+    finite = {k: bool(torch.isfinite(t).all()) for k, t in out.items()}
+    rec = {"phase": "paper_main_path", "sizes": label, "cube": n3, "tiny_n": n, "mat": m,
+           "agree_with_plain": checks, "finite": finite,
+           "launches": {k: launches[k] for k in PAPER_PATH}, "wall_s": wall}
+    emit(rec)
+    if not all(checks.values()) or not all(finite.values()):
+        raise AssertionError(f"the paper path disagrees with the plain versions: {rec}")
+    for k in PAPER_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f"the paper path never launched {k}")
+    return launches
+
+
+def paper_phase(bw):
+    """The checks at both size sets, the zero-overhead comparison, then the
+    main path with its launch counts; returns (records, launches)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    recs = {}
+    for label in PAPER_SIZES:
+        recs = paper_checks(bw, label, g)  # the HBM size set's records stand
+        torch.cuda.empty_cache()
+    zero_overhead_check(g)
+    launches = paper_main_path(g)
+    torch.cuda.empty_cache()
+    return recs, launches
 
 
 # =====================================================================================
@@ -688,6 +988,10 @@ def main() -> int:
     main_recs = kernel_phase(bw)
     t_phase["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    paper_recs, paper_launches = paper_phase(bw)
+    main_recs.update(paper_recs)
+    t_phase["paper"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     prompt = exact_requests(151936)[0]
     for layers, conditioned in ((2, False), (24, False), (24, True)):
         depth_sensitivity(prompt, layers, conditioned)
@@ -711,7 +1015,8 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_quant = serve_quant_phase(serve["kv_pool_bytes"])
     t_phase["serve_quant"] = time.perf_counter() - t0
-    launches = {**serve["launches"], **serve_quant["int8"]["launches"]}
+    launches = {**serve["launches"], **serve_quant["int8"]["launches"],
+                **{k: paper_launches[k] for k in PAPER_PATH}}
     kernels = []
     for name, (replaces, source) in PORTED.items():
         rec = main_recs[name]

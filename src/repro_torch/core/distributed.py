@@ -1,14 +1,17 @@
 """Blocked quantization of whole arrays: the port of
-``repro.core.distributed.quantize_array`` / ``dequantize_array``. The
-reference module's sharding rules and TensorSpec wait for ROADMAP Queue 1
-item 6 (distribution)."""
+``repro.core.distributed.quantize_array`` / ``dequantize_array``, and the
+int4 nibble packers every quantized representation of the port shares
+(adjacent pairs for weights and ``QuantizedAccessor``, split-half for KV
+pages and ``Int4SplitHalfAccessor``). The reference module's sharding rules
+and TensorSpec wait for ROADMAP Queue 1 item 6 (distribution)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import TYPE_CHECKING, Dict
 
 import torch
 
-from .accessors import QuantizedAccessor
+if TYPE_CHECKING:
+    from .accessors import QuantizedAccessor
 
 
 def as_int8_bits(v: torch.Tensor) -> torch.Tensor:
@@ -35,6 +38,20 @@ def unpack_int4_adjacent(b: torch.Tensor) -> torch.Tensor:
     lo = signed_nibble(b & 0x0F)
     hi = signed_nibble((b >> 4) & 0x0F)
     return torch.stack([lo, hi], dim=-1).reshape(*b.shape[:-1], b.shape[-1] * 2)
+
+
+def pack_int4_splithalf(q: torch.Tensor) -> torch.Tensor:
+    """Signed int4 values (last dim D even) two per byte, split-half: byte d
+    holds value d in the lo nibble and value d + D/2 in the hi nibble, so a
+    token's K/V row maps to whole bytes of its own (the KV pages' order)."""
+    d = q.shape[-1]
+    q = q.to(torch.int16)
+    return as_int8_bits((q[..., :d // 2] & 0x0F) | ((q[..., d // 2:] & 0x0F) << 4))
+
+
+def unpack_int4_splithalf(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4_splithalf, sign-extending each nibble."""
+    return torch.cat([signed_nibble(b & 0x0F), signed_nibble((b >> 4) & 0x0F)], dim=-1)
 
 
 def quantize_array(dense: torch.Tensor, acc: QuantizedAccessor) -> Dict[str, torch.Tensor]:

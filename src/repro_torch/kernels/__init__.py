@@ -8,9 +8,16 @@ API. Importing builds nothing. Each wrapper counts its kernel's launches in
 """
 from typing import Dict
 
-from . import ops, paged_attention, quant_matmul
+from . import matvec, ops, paged_attention, quant_matmul, stencil3d, sum3d, tinymatsum
 
-KERNEL_WRAPPERS = {**paged_attention.KERNEL_WRAPPERS, **quant_matmul.KERNEL_WRAPPERS}
+KERNEL_WRAPPERS = {
+    **paged_attention.KERNEL_WRAPPERS,
+    **quant_matmul.KERNEL_WRAPPERS,
+    **sum3d.KERNEL_WRAPPERS,
+    **stencil3d.KERNEL_WRAPPERS,
+    **tinymatsum.KERNEL_WRAPPERS,
+    **matvec.KERNEL_WRAPPERS,
+}
 
 
 def launch_counts() -> Dict[str, int]:

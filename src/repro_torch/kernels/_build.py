@@ -5,7 +5,9 @@ interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``, into
 ``build/`` at the root of the checkout. The library's name carries a hash of
 the source and the flags, so a stale build is never loaded and a finished one
 is reused. ``load(name)`` builds on first use; ``build_all()`` starts one nvcc
-per source, all at once, and waits for them. Nothing is built at import.
+per source, all at once, and waits for them. ``Binding`` declares a source's C
+entries and launches them, raising on a non-zero CUDA error code. Nothing is
+built at import.
 """
 from __future__ import annotations
 
@@ -17,11 +19,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = {"paged_attention": "paged_attention.cu", "quant_matmul": "quant_matmul.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu", "quant_matmul": "quant_matmul.cu",
+           "paper_suite": "paper_suite.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -104,3 +109,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+class Binding:
+    """The C entries of one source, ``signatures`` mapping each entry's name
+    to its argument types (the CUDA stream last); every entry returns a CUDA
+    error code. The library is built and loaded on the first launch."""
+
+    def __init__(self, name: str, signatures: Dict[str, Sequence]):
+        self.name, self.signatures = name, signatures
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            for fn, argtypes in self.signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, fn: str, what: str, *args, device: torch.device) -> None:
+        """Call entry ``fn`` with ``args`` and PyTorch's current stream of
+        ``device``; raise if the launch was refused."""
+        lib = self.lib()
+        rc = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            msg = lib.repro_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")

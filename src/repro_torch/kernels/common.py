@@ -1,21 +1,39 @@
-"""Device selection shared by the port's entry points."""
+"""The port's device policy (``core.device.resolve_device``, re-exported) and
+the shape helpers of the reference's ``kernels/common.py`` (its TPU tiling
+constants and interpret-mode switch have no counterpart: the port's kernels
+run on the card or not at all)."""
 from __future__ import annotations
-
-from typing import Optional, Union
 
 import torch
 
+from repro_torch.core.device import resolve_device  # noqa: F401  (re-exported)
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names one.
 
-    With no GPU and no explicit device this raises; nothing falls back to the
-    CPU quietly. Pass ``device="cpu"`` to run the plain PyTorch versions."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on CUDA by default and no GPU is available; "
-                "pass device='cpu' to run the plain PyTorch versions on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+# -- shape helpers (the reference's kernels/common.py) -------------------------------
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pick_block(extent: int, target: int, align: int = 1) -> int:
+    """Largest block <= target that is a multiple of ``align`` (or the whole extent
+    if it is smaller)."""
+    if extent <= target:
+        return extent
+    b = (target // align) * align
+    return max(b, align)
+
+
+def pad_to(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x`` zero-padded at the end of each dim up to ``shape`` (``x`` itself
+    when it already has that shape)."""
+    pads = [s - xs for xs, s in zip(x.shape, shape)]
+    if not any(pads):
+        return x
+    flat = []
+    for p in reversed(pads):  # F.pad lists the last dim first
+        flat += [0, p]
+    return torch.nn.functional.pad(x, flat)

@@ -1,6 +1,8 @@
 """ops — the public kernel API of the port, with impl dispatch.
 
-Port of ``repro.kernels.ops`` for the serving path. ``impl`` replaces the
+Port of ``repro.kernels.ops``: the serving path's kernels and the paper-suite
+dispatchers (``sum3d`` / ``matvec`` / ``tinymatsum`` / ``stencil3d``), where
+an MdSpan's layout type selects the kernel schedule. ``impl`` replaces the
 reference's ``_want_pallas``:
 
   "cuda"   the hand-written kernel; raises unless the operands are CUDA tensors
@@ -18,6 +20,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.layouts import LayoutLeft, LayoutRight
+from repro_torch.core.mdspan import MdSpan
+
+from .matvec import matvec_left, matvec_right, matvec_torch
 from .paged_attention import (
     NEG_INF,
     paged_decode_attention_quant_torch,
@@ -30,19 +36,27 @@ from .paged_attention import (
     paged_prefill_chunk_torch,
 )
 from .quant_matmul import quant_matmul, quant_matmul_torch
+from .stencil3d import stencil3d as _stencil3d_kernel
+from .stencil3d import stencil3d_torch
+from .sum3d import sum3d as _sum3d_kernel
+from .sum3d import sum3d_mdspan, sum3d_torch
+from .tinymatsum import tinymatsum_dynamic, tinymatsum_static, tinymatsum_torch
 
 IMPLS = ("auto", "cuda", "torch")
 
 
-def _want_kernel(impl: str, x: torch.Tensor) -> bool:
+def _want_kernel(impl: str, x) -> bool:
+    """Whether to launch the kernel for operands on ``x``'s device (a tensor,
+    or a torch.device)."""
+    device = x if isinstance(x, torch.device) else x.device
     if impl == "torch":
         return False
     if impl == "cuda":
-        if x.device.type != "cuda":
-            raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
+        if device.type != "cuda":
+            raise ValueError(f"impl='cuda' needs CUDA tensors, got {device}")
         return True
     if impl == "auto":
-        return x.device.type == "cuda"
+        return device.type == "cuda"
     raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
@@ -185,6 +199,59 @@ def paged_prefill_chunk_attention_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, 
         q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale, block_tables, cursors,
         bits=bits, scale=scale,
     )
+
+
+# ---------------------------------------------------------------------------------
+# paper-suite dispatchers (layout-generic)
+# ---------------------------------------------------------------------------------
+def sum3d(span, *, impl: str = "auto") -> torch.Tensor:
+    """Sum of a rank-3 MdSpan (or plain tensor) in f32. On an MdSpan the
+    layout picks the physical schedule (kernels.sum3d.sum3d_mdspan). A plain
+    tensor is read as LayoutRight storage: the kernel runs on it as stored
+    (it must be contiguous) where ``impl`` asks for the kernel, and the plain
+    version runs otherwise, as the reference sends plain arrays to it."""
+    want = _want_kernel(impl, span.device)
+    if not isinstance(span, MdSpan):
+        return _sum3d_kernel(span) if want else sum3d_torch(span)
+    if want:
+        return sum3d_mdspan(span)
+    return sum3d_torch(span.to_dense())
+
+
+def matvec(A_span, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """y = A @ x. Layout dispatch: LayoutRight -> matvec_right over the
+    codomain as (I, J), LayoutLeft -> matvec_left over it as (J, I), both read
+    as stored (paper Fig. 6); any other layout is gathered to (I, J) first. A
+    plain tensor A is read as LayoutRight storage, as in sum3d."""
+    want = _want_kernel(impl, A_span.device)
+    if not isinstance(A_span, MdSpan):
+        return matvec_right(A_span, x) if want else matvec_torch(A_span, x)
+    if not want:
+        return matvec_torch(A_span.to_dense(), x)
+    if isinstance(A_span.layout, LayoutRight):
+        return matvec_right(A_span.codomain().reshape(A_span.shape), x)
+    if isinstance(A_span.layout, LayoutLeft):
+        return matvec_left(A_span.codomain().reshape(A_span.shape[::-1]), x)
+    return matvec_right(A_span.to_dense(), x)
+
+
+def tinymatsum(o: torch.Tensor, s: torch.Tensor, *, static_extents: bool = True,
+               impl: str = "auto", **kw) -> torch.Tensor:
+    """o + s over (N, J, K) tiny matrices; ``static_extents`` picks the kernel
+    with J, K as template arguments or as runtime ints (paper Fig. 5); ``kw``
+    goes to the dynamic kernel (jmax, kmax)."""
+    if not _want_kernel(impl, o):
+        return tinymatsum_torch(o, s)
+    if static_extents:
+        return tinymatsum_static(o, s, **kw)
+    return tinymatsum_dynamic(o, s, **kw)
+
+
+def stencil3d(x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """The 27-point box stencil of a rank-3 tensor (interior; boundary 0)."""
+    if not _want_kernel(impl, x):
+        return stencil3d_torch(x)
+    return _stencil3d_kernel(x)
 
 
 # ---------------------------------------------------------------------------------

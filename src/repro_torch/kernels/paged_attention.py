@@ -40,7 +40,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.distributed import as_int8_bits, signed_nibble
+from repro_torch.core.distributed import (  # noqa: F401  (re-exported: the reference's names)
+    pack_int4_splithalf,
+    unpack_int4_splithalf,
+)
+
+from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -48,22 +53,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------------
-# int4 nibble packing (split-half) and page dequantization
+# page dequantization (the split-half int4 packers live in core.distributed)
 # ---------------------------------------------------------------------------------
-def pack_int4_splithalf(q: torch.Tensor) -> torch.Tensor:
-    """Signed int4 values (last dim D even) two per byte, split-half: byte d
-    holds value d in the lo nibble and value d + D/2 in the hi nibble, so a
-    token's K/V row maps to whole bytes of its own."""
-    d = q.shape[-1]
-    q = q.to(torch.int16)
-    return as_int8_bits((q[..., :d // 2] & 0x0F) | ((q[..., d // 2:] & 0x0F) << 4))
-
-
-def unpack_int4_splithalf(b: torch.Tensor) -> torch.Tensor:
-    """Inverse of pack_int4_splithalf, sign-extending each nibble."""
-    return torch.cat([signed_nibble(b & 0x0F), signed_nibble((b >> 4) & 0x0F)], dim=-1)
-
-
 def dequantize_pages(q: torch.Tensor, scale: torch.Tensor, *, bits: int) -> torch.Tensor:
     """q: (..., page_size, Dq) intN bytes; scale: (...) f32 per (page, head).
     Returns f32 (..., page_size, D): float(q) * scale."""
@@ -237,42 +228,19 @@ def paged_prefill_chunk_quant_torch(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
 # ---------------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------------
-_lib_handle: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """The built kernel library (nvcc runs here on first use), with every C
-    entry's argument types declared."""
-    global _lib_handle
-    if _lib_handle is None:
-        from . import _build
-
-        lib = _build.load("paged_attention")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.repro_paged_decode.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
-        lib.repro_paged_decode.restype = i
-        lib.repro_paged_prefill_chunk.argtypes = [
-            i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
-        ]
-        lib.repro_paged_prefill_chunk.restype = i
-        lib.repro_paged_decode_quant.argtypes = [
-            i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
-        ]
-        lib.repro_paged_decode_quant.restype = i
-        lib.repro_paged_prefill_chunk_quant.argtypes = [
-            i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
-        ]
-        lib.repro_paged_prefill_chunk_quant.restype = i
-        lib.repro_cuda_error_string.argtypes = [i]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LIB = _build.Binding("paged_attention", {
+    "repro_paged_decode": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+    "repro_paged_prefill_chunk": [
+        _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ],
+    "repro_paged_decode_quant": [
+        _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ],
+    "repro_paged_prefill_chunk_quant": [
+        _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ],
+})
 
 
 def _check(name: str, t: torch.Tensor, *, ndim: int, dtype=None, device=None) -> None:
@@ -351,13 +319,13 @@ def paged_flash_decode(
         raise ValueError(f"decode wants one query token, got q {tuple(q.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    rc = _lib().repro_paged_decode(
+    _LIB.launch(
+        "repro_paged_decode", "paged_decode",
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         b, hq, hkv, d, ps, num_pages, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        device=q.device,
     )
-    _raise_on(rc, "paged_decode")
     paged_flash_decode.launches += 1
     return out
 
@@ -395,13 +363,13 @@ def paged_flash_prefill_chunk(
             raise ValueError(f"{name} must be {(b, hkv, c, d)}, got {tuple(t.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    rc = _lib().repro_paged_prefill_chunk(
+    _LIB.launch(
+        "repro_paged_prefill_chunk", "paged_prefill_chunk",
         _DTYPE_CODE[q.dtype], q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(), cursors.data_ptr(),
         out.data_ptr(), b, hq, hkv, c, d, ps, num_pages, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        device=q.device,
     )
-    _raise_on(rc, "paged_prefill_chunk")
     paged_flash_prefill_chunk.launches += 1
     return out
 
@@ -444,13 +412,13 @@ def paged_flash_decode_quant(q, k_q, k_scale, v_q, v_scale, block_tables, contex
         raise ValueError(f"decode wants one query token, got q {tuple(q.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    rc = _lib().repro_paged_decode_quant(
+    _LIB.launch(
+        "repro_paged_decode_quant", "paged_decode_quant",
         _DTYPE_CODE[q.dtype], bits, q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
         v_q.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
         out.data_ptr(), b, hq, hkv, d, ps, num_pages, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        device=q.device,
     )
-    _raise_on(rc, "paged_decode_quant")
     paged_flash_decode_quant.launches += 1
     return out
 
@@ -480,14 +448,14 @@ def paged_flash_prefill_chunk_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
             raise ValueError(f"{name} must be {(b, hkv, c, d)}, got {tuple(t.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    rc = _lib().repro_paged_prefill_chunk_quant(
+    _LIB.launch(
+        "repro_paged_prefill_chunk_quant", "paged_prefill_chunk_quant",
         _DTYPE_CODE[q.dtype], bits, q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
         k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(),
         block_tables.data_ptr(), cursors.data_ptr(), out.data_ptr(),
         b, hq, hkv, c, d, ps, num_pages, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        device=q.device,
     )
-    _raise_on(rc, "paged_prefill_chunk_quant")
     paged_flash_prefill_chunk_quant.launches += 1
     return out
 

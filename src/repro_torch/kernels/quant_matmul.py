@@ -18,11 +18,12 @@ version; on CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
 from repro_torch.core.distributed import unpack_int4_adjacent
+
+from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_QBLOCK = 256  # the kernel's K-step is the block; its shared tiles are sized for this
@@ -40,22 +41,10 @@ def quant_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     return (x.float() @ w.t()).to(x.dtype)
 
 
-_lib_handle: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        from . import _build
-
-        lib = _build.load("quant_matmul")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_quant_matmul.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
-        lib.repro_quant_matmul.restype = i
-        lib.repro_cuda_error_string.argtypes = [i]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_LIB = _build.Binding("quant_matmul", {
+    "repro_quant_matmul": [_i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+})
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
@@ -93,13 +82,11 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    rc = _lib().repro_quant_matmul(
+    _LIB.launch(
+        "repro_quant_matmul", "quant_matmul",
         _DTYPE_CODE[x.dtype], bits, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        m, n, k, qblock, torch.cuda.current_stream(x.device).cuda_stream,
+        m, n, k, qblock, device=x.device,
     )
-    if rc != 0:
-        msg = _lib().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"quant_matmul launch failed: CUDA error {rc} ({msg})")
     quant_matmul.launches += 1
     return y
 

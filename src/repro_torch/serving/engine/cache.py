@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import Extents, LayoutPaged, MdSpan, all_, submdspan
 from repro_torch.models.attention import pack_kv_pages, pack_kv_pages_quant
 
 from .kvquant import KV_DTYPES, kv_pool_bytes, pool_leaves
@@ -399,21 +400,55 @@ class PagedKVCache:
             else:
                 pack_kv_pages_quant(pool, k, v, pages, spec=self.kv_spec)
 
+    # -- mdspan view -------------------------------------------------------------
+    def shared_pages_of(self, slot: int) -> Tuple[int, ...]:
+        """The slot's pages other holders also reference (refcount > 1)."""
+        return tuple(p for p in self.pages_of[slot] if self.ref[p] > 1)
+
+    def layout_for(self, slot: int) -> LayoutPaged:
+        """The LayoutPaged mapping of one sequence's cache over the flat pool.
+        Pages co-owned with other sequences surface as ``shared_pages``, so
+        ``is_unique()`` is False exactly while the table references a
+        refcount>1 page — the formal statement of the CoW obligation."""
+        pages = self.pages_of[slot]
+        hkv, dh = self.cfg.n_kv_heads, self.cfg.head_dim
+        return LayoutPaged(
+            Extents.fully_dynamic(1, hkv, len(pages) * self.page_size, dh),
+            (tuple(pages),),
+            self.page_size,
+            self.num_pages,
+            self.shared_pages_of(slot),
+        )
+
+    def _flat_codomain(self, leaf, layer: int) -> torch.Tensor:
+        """One layer's pool as the layout's flat codomain, decoded through the
+        spec when the pool is quantized — the layout algebra never sees the
+        representation."""
+        if self.kv_spec is None:
+            return leaf[layer].reshape(-1)
+        return self.kv_spec.decode_pages(leaf["q"][layer], leaf["scale"][layer]).reshape(-1)
+
     def dense_view(self, slot: int, entry: int = 0, layer: int = 0):
-        """(k, v), each (Hkv, len, Dh): the slot's pages gathered in logical
-        order (decoded through the spec for a quantized pool) and cut at its
-        length — a test's view of what the scatters wrote."""
-        pages = torch.tensor(self.pages_of[slot], dtype=torch.long, device=self.device)
+        """(k, v), each (Hkv, len, Dh), gathered through layout_for(slot)'s
+        offsets — the generic read path of the paged layout, a test's view of
+        what the scatters wrote. Quantized pools are decoded first, then
+        gathered through the SAME offsets."""
+        offs = self.layout_for(slot).offsets_dense(self.device)[0]  # (Hkv, n_pages*ps, Dh)
         length = int(self.lens[slot])
-        out = []
-        for name in ("k", "v"):
-            leaf = self.pools[entry][name]
-            if self.kv_spec is None:
-                g = leaf[layer][pages]  # (n, Hkv, ps, Dh)
-            else:
-                g = self.kv_spec.decode_pages(leaf["q"][layer][pages], leaf["scale"][layer][pages])
-            out.append(g.transpose(0, 1).reshape(g.shape[1], -1, g.shape[3])[:, :length])
-        return out[0], out[1]
+        return tuple(self._flat_codomain(self.pools[entry][name], layer)[offs][:, :length, :]
+                     for name in ("k", "v"))
+
+    def chunk_view(self, slot: int, start: int, stop: int, entry: int = 0,
+                   layer: int = 0) -> MdSpan:
+        """The mdspan of one prefill chunk: LITERALLY
+        ``submdspan(seq_view, all_, all_, (start, stop), all_)`` over the flat
+        pool (core/submdspan.py). Returns the K span; its layout is again a
+        LayoutPaged whose rows are trimmed to the chunk's pages, whose
+        ``pos_offset`` carries partial-page starts, and whose ``is_unique()``
+        is True exactly when the chunk lies past every shared page."""
+        span = MdSpan.over(self._flat_codomain(self.pools[entry]["k"], layer),
+                           self.layout_for(slot))
+        return submdspan(span, all_, all_, (start, stop), all_)
 
     # -- stats -------------------------------------------------------------------
     def stats(self) -> Dict[str, int]:

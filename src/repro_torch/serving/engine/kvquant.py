@@ -9,7 +9,7 @@ keyed by physical page, every allocator law carries over unchanged: a shared
 quantized page is copied (bytes and scale) and privatized like an f32 one.
 
 int4 pages pack split-half along the feature dim
-(``kernels.paged_attention.pack_int4_splithalf``: byte d holds feature d in
+(``core.distributed.pack_int4_splithalf``: byte d holds feature d in
 the lo nibble and d + D/2 in the hi), so a token's scatter stays within its
 own bytes; quantized weights pack adjacent pairs instead.
 
@@ -21,9 +21,10 @@ Scale lifecycle (deterministic, so prefix sharing dedupes quantized pages):
   - decode append at slot > 0: re-quantize with the page's EXISTING scale,
     clipped.
 
-Not ported yet: ``as_flat_accessor`` (the equivalent flat accessor over the
-paged codomain) needs ``Int4SplitHalfAccessor`` and the rest of ``core``; it
-waits for ROADMAP Queue 1 item 3.
+``as_flat_accessor`` names the equivalent flat accessor over the paged
+codomain (``core.QuantizedAccessor`` for int8, ``Int4SplitHalfAccessor`` for
+int4), which makes a quantized pool observable through
+``core.instrument.CountingAccessor``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,9 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels.paged_attention import dequantize_pages, pack_int4_splithalf
+from repro_torch.core.accessors import Int4SplitHalfAccessor, QuantizedAccessor
+from repro_torch.core.distributed import pack_int4_splithalf
+from repro_torch.kernels.paged_attention import dequantize_pages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +95,21 @@ class PagedQuantSpec:
         safe = torch.where(scale > 0, scale, torch.ones_like(scale))
         q = torch.clamp(torch.round(tok.float() / safe[..., None]), -self.qmax, self.qmax)
         return self._pack(q)
+
+    def as_flat_accessor(self, page_size: int, head_dim: int) -> QuantizedAccessor:
+        """The equivalent flat accessor over the LayoutPaged codomain:
+        (page, head) scales == block scales with block = page_size * head_dim.
+
+        int8 returns a plain ``QuantizedAccessor`` (the pool's flat bytes ARE
+        its buffers). int4 returns ``Int4SplitHalfAccessor`` with
+        row = head_dim, the accessor that speaks the pages' split-half nibble
+        order (the packed pool reshaped to 1-D is byte-identical to its
+        encoding)."""
+        if self.bits == 8:
+            return QuantizedAccessor(self.element_type, bits=8, block=page_size * head_dim)
+        return Int4SplitHalfAccessor(
+            self.element_type, bits=4, block=page_size * head_dim, row=head_dim
+        )
 
 
 # kv_dtype config values -> element representation (None: dense pages in the

@@ -4,6 +4,7 @@ Import hygiene: importing the port and every submodule pulls in neither JAX
 nor the reference package. Entry points: without CUDA and without an
 explicit ``device="cpu"``, the model, the engine and the weight bridge raise.
 """
+import json
 import os
 import subprocess
 import sys
@@ -44,12 +45,59 @@ def test_import_pulls_in_neither_jax_nor_repro():
 def test_package_mirrors_reference_names():
     root = Path(repro_torch.__file__).parent
     for rel in ("kernels/ops.py", "kernels/paged_attention.py", "kernels/quant_matmul.py",
+                "kernels/sum3d.py", "kernels/stencil3d.py", "kernels/tinymatsum.py",
+                "kernels/matvec.py", "kernels/common.py", "core/extents.py", "core/layouts.py",
+                "core/mdspan.py", "core/submdspan.py", "core/algorithms.py",
+                "core/instrument.py",
                 "core/accessors.py", "core/distributed.py", "models/attention.py",
                 "models/transformer.py", "models/registry.py", "serving/step.py",
                 "serving/engine/engine.py", "serving/engine/cache.py",
                 "serving/engine/kvquant.py", "runtime/health.py"):
         assert (root / rel).exists(), rel
         assert (SRC / "repro" / rel).exists(), rel
+
+
+_NAMES = r"""
+import importlib, json, sys
+pkg = sys.argv[1]
+out = {}
+for mod in ("core", "core.accessors", "core.layouts", "kernels.sum3d", "kernels.stencil3d",
+            "kernels.tinymatsum", "kernels.matvec", "kernels.ops"):
+    m = importlib.import_module(f"{pkg}.{mod}")
+    out[mod] = sorted(n for n in dir(m) if not n.startswith("_"))
+out["core.__all__"] = list(importlib.import_module(f"{pkg}.core").__all__)
+print(json.dumps(out))
+"""
+
+
+def _public_names(pkg: str) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _NAMES, pkg], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout)
+
+
+def test_core_and_paper_kernels_mirror_reference_names():
+    """Every name of repro.core.__all__ exists in repro_torch.core, and the
+    four paper-suite kernel modules (and ops) keep the reference's public
+    kernel entry points: the Pallas ``*_pallas`` functions under the
+    wrapper's name, and ``*_torch`` for the reference's jnp oracles."""
+    ref, port = _public_names("repro"), _public_names("repro_torch")
+    missing = [n for n in ref["core.__all__"] if n not in port["core"]]
+    assert not missing, missing
+    assert set(ref["core.__all__"]) <= set(port["core.__all__"])
+    renamed = {"sum3d_pallas": "sum3d", "stencil3d_pallas": "stencil3d"}
+    for mod in ("kernels.sum3d", "kernels.stencil3d", "kernels.tinymatsum", "kernels.matvec"):
+        entry = [n for n in ref[mod] if n.endswith(("_pallas", "_mdspan", "_static", "_dynamic",
+                                                       "_right", "_left"))]
+        want = {renamed.get(n, n) for n in entry}
+        assert want <= set(port[mod]), (mod, want - set(port[mod]))
+    for name in ("sum3d", "matvec", "tinymatsum", "stencil3d"):
+        assert name in ref["kernels.ops"] and name in port["kernels.ops"]
+    for name in ("Int4SplitHalfAccessor", "MemorySpace", "HostTierAccessor"):
+        assert name in port["core.accessors"]
+    assert "layout_of_dense" in port["core.layouts"]
 
 
 @pytest.fixture

@@ -1,6 +1,8 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on the card:
-paged decode and chunked prefill over f32/bf16 and int8/int4 pools, and the
-quantized matmul.
+paged decode and chunked prefill over f32/bf16 and int8/int4 pools, the
+quantized matmul, and the paper-suite kernels (sum3d, stencil3d, tinymatsum
+static and dynamic, matvec right and left) with the ops dispatchers on
+MdSpans.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -12,7 +14,10 @@ it runs on the machine with the card:
 Tolerances: f32 rtol/atol 2e-5 (the reference's kernel-vs-oracle bound);
 bf16 pools within one bf16 ulp of the plain output plus the f32 tolerance
 2e-5 (both sum in f32 and round once; near 0 the bf16 spacing is finer than
-f32 sums resolve).
+f32 sums resolve). Paper suite: sum3d within 1e-5 * sum(|x|) (another
+summation order) and bit-identical from run to run; stencil3d and
+tinymatsum exactly equal (the same f32 additions in the same order);
+matvec rtol/atol 2e-4 (the reference's), bf16 one ulp + 2e-4.
 """
 import dataclasses
 
@@ -21,9 +26,16 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import QuantizedAccessor, quantize_array
+from repro_torch.core import (
+    Extents, LayoutLeft, LayoutRight, MdSpan, QuantizedAccessor, quantize_array,
+)
+from repro_torch.kernels import matvec as tmv
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import quant_matmul as qmm
+from repro_torch.kernels import stencil3d as tst
+from repro_torch.kernels import sum3d as tsum
+from repro_torch.kernels import tinymatsum as ttiny
 
 pytestmark = pytest.mark.cuda
 
@@ -78,11 +90,11 @@ def _chunk_inputs(batch, hq, hkv, d, ps, c, max_pages, cursors, dtype=torch.floa
             torch.tensor(cursors, dtype=torch.int32, device="cuda"))
 
 
-def _within_one_bf16_ulp(got, want):
+def _within_one_bf16_ulp(got, want, atol=TOL["atol"]):
     w = want.float()
     _, e = torch.frexp(w)
     ulp = torch.ldexp(torch.ones_like(w), e - 8)
-    return bool(((got.float() - w).abs() <= ulp + TOL["atol"]).all())
+    return bool(((got.float() - w).abs() <= ulp + atol).all())
 
 
 def _ids(cases):
@@ -263,3 +275,150 @@ def test_engine_on_cuda_matches_engine_on_cpu():
 def test_quantized_engine_on_cuda_matches_engine_on_cpu(kv_dtype):
     _engines_agree(kv_dtype, True,
                    ["paged_decode_quant", "paged_prefill_chunk_quant", "quant_matmul"])
+
+
+# ---------------------------------------------------------------------------------
+# the paper-suite kernels
+# ---------------------------------------------------------------------------------
+DTYPES = [torch.float32, torch.bfloat16]
+DT_IDS = ["f32", "bf16"]
+
+
+def _randn(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+
+# one element, small, a partial last block, the reference's size, and one
+# whose first pass runs the full 1024-block grid with a ragged tail
+SUM3D_SHAPES = [(1, 1, 1), (4, 4, 8), (5, 7, 130), (96, 96, 96), (3, 1000, 1001)]
+
+
+@pytest.mark.parametrize("shape", SUM3D_SHAPES, ids=_ids(SUM3D_SHAPES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_sum3d_kernel_matches_plain_and_repeats_bit_for_bit(shape, dtype):
+    x = _randn(shape, dtype, sum(shape))
+    n = tsum.sum3d.launches
+    got = tsum.sum3d(x)
+    torch.cuda.synchronize()
+    assert tsum.sum3d.launches == n + 1 and got.dtype == torch.float32 and got.shape == ()
+    want = tsum.sum3d_torch(x)
+    assert abs(float(got) - float(want)) <= 1e-5 * float(x.float().abs().sum()) + 1e-6
+    assert torch.equal(tsum.sum3d(x), got)
+
+
+STENCIL_SHAPES = [(1, 4, 4), (2, 5, 5), (3, 3, 3), (4, 4, 4), (6, 8, 16), (12, 10, 132),
+                  (5, 33, 65), (7, 2, 9)]
+
+
+@pytest.mark.parametrize("shape", STENCIL_SHAPES, ids=_ids(STENCIL_SHAPES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_stencil3d_kernel_matches_plain(shape, dtype):
+    x = _randn(shape, dtype, 3)
+    n = tst.stencil3d.launches
+    got = tst.stencil3d(x)
+    torch.cuda.synchronize()
+    assert tst.stencil3d.launches == n + 1 and got.dtype == dtype
+    assert torch.equal(got, tst.stencil3d_torch(x))
+    if min(shape) < 3:
+        assert not got.any()
+
+
+TINY_CASES = [(1, 1, 1), (10, 3, 3), (513, 5, 7), (70001, 8, 8), (257, 1, 8), (100, 8, 1)]
+
+
+@pytest.mark.parametrize("case", TINY_CASES, ids=_ids(TINY_CASES))
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_tinymatsum_kernels_match_plain(case, static, dtype):
+    o, s = _randn(case, dtype, 4), _randn(case, dtype, 5)
+    fn = ttiny.tinymatsum_static if static else ttiny.tinymatsum_dynamic
+    n = fn.launches
+    got = fn(o, s)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1 and got.dtype == dtype
+    assert torch.equal(got, ttiny.tinymatsum_torch(o, s))
+
+
+def test_tinymatsum_static_refuses_uninstantiated_extents():
+    o = _randn((4, 9, 3), torch.float32, 6)
+    with pytest.raises(ValueError, match="instantiated"):
+        ttiny.tinymatsum_static(o, o)
+    torch.testing.assert_close(ttiny.tinymatsum_dynamic(o, o, jmax=9), o + o)
+
+
+MATVEC_SHAPES = [(1, 1), (3, 5), (8, 128), (200, 384), (257, 1000)]
+
+
+@pytest.mark.parametrize("shape", MATVEC_SHAPES, ids=_ids(MATVEC_SHAPES))
+@pytest.mark.parametrize("layout", ["right", "left"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_matvec_kernels_match_plain(shape, layout, dtype):
+    a, x = _randn(shape, dtype, 7), _randn(shape[1:], dtype, 8)
+    fn = tmv.matvec_right if layout == "right" else tmv.matvec_left
+    buf = a if layout == "right" else a.t().contiguous()
+    n = fn.launches
+    got = fn(buf, x)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1 and got.dtype == dtype and got.shape == shape[:1]
+    want = tmv.matvec_torch(a, x)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert _within_one_bf16_ulp(got, want, atol=2e-4)
+
+
+def test_paper_wrappers_refuse_what_the_kernels_do_not_take():
+    a = _randn((8, 16), torch.float32, 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmv.matvec_left(a.t(), _randn((16,), torch.float32, 1))
+    with pytest.raises(TypeError, match="dtype"):
+        tmv.matvec_right(a, _randn((16,), torch.bfloat16, 1))
+    with pytest.raises(ValueError, match="shapes"):
+        tmv.matvec_right(a, _randn((8,), torch.float32, 1))
+    with pytest.raises(TypeError):
+        tsum.sum3d(a.to(torch.float16).reshape(2, 4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ttiny.tinymatsum_static(_randn((2, 3, 3), torch.float32, 1), torch.zeros(2, 3, 3))
+
+
+@pytest.mark.parametrize("order", ["right", "left"])
+def test_ops_dispatch_on_the_layout_launches_the_kernels(order):
+    lay = LayoutRight if order == "right" else LayoutLeft
+    x3 = _randn((6, 10, 132), torch.float32, 10)
+    a, v = _randn((200, 384), torch.float32, 11), _randn((384,), torch.float32, 12)
+    s3 = MdSpan.from_dense(x3, layout=lay(Extents.fully_dynamic(6, 10, 132)))
+    sa = MdSpan.from_dense(a, layout=lay(Extents.fully_dynamic(200, 384)))
+    mv = "matvec_right" if order == "right" else "matvec_left"
+    for impl in ("auto", "cuda"):
+        kernels.reset_launch_counts()
+        got_sum, got_mv = ops.sum3d(s3, impl=impl), ops.matvec(sa, v, impl=impl)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["sum3d"] == 1 and counts[mv] == 1, counts
+        assert abs(float(got_sum) - float(x3.sum())) <= 1e-5 * float(x3.abs().sum())
+        torch.testing.assert_close(got_mv, tmv.matvec_torch(a, v), rtol=2e-4, atol=2e-4)
+    kernels.reset_launch_counts()
+    ops.sum3d(s3, impl="torch")
+    ops.matvec(sa, v, impl="torch")
+    assert not any(kernels.launch_counts().values())
+
+
+def test_ops_on_plain_cuda_tensors_launch_the_kernels():
+    """A plain CUDA tensor is read as LayoutRight storage: under "auto" and
+    "cuda" the kernel runs on it, never the plain version; a strided one is
+    refused, not copied."""
+    x3 = _randn((5, 9, 131), torch.float32, 13)
+    a, v = _randn((70, 129), torch.float32, 14), _randn((129,), torch.float32, 15)
+    for impl in ("auto", "cuda"):
+        kernels.reset_launch_counts()
+        got_sum, got_mv = ops.sum3d(x3, impl=impl), ops.matvec(a, v, impl=impl)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["sum3d"] == 1 and counts["matvec_right"] == 1, counts
+        assert abs(float(got_sum) - float(x3.sum())) <= 1e-5 * float(x3.abs().sum())
+        torch.testing.assert_close(got_mv, tmv.matvec_torch(a, v), rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sum3d(x3.transpose(0, 2), impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.matvec(a.t().contiguous().t(), v, impl="cuda")

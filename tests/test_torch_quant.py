@@ -256,7 +256,8 @@ def test_cpu_quant_wrappers_return_the_plain_versions(bits):
 def test_launch_counts_cover_every_kernel():
     assert set(kernels.launch_counts()) == {
         "paged_decode", "paged_prefill_chunk", "paged_decode_quant",
-        "paged_prefill_chunk_quant", "quant_matmul",
+        "paged_prefill_chunk_quant", "quant_matmul", "sum3d", "stencil3d",
+        "tinymatsum_static", "tinymatsum_dynamic", "matvec_right", "matvec_left",
     }
 
 
