@@ -22,11 +22,31 @@ lines; any failure raises and exits non-zero:
                 same function as a yardstick (scaled_dot_product_attention
                 over the densified, dequantized cache; torch.matmul on the
                 dequantized weight), timed here only: the port never calls it.
+                Then the dense-cache kernels at the generate phase's shapes:
+                flash_attention on qwen2's prefill (8, 14, 256, 64) causal,
+                the engine's (1, 14, 512, 64) and a windowed case;
+                flash_decode on (8, 14, 1, 64) against (8, 2, 288, 64) caches
+                at pos 0-287, one windowed; ssd_scan at mamba2-780m's width
+                (2, 512, 48, 64), N 128, a ragged T 389 and an initial state,
+                and the generate phase's B 4 at T 512 and 389 (tolerance 1e-4 f32, bf16 y one ulp + 1e-4; no library call
+                computes the scan, so its library_ms is null).
+  generate      the dense-cache serve path, make_prefill(max_len) then
+                make_serve_step greedily: qwen2-0.5b (B 8, prompts of 256,
+                32 new tokens) and mamba2-780m (B 4, prompts of 512 and 389,
+                32 new tokens) at full width in f32, kernel tokens against
+                the same path with attn_impl="torch" on the card, with the
+                prefill and last-step logits drift: qwen2 at 2 layers, at 24
+                on the reference's init (printed, not gated: chaotic at
+                depth) and at 24 rescaled (condition_attention); mamba2 at 2
+                and 48 layers. Then one bf16 run of each: prefill ms, step ms
+                p50, tokens/s and launches per kernel, counts zeroed just
+                before and read just after (the kernels line reports them).
   engine_exact  qwen2-0.5b at full width in f32, random weights from a
                 seeded generator: six requests through ServeEngine with
-                monolithic and with chunked prefill, a pool small enough to
-                preempt; greedy tokens must equal an unbatched Model.forward
-                recompute. Run twice: at 2 layers with the reference's init,
+                monolithic (its prefill launches flash_attention) and with
+                chunked prefill, a pool small enough to preempt; greedy
+                tokens must equal an unbatched Model.forward recompute on
+                the plain attention (attn_impl="torch"). Run twice: at 2 layers with the reference's init,
                 and at all 24 layers with the attention projections rescaled
                 to their true fan-in (see condition_attention). Before it,
                 three lines measure how far two plain computations of the
@@ -70,8 +90,9 @@ lines; any failure raises and exits non-zero:
                 kernel launched. Tolerances: sum3d 1e-5 * sum(|x|), stencil
                 1e-4, tinymatsum 1e-6 (bf16 2e-2), matvec 1e-5 *
                 sum_j |A_ij v_j| per row (sums of up to 16384 terms).
-  kernels line  {"kernels": [...]} with each ported kernel's numbers, plus the
-                TPU kernels still to be ported.
+  kernels line  {"kernels": [...]} with each ported kernel's numbers (14 of
+                the reference's 15 Pallas functions), plus the one still to
+                be ported (rglru_scan).
 
 Then the card's name and power limit as nvidia-smi prints them, and as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -96,6 +117,7 @@ SERVE_RUNS = 3  # serve runs in one process: the host-bound metrics spread from 
 NOMINAL_BW = 3.35e12  # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, data sheet
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAPER_SOURCE = "src/repro_torch/kernels/csrc/paper_suite.cu"
 PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "paged_decode": ("src/repro/kernels/paged_attention.py:151", ATTN_SOURCE),
@@ -110,15 +132,16 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "tinymatsum_dynamic": ("src/repro/kernels/tinymatsum.py:65", PAPER_SOURCE),
     "matvec_right": ("src/repro/kernels/matvec.py:33", PAPER_SOURCE),
     "matvec_left": ("src/repro/kernels/matvec.py:64", PAPER_SOURCE),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:104", FLASH_SOURCE),
+    "flash_decode": ("src/repro/kernels/flash_attention.py:222", FLASH_SOURCE),
+    "ssd_scan": ("src/repro/kernels/ssd_scan.py:85", "src/repro_torch/kernels/csrc/ssd_scan.cu"),
 }
 DENSE_PATH = ("paged_decode", "paged_prefill_chunk")
+GENERATE_PATH = ("flash_attention", "flash_decode", "ssd_scan")
 QUANT_PATH = ("paged_decode_quant", "paged_prefill_chunk_quant", "quant_matmul")
 PAPER_PATH = ("sum3d", "stencil3d", "tinymatsum_static", "tinymatsum_dynamic", "matvec_right",
               "matvec_left")
 NOT_PORTED = [
-    ("flash_attention", "src/repro/kernels/flash_attention.py:104"),
-    ("flash_decode", "src/repro/kernels/flash_attention.py:222"),
-    ("ssd_scan", "src/repro/kernels/ssd_scan.py:85"),
     ("rglru_scan", "src/repro/kernels/rglru_scan.py:50"),
 ]
 
@@ -180,8 +203,9 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor):
 def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
                    tolerance=None, phase="kernels"):
     """One kernel against its plain version on the same inputs, then timed
-    beside the plain version and the library call; ``tolerance(got, want)``
-    -> (ok, description) replaces the default f32 / bf16 rule."""
+    beside the plain version and the library call (None where no single
+    PyTorch call computes the function); ``tolerance(got, want)`` ->
+    (ok, description) replaces the default f32 / bf16 rule."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
@@ -203,7 +227,7 @@ def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
         "phase": phase, "kernel": name, "dtype": str(dtype).split(".")[1], **case,
         "max_abs_err": err, "tolerance": tol, "ok": ok, **extra,
         "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5),
-        "library_ms": time_ms(library, reps=10),
+        "library_ms": time_ms(library, reps=10) if library is not None else None,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_ms_nominal_bw": max(nbytes / NOMINAL_BW, t_ops) * 1e3,
@@ -337,7 +361,134 @@ def kernel_phase(bw):
                 if dtype == torch.bfloat16 and c == 128 and bits == 8:
                     main["paged_prefill_chunk_quant"] = rec
     main["quant_matmul"] = quant_matmul_checks(bw, g)
+    main.update(dense_cache_checks(bw, g))
     torch.cuda.synchronize()
+    return main
+
+
+def _causal_keys(tq, tk, off, window=None):
+    """Live (query, key) pairs of a causal band: query i at off + i sees keys
+    j <= off + i (and j > off + i - window)."""
+    q_pos = torch.arange(tq)[:, None] + off
+    j = torch.arange(tk)[None, :]
+    live = j <= q_pos
+    if window is not None:
+        live &= j > q_pos - window
+    return int(live.sum())
+
+
+def _ssd_tolerance(n_y, dtype):
+    """y (the first n_y values, in x's dtype) and the f32 final state: f32
+    within rtol/atol 1e-4 (the kernel's 64-step chunks sum in another order
+    than the plain version's); bf16 y within one bf16 ulp of the plain
+    output + 1e-4."""
+    def tolerance(got, want):
+        st_ok = bool(torch.allclose(got[n_y:], want[n_y:], rtol=1e-4, atol=1e-4))
+        if dtype == torch.float32:
+            return st_ok and bool(torch.allclose(got[:n_y], want[:n_y], rtol=1e-4, atol=1e-4)), \
+                "allclose rtol=atol=1e-4 (y and final state)"
+        w = want[:n_y]
+        _, e = torch.frexp(w)
+        ulp = torch.ldexp(torch.ones_like(w), e - 8)
+        y_ok = bool(((got[:n_y] - w).abs() <= ulp + 1e-4).all())
+        return st_ok and y_ok, "y <= 1 bf16 ulp + 1e-4; final state allclose 1e-4"
+    return tolerance
+
+
+def ssd_flops(b, t, h, p, n, q=64):
+    """Multiply-adds x 2 of the chunked SSD at the kernel's chunk q, lower
+    triangles only, C . B once per (sequence, chunk) (the heads share it)."""
+    flops = 0
+    for c0 in range(0, t, q):
+        m = min(q, t - c0)
+        tri = m * (m + 1) // 2
+        flops += b * (2 * tri * n + h * (2 * m * p * n + 2 * tri * p + 2 * m * p * n))
+    return flops
+
+
+def dense_cache_checks(bw, g):
+    """flash_attention, flash_decode and ssd_scan against their plain versions
+    at the generate phase's shapes: qwen2 prefill (8, 14, 256, 64) causal and
+    the engine's (1, 14, 512, 64), a windowed prefill; decode (8, 14, 1, 64)
+    against (8, 2, 288, 64) caches at several positions, one with a window;
+    SSD (2, 512, 48, 64) with N 128 (the plain version at chunk 128), a ragged
+    T 389 (plain chunk = T, the model's setting) and an initial state, and the
+    generate phase's own B 4 at T 512 and 389. f32 and bf16. Returns the bf16
+    records at the generate phase's main shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        esz = torch.tensor([], dtype=dtype).element_size()
+        rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+        for b, t, window in ((8, 256, None), (1, 512, None), (8, 256, 64)):
+            q, k, v = rnd(b, 14, t, 64), rnd(b, 2, t, 64), rnd(b, 2, t, 64)
+            keys = _causal_keys(t, t, 0, window)
+            if window is None:
+                library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True)
+            else:
+                live = torch.arange(t, device="cuda")
+                mask = (live[None, :] <= live[:, None]) & (live[None, :] > live[:, None] - window)
+                library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                 enable_gqa=True)
+            rec = check_and_time(
+                "flash_attention", dtype,
+                lambda: fa.flash_attention(q, k, v, window=window),
+                lambda: fa.attention_torch(q, k, v, window=window), library,
+                (2 * q.numel() + k.numel() + v.numel()) * esz, 4 * b * 14 * 64 * keys, bw,
+                {"B": b, "Hq": 14, "Hkv": 2, "Tq": t, "Tk": t, "D": 64, "causal": True,
+                 "window": window})
+            if dtype == torch.bfloat16 and (b, t, window) == (8, 256, None):
+                main["flash_attention"] = rec
+        S = 288
+        q, kc, vc = rnd(8, 14, 1, 64), rnd(8, 2, S, 64), rnd(8, 2, S, 64)
+        slots = torch.arange(S, device="cuda")
+        for pos, window in ((0, None), (100, None), (271, None), (287, None), (287, 64)):
+            pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            live = slots <= pos
+            if window is not None:
+                live &= slots > pos - window
+            n_live = int(live.sum())
+            rec = check_and_time(
+                "flash_decode", dtype,
+                lambda: fa.flash_decode(q, kc, vc, pos_t, window=window),
+                lambda: fa.decode_attention_torch(q, kc, vc, pos, window=window),
+                lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=live[None, None, None],
+                                                       enable_gqa=True),
+                2 * q.numel() * esz + 4 + 2 * 8 * 2 * n_live * 64 * esz,
+                4 * 8 * 14 * 64 * n_live, bw,
+                {"B": 8, "Hq": 14, "Hkv": 2, "S": S, "D": 64, "pos": pos, "window": window})
+            if dtype == torch.bfloat16 and (pos, window) == (271, None):
+                main["flash_decode"] = rec
+        for b, t, h, p, n, chunk, initial in ((2, 512, 48, 64, 128, 128, False),
+                                               (2, 389, 48, 64, 128, 389, False),
+                                               (2, 512, 48, 64, 128, 128, True),
+                                               (4, 512, 48, 64, 128, 128, False),
+                                               (4, 389, 48, 64, 128, 389, False)):
+            x = rnd(b, t, h, p)
+            dt = F.softplus(torch.randn(b, t, h, generator=g, device="cuda"))
+            A = -torch.exp(0.3 * torch.randn(h, generator=g, device="cuda"))
+            Bm, Cm = rnd(b, t, 1, n) * 0.3, rnd(b, t, 1, n) * 0.3
+            s0 = torch.randn(b, h, p, n, generator=g, device="cuda") if initial else None
+            flat = lambda y, s: torch.cat([y.float().flatten(), s.flatten()])
+            state_bytes = b * h * p * n * 4 * (2 if initial else 1)
+            rec = check_and_time(
+                "ssd_scan", dtype,
+                lambda: flat(*ss.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0,
+                                          return_final_state=True)),
+                lambda: flat(*ss.ssd_torch(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0,
+                                           return_final_state=True)),
+                None,
+                (2 * x.numel() + Bm.numel() + Cm.numel()) * esz + dt.numel() * 4 + h * 4
+                + state_bytes, ssd_flops(b, t, h, p, n), bw,
+                {"b": b, "t": t, "h": h, "p": p, "n": n, "plain_chunk": chunk,
+                 "initial_state": initial},
+                tolerance=_ssd_tolerance(x.numel(), dtype))
+            if dtype == torch.bfloat16 and (b, t, initial) == (4, 512, False):
+                main["ssd_scan"] = rec
     return main
 
 
@@ -647,15 +798,170 @@ def paper_phase(bw):
 
 
 # =====================================================================================
+# phase: generate (the dense-cache serve path)
+# =====================================================================================
+GEN_CELLS = {  # arch -> batch, prompt lengths (the first also for the bf16 timing), new tokens
+    "qwen2-0.5b": dict(batch=8, prompts=(256,), new=32, need=("flash_attention", "flash_decode")),
+    "mamba2-780m": dict(batch=4, prompts=(512, 389), new=32, need=("ssd_scan",)),
+}
+
+
+def generate(model, params, prompts, n_new, attn_impl):
+    """Greedy serving on the dense cache as a user drives it:
+    make_prefill(max_len) then make_serve_step, one token per row per step.
+    Returns (tokens (B, n_new) as lists, the prefill's and the last step's
+    logits, prefill seconds, per-step seconds)."""
+    from repro_torch.serving import make_prefill, make_serve_step
+
+    vocab, s = model.cfg.vocab, prompts.shape[1]
+    prefill = make_prefill(model, max_len=s + n_new, attn_impl=attn_impl)
+    step = make_serve_step(model, attn_impl=attn_impl)
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompts)
+    nxt = torch.argmax(logits[:, -1, :vocab], dim=-1).to(torch.int32)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    first, out, steps = logits[:, -1].float(), [nxt], []
+    for i in range(n_new - 1):
+        t0 = time.perf_counter()
+        logits, caches = step(params, caches, nxt, s + i)
+        nxt = torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+        sync()
+        steps.append(time.perf_counter() - t0)
+        out.append(nxt)
+    return torch.stack(out, dim=1).tolist(), (first, logits.float()), prefill_s, steps
+
+
+def generate_model(arch, dtype, n_layers=None, smoke=False, device="cuda", conditioned=False):
+    """The model at full width (``n_layers`` deep unless smoke), random weights
+    from a seeded generator, rescaled by condition_attention if asked."""
+    from repro_torch.models import build_model, get_config
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype=dtype)
+    if n_layers and not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, device=device)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    if conditioned:
+        condition_attention(cfg, params)
+    return cfg, model, params
+
+
+def generate_exact(arch, n_layers, gate, conditioned=False, smoke=False, device="cuda"):
+    """f32 greedy tokens on the kernels against the same path with the plain
+    versions (attn_impl="torch") on the same device, for each prompt length
+    of the cell, with the prefill and last-step logits drift. ``gate``: the
+    tokens must be equal (left off where the reference's init is chaotic at
+    that depth: the drift and the outcome are printed all the same)."""
+    from repro_torch import kernels
+
+    cell = GEN_CELLS[arch]
+    cfg, model, params = generate_model(arch, "float32", n_layers, smoke, device, conditioned)
+    rng = np.random.default_rng(2)
+    recs = []
+    for s in cell["prompts"]:
+        prompts = torch.tensor(rng.integers(0, cfg.vocab, size=(cell["batch"], s)),
+                               device=model.device)
+        kernels.reset_launch_counts()
+        got, (pk, lk), _, _ = generate(model, params, prompts, cell["new"], "auto")
+        launches = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        want, (pp, lp), _, _ = generate(model, params, prompts, cell["new"], "torch")
+        plain_launches = sum(kernels.launch_counts()[k] for k in cell["need"])
+        diff = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+                for g, w in zip(got, want)]
+        rec = {"phase": "generate_exact", "model": cfg.name, "dtype": "float32",
+               "n_layers": cfg.n_layers, "init": "conditioned" if conditioned else "reference",
+               "batch": cell["batch"], "prompt_len": s, "new_tokens": cell["new"],
+               "tokens_equal_plain": got == want, "first_differing_step": diff,
+               "prefill_logits_max_abs_diff": float((pk - pp).abs().max()),
+               "last_step_logits_max_abs_diff": float((lk - lp).abs().max()),
+               "gated": gate, "launches": {k: launches[k] for k in cell["need"]},
+               "plain_path_launches": plain_launches}
+        emit(rec)
+        if gate and got != want:
+            raise AssertionError(f"generate {cfg.name} at {cfg.n_layers} layers: kernel tokens "
+                                 f"differ from the plain path's: {diff}")
+        if plain_launches:
+            raise AssertionError(f"the plain path launched a kernel: {kernels.launch_counts()}")
+        if device == "cuda":
+            for k in cell["need"]:
+                if launches[k] <= 0:
+                    raise AssertionError(f"generate {cfg.name} never launched {k}")
+        recs.append(rec)
+    return recs
+
+
+def generate_timed(arch, smoke=False, device="cuda"):
+    """The cell in the config dtype (bfloat16) on the kernels: a warm-up run,
+    then one run with launch counts zeroed just before and read just after;
+    prefill ms, step ms p50, tokens/s, launches per kernel."""
+    from repro_torch import kernels
+
+    cell = GEN_CELLS[arch]
+    cfg, model, params = generate_model(arch, "bfloat16", None, smoke, device)
+    rng = np.random.default_rng(3)
+    s = cell["prompts"][0]
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, size=(cell["batch"], s)),
+                           device=model.device)
+    generate(model, params, prompts, 4, "auto")  # warm-up: allocator, cuBLAS handles
+    kernels.reset_launch_counts()
+    toks, (first, last), prefill_s, steps = generate(model, params, prompts, cell["new"], "auto")
+    launches = kernels.launch_counts()
+    wall = prefill_s + sum(steps)
+    rec = {"phase": "generate", "model": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "batch": cell["batch"],
+           "prompt_len": s, "new_tokens": cell["new"], "prefill_ms": prefill_s * 1e3,
+           "step_ms_p50": statistics.median(steps) * 1e3, "step_ms_max": max(steps) * 1e3,
+           "tokens_per_s": cell["batch"] * cell["new"] / wall, "wall_s": wall,
+           "launches": {k: launches[k] for k in cell["need"]},
+           "launches_per_step": {k: launches[k] / cell["new"] for k in cell["need"]}}
+    emit(rec)
+    finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(last).all())
+    if not finite or not all(0 <= tok < cfg.vocab for row in toks for tok in row):
+        raise AssertionError(f"generate {cfg.name}: non-finite logits or a token outside the "
+                             "vocabulary")
+    if device == "cuda":
+        for k in cell["need"]:
+            if launches[k] <= 0:
+                raise AssertionError(f"generate {cfg.name} never launched {k}")
+    return rec
+
+
+def generate_phase(smoke=False, device="cuda"):
+    """qwen2-0.5b (24 layers) and mamba2-780m (48 layers) at full width: f32
+    token equality with the plain path (qwen2 at 2 layers on the reference's
+    init, at 24 on it (printed, not gated: chaotic at depth) and at 24
+    rescaled; mamba2 at 2 and 48 layers), then the bf16 timed runs. Returns
+    the launch counts of the bf16 runs (the main path's)."""
+    generate_exact("qwen2-0.5b", 2, True, smoke=smoke, device=device)
+    generate_exact("qwen2-0.5b", 24, False, smoke=smoke, device=device)
+    generate_exact("qwen2-0.5b", 24, True, conditioned=True, smoke=smoke, device=device)
+    generate_exact("mamba2-780m", 2, True, smoke=smoke, device=device)
+    generate_exact("mamba2-780m", 48, True, smoke=smoke, device=device)
+    launches = {}
+    for arch in GEN_CELLS:
+        launches.update(generate_timed(arch, smoke=smoke, device=device)["launches"])
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return launches
+
+
+# =====================================================================================
 # phases: engine_exact and serve
 # =====================================================================================
 def oracle_greedy(model, params, prompt, n, vocab):
     """Unbatched recompute: the whole context through Model.forward (plain
-    attention, no paged cache), argmax of the last row, n times."""
+    attention: attn_impl="torch", so the oracle never runs a kernel under
+    test; no paged cache), argmax of the last row, n times."""
     ctx = list(prompt)
     out = []
     for _ in range(n):
-        logits, _ = model.forward(params, torch.tensor([ctx], device=model.device))
+        logits, _ = model.forward(params, torch.tensor([ctx], device=model.device),
+                                  attn_impl="torch")
         tok = int(torch.argmax(logits[0, -1, :vocab]))
         out.append(tok)
         ctx.append(tok)
@@ -709,10 +1015,10 @@ def depth_sensitivity(prompt, layers, conditioned=False, device="cuda"):
     if conditioned:
         condition_attention(cfg, params)
     toks = torch.tensor([prompt], device=device)
-    fwd, _ = model.forward(params, toks)
+    fwd, _ = model.forward(params, toks, attn_impl="torch")
     padded = torch.zeros((1, -(-len(prompt) // 16) * 16), dtype=toks.dtype, device=device)
     padded[0, :len(prompt)] = toks[0]
-    pre, _ = model.prefill(params, padded, last_index=len(prompt) - 1)
+    pre, _ = model.prefill(params, padded, last_index=len(prompt) - 1, attn_impl="torch")
     a, b = fwd[0, -1, :cfg.vocab], pre[0, 0, :cfg.vocab]
     rec = {"phase": "engine_exact_sensitivity", "n_layers": layers,
            "init": "conditioned" if conditioned else "reference", "prompt_len": len(prompt),
@@ -803,10 +1109,10 @@ def engine_exact_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", pool_p
             "tokens_equal_oracle": got == want, "preemptions": m["preemptions"],
             "pages_shared": m["pages_shared"], "cow_copies": m["cow_copies"],
             "prefill_tokens_skipped": m["prefill_tokens_skipped"],
-            "launches": {k: launches[k] for k in DENSE_PATH},
+            "launches": {k: launches[k] for k in DENSE_PATH + ("flash_attention",)},
             "wall_s": wall, "oracle_s": oracle_s,
         }
-        need = DENSE_PATH if mode == "chunked" else DENSE_PATH[:1]
+        need = DENSE_PATH if mode == "chunked" else ("paged_decode", "flash_attention")
         check_exact(rec, got, want, m, launches, need, device)
         runs[mode] = rec
     return runs
@@ -851,9 +1157,11 @@ def engine_exact_quant_phase(kv_dtype, cfg_name="qwen2-0.5b", smoke=False, devic
             "first_differing_token": first_diff, "preemptions": m["preemptions"],
             "preemptions_cpu": m_cpu["preemptions"], "pages_shared": m["pages_shared"],
             "cow_copies": m["cow_copies"], "kv_pool_bytes": m["kv_pool_bytes"],
-            "launches": {k: launches[k] for k in QUANT_PATH}, "wall_s": wall, "cpu_s": cpu_s,
+            "launches": {k: launches[k] for k in QUANT_PATH + ("flash_attention",)},
+            "wall_s": wall, "cpu_s": cpu_s,
         }
-        need = QUANT_PATH if mode == "chunked" else ("paged_decode_quant", "quant_matmul")
+        need = (QUANT_PATH if mode == "chunked"
+                else ("paged_decode_quant", "quant_matmul", "flash_attention"))
         check_exact(rec, got, want, m, launches, need, device)
         runs[mode] = rec
     return runs
@@ -992,6 +1300,9 @@ def main() -> int:
     main_recs.update(paper_recs)
     t_phase["paper"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    gen_launches = generate_phase()
+    t_phase["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     prompt = exact_requests(151936)[0]
     for layers, conditioned in ((2, False), (24, False), (24, True)):
         depth_sensitivity(prompt, layers, conditioned)
@@ -1016,7 +1327,7 @@ def main() -> int:
     serve_quant = serve_quant_phase(serve["kv_pool_bytes"])
     t_phase["serve_quant"] = time.perf_counter() - t0
     launches = {**serve["launches"], **serve_quant["int8"]["launches"],
-                **{k: paper_launches[k] for k in PAPER_PATH}}
+                **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches}
     kernels = []
     for name, (replaces, source) in PORTED.items():
         rec = main_recs[name]

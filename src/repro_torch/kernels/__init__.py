@@ -8,10 +8,22 @@ API. Importing builds nothing. Each wrapper counts its kernel's launches in
 """
 from typing import Dict
 
-from . import matvec, ops, paged_attention, quant_matmul, stencil3d, sum3d, tinymatsum
+from . import (
+    flash_attention,
+    matvec,
+    ops,
+    paged_attention,
+    quant_matmul,
+    ssd_scan,
+    stencil3d,
+    sum3d,
+    tinymatsum,
+)
 
 KERNEL_WRAPPERS = {
     **paged_attention.KERNEL_WRAPPERS,
+    **flash_attention.KERNEL_WRAPPERS,
+    **ssd_scan.KERNEL_WRAPPERS,
     **quant_matmul.KERNEL_WRAPPERS,
     **sum3d.KERNEL_WRAPPERS,
     **stencil3d.KERNEL_WRAPPERS,

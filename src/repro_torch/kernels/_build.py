@@ -3,8 +3,8 @@
 Each source under ``csrc/`` compiles to one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``, into
 ``build/`` at the root of the checkout. The library's name carries a hash of
-the source and the flags, so a stale build is never loaded and a finished one
-is reused. ``load(name)`` builds on first use; ``build_all()`` starts one nvcc
+the source, the shared headers (``csrc/*.cuh``) and the flags, so a stale
+build is never loaded and a finished one is reused. ``load(name)`` builds on first use; ``build_all()`` starts one nvcc
 per source, all at once, and waits for them. ``Binding`` declares a source's C
 entries and launches them, raising on a non-zero CUDA error code. Nothing is
 built at import.
@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"paged_attention": "paged_attention.cu", "quant_matmul": "quant_matmul.cu",
-           "paper_suite": "paper_suite.cu"}
+           "paper_suite": "paper_suite.cu", "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -49,8 +50,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    """The library's path; its name hashes the source, every header under
+    ``csrc/`` (the sources include them) and the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}_{digest}.so"
 
 

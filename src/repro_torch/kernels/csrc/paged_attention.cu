@@ -50,38 +50,18 @@
 // block_pages (the reference's decode block-shape knob) is accepted by the
 // Python wrapper for API parity and is not used here: the tile width is fixed
 // by the head dim, and the result never depends on it.
+//
+// The tile stage, the online-softmax update (flash_tile) and the shared-memory
+// opt-in live in common.cuh, shared with the dense-cache kernels
+// (flash_attention.cu).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kDecodeThreads = 128;
 constexpr int kChunkThreads = 256;
 constexpr int kChunkRows = 64;          // query rows (t-major: t * G + g) per block
-constexpr size_t kMaxSmem = 232448;     // opt-in shared memory per block on sm_90
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Tokens per shared-memory K/V tile: ~64, fewer for wide heads, and always a
 // whole number of pages.
@@ -90,26 +70,6 @@ __host__ __device__ inline int tile_pages(int page_size) {
   const int target = D <= 64 ? 64 : 32;
   const int n = target / page_size;
   return n > 0 ? n : 1;
-}
-
-// Stage NT token slots of K and V in shared memory as f32. ``src(t)`` gives
-// the row index (in units of one head vector) of slot t in the source arrays,
-// or -1 for a slot that holds nothing (it is zero-filled and masked dead by
-// the caller).
-template <typename T, int D, typename Src>
-__device__ inline void load_kv_tile(const T* __restrict__ k, const T* __restrict__ v,
-                                    float* k_s, float* v_s, int NT, Src src) {
-  for (int i = threadIdx.x; i < NT * D; i += blockDim.x) {
-    const int t = i / D, d = i - t * D;
-    const long long row = src(t);
-    float kv = 0.f, vv = 0.f;
-    if (row >= 0) {
-      kv = to_f32(k[row * D + d]);
-      vv = to_f32(v[row * D + d]);
-    }
-    k_s[t * (D + 1) + d] = kv;
-    v_s[t * D + d] = vv;
-  }
 }
 
 // A pool of dense pages in T (the unquantized kernels).
@@ -180,62 +140,6 @@ struct QuantPool {
     }
   }
 };
-
-// One online-softmax accumulation over a staged (NT, D) K/V tile for R query
-// rows (the reference's _flash_update). Dead (row, slot) pairs are masked by
-// liveness, never by the exponent alone: exp(NEG_INF - NEG_INF) == 1 on an
-// all-dead tile. Ends with a barrier, so the caller may restage the tile.
-template <int D, typename Live>
-__device__ inline void flash_tile(const float* q_s, const float* k_s, const float* v_s,
-                                  float* s_s, float* m_s, float* l_s, float* alpha_s,
-                                  float* acc_s, int R, int NT, float scale, Live live) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  for (int idx = tid; idx < R * NT; idx += nthr) {
-    const int r = idx / NT, t = idx - r * NT;
-    float s = kNegInf;
-    if (live(r, t)) {
-      const float* qr = q_s + r * D;
-      const float* kt = k_s + t * (D + 1);
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kt[d], dot);
-      s = dot * scale;
-    }
-    s_s[idx] = s;
-  }
-  __syncthreads();
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  for (int r = warp; r < R; r += nwarps) {
-    float* sr = s_s + r * NT;
-    float mx = kNegInf;
-    for (int t = lane; t < NT; t += 32) mx = fmaxf(mx, sr[t]);
-    mx = warp_max(mx);
-    const float m_prev = m_s[r];
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.f;
-    for (int t = lane; t < NT; t += 32) {
-      const float p = live(r, t) ? expf(sr[t] - m_new) : 0.f;
-      sr[t] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float alpha = expf(m_prev - m_new);
-      alpha_s[r] = alpha;
-      l_s[r] = alpha * l_s[r] + sum;
-      m_s[r] = m_new;
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < R * D; idx += nthr) {
-    const int r = idx / D, d = idx - r * D;
-    const float* pr = s_s + r * NT;
-    float a = acc_s[idx] * alpha_s[r];
-    for (int t = 0; t < NT; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
-    acc_s[idx] = a;
-  }
-  __syncthreads();
-}
 
 struct PagedSrc {
   const int* row;  // this sequence's block-table row
@@ -402,27 +306,6 @@ paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ chunk_k,
     out[((static_cast<size_t>(b) * hq + h * G + g) * chunk + t) * D + d] =
         from_f32<T>(acc_s[i] / (l == 0.f ? 1.f : l));
   }
-}
-
-// Opt ``kern`` in to ``smem`` bytes of dynamic shared memory. The attribute
-// is raised once per (kernel instantiation, device) and only when a launch
-// needs more than before: ``opted`` remembers the level already set, so the
-// steady serving loop makes no driver call here.
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kern, size_t smem, size_t* opted) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= opted[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e == cudaSuccess) opted[dev] = smem;
-  return e;
 }
 
 template <typename T, int D, typename Pool>

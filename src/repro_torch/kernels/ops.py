@@ -1,17 +1,18 @@
 """ops — the public kernel API of the port, with impl dispatch.
 
-Port of ``repro.kernels.ops``: the serving path's kernels and the paper-suite
-dispatchers (``sum3d`` / ``matvec`` / ``tinymatsum`` / ``stencil3d``), where
-an MdSpan's layout type selects the kernel schedule. ``impl`` replaces the
-reference's ``_want_pallas``:
+Port of ``repro.kernels.ops``: the serving paths' kernels (dense attention
+and decode, paged attention, the quantized matmul, the Mamba-2 SSD scan) and
+the paper-suite dispatchers (``sum3d`` / ``matvec`` / ``tinymatsum`` /
+``stencil3d``), where an MdSpan's layout type selects the kernel schedule.
+``impl`` replaces the reference's ``_want_pallas``:
 
   "cuda"   the hand-written kernel; raises unless the operands are CUDA tensors
   "torch"  the plain PyTorch version
   "auto"   the kernel for CUDA tensors, the plain version for CPU tensors
 
-``attention`` (monolithic prefill) and ``sample_tokens`` are plain PyTorch in
-the reference too (jnp, not Pallas), so they have no kernel here either; a
-dense ``matmul`` is ``torch.matmul``, as the reference leaves it to XLA.
+``sample_tokens`` and ``ssd_decode_step`` are plain PyTorch in the reference
+too (jnp, not Pallas), so they have no kernel here either; a dense ``matmul``
+is ``torch.matmul``, as the reference leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -23,9 +24,14 @@ import torch
 from repro_torch.core.layouts import LayoutLeft, LayoutRight
 from repro_torch.core.mdspan import MdSpan
 
+from .flash_attention import (
+    attention_torch,
+    decode_attention_torch,
+    flash_attention,
+    flash_decode,
+)
 from .matvec import matvec_left, matvec_right, matvec_torch
 from .paged_attention import (
-    NEG_INF,
     paged_decode_attention_quant_torch,
     paged_decode_attention_torch,
     paged_flash_decode,
@@ -36,6 +42,7 @@ from .paged_attention import (
     paged_prefill_chunk_torch,
 )
 from .quant_matmul import quant_matmul, quant_matmul_torch
+from .ssd_scan import ssd_scan, ssd_torch
 from .stencil3d import stencil3d as _stencil3d_kernel
 from .stencil3d import stencil3d_torch
 from .sum3d import sum3d as _sum3d_kernel
@@ -81,42 +88,32 @@ def matmul(x: torch.Tensor, w, accessor=None, *, impl: str = "auto") -> torch.Te
 
 
 # ---------------------------------------------------------------------------------
-# attention (monolithic prefill)
+# dense attention: monolithic prefill and one-token decode over a dense cache
 # ---------------------------------------------------------------------------------
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              q_offset: int = 0, scale: Optional[float] = None,
+              q_offset=0, scale: Optional[float] = None, impl: str = "auto",
               block_k: int = 512) -> torch.Tensor:
-    """Blocked online-softmax GQA attention, the semantics of the reference's
-    ``attention_jnp``: q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D), query row i at
-    absolute position i + q_offset, optional causal mask and local window,
-    f32 sums, fully masked rows output 0. Memory O(Tq * block_k)."""
-    b, hq, tq, d = q.shape
-    _, hkv, tk, _ = k.shape
-    group = hq // hkv
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    q_pos = torch.arange(tq, device=q.device)[:, None] + q_offset
-    m = torch.full((b, hq, tq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hq, tq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, tq, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, tk, block_k):
-        kb = k[:, :, k0:k0 + block_k].float().repeat_interleave(group, dim=1)
-        vb = v[:, :, k0:k0 + block_k].float().repeat_interleave(group, dim=1)
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb)
-        k_pos = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
-        live = torch.ones((tq, kb.shape[2]), dtype=torch.bool, device=q.device)
-        if causal:
-            live = live & (k_pos <= q_pos)
-        if window is not None:
-            live = live & (k_pos > q_pos - window)
-        s = torch.where(live, s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
-        m = m_new
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    """GQA attention, q (B, Hq, Tq, D) against k/v (B, Hkv, Tk, D): query row
+    i at absolute position i + q_offset (an int or a 0-d tensor), optional
+    causal mask and local window, f32 sums, fully masked rows output 0. The
+    kernel is flash_attention (contiguous operands); the plain version is the
+    reference's blocked ``attention_jnp`` (``block_k`` keys a block)."""
+    if _want_kernel(impl, q):
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               scale=scale)
+    return attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                           scale=scale, block_k=block_k)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
+                     scale: Optional[float] = None, impl: str = "auto") -> torch.Tensor:
+    """One-token GQA decode against a dense (B, Hkv, S, D) cache; ``pos`` (an
+    int or a 0-d tensor) is the current token's slot, slots past it are
+    masked. The kernel is flash_decode; the plain version is ``attention``
+    with Tq == 1, causal, q_offset = pos, as in the reference."""
+    if _want_kernel(impl, q):
+        return flash_decode(q, k_cache, v_cache, pos, window=window, scale=scale)
+    return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale)
 
 
 # ---------------------------------------------------------------------------------
@@ -199,6 +196,35 @@ def paged_prefill_chunk_attention_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, 
         q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale, block_tables, cursors,
         bits=bits, scale=scale,
     )
+
+
+# ---------------------------------------------------------------------------------
+# SSD scan (Mamba-2)
+# ---------------------------------------------------------------------------------
+def ssd(x, dt, A, B, C, *, chunk: int = 64, initial_state=None,
+        return_final_state: bool = False, impl: str = "auto"):
+    """Mamba-2 chunked SSD scan. Under "auto", the ssd_scan kernel on CUDA
+    tensors for ngroups 1 (B.shape[2] == 1) and the plain chunked version
+    otherwise, as the reference dispatches; "cuda" always takes the kernel,
+    which refuses ngroups > 1."""
+    kw = dict(chunk=chunk, initial_state=initial_state, return_final_state=return_final_state)
+    if _want_kernel(impl, x) and (impl == "cuda" or B.shape[2] == 1):
+        return ssd_scan(x, dt, A, B, C, **kw)
+    return ssd_torch(x, dt, A, B, C, **kw)
+
+
+def ssd_decode_step(state, xt, dtt, A, Bt, Ct):
+    """Single-token SSM state update (decode), plain PyTorch as in the
+    reference. state (b, h, p, n) f32; xt (b, h, p); dtt (b, h); Bt / Ct (b,
+    g, n). Returns (new state, y (b, h, p) in xt's dtype)."""
+    rep = state.shape[1] // Bt.shape[1]
+    Bh = Bt.repeat_interleave(rep, dim=1).float()
+    Ch = Ct.repeat_interleave(rep, dim=1).float()
+    decay = torch.exp(dtt.float() * A.float()[None, :])
+    upd = (dtt.float()[..., None] * xt.float())[..., None] * Bh[:, :, None, :]
+    state = state * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return state, y.to(xt.dtype)
 
 
 # ---------------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""GQA self-attention of the port: monolithic prefill and the paged serving
-paths (one-token decode, one prefill chunk).
+"""GQA self-attention of the port: monolithic prefill, one-token decode
+against a dense (B, Hkv, S, Dh) cache, and the paged serving paths (one-token
+decode, one prefill chunk).
 
-Port of the paged half of ``repro.models.attention``. Page pools are
+Port of ``repro.models.attention`` without cross-attention, the sharded
+decode and the windowed ring-buffer decode (their slices are not ported
+yet). A dense cache is written IN PLACE at slot ``pos``. Page pools are
 (num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
 (serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
 f32 per (page, head)} for each of k and v. Where the reference returns new
@@ -36,6 +39,13 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
         s["bk"] = ParamSpec((hkv, dh), torch.float32, "zeros")
         s["bv"] = ParamSpec((hkv, dh), torch.float32, "zeros")
     return s
+
+
+def cache_specs(cfg, batch: int, seq: int) -> Dict[str, ParamSpec]:
+    """One layer's dense decode cache, (B, Hkv, S, Dh) for each of k and v."""
+    shape = (batch, cfg.n_kv_heads, seq, cfg.head_dim)
+    return {"k": ParamSpec(shape, cfg.param_dtype, "zeros"),
+            "v": ParamSpec(shape, cfg.param_dtype, "zeros")}
 
 
 def paged_cache_specs(cfg, num_pages: int, page_size: int, kv_spec=None):
@@ -138,19 +148,41 @@ def _out_proj(p, attn_out: torch.Tensor, x_dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------------
 def self_attention(cfg, p, x: torch.Tensor, *, causal: bool = True,
                    window: Optional[int] = None, pos_offset: int = 0,
-                   return_kv: bool = False):
-    """Full-sequence self-attention (forward / monolithic prefill), plain
-    PyTorch attention as in the reference. x: (B, T, D)."""
+                   return_kv: bool = False, impl: str = "auto"):
+    """Full-sequence self-attention (forward / monolithic prefill). x: (B, T,
+    D); ``impl`` picks ops.attention's kernel (flash_attention) or its plain
+    version."""
     t = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     pos = torch.arange(t, device=x.device) + pos_offset
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    out = ops.attention(q, k, v, causal=causal, window=window, q_offset=pos_offset)
+    v = v.contiguous()
+    out = ops.attention(q, k, v, causal=causal, window=window, q_offset=pos_offset, impl=impl)
     y = _out_proj(p, out, x.dtype)
     if return_kv:
         return y, (k, v)
     return y
+
+
+def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos, *,
+                          impl: str = "auto"):
+    """One-token decode against one layer's dense cache.
+
+    x: (B, 1, D); cache k/v: (B, Hkv, S, Dh); ``pos`` (an int or a one-element
+    integer tensor on x's device, < S) is the current token's position. Its
+    K/V is written IN PLACE at slot ``pos``, then ops.decode_attention
+    attends slots <= pos."""
+    posv = pos.reshape(1) if isinstance(pos, torch.Tensor) else torch.full(
+        (1,), int(pos), dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    idx = posv.long()
+    cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
+    out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], posv, impl=impl)
+    return _out_proj(p, out, x.dtype), cache
 
 
 def _page_size(cache, kv_spec) -> int:

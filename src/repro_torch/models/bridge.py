@@ -1,9 +1,10 @@
 """Weight bridge: the reference's parameter pytree (as numpy) -> the port's.
 
 The input is ``jax.tree.map(np.asarray, params)`` of a ``repro`` Model: every
-per-layer leaf is stacked with a leading n_layers dim. The port keeps the
-same leaf names and layouts (wq stays (d, h, k), wo (h, k, d), ...) and one
-dict per layer, so the bridge only splits the layer dim and copies
+per-layer leaf of a block-program entry is stacked with a leading layer dim.
+The port keeps the same leaf names and layouts (wq stays (d, h, k), wo (h,
+k, d), in_proj (d, d_in_proj), ...) and one dict per layer, so the bridge
+only splits the layer dim and copies
 dtype-for-dtype to the device. Quantized weights ({"q", "scale"} leaves of a
 ``build_model(cfg, quantized=True)`` model) come through the same way: int8
 stays int8, f32 scales stay f32, and both split on the layer dim. This
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
+
+from .transformer import block_program
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -38,15 +41,20 @@ def _map(tree, fn):
 
 def from_jax_params(np_tree, cfg, device=None):
     """Port parameters from a numpy copy of the reference's parameter pytree
-    for the dense config ``cfg``: {"embed", "blocks": [[layer dict] * L],
+    for ``cfg`` (a ported family: every entry of ``block_program(cfg)``, dense
+    or ssm): {"embed", "blocks": [[layer dict] * count per program entry],
     "final_norm"} on ``device`` (CUDA unless the caller names one)."""
     device = resolve_device(device)
-    if cfg.family != "dense" or len(np_tree["blocks"]) != 1:
-        raise NotImplementedError(f"bridge covers the dense family, got {cfg.family!r}")
-    stacked = _map(np_tree["blocks"][0], lambda a: _tensor(a, device))
-    layers = [_map(stacked, lambda t, l=l: t[l]) for l in range(cfg.n_layers)]
+    program = block_program(cfg)
+    if len(np_tree["blocks"]) != len(program):
+        raise ValueError(f"{len(np_tree['blocks'])} block stacks for a program of "
+                         f"{len(program)} entries ({program})")
+    blocks = []
+    for (_, n), tree in zip(program, np_tree["blocks"]):
+        stacked = _map(tree, lambda a: _tensor(a, device))
+        blocks.append([_map(stacked, lambda t, l=l: t[l]) for l in range(n)])
     return {
         "embed": _map(np_tree["embed"], lambda a: _tensor(a, device)),
-        "blocks": [layers],
+        "blocks": blocks,
         "final_norm": _tensor(np_tree["final_norm"], device),
     }

@@ -1,8 +1,9 @@
-"""ModelConfig — the dense decoder configuration of the port's first slice.
+"""ModelConfig — the configuration of the port's model families.
 
 Field names and defaults follow ``repro.models.config.ModelConfig`` so a
-config converts field by field; families other than "dense" are refused by
-the registry until their slice is ported.
+config converts field by field. The port runs the "dense" family (GQA
+decoder) and the "ssm" family (Mamba-2 SSD); the registry refuses the others
+until their slice is ported.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" runs in this port so far
+    family: str  # "dense" | "ssm" run in this port (the reference has more)
     n_layers: int
     d_model: int
     vocab: int
@@ -34,6 +35,13 @@ class ModelConfig:
     d_ff: int = 0
     mlp_act: str = "swiglu"
     norm: str = "rmsnorm"
+    # ssm (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_chunk: int = 128
+    conv_kernel: int = 4
     # numerics / embedding
     dtype: str = "bfloat16"
     vocab_pad_to: int = 256
@@ -50,3 +58,16 @@ class ModelConfig:
     @property
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    # ssm derived
+    @property
+    def ssm_dinner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_dinner // self.ssm_headdim
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        return self.ssm_dinner + 2 * self.ssm_ngroups * self.ssm_state

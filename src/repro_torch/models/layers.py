@@ -1,7 +1,7 @@
 """Dense layers of the port: parameter specs and their init, rmsnorm, RoPE,
 SwiGLU MLP, embedding and the tied LM head.
 
-Port of the dense half of ``repro.models.layers``; weights keep the
+Port of what the dense and SSM blocks use of ``repro.models.layers``; weights keep the
 reference's layouts (a dense linear is (d_in, d_out), applied as x @ w; a
 quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
 through ``kernels.ops.matmul``), so a bridged parameter tree is a
@@ -71,6 +71,14 @@ def init_tree(specs, generator: torch.Generator, device):
 
 def rmsnorm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), torch.float32, "ones")
+
+
+def norm_specs(cfg) -> ParamSpec:
+    """The block norm's parameters: an rmsnorm scale (layernorm is not
+    ported: no ported config uses it)."""
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r}: only rmsnorm is ported")
+    return rmsnorm_spec(cfg.d_model)
 
 
 def fit_quant(quant: Optional[QuantizedAccessor], d_in: int) -> Optional[QuantizedAccessor]:

@@ -1,13 +1,20 @@
-"""The dense decoder stack of the port: DenseBlock and Model.
+"""The decoder stack of the port: the dense and SSM block kinds and Model.
 
-Port of the dense half of ``repro.models.transformer``. Parameters are plain
-nested dicts of tensors with the reference's leaf names and weight layouts;
-where the reference stacks a leading layer dim and scans, the port keeps one
-dict per layer (``params["blocks"][0][l]``) and loops. Page pools keep the
-stacked form, (L, num_pages, Hkv, ps, Dh) (or its {"q", "scale"} quantized
-form, each leaf with the leading layer dim), and per-layer views of them are
+Port of the dense and Mamba-2 half of ``repro.models.transformer``. An
+architecture is a program of (block kind, count) entries (``block_program``).
+Parameters are plain nested dicts of tensors with the reference's leaf names
+and weight layouts; where the reference stacks a leading layer dim and scans,
+the port keeps one dict per layer (``params["blocks"][i][l]`` for program
+entry i) and loops. Caches keep the stacked form: the dense decode cache
+{"k", "v": (L, B, Hkv, S, Dh)}, the SSM cache {"state": (L, B, H, P, N),
+"conv": (L, B, K - 1, conv_dim)}, the page pools (L, num_pages, Hkv, ps, Dh)
+(or their {"q", "scale"} quantized form); per-layer views of them are
 updated in place. ``Model(cfg, quant=...)`` stores the MLP weights through a
 QuantizedAccessor (int8 serving weights).
+
+``attn_impl`` on forward / prefill / decode_step picks the kernels of the
+dense-cache path (flash_attention, flash_decode, ssd_scan: "auto" | "cuda" |
+"torch", as kernels.ops), so an oracle can force the plain versions.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from repro_torch.kernels.common import resolve_device
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import (
     apply_embed,
     apply_lm_head,
@@ -26,39 +34,49 @@ from .layers import (
     embed_specs,
     init_tree,
     mlp_specs,
-    rmsnorm_spec,
+    norm_specs,
 )
 
 
 class DenseBlock:
-    """Pre-norm self-attention + SwiGLU MLP; the paged paths write one layer's
-    page pool in place."""
+    """Pre-norm self-attention + SwiGLU MLP; decode and the paged paths write
+    one layer's cache or page pool in place."""
 
     @staticmethod
     def specs(cfg, quant=None):
         return {
-            "ln_attn": rmsnorm_spec(cfg.d_model),
+            "ln_attn": norm_specs(cfg),
             "attn": attn.attn_specs(cfg),
-            "ln_mlp": rmsnorm_spec(cfg.d_model),
+            "ln_mlp": norm_specs(cfg),
             "mlp": mlp_specs(cfg, quant=quant),
         }
+
+    @staticmethod
+    def cache_specs(cfg, batch: int, seq: int):
+        return attn.cache_specs(cfg, batch, seq)
 
     @staticmethod
     def _mlp(cfg, p, x):
         return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]))
 
     @classmethod
-    def train(cls, cfg, p, x):
+    def train(cls, cfg, p, x, impl="auto"):
         h = apply_norm(cfg, x, p["ln_attn"])
-        x = x + attn.self_attention(cfg, p["attn"], h)
+        x = x + attn.self_attention(cfg, p["attn"], h, impl=impl)
         return cls._mlp(cfg, p, x)
 
     @classmethod
-    def prefill(cls, cfg, p, x, max_len=None):
+    def prefill(cls, cfg, p, x, max_len=None, impl="auto"):
         h = apply_norm(cfg, x, p["ln_attn"])
-        y, (k, v) = attn.self_attention(cfg, p["attn"], h, return_kv=True)
+        y, (k, v) = attn.self_attention(cfg, p["attn"], h, return_kv=True, impl=impl)
         x = cls._mlp(cfg, p, x + y)
         return x, attn.pack_kv_cache(cfg, k, v, max_len=max_len)
+
+    @classmethod
+    def decode(cls, cfg, p, x, cache, pos, impl="auto"):
+        h = apply_norm(cfg, x, p["ln_attn"])
+        y, cache = attn.self_attention_decode(cfg, p["attn"], h, cache, pos, impl=impl)
+        return cls._mlp(cfg, p, x + y), cache
 
     @classmethod
     def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None):
@@ -79,37 +97,93 @@ class DenseBlock:
         return cls._mlp(cfg, p, x + y)
 
 
+class SSMBlock:
+    """Pre-norm Mamba-2 mixer (no MLP); decode updates one layer's state and
+    conv rows in place."""
+
+    @staticmethod
+    def specs(cfg, quant=None):
+        return {"ln": norm_specs(cfg), "ssm": ssm_mod.ssm_specs(cfg, quant=quant)}
+
+    @staticmethod
+    def cache_specs(cfg, batch: int, seq: int):
+        return ssm_mod.ssm_cache_specs(cfg, batch)
+
+    @staticmethod
+    def train(cfg, p, x, impl="auto"):
+        return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), impl=impl)
+
+    @staticmethod
+    def prefill(cfg, p, x, max_len=None, impl="auto"):
+        h = apply_norm(cfg, x, p["ln"])
+        y, cache = ssm_mod.apply_ssm(cfg, p["ssm"], h, return_state=True, impl=impl)
+        return x + y, cache
+
+    @staticmethod
+    def decode(cfg, p, x, cache, pos, impl="auto"):
+        y, new = ssm_mod.apply_ssm_decode(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), cache, pos)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        return x + y, cache
+
+
+KINDS = {"dense": DenseBlock, "ssm": SSMBlock}
+
+
+def block_program(cfg):
+    """The architecture as (block kind, count) entries, as in the reference
+    (only the ported families resolve)."""
+    if cfg.family == "dense":
+        return [("dense", cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [("ssm", cfg.n_layers)]
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4: other families)"
+    )
+
+
 def _layer(tree, l: int):
-    """Layer ``l``'s view of a stacked pool dict (nested for quantized pools)."""
+    """Layer ``l``'s view of a stacked cache or pool dict (nested for
+    quantized pools)."""
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
     return tree[l]
 
 
+def _stack(layers: List[Dict]) -> Dict:
+    """Per-layer cache dicts -> one dict of stacked (L, ...) tensors."""
+    return {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+
+
 class Model:
-    """A dense decoder on one device. ``device`` defaults to CUDA and raises
-    without a GPU; pass ``device="cpu"`` to run the plain versions. ``quant``
-    (core.QuantizedAccessor) stores the MLP weights quantized, as the
-    reference's serving-weight accessor."""
+    """A dense (GQA) or SSM (Mamba-2) decoder on one device. ``device``
+    defaults to CUDA and raises without a GPU; pass ``device="cpu"`` to run
+    the plain versions. ``quant`` (core.QuantizedAccessor) stores the MLP
+    weights quantized, as the reference's serving-weight accessor."""
 
     def __init__(self, cfg, quant=None, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1: other families)"
-            )
+        block_program(cfg)  # refuses the families that are not ported
         if cfg.window is not None:
-            raise NotImplementedError("local attention windows are not ported yet")
+            raise NotImplementedError(
+                "local attention windows (the windowed ring-buffer cache) are not ported yet: "
+                "they come with the recurrentgemma-2b slice (ROADMAP Queue 1 item 4)")
         self.cfg = cfg
         self.quant = quant
         self.device = resolve_device(device)
+
+    def _program(self, params):
+        """(block class, its per-layer params) for each program entry."""
+        return [(KINDS[kind], p) for (kind, _), p in zip(block_program(self.cfg),
+                                                         params["blocks"])]
 
     # ---- specs / init --------------------------------------------------------------
     def param_specs(self):
         cfg = self.cfg
         return {
             "embed": embed_specs(cfg),
-            "blocks": [[DenseBlock.specs(cfg, self.quant) for _ in range(cfg.n_layers)]],
-            "final_norm": rmsnorm_spec(cfg.d_model),
+            "blocks": [[KINDS[kind].specs(cfg, self.quant) for _ in range(n)]
+                       for kind, n in block_program(cfg)],
+            "final_norm": norm_specs(cfg),
         }
 
     def init_params(self, generator: torch.Generator, device=None):
@@ -117,7 +191,28 @@ class Model:
         device) with the reference's init scheme."""
         return init_tree(self.param_specs(), generator, device or self.device)
 
+    def cache_specs(self, batch: int, seq: int):
+        """One layer's decode-cache specs per program entry (the caches stack
+        a leading layer dim on each)."""
+        return [KINDS[kind].cache_specs(self.cfg, batch, seq)
+                for kind, _ in block_program(self.cfg)]
+
+    def init_cache(self, batch: int, seq: int) -> List[Dict]:
+        """Zeroed decode caches with the leading layer dim, one dict per
+        program entry (what ``prefill(max_len=seq)`` returns, zero-filled)."""
+        return [{k: torch.zeros((n,) + s.shape, dtype=s.dtype, device=self.device)
+                 for k, s in specs.items()}
+                for specs, (_, n) in zip(self.cache_specs(batch, seq), block_program(self.cfg))]
+
+    def _paged_only_dense(self) -> None:
+        for kind, _ in block_program(self.cfg):
+            if kind != "dense":
+                raise NotImplementedError(
+                    f"paged KV caching supports dense-attention blocks; got {kind!r}"
+                )
+
     def paged_cache_specs(self, num_pages: int, page_size: int, kv_spec=None):
+        self._paged_only_dense()
         return [attn.paged_cache_specs(self.cfg, num_pages, page_size, kv_spec=kv_spec)]
 
     def init_paged_cache(self, num_pages: int, page_size: int, kv_spec=None) -> List[Dict]:
@@ -141,32 +236,51 @@ class Model:
         return apply_lm_head(self.cfg, params["embed"], x)
 
     # ---- full-sequence forward -------------------------------------------------------
-    def forward(self, params, tokens: torch.Tensor):
-        """tokens (B, T) -> (logits (B, T, Vp), aux); aux is 0 for dense blocks."""
+    def forward(self, params, tokens: torch.Tensor, *, attn_impl: str = "auto"):
+        """tokens (B, T) -> (logits (B, T, Vp), aux); aux is 0 for these blocks."""
         x = self._embed(params, tokens)
-        for p in params["blocks"][0]:
-            x = DenseBlock.train(self.cfg, p, x)
+        for blk, layers in self._program(params):
+            for p in layers:
+                x = blk.train(self.cfg, p, x, impl=attn_impl)
         return self._head(params, x), torch.zeros((), device=x.device)
 
     # ---- serving ---------------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor, *, max_len: Optional[int] = None,
-                last_index=None):
+                last_index=None, attn_impl: str = "auto"):
         """tokens (B, S) -> (logits (B, 1, Vp), caches). The logits are read at
         ``last_index`` (default: the last column) — the engine right-pads
-        prompts to whole pages. caches: [{"k", "v": (L, B, Hkv, max_len, Dh)}]."""
+        prompts to whole pages; leave it None for the SSM family, whose final
+        state padding would pollute. caches: one dict per program entry,
+        {"k", "v": (L, B, Hkv, max_len, Dh)} (dense) or {"state", "conv"} (ssm)."""
         x = self._embed(params, tokens)
-        ks, vs = [], []
-        for p in params["blocks"][0]:
-            x, c = DenseBlock.prefill(self.cfg, p, x, max_len=max_len)
-            ks.append(c["k"])
-            vs.append(c["v"])
+        caches = []
+        for blk, layers in self._program(params):
+            per_layer = []
+            for p in layers:
+                x, c = blk.prefill(self.cfg, p, x, max_len=max_len, impl=attn_impl)
+                per_layer.append(c)
+            caches.append(_stack(per_layer))
         if last_index is None:
             x_last = x[:, -1:]
         else:
             i = int(last_index)
             x_last = x[:, i:i + 1]
         logits = self._head(params, x_last)
-        return logits, [{"k": torch.stack(ks), "v": torch.stack(vs)}]
+        return logits, caches
+
+    def decode_step(self, params, caches, tokens: torch.Tensor, pos, *,
+                    attn_impl: str = "auto"):
+        """One token per row against the dense-cache state prefill returned:
+        tokens (B,) at position ``pos`` (an int or a one-element integer
+        tensor on the model's device, the same for every row). The caches are
+        updated in place and returned. -> (logits (B, Vp), caches)."""
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((1,), int(pos), dtype=torch.int32, device=self.device)
+        x = self._embed(params, tokens[:, None])
+        for (blk, layers), cache in zip(self._program(params), caches):
+            for l, p in enumerate(layers):
+                x, _ = blk.decode(self.cfg, p, x, _layer(cache, l), pos, impl=attn_impl)
+        return self._head(params, x)[:, 0], caches
 
     def decode_step_paged(self, params, caches, tokens: torch.Tensor,
                           block_tables: torch.Tensor, context_lens: torch.Tensor, *,
@@ -189,6 +303,7 @@ class Model:
         dequantizing kernels.
 
         Returns (logits (B, Vp), caches)."""
+        self._paged_only_dense()
         cfg = self.cfg
         chunk = tokens.dim() == 2
         if active is not None and not chunk:

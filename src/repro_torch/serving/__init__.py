@@ -7,7 +7,12 @@ from .params import (
     Sequence,
 )
 from .sampling import GREEDY, SamplingParams, stream_seed
-from .step import make_chunked_prefill_step, make_paged_serve_step, make_prefill
+from .step import (
+    make_chunked_prefill_step,
+    make_paged_serve_step,
+    make_prefill,
+    make_serve_step,
+)
 
 __all__ = [
     "FINISH_EOS",
@@ -21,5 +26,6 @@ __all__ = [
     "make_chunked_prefill_step",
     "make_paged_serve_step",
     "make_prefill",
+    "make_serve_step",
     "stream_seed",
 ]

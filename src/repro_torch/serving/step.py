@@ -1,6 +1,7 @@
-"""Serve-step factories of the port: the fused decode step, the chunked
-prefill step and monolithic prefill. Plain Python functions over the model —
-PyTorch runs eagerly, so there is nothing to compile.
+"""Serve-step factories of the port: the dense-cache decode step, the fused
+paged decode step, the chunked prefill step and monolithic prefill. Plain
+Python functions over the model — PyTorch runs eagerly, so there is nothing
+to compile.
 
 The fused decode step keeps the decode hot path on the device: it appends,
 attends, samples (``kernels.ops.sample_tokens``) and advances the lengths
@@ -14,6 +15,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+
+
+def make_serve_step(model, attn_impl: str = "auto"):
+    """The dense-cache decode step (``Model.decode_step``): one token per row
+    against the caches ``make_prefill(model, max_len)`` returned."""
+
+    def serve_step(params, caches, tokens, pos):
+        """tokens (B,) int; pos an int or a one-element int tensor -> (logits
+        (B, Vp), caches updated in place)."""
+        return model.decode_step(params, caches, tokens, pos, attn_impl=attn_impl)
+
+    return serve_step
 
 
 def make_paged_serve_step(model, kv_spec=None):
@@ -61,8 +74,12 @@ def make_chunked_prefill_step(model, kv_spec=None):
     return chunk_prefill_step
 
 
-def make_prefill(model):
+def make_prefill(model, max_len: Optional[int] = None, attn_impl: str = "auto"):
+    """Monolithic prefill; with ``max_len`` the dense caches are padded to it
+    (the capacity ``make_serve_step`` decodes into)."""
+
     def prefill(params, tokens, last_index=None):
-        return model.prefill(params, tokens, last_index=last_index)
+        return model.prefill(params, tokens, max_len=max_len, last_index=last_index,
+                             attn_impl=attn_impl)
 
     return prefill

@@ -46,7 +46,9 @@ def test_package_mirrors_reference_names():
     root = Path(repro_torch.__file__).parent
     for rel in ("kernels/ops.py", "kernels/paged_attention.py", "kernels/quant_matmul.py",
                 "kernels/sum3d.py", "kernels/stencil3d.py", "kernels/tinymatsum.py",
-                "kernels/matvec.py", "kernels/common.py", "core/extents.py", "core/layouts.py",
+                "kernels/matvec.py", "kernels/common.py", "kernels/flash_attention.py",
+                "kernels/ssd_scan.py", "models/ssm.py", "configs/mamba2_780m.py",
+                "core/extents.py", "core/layouts.py",
                 "core/mdspan.py", "core/submdspan.py", "core/algorithms.py",
                 "core/instrument.py",
                 "core/accessors.py", "core/distributed.py", "models/attention.py",

@@ -1,8 +1,9 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on the card:
 paged decode and chunked prefill over f32/bf16 and int8/int4 pools, the
-quantized matmul, and the paper-suite kernels (sum3d, stencil3d, tinymatsum
+quantized matmul, the paper-suite kernels (sum3d, stencil3d, tinymatsum
 static and dynamic, matvec right and left) with the ops dispatchers on
-MdSpans.
+MdSpans, and the dense-cache kernels (flash_attention, flash_decode,
+ssd_scan) with the ops dispatchers that reach them.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -17,7 +18,9 @@ bf16 pools within one bf16 ulp of the plain output plus the f32 tolerance
 f32 sums resolve). Paper suite: sum3d within 1e-5 * sum(|x|) (another
 summation order) and bit-identical from run to run; stencil3d and
 tinymatsum exactly equal (the same f32 additions in the same order);
-matvec rtol/atol 2e-4 (the reference's), bf16 one ulp + 2e-4.
+matvec rtol/atol 2e-4 (the reference's), bf16 one ulp + 2e-4. SSD scan:
+rtol/atol 1e-4 in f32 (the kernel's 64-step chunks sum in another order than
+the plain version's), bf16 y one ulp + 1e-4.
 """
 import dataclasses
 
@@ -230,7 +233,9 @@ def test_quant_matmul_kernel_matches_plain(case, bits, dtype):
 
 def _engines_agree(kv_dtype: str, quantized: bool, need):
     """The smoke model's engine on the card (kernels) gives the CPU engine's
-    (plain versions) greedy tokens, and every kernel in ``need`` ran."""
+    (plain versions) greedy tokens, and every kernel in ``need`` ran (the
+    chunk kernels in chunked mode only; flash_attention, the monolithic
+    prefill's, in monolithic mode only)."""
     from repro_torch.models import build_model, get_config
     from repro_torch.serving import GenerationParams
     from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
@@ -261,7 +266,8 @@ def _engines_agree(kv_dtype: str, quantized: bool, need):
         res_gpu = ServeEngine(gpu, params_gpu, EngineConfig(**kw), device="cuda").run(mk())
         counts = kernels.launch_counts()
         res_cpu = ServeEngine(cpu, params_cpu, EngineConfig(**kw), device="cpu").run(mk())
-        want = [k for k in need if chunked or "chunk" not in k]
+        want = [k for k in need if chunked or "chunk" not in k] + (
+            [] if chunked else ["flash_attention"])
         assert all(counts[k] > 0 for k in want), counts
         for i in range(len(prompts)):
             assert res_gpu[i].generated == res_cpu[i].generated, (chunked, i)
@@ -422,3 +428,201 @@ def test_ops_on_plain_cuda_tensors_launch_the_kernels():
         ops.sum3d(x3.transpose(0, 2), impl="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         ops.matvec(a.t().contiguous().t(), v, impl="cuda")
+
+
+# ---------------------------------------------------------------------------------
+# dense-cache attention (flash_attention, flash_decode) and the SSD scan
+# ---------------------------------------------------------------------------------
+# (B, hq, hkv, Tq, Tk, D): the reference's sweep shapes, Tq != Tk, D 128, and
+# the qwen2 serve shapes (the generate phase's prefill, the engine's padded
+# 512-token prompt)
+FLASH_CASES = [(2, 4, 4, 64, 64, 32), (2, 4, 2, 64, 64, 32), (2, 8, 1, 64, 64, 32),
+               (1, 2, 2, 32, 48, 16), (2, 16, 2, 40, 100, 128), (2, 14, 2, 256, 256, 64),
+               (1, 14, 2, 512, 512, 64)]
+FLASH_MASKS = [(True, None), (True, 24), (False, None)]
+# (B, hq, hkv, S, D), decoded at POSITIONS (clipped to S - 1)
+DECODE_DENSE_CASES = [(2, 4, 2, 128, 32), (8, 14, 2, 288, 64), (2, 16, 2, 100, 128)]
+POSITIONS = [0, 31, 57, 127, 287]
+# (b, t, h, p, n): the reference's sweep shapes, a ragged t, a p that is no
+# multiple of the kernel's 32-column slice, and mamba2-780m's width
+SSD_CASES = [(2, 128, 4, 16, 32), (1, 64, 8, 8, 16), (2, 100, 3, 40, 16), (1, 517, 4, 64, 128),
+             (2, 512, 48, 64, 128)]
+
+
+def _rand(shape, dtype, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(
+        "cuda", dtype)
+
+
+def _assert_kernel_close(got, want, dtype):
+    assert got.dtype == want.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=_ids(FLASH_CASES))
+@pytest.mark.parametrize("mask", FLASH_MASKS, ids=["causal", "window24", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_matches_plain(case, mask, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, tq, tk, d = case
+    causal, window = mask
+    q, k, v = (_rand((b, h, t, d), dtype, s) for s, (h, t) in
+               enumerate(((hq, tq), (hkv, tk), (hkv, tk))))
+    off = tk - tq  # the queries are the last tq positions
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    want = fa.attention_torch(q, k, v, causal=causal, window=window, q_offset=off)
+    _assert_kernel_close(got, want, dtype)
+
+
+def test_flash_attention_reads_a_device_offset_and_zeroes_masked_rows():
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _rand((2, 4, 9, 32), torch.float32, 1), _rand((2, 2, 14, 32), torch.float32, 2), \
+        _rand((2, 2, 14, 32), torch.float32, 3)
+    for off in (5, -3):  # -3: the first three query rows see no key at all
+        got = fa.flash_attention(q, k, v, q_offset=torch.tensor(off, device="cuda"))
+        want = fa.attention_torch(q, k, v, q_offset=off)
+        torch.testing.assert_close(got, want, **TOL)
+    assert torch.count_nonzero(got[:, :, :3]) == 0
+
+
+@pytest.mark.parametrize("case", DECODE_DENSE_CASES, ids=_ids(DECODE_DENSE_CASES))
+@pytest.mark.parametrize("window", [None, 24], ids=["full", "window24"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_kernel_matches_plain(case, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, s, d = case
+    q, kc, vc = _rand((b, hq, 1, d), dtype, 4), _rand((b, hkv, s, d), dtype, 5), \
+        _rand((b, hkv, s, d), dtype, 6)
+    for pos in sorted({min(p, s - 1) for p in POSITIONS}):
+        for p in (pos, torch.tensor(pos, dtype=torch.int32, device="cuda")):
+            n = fa.flash_decode.launches
+            got = fa.flash_decode(q, kc, vc, p, window=window)
+            torch.cuda.synchronize()
+            assert fa.flash_decode.launches == n + 1
+            want = fa.decode_attention_torch(q, kc, vc, pos, window=window)
+            _assert_kernel_close(got, want, dtype)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k = _rand((1, 4, 8, 32), torch.float32, 7), _rand((1, 2, 8, 32), torch.float32, 8)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), k)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                           k[..., :8].contiguous())
+    with pytest.raises(ValueError, match="one query token"):
+        fa.flash_decode(q, k, k, 3)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, k, window=0)
+
+
+def _ssd_inputs(b, t, h, p, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * sc)
+    x = f(b, t, h, p, sc=0.5).to("cuda", dtype)
+    dt = torch.nn.functional.softplus(f(b, t, h)).cuda()
+    A = (-torch.exp(f(h, sc=0.3))).cuda()
+    B = f(b, t, 1, n, sc=0.3).to("cuda", dtype)
+    C = f(b, t, 1, n, sc=0.3).to("cuda", dtype)
+    s0 = f(b, h, p, n, sc=0.5).cuda()
+    return x, dt, A, B, C, s0
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=_ids(SSD_CASES))
+@pytest.mark.parametrize("initial", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_kernel_matches_plain(case, initial, dtype):
+    """The kernel (64-step chunks) against the plain version at chunk 16 and
+    at chunk = t (the model's ragged-prompt setting): y and the final state.
+    f32 within rtol/atol 1e-4 (two chunkings sum in other orders); bf16 y
+    within one bf16 ulp + 1e-4 of the plain output."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, s0 = _ssd_inputs(*case, dtype=dtype, seed=sum(case))
+    init = s0 if initial else None
+    n = ss.ssd_scan.launches
+    y, st = ss.ssd_scan(x, dt, A, B, C, initial_state=init, return_final_state=True)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == n + 1 and y.dtype == dtype and st.dtype == torch.float32
+    for chunk in (16, case[1]):
+        wy, ws = ss.ssd_torch(x, dt, A, B, C, chunk=chunk, initial_state=init,
+                              return_final_state=True)
+        torch.testing.assert_close(st, ws, rtol=1e-4, atol=1e-4)
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+        else:
+            assert _within_one_bf16_ulp(y, wy, atol=1e-4)
+
+
+def test_ssd_scan_state_chaining_matches_full_run():
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, _ = _ssd_inputs(1, 200, 4, 32, 64, torch.float32, 9)
+    y_full, s_full = ss.ssd_scan(x, dt, A, B, C, return_final_state=True)
+    y1, s1 = ss.ssd_scan(x[:, :77].contiguous(), dt[:, :77].contiguous(), A,
+                         B[:, :77].contiguous(), C[:, :77].contiguous(), return_final_state=True)
+    y2, s2 = ss.ssd_scan(x[:, 77:].contiguous(), dt[:, 77:].contiguous(), A,
+                         B[:, 77:].contiguous(), C[:, 77:].contiguous(), initial_state=s1,
+                         return_final_state=True)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s2, s_full, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 8, 16, torch.float32, 10)
+    with pytest.raises(ValueError, match="ngroups 1"):
+        ss.ssd_scan(x, dt, A, B.expand(1, 16, 2, 16).contiguous(), C)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x, dt.double(), A, B, C)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x, dt, A, B.to(torch.bfloat16), C)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C)
+
+
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
+def test_ops_dense_paths_launch_the_kernels(impl):
+    """ops.attention / decode_attention / ssd under "auto" and "cuda" launch
+    their kernels on CUDA tensors; "torch" launches nothing."""
+    q, k = _rand((1, 4, 8, 32), torch.float32, 11), _rand((1, 2, 8, 32), torch.float32, 12)
+    x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 8, 16, torch.float32, 13)
+    for mode, want in ((impl, 1), ("torch", 0)):
+        kernels.reset_launch_counts()
+        ops.attention(q, k, k, impl=mode)
+        ops.decode_attention(q[:, :, :1].contiguous(), k, k, 5, impl=mode)
+        ops.ssd(x, dt, A, B, C, chunk=8, impl=mode)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert [counts[n] for n in ("flash_attention", "flash_decode", "ssd_scan")] == [want] * 3
+
+
+def test_ops_ssd_with_groups_raises_under_cuda_and_runs_plain_under_auto():
+    """ngroups > 1: impl="cuda" refuses (the kernel takes ngroups 1 only);
+    "auto" runs the plain chunked version, as the reference dispatches."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 8, 16, torch.float32, 14)
+    B2, C2 = B.expand(1, 16, 2, 16).contiguous(), C.expand(1, 16, 2, 16).contiguous()
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="ngroups 1"):
+        ops.ssd(x, dt, A, B2, C2, chunk=8, impl="cuda")
+    y = ops.ssd(x, dt, A, B2, C2, chunk=8, impl="auto")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan"] == 0
+    torch.testing.assert_close(y, ss.ssd_torch(x, dt, A, B2, C2, chunk=8))

@@ -258,6 +258,7 @@ def test_launch_counts_cover_every_kernel():
         "paged_decode", "paged_prefill_chunk", "paged_decode_quant",
         "paged_prefill_chunk_quant", "quant_matmul", "sum3d", "stencil3d",
         "tinymatsum_static", "tinymatsum_dynamic", "matvec_right", "matvec_left",
+        "flash_attention", "flash_decode", "ssd_scan",
     }
 
 
@@ -268,4 +269,10 @@ def test_kernel_sources_export_the_wrapped_entries():
         assert f"{name}(" in text
     text = open(csrc + "quant_matmul.cu").read()
     for name in ("repro_quant_matmul", "repro_cuda_error_string"):
+        assert f"{name}(" in text
+    text = open(csrc + "flash_attention.cu").read()
+    for name in ("repro_flash_attention", "repro_flash_decode", "repro_cuda_error_string"):
+        assert f"{name}(" in text
+    text = open(csrc + "ssd_scan.cu").read()
+    for name in ("repro_ssd_scan", "repro_cuda_error_string"):
         assert f"{name}(" in text
