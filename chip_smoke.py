@@ -29,7 +29,16 @@ lines; any failure raises and exits non-zero:
                 at pos 0-287, one windowed; ssd_scan at mamba2-780m's width
                 (2, 512, 48, 64), N 128, a ragged T 389 and an initial state,
                 and the generate phase's B 4 at T 512 and 389 (tolerance 1e-4 f32, bf16 y one ulp + 1e-4; no library call
-                computes the scan, so its library_ms is null).
+                computes the scan, so its library_ms is null). Then
+                recurrentgemma-2b's: rglru_scan at (2, 2600, 2560) and
+                (2, 2040, 2560), from an initial state too, and two
+                chained halves against one run (1e-5 f32, bf16 one ulp +
+                1e-5; library_ms null: no single PyTorch call computes a
+                linear recurrence stably); flash_attention at D 256,
+                (2, 10, 2600, 256) vs (2, 1, 2600, 256), window 2048;
+                flash_decode (2, 10, 1, 256) over a (2, 1, 2048, 256)
+                ring before, at and after the wrap, against its plain
+                version and against the reference's ring mask.
   generate      the dense-cache serve path, make_prefill(max_len) then
                 make_serve_step greedily: qwen2-0.5b (B 8, prompts of 256,
                 32 new tokens) and mamba2-780m (B 4, prompts of 512 and 389,
@@ -38,9 +47,16 @@ lines; any failure raises and exits non-zero:
                 prefill and last-step logits drift: qwen2 at 2 layers, at 24
                 on the reference's init (printed, not gated: chaotic at
                 depth) and at 24 rescaled (condition_attention); mamba2 at 2
-                and 48 layers. Then one bf16 run of each: prefill ms, step ms
-                p50, tokens/s and launches per kernel, counts zeroed just
-                before and read just after (the kernels line reports them).
+                and 48 layers; recurrentgemma-2b (B 2, prompts of 2600 and
+                2040: the prefill's window band and ring roll, the decode's
+                wrap at 2048; 32 new tokens) at 5 layers, at 26 on the
+                reference's init after a generate_sensitivity line (how far
+                two plain computations drift there; printed, not gated:
+                chaotic at depth, as qwen2) and at 26 rescaled. Then one
+                bf16 run of each: prefill ms, step ms p50, tokens/s and
+                launches per kernel, counts zeroed just before and read just
+                after (the kernels line reports their sum over the cells);
+                every kernel of a cell must have launched.
   engine_exact  qwen2-0.5b at full width in f32, random weights from a
                 seeded generator: six requests through ServeEngine with
                 monolithic (its prefill launches flash_attention) and with
@@ -90,9 +106,8 @@ lines; any failure raises and exits non-zero:
                 kernel launched. Tolerances: sum3d 1e-5 * sum(|x|), stencil
                 1e-4, tinymatsum 1e-6 (bf16 2e-2), matvec 1e-5 *
                 sum_j |A_ij v_j| per row (sums of up to 16384 terms).
-  kernels line  {"kernels": [...]} with each ported kernel's numbers (14 of
-                the reference's 15 Pallas functions), plus the one still to
-                be ported (rglru_scan).
+  kernels line  {"kernels": [...]} with the numbers of each of the 15
+                kernels that replace the reference's 15 Pallas functions.
 
 Then the card's name and power limit as nvidia-smi prints them, and as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -135,15 +150,14 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "flash_attention": ("src/repro/kernels/flash_attention.py:104", FLASH_SOURCE),
     "flash_decode": ("src/repro/kernels/flash_attention.py:222", FLASH_SOURCE),
     "ssd_scan": ("src/repro/kernels/ssd_scan.py:85", "src/repro_torch/kernels/csrc/ssd_scan.cu"),
+    "rglru_scan": ("src/repro/kernels/rglru_scan.py:50",
+                   "src/repro_torch/kernels/csrc/rglru_scan.cu"),
 }
 DENSE_PATH = ("paged_decode", "paged_prefill_chunk")
-GENERATE_PATH = ("flash_attention", "flash_decode", "ssd_scan")
+GENERATE_PATH = ("flash_attention", "flash_decode", "ssd_scan", "rglru_scan")
 QUANT_PATH = ("paged_decode_quant", "paged_prefill_chunk_quant", "quant_matmul")
 PAPER_PATH = ("sum3d", "stencil3d", "tinymatsum_static", "tinymatsum_dynamic", "matvec_right",
               "matvec_left")
-NOT_PORTED = [
-    ("rglru_scan", "src/repro/kernels/rglru_scan.py:50"),
-]
 
 
 def emit(obj) -> None:
@@ -362,6 +376,7 @@ def kernel_phase(bw):
                     main["paged_prefill_chunk_quant"] = rec
     main["quant_matmul"] = quant_matmul_checks(bw, g)
     main.update(dense_cache_checks(bw, g))
+    main.update(hybrid_checks(bw, g))
     torch.cuda.synchronize()
     return main
 
@@ -377,21 +392,22 @@ def _causal_keys(tq, tk, off, window=None):
     return int(live.sum())
 
 
-def _ssd_tolerance(n_y, dtype):
-    """y (the first n_y values, in x's dtype) and the f32 final state: f32
-    within rtol/atol 1e-4 (the kernel's 64-step chunks sum in another order
-    than the plain version's); bf16 y within one bf16 ulp of the plain
-    output + 1e-4."""
+def _scan_tolerance(n_y, dtype, tol=1e-4):
+    """y (the first n_y values, in the input dtype) and the f32 final state:
+    f32 within rtol/atol ``tol`` (a kernel that sums in another order than
+    the plain version: 1e-4 for the SSD scan's 64-step chunks, 1e-5 for the
+    RG-LRU's sequential loop); bf16 y within one bf16 ulp of the plain
+    output + ``tol``."""
     def tolerance(got, want):
-        st_ok = bool(torch.allclose(got[n_y:], want[n_y:], rtol=1e-4, atol=1e-4))
+        st_ok = bool(torch.allclose(got[n_y:], want[n_y:], rtol=tol, atol=tol))
         if dtype == torch.float32:
-            return st_ok and bool(torch.allclose(got[:n_y], want[:n_y], rtol=1e-4, atol=1e-4)), \
-                "allclose rtol=atol=1e-4 (y and final state)"
+            return st_ok and bool(torch.allclose(got[:n_y], want[:n_y], rtol=tol, atol=tol)), \
+                f"allclose rtol=atol={tol} (y and final state)"
         w = want[:n_y]
         _, e = torch.frexp(w)
         ulp = torch.ldexp(torch.ones_like(w), e - 8)
-        y_ok = bool(((got[:n_y] - w).abs() <= ulp + 1e-4).all())
-        return st_ok and y_ok, "y <= 1 bf16 ulp + 1e-4; final state allclose 1e-4"
+        y_ok = bool(((got[:n_y] - w).abs() <= ulp + tol).all())
+        return st_ok and y_ok, f"y <= 1 bf16 ulp + {tol}; final state allclose {tol}"
     return tolerance
 
 
@@ -486,9 +502,125 @@ def dense_cache_checks(bw, g):
                 + state_bytes, ssd_flops(b, t, h, p, n), bw,
                 {"b": b, "t": t, "h": h, "p": p, "n": n, "plain_chunk": chunk,
                  "initial_state": initial},
-                tolerance=_ssd_tolerance(x.numel(), dtype))
+                tolerance=_scan_tolerance(x.numel(), dtype))
             if dtype == torch.bfloat16 and (b, t, initial) == (4, 512, False):
                 main["ssd_scan"] = rec
+    return main
+
+
+def ring_decode_reference(q, ring_k, ring_v, pos: int, window: int):
+    """The reference's windowed decode attention (its models/attention.py, an
+    eager masked einsum): ring slot i holds absolute position pos - ((pos %
+    S - i) mod S), live when it lies in [max(pos - window + 1, 0), pos]."""
+    s = ring_k.shape[2]
+    idx = torch.arange(s, device=q.device)
+    abs_pos = pos - ((pos % s - idx) % s)
+    live = (abs_pos >= max(pos - window + 1, 0)) & (abs_pos <= pos)
+    group = q.shape[1] // ring_k.shape[1]
+    kf = ring_k.float().repeat_interleave(group, dim=1)
+    vf = ring_v.float().repeat_interleave(group, dim=1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(q.shape[-1])
+    sc = torch.where(live, sc, torch.full_like(sc, -1e30))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, dim=-1), vf).to(q.dtype)
+
+
+def _attn_close(got, want, dtype):
+    """The kernels' attention rule: f32 allclose 2e-5; bf16 within one bf16
+    ulp of the other output + 2e-5. -> (ok, max |got - want|)."""
+    if dtype == torch.float32:
+        ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+    else:
+        ok = bf16_excess(got, want)[1] <= 0.0
+    return ok, float((got.float() - want.float()).abs().max())
+
+
+def hybrid_checks(bw, g):
+    """recurrentgemma-2b's kernels at the generate cell's shapes (B 2, prompts
+    of 2600 and 2040, window 2048, MQA 10 / 1 heads of 256): rglru_scan at
+    (2, 2600, 2560) and (2, 2040, 2560), from an initial state too, and two
+    chained halves against one run; flash_attention at (2, 10, 2600, 256)
+    vs (2, 1, 2600, 256), causal, window 2048; flash_decode (2, 10, 1, 256)
+    over a full (2, 1, 2048, 256) ring at min(pos, 2047) for positions
+    before, at and after the wrap, against its plain version and against the
+    reference's ring mask. f32 (rglru 1e-5, attention 2e-5) and bf16 (one
+    ulp + the f32 tolerance). Returns the rglru_scan record of the path's own
+    call (f32 a and b at T 2600: the model computes them in f32 at any
+    dtype); the flash kernels' main records stay qwen2's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+
+    main = {}
+    B, W, HQ, D, WINDOW, S = 2, 2560, 10, 256, 2048, 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        esz = torch.tensor([], dtype=dtype).element_size()
+        rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+        for t, initial in ((2600, False), (2040, False), (2600, True)):
+            a = torch.rand(B, t, W, generator=g, device="cuda").mul_(0.5).add_(0.5).to(dtype)
+            x = torch.randn(B, t, W, generator=g, device="cuda")
+            b = (torch.sqrt(1 - a.float() ** 2) * x).to(dtype)
+            h0 = torch.randn(B, W, generator=g, device="cuda") if initial else None
+            flat = lambda y, h: torch.cat([y.float().flatten(), h.flatten()])
+            rec = check_and_time(
+                "rglru_scan", dtype,
+                lambda: flat(*rs.rglru_scan(a, b, initial_state=h0, return_final_state=True)),
+                lambda: flat(*rs.rglru_torch(a, b, h0, return_final_state=True)),
+                None, 3 * a.numel() * esz + B * W * 4 * (2 if initial else 1),
+                2 * a.numel(), bw, {"B": B, "T": t, "W": W, "initial_state": initial},
+                tolerance=_scan_tolerance(a.numel(), dtype, 1e-5))
+            if dtype == torch.float32 and (t, initial) == (2600, False):
+                main["rglru_scan"] = rec
+            if t == 2600 and not initial:  # two chained halves == one run
+                y_full, h_full = rs.rglru_scan(a, b, return_final_state=True)
+                y1, h1 = rs.rglru_scan(a[:, :t // 2].contiguous(), b[:, :t // 2].contiguous(),
+                                       return_final_state=True)
+                y2, h2 = rs.rglru_scan(a[:, t // 2:].contiguous(), b[:, t // 2:].contiguous(),
+                                       initial_state=h1, return_final_state=True)
+                got, want = flat(torch.cat([y1, y2], 1), h2), flat(y_full, h_full)
+                ok, tol = _scan_tolerance(a.numel(), dtype, 1e-5)(got, want)
+                emit({"phase": "kernels", "kernel": "rglru_scan", "check": "chained halves",
+                      "dtype": str(dtype).split(".")[1], "B": B, "T": t, "W": W,
+                      "max_abs_err": float((got - want).abs().max()), "tolerance": tol,
+                      "ok": ok})
+                if not ok:
+                    raise AssertionError("rglru_scan: two chained halves differ from one run")
+        t = 2600
+        q, k, v = rnd(B, HQ, t, D), rnd(B, 1, t, D), rnd(B, 1, t, D)
+        pos = torch.arange(t, device="cuda")
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - WINDOW)
+        check_and_time(
+            "flash_attention", dtype,
+            lambda: fa.flash_attention(q, k, v, window=WINDOW),
+            lambda: fa.attention_torch(q, k, v, window=WINDOW),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True),
+            (2 * q.numel() + k.numel() + v.numel()) * esz,
+            4 * B * HQ * D * _causal_keys(t, t, 0, WINDOW), bw,
+            {"B": B, "Hq": HQ, "Hkv": 1, "Tq": t, "Tk": t, "D": D, "causal": True,
+             "window": WINDOW})
+        q1, rk, rv = rnd(B, HQ, 1, D), rnd(B, 1, S, D), rnd(B, 1, S, D)
+        slots = torch.arange(S, device="cuda")
+        for p in (1000, S - 1, S, S + 23, 2 * S + 4):  # before, at and after the wrap
+            last = torch.tensor([min(p, S - 1)], dtype=torch.int32, device="cuda")
+            live = slots <= min(p, S - 1)
+            n_live = int(live.sum())
+            check_and_time(
+                "flash_decode", dtype,
+                lambda: fa.flash_decode(q1, rk, rv, last),
+                lambda: fa.decode_attention_torch(q1, rk, rv, last),
+                lambda: F.scaled_dot_product_attention(q1, rk, rv,
+                                                       attn_mask=live[None, None, None],
+                                                       enable_gqa=True),
+                2 * q1.numel() * esz + 4 + 2 * B * n_live * D * esz,
+                4 * B * HQ * D * n_live, bw,
+                {"B": B, "Hq": HQ, "Hkv": 1, "S": S, "D": D, "pos": p,
+                 "attended_at": min(p, S - 1), "ring": True})
+            ok, err = _attn_close(fa.flash_decode(q1, rk, rv, last),
+                                  ring_decode_reference(q1, rk, rv, p, WINDOW), dtype)
+            emit({"phase": "kernels", "kernel": "flash_decode", "check": "reference ring mask",
+                  "dtype": str(dtype).split(".")[1], "pos": p, "max_abs_err": err, "ok": ok})
+            if not ok:
+                raise AssertionError(f"flash_decode on the ring at pos {p} disagrees with the "
+                                     "reference's ring mask")
     return main
 
 
@@ -803,6 +935,10 @@ def paper_phase(bw):
 GEN_CELLS = {  # arch -> batch, prompt lengths (the first also for the bf16 timing), new tokens
     "qwen2-0.5b": dict(batch=8, prompts=(256,), new=32, need=("flash_attention", "flash_decode")),
     "mamba2-780m": dict(batch=4, prompts=(512, 389), new=32, need=("ssd_scan",)),
+    # 2600 > the 2048 window: the prefill's window band and the ring's roll;
+    # 2040 + 32: the decode crosses the ring's wrap at position 2048
+    "recurrentgemma-2b": dict(batch=2, prompts=(2600, 2040), new=32,
+                              need=("flash_attention", "flash_decode", "rglru_scan")),
 }
 
 
@@ -932,19 +1068,31 @@ def generate_timed(arch, smoke=False, device="cuda"):
 
 
 def generate_phase(smoke=False, device="cuda"):
-    """qwen2-0.5b (24 layers) and mamba2-780m (48 layers) at full width: f32
-    token equality with the plain path (qwen2 at 2 layers on the reference's
-    init, at 24 on it (printed, not gated: chaotic at depth) and at 24
-    rescaled; mamba2 at 2 and 48 layers), then the bf16 timed runs. Returns
-    the launch counts of the bf16 runs (the main path's)."""
+    """qwen2-0.5b (24 layers), mamba2-780m (48) and recurrentgemma-2b (26) at
+    full width: f32 token equality with the plain path (qwen2 at 2 layers on
+    the reference's init, at 24 on it (printed, not gated: chaotic at depth)
+    and at 24 rescaled; mamba2 at 2 and 48 layers; recurrentgemma at 5 (one
+    group and the two-rec remainder), at 26 on the reference's init after a
+    line of how far two plain computations drift there (printed, not gated:
+    chaotic at depth, its MQA wk / wv drawn with std 1) and at 26 rescaled),
+    then the bf16 timed runs. Returns the launch counts of the bf16 runs (the main path's),
+    summed over the cells."""
     generate_exact("qwen2-0.5b", 2, True, smoke=smoke, device=device)
     generate_exact("qwen2-0.5b", 24, False, smoke=smoke, device=device)
     generate_exact("qwen2-0.5b", 24, True, conditioned=True, smoke=smoke, device=device)
     generate_exact("mamba2-780m", 2, True, smoke=smoke, device=device)
     generate_exact("mamba2-780m", 48, True, smoke=smoke, device=device)
+    rg = "recurrentgemma-2b"
+    generate_exact(rg, 5, True, smoke=smoke, device=device)
+    if not smoke:
+        prompt = np.random.default_rng(4).integers(0, 256000, size=2600).tolist()
+        depth_sensitivity(prompt, 26, device=device, arch=rg)
+        generate_exact(rg, 26, False, device=device)
+        generate_exact(rg, 26, True, conditioned=True, device=device)
     launches = {}
     for arch in GEN_CELLS:
-        launches.update(generate_timed(arch, smoke=smoke, device=device)["launches"])
+        for k, n in generate_timed(arch, smoke=smoke, device=device)["launches"].items():
+            launches[k] = launches.get(k, 0) + n
         if device == "cuda":
             torch.cuda.empty_cache()
     return launches
@@ -979,19 +1127,34 @@ def exact_requests(vocab, seed=0):
     return prompts
 
 
+def _attention_params(tree):
+    """Every attention parameter dict ({"wq", "wk", "wv", "wo", ...}) in a
+    parameter tree (a dense layer's p["attn"], a group's p["attn"]["attn"])."""
+    if isinstance(tree, dict):
+        if "wq" in tree:
+            yield tree
+        else:
+            for v in tree.values():
+                yield from _attention_params(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _attention_params(v)
+
+
 def condition_attention(cfg, params):
     """Rescale wq/wk/wv/wo in place to std 1/sqrt(true fan-in). The
     reference's init draws a (d, h, k) projection with std 1/sqrt(shape[-2]),
-    i.e. 1/sqrt(heads) (wq 1/sqrt(14), wk and wv 1/sqrt(2)) and wo (h, k, d)
-    with 1/sqrt(head_dim), so attention scores are huge and attention is
+    i.e. 1/sqrt(heads) (qwen2: wq 1/sqrt(14), wk and wv 1/sqrt(2);
+    recurrentgemma: wq 1/sqrt(10), wk and wv 1) and wo (h, k, d) with
+    1/sqrt(head_dim), so attention scores are huge and attention is
     near-argmax. That is chaotic at depth: f32 rounding differences between
     two correct computations flip attention choices and, by 24 layers, the
     greedy token. With the fan-in the layer really has (d_model for wq/wk/wv,
     Hq * head_dim for wo) the model stays well-conditioned, so tokens can be
-    compared at full depth."""
+    compared at full depth. The RG-LRU and MLP weights already have their
+    true fan-in and stay as drawn."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    for p in params["blocks"][0]:
-        a = p["attn"]
+    for a in _attention_params(params["blocks"]):
         a["wq"].mul_(math.sqrt(hq / d))
         a["wk"].mul_(math.sqrt(hkv / d))
         a["wv"].mul_(math.sqrt(hkv / d))
@@ -999,31 +1162,41 @@ def condition_attention(cfg, params):
     return params
 
 
-def depth_sensitivity(prompt, layers, conditioned=False, device="cuda"):
+def depth_sensitivity(prompt, layers, conditioned=False, device="cuda", arch="qwen2-0.5b"):
     """Max |logit difference| between two plain computations of the same
-    next-token logits — Model.forward over the prompt, and Model.prefill over
-    it right-padded to a page (other matmul shapes) — for random f32 weights
-    at full width and ``layers`` depth, with the reference's init or (with
-    ``conditioned``) after condition_attention. This bounds how deep a
-    token-exact check can go."""
+    next-token logits for random f32 weights at full width and ``layers``
+    depth, with the reference's init or (with ``conditioned``) after
+    condition_attention: Model.forward over the prompt, and (dense)
+    Model.prefill over it right-padded to a page, or (hybrid, whose final
+    state padding would pollute) Model.prefill over all but the last token
+    then one decode_step — other matmul shapes either way. This bounds how
+    deep a token-exact check can go."""
     from repro_torch.models import build_model, get_config
     import dataclasses
 
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32", n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", n_layers=layers)
     model = build_model(cfg, device=device)
     params = model.init_params(torch.Generator(device=device).manual_seed(0))
     if conditioned:
         condition_attention(cfg, params)
     toks = torch.tensor([prompt], device=device)
     fwd, _ = model.forward(params, toks, attn_impl="torch")
-    padded = torch.zeros((1, -(-len(prompt) // 16) * 16), dtype=toks.dtype, device=device)
-    padded[0, :len(prompt)] = toks[0]
-    pre, _ = model.prefill(params, padded, last_index=len(prompt) - 1, attn_impl="torch")
-    a, b = fwd[0, -1, :cfg.vocab], pre[0, 0, :cfg.vocab]
-    rec = {"phase": "engine_exact_sensitivity", "n_layers": layers,
+    fwd = fwd[0, -1, :cfg.vocab]
+    if cfg.family == "hybrid":
+        n = len(prompt)
+        _, caches = model.prefill(params, toks[:, :-1], max_len=n, attn_impl="torch")
+        other, _ = model.decode_step(params, caches, toks[:, -1], n - 1, attn_impl="torch")
+        other = other[0, :cfg.vocab]
+    else:
+        padded = torch.zeros((1, -(-len(prompt) // 16) * 16), dtype=toks.dtype, device=device)
+        padded[0, :len(prompt)] = toks[0]
+        other, _ = model.prefill(params, padded, last_index=len(prompt) - 1, attn_impl="torch")
+        other = other[0, 0, :cfg.vocab]
+    rec = {"phase": "generate_sensitivity" if cfg.family == "hybrid"
+           else "engine_exact_sensitivity", "model": cfg.name, "n_layers": layers,
            "init": "conditioned" if conditioned else "reference", "prompt_len": len(prompt),
-           "max_abs_logit_diff": float((a - b).abs().max()),
-           "argmax_equal": int(a.argmax()) == int(b.argmax())}
+           "max_abs_logit_diff": float((fwd - other).abs().max()),
+           "argmax_equal": int(fwd.argmax()) == int(other.argmax())}
     emit(rec)
     return rec
 
@@ -1337,9 +1510,8 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
-    emit({"kernels": kernels,
-          "not_ported": [{"name": n, "replaces": r} for n, r in NOT_PORTED],
-          "phase_seconds": t_phase, "seconds": time.perf_counter() - t_start})
+    emit({"kernels": kernels, "phase_seconds": t_phase,
+          "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,7 @@ from . import (
     ops,
     paged_attention,
     quant_matmul,
+    rglru_scan,
     ssd_scan,
     stencil3d,
     sum3d,
@@ -24,6 +25,7 @@ KERNEL_WRAPPERS = {
     **paged_attention.KERNEL_WRAPPERS,
     **flash_attention.KERNEL_WRAPPERS,
     **ssd_scan.KERNEL_WRAPPERS,
+    **rglru_scan.KERNEL_WRAPPERS,
     **quant_matmul.KERNEL_WRAPPERS,
     **sum3d.KERNEL_WRAPPERS,
     **stencil3d.KERNEL_WRAPPERS,

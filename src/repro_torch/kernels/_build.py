@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"paged_attention": "paged_attention.cu", "quant_matmul": "quant_matmul.cu",
            "paper_suite": "paper_suite.cu", "flash_attention": "flash_attention.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu", "rglru_scan": "rglru_scan.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

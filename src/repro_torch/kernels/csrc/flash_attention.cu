@@ -29,12 +29,17 @@
 // query heads of one KV head together (rows ordered t-major: row = t * G + g),
 // so every staged K/V tile serves all G heads of its group (GQA reuse, as the
 // TPU kernel's (G, D) decode block); prefill takes 64 such rows a block, decode
-// the G rows of its one token. K/V tiles of 64 keys (32 for D 128) are staged
-// as f32 through shared memory. Tiles wholly outside the causal / window band
-// of a block's rows are never read (the TPU kernel's `run` predicate); inside a
-// tile every (row, key) pair is masked by liveness, never by the exponent
-// alone. Not done yet: tensor cores (wgmma), TMA/cp.async staging, or a
-// split of a long cache across blocks for decode.
+// the G rows of its one token. K/V tiles of 64 keys (32 for D 128 and 256)
+// are staged as f32 through shared memory. At D 256 (recurrentgemma) a
+// prefill block stages 4 * (64 * 256 * 2 + 32 * 513 + 64 * 32 + 192) =
+// 205,696 bytes, under the 232,448 a block may opt in to, so one block runs
+// per SM; a decode block at G = 10 stages ~87.5 KB. flash_tile's loops over D
+// are not unrolled past 16, so registers do not grow with D. Tiles wholly
+// outside the causal / window band of a block's rows are never read (the TPU
+// kernel's `run` predicate); inside a tile every (row, key) pair is masked
+// by liveness, never by the exponent alone. Not done yet: tensor cores
+// (wgmma), TMA/cp.async staging, or a split of a long cache across blocks for
+// decode.
 
 #include "common.cuh"
 
@@ -163,6 +168,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                                : launch<__nv_bfloat16, 64>(__VA_ARGS__);             \
     case 128: return dtype == 0 ? launch<float, 128>(__VA_ARGS__)                    \
                                 : launch<__nv_bfloat16, 128>(__VA_ARGS__);           \
+    case 256: return dtype == 0 ? launch<float, 256>(__VA_ARGS__)                    \
+                                : launch<__nv_bfloat16, 256>(__VA_ARGS__);           \
     default: return cudaErrorInvalidValue;                                           \
   }
 

@@ -1,9 +1,10 @@
 """ops — the public kernel API of the port, with impl dispatch.
 
 Port of ``repro.kernels.ops``: the serving paths' kernels (dense attention
-and decode, paged attention, the quantized matmul, the Mamba-2 SSD scan) and
-the paper-suite dispatchers (``sum3d`` / ``matvec`` / ``tinymatsum`` /
-``stencil3d``), where an MdSpan's layout type selects the kernel schedule.
+and decode, paged attention, the quantized matmul, the Mamba-2 SSD scan, the
+RG-LRU recurrence) and the paper-suite dispatchers (``sum3d`` / ``matvec`` /
+``tinymatsum`` / ``stencil3d``), where an MdSpan's layout type selects the
+kernel schedule.
 ``impl`` replaces the reference's ``_want_pallas``:
 
   "cuda"   the hand-written kernel; raises unless the operands are CUDA tensors
@@ -42,6 +43,8 @@ from .paged_attention import (
     paged_prefill_chunk_torch,
 )
 from .quant_matmul import quant_matmul, quant_matmul_torch
+from .rglru_scan import rglru_scan as _rglru_kernel
+from .rglru_scan import rglru_torch
 from .ssd_scan import ssd_scan, ssd_torch
 from .stencil3d import stencil3d as _stencil3d_kernel
 from .stencil3d import stencil3d_torch
@@ -225,6 +228,22 @@ def ssd_decode_step(state, xt, dtt, A, Bt, Ct):
     state = state * decay[..., None, None] + upd
     y = torch.einsum("bhpn,bhn->bhp", state, Ch)
     return state, y.to(xt.dtype)
+
+
+# ---------------------------------------------------------------------------------
+# RG-LRU recurrence (recurrentgemma)
+# ---------------------------------------------------------------------------------
+def rglru_scan(a, b, *, initial_state=None, return_final_state: bool = False,
+               impl: str = "auto"):
+    """h_t = a_t * h_{t-1} + b_t over dim 1 of (B, T, W), from an optional f32
+    initial state (B, W): y in a's dtype [and the f32 final state]. The
+    kernel is rglru_scan (any T, so the reference's ragged-tail padding has
+    nothing to do); the plain version is the reference model's associative
+    scan."""
+    kw = dict(initial_state=initial_state, return_final_state=return_final_state)
+    if _want_kernel(impl, a):
+        return _rglru_kernel(a, b, **kw)
+    return rglru_torch(a, b, **kw)
 
 
 # ---------------------------------------------------------------------------------

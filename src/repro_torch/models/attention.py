@@ -1,10 +1,10 @@
 """GQA self-attention of the port: monolithic prefill, one-token decode
-against a dense (B, Hkv, S, Dh) cache, and the paged serving paths (one-token
-decode, one prefill chunk).
+against a dense (B, Hkv, S, Dh) cache or a windowed ring buffer, and the
+paged serving paths (one-token decode, one prefill chunk).
 
-Port of ``repro.models.attention`` without cross-attention, the sharded
-decode and the windowed ring-buffer decode (their slices are not ported
-yet). A dense cache is written IN PLACE at slot ``pos``. Page pools are
+Port of ``repro.models.attention`` without cross-attention and the sharded
+decode (their slices are not ported yet). A dense cache is written IN PLACE
+at slot ``pos``, a ring buffer at slot ``pos % S``. Page pools are
 (num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
 (serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
 f32 per (page, head)} for each of k and v. Where the reference returns new
@@ -104,15 +104,22 @@ def pack_kv_pages_quant(pool, k: torch.Tensor, v: torch.Tensor, pages: torch.Ten
     return pool
 
 
-def pack_kv_cache(cfg, k: torch.Tensor, v: torch.Tensor, *,
-                  max_len: Optional[int]) -> Dict[str, torch.Tensor]:
-    """Prefilled K/V (B, Hkv, S, Dh) padded along S to ``max_len`` (token p at
-    slot p), in the param dtype."""
+def pack_kv_cache(cfg, k: torch.Tensor, v: torch.Tensor, *, max_len: Optional[int],
+                  window: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Prefilled K/V (B, Hkv, S, Dh) laid out as the decode cache, in the param
+    dtype. Without a window: padded along S to ``max_len`` (token p at slot
+    p). With one: a ring of ``window`` slots where token p lives at slot p %
+    window — the last ``window`` tokens rolled by S % window when S >= window,
+    else padded to ``window`` (not to ``max_len``), as the reference does."""
     s = k.shape[2]
-    cap = max_len if max_len is not None else s
-    if cap > s:
-        pad = (0, 0, 0, cap - s)
-        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    if window is not None and s >= window:
+        k = torch.roll(k[:, :, -window:], s % window, dims=2)
+        v = torch.roll(v[:, :, -window:], s % window, dims=2)
+    else:
+        cap = window if window is not None else (max_len if max_len is not None else s)
+        if cap > s:
+            pad = (0, 0, 0, cap - s)
+            k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     return {"k": k.to(cfg.param_dtype), "v": v.to(cfg.param_dtype)}
 
 
@@ -166,22 +173,37 @@ def self_attention(cfg, p, x: torch.Tensor, *, causal: bool = True,
 
 
 def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos, *,
-                          impl: str = "auto"):
-    """One-token decode against one layer's dense cache.
+                          window: Optional[int] = None, impl: str = "auto"):
+    """One-token decode against one layer's dense cache or ring buffer.
 
     x: (B, 1, D); cache k/v: (B, Hkv, S, Dh); ``pos`` (an int or a one-element
-    integer tensor on x's device, < S) is the current token's position. Its
-    K/V is written IN PLACE at slot ``pos``, then ops.decode_attention
-    attends slots <= pos."""
+    integer tensor on x's device) is the current token's position.
+
+    Without a window (pos < S) its K/V is written IN PLACE at slot ``pos``,
+    then ops.decode_attention attends slots <= pos.
+
+    With a window the cache is a ring of S <= window slots (token p at slot
+    p % S, pack_kv_cache's layout): the K/V is written at slot pos % S, on the
+    device. The reference then attends with an eager masked einsum, slot i
+    live when its absolute position pos - ((pos % S - i) mod S) lies in
+    [max(pos - window + 1, 0), pos]. A slot that holds a token holds one of
+    the last S <= window positions, all inside the window, so that live set
+    is exactly "slot i <= min(pos, S - 1)": every slot once the ring has
+    wrapped, the written prefix before. Softmax does not depend on the order
+    of the slots, so ops.decode_attention at position min(pos, S - 1), with
+    no window, computes the reference's function: the flash_decode kernel
+    runs unchanged and nothing waits on the host."""
     posv = pos.reshape(1) if isinstance(pos, torch.Tensor) else torch.full(
         (1,), int(pos), dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
-    idx = posv.long()
+    s_len = cache["k"].shape[2]
+    idx = (posv if window is None else posv % s_len).long()
     cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
     cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
-    out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], posv, impl=impl)
+    last = posv if window is None else torch.clamp(posv, max=s_len - 1)
+    out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], last, impl=impl)
     return _out_proj(p, out, x.dtype), cache
 
 

@@ -41,9 +41,11 @@ def _map(tree, fn):
 
 def from_jax_params(np_tree, cfg, device=None):
     """Port parameters from a numpy copy of the reference's parameter pytree
-    for ``cfg`` (a ported family: every entry of ``block_program(cfg)``, dense
-    or ssm): {"embed", "blocks": [[layer dict] * count per program entry],
-    "final_norm"} on ``device`` (CUDA unless the caller names one)."""
+    for ``cfg`` (a ported family: every entry of ``block_program(cfg)``, dense,
+    ssm, rec, or rg_group with its nested {"rec0", "rec1", "attn"} stacks,
+    each split on its own leading layer dim): {"embed", "blocks": [[layer
+    dict] * count per program entry], "final_norm"} on ``device`` (CUDA
+    unless the caller names one)."""
     device = resolve_device(device)
     program = block_program(cfg)
     if len(np_tree["blocks"]) != len(program):

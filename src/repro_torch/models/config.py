@@ -2,13 +2,14 @@
 
 Field names and defaults follow ``repro.models.config.ModelConfig`` so a
 config converts field by field. The port runs the "dense" family (GQA
-decoder) and the "ssm" family (Mamba-2 SSD); the registry refuses the others
-until their slice is ported.
+decoder), the "ssm" family (Mamba-2 SSD) and the "hybrid" family
+(recurrentgemma: RG-LRU blocks and local attention); the registry refuses the
+others until their slice is ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,7 +21,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "ssm" run in this port (the reference has more)
+    family: str  # "dense" | "ssm" | "hybrid" run in this port (the reference has more)
     n_layers: int
     d_model: int
     vocab: int
@@ -30,7 +31,7 @@ class ModelConfig:
     d_head: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    window: Optional[int] = None  # local attention window: not on the paged path
+    window: Optional[int] = None  # local attention window (hybrid archs): not on the paged path
     # mlp
     d_ff: int = 0
     mlp_act: str = "swiglu"
@@ -42,6 +43,9 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_chunk: int = 128
     conv_kernel: int = 4
+    # hybrid (recurrentgemma): repeating block pattern, e.g. ("rec", "rec", "local_attn")
+    pattern: Tuple[str, ...] = ()
+    lru_width: int = 0
     # numerics / embedding
     dtype: str = "bfloat16"
     vocab_pad_to: int = 256

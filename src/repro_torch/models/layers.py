@@ -1,7 +1,7 @@
 """Dense layers of the port: parameter specs and their init, rmsnorm, RoPE,
-SwiGLU MLP, embedding and the tied LM head.
+the gated MLP (SwiGLU, GeGLU), embedding and the tied LM head.
 
-Port of what the dense and SSM blocks use of ``repro.models.layers``; weights keep the
+Port of what the dense, SSM and hybrid blocks use of ``repro.models.layers``; weights keep the
 reference's layouts (a dense linear is (d_in, d_out), applied as x @ w; a
 quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
 through ``kernels.ops.matmul``), so a bridged parameter tree is a
@@ -103,9 +103,13 @@ def linear_spec(d_in: int, d_out: int, *, dtype, quant: Optional[QuantizedAccess
     return ParamSpec((d_in, d_out), dtype, init)
 
 
+GATED_ACTS = ("swiglu", "geglu")
+
+
 def mlp_specs(cfg, quant: Optional[QuantizedAccessor] = None) -> Dict[str, ParamSpec]:
-    if cfg.mlp_act != "swiglu":
-        raise NotImplementedError(f"mlp_act {cfg.mlp_act!r}: only swiglu is ported")
+    """The gated MLP's weights; SwiGLU and GeGLU share the leaf names."""
+    if cfg.mlp_act not in GATED_ACTS:
+        raise NotImplementedError(f"mlp_act {cfg.mlp_act!r}: only {GATED_ACTS} are ported")
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
     return {
         "w_gate": linear_spec(d, f, dtype=dt, quant=quant),
@@ -162,10 +166,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """act(x @ w_gate) * (x @ w_up) @ w_down, the activation in f32 (silu for
+    swiglu, tanh-approximated gelu for geglu)."""
+    act = F.silu if cfg.mlp_act == "swiglu" else gelu_tanh
     g = apply_linear(x, p["w_gate"])
     u = apply_linear(x, p["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
+    h = act(g.float()).to(x.dtype) * u
     return apply_linear(h, p["w_down"])
 
 

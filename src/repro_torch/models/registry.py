@@ -26,7 +26,7 @@ ARCH_FAMILIES = {
     "llama-3.2-vision-90b": "vlm",
     "recurrentgemma-2b": "hybrid",
 }
-PORTED = ("qwen2-0.5b", "mamba2-780m")
+PORTED = ("qwen2-0.5b", "mamba2-780m", "recurrentgemma-2b")
 ARCH_IDS = list(PORTED)
 
 

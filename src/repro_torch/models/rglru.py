@@ -1,0 +1,108 @@
+"""RG-LRU recurrent block (RecurrentGemma/Griffin) of the port: conv1d + gated
+linear recurrence.
+
+Port of ``repro.models.rglru``. Prefill computes the decay a and the input
+term b eagerly, in the reference's cast order, and runs the recurrence
+through ``kernels.ops.rglru_scan`` (the rglru_scan kernel on CUDA tensors;
+the reference runs ``jax.lax.associative_scan``, the same function, which is
+the kernel's plain version here). Decode is an O(1) state update in plain
+PyTorch, as in the reference, writing the cache in place.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+from .layers import ParamSpec, gelu_tanh
+from .ssm import _causal_conv, conv_tail
+
+RG_C = 8.0
+
+
+def rglru_specs(cfg, *, quant=None) -> Dict[str, ParamSpec]:
+    """One block's parameters; ``quant`` is accepted and unused, as in the
+    reference (only the MLP is stored quantized)."""
+    d, w = cfg.d_model, cfg.lru_width
+    dt = cfg.param_dtype
+    return {
+        "w_x": ParamSpec((d, w), dt),
+        "w_y": ParamSpec((d, w), dt),
+        "conv_w": ParamSpec((cfg.conv_kernel, w), dt, "fan_in"),
+        "conv_b": ParamSpec((w,), torch.float32, "zeros"),
+        "w_input_gate": ParamSpec((w, w), dt),
+        "b_input_gate": ParamSpec((w,), torch.float32, "zeros"),
+        "w_a_gate": ParamSpec((w, w), dt),
+        "b_a_gate": ParamSpec((w,), torch.float32, "zeros"),
+        "a_param": ParamSpec((w,), torch.float32, "ones"),
+        "w_out": ParamSpec((w, d), dt),
+    }
+
+
+def rglru_cache_specs(cfg, batch: int) -> Dict[str, ParamSpec]:
+    """The decode state: the (B, W) f32 recurrence state and the last K - 1
+    pre-conv rows."""
+    w = cfg.lru_width
+    return {
+        "h": ParamSpec((batch, w), torch.float32, "zeros"),
+        "conv": ParamSpec((batch, cfg.conv_kernel - 1, w), cfg.param_dtype, "zeros"),
+    }
+
+
+def _gates(p, xc: torch.Tensor):
+    """(input gate, a gate) pre-activations in xc's dtype."""
+    ig = torch.matmul(xc, p["w_input_gate"].to(xc.dtype)) + p["b_input_gate"].to(xc.dtype)
+    ag = torch.matmul(xc, p["w_a_gate"].to(xc.dtype)) + p["b_a_gate"].to(xc.dtype)
+    return ig, ag
+
+
+def _log_a(p, ag: torch.Tensor) -> torch.Tensor:
+    """log a = -c * softplus(a_param) * sigmoid(a gate), f32."""
+    return -RG_C * F.softplus(p["a_param"].float()) * torch.sigmoid(ag.float())
+
+
+def _decay_and_input(p, xc: torch.Tensor):
+    """a = exp(log a) and b = sqrt(max(1 - a^2, 1e-12)) * sigmoid(i) * xc, f32."""
+    ig, ag = _gates(p, xc)
+    a = torch.exp(_log_a(p, ag))
+    gated = torch.sigmoid(ig.float()) * xc.float()
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
+
+
+def apply_rglru(cfg, p, x: torch.Tensor, *, initial_state=None, return_state: bool = False,
+                impl: str = "auto"):
+    """x (B, S, D) -> (B, S, D) [+ the decode cache {"h", "conv"}]. ``impl``
+    picks the recurrence (kernels.ops.rglru_scan); ``initial_state`` (B, W)
+    f32 is the kernel's h0, where the reference folds it into b_0."""
+    xb = torch.matmul(x, p["w_x"].to(x.dtype))
+    yb = gelu_tanh(torch.matmul(x, p["w_y"].to(x.dtype)).float()).to(x.dtype)
+    xc = _causal_conv(xb, p["conv_w"], p["conv_b"])
+    a, b = _decay_and_input(p, xc)
+    h = ops.rglru_scan(a, b, initial_state=initial_state, impl=impl).to(x.dtype)
+    out = torch.matmul(h * yb, p["w_out"].to(x.dtype))
+    if return_state:
+        return out, {"h": h[:, -1].float(), "conv": conv_tail(xb, cfg.conv_kernel)}
+    return out
+
+
+def apply_rglru_decode(cfg, p, x: torch.Tensor, cache, pos):
+    """x (B, 1, D); cache {"h": (B, W) f32, "conv": (B, K - 1, W)}, updated IN
+    PLACE -> (y (B, 1, D), cache)."""
+    xb = torch.matmul(x[:, 0], p["w_x"].to(x.dtype))  # (B, W)
+    yb = gelu_tanh(torch.matmul(x[:, 0], p["w_y"].to(x.dtype)).float()).to(x.dtype)
+    k = cfg.conv_kernel
+    w = p["conv_w"]
+    conv = p["conv_b"].float() + xb.float() * w[k - 1].float()
+    for i in range(k - 1):
+        conv = conv + cache["conv"][:, i].float() * w[i].float()
+    xc = conv.to(x.dtype)
+    a, b = _decay_and_input(p, xc)
+    h = a * cache["h"] + b
+    out = torch.matmul(h.to(x.dtype) * yb, p["w_out"].to(x.dtype))[:, None, :]
+    cache["conv"].copy_(torch.cat([cache["conv"][:, 1:], xb[:, None].to(cache["conv"].dtype)],
+                                  dim=1))
+    cache["h"].copy_(h)
+    return out, cache

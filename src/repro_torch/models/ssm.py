@@ -106,16 +106,21 @@ def apply_ssm(cfg, p, x: torch.Tensor, *, initial_state=None, return_state: bool
     return out
 
 
-def xbc_raw_tail(cfg, x, p, zxbcdt: torch.Tensor) -> torch.Tensor:
-    """The last K - 1 PRE-conv xBC rows: the conv state carried into decode.
-    A prompt shorter than K - 1 is left-padded with the zeros the causal conv
-    reads before the sequence start."""
-    _, xbc_raw, _ = _split_proj(cfg, zxbcdt)
-    k = cfg.conv_kernel
-    tail = xbc_raw[:, -(k - 1):, :]
+def conv_tail(x_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """The last K - 1 PRE-conv rows of x_raw (B, S, C): the conv state carried
+    into decode. A prompt shorter than K - 1 is left-padded with the zeros the
+    causal conv reads before the sequence start (the reference keeps fewer
+    rows there: ROADMAP Queue 3)."""
+    tail = x_raw[:, -(k - 1):, :]
     if tail.shape[1] < k - 1:
         tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
     return tail
+
+
+def xbc_raw_tail(cfg, x, p, zxbcdt: torch.Tensor) -> torch.Tensor:
+    """The last K - 1 pre-conv xBC rows (conv_tail)."""
+    _, xbc_raw, _ = _split_proj(cfg, zxbcdt)
+    return conv_tail(xbc_raw, cfg.conv_kernel)
 
 
 def apply_ssm_decode(cfg, p, x: torch.Tensor, cache, pos):

@@ -1,20 +1,25 @@
-"""The decoder stack of the port: the dense and SSM block kinds and Model.
+"""The decoder stack of the port: the dense, SSM and hybrid block kinds and
+Model.
 
-Port of the dense and Mamba-2 half of ``repro.models.transformer``. An
-architecture is a program of (block kind, count) entries (``block_program``).
+Port of the dense, Mamba-2 and recurrentgemma part of
+``repro.models.transformer``. An architecture is a program of (block kind,
+count) entries (``block_program``).
 Parameters are plain nested dicts of tensors with the reference's leaf names
 and weight layouts; where the reference stacks a leading layer dim and scans,
 the port keeps one dict per layer (``params["blocks"][i][l]`` for program
 entry i) and loops. Caches keep the stacked form: the dense decode cache
-{"k", "v": (L, B, Hkv, S, Dh)}, the SSM cache {"state": (L, B, H, P, N),
-"conv": (L, B, K - 1, conv_dim)}, the page pools (L, num_pages, Hkv, ps, Dh)
-(or their {"q", "scale"} quantized form); per-layer views of them are
+{"k", "v": (L, B, Hkv, S, Dh)} (S the window for a local-attention ring),
+the SSM cache {"state": (L, B, H, P, N), "conv": (L, B, K - 1, conv_dim)},
+the RG-LRU cache {"h": (L, B, W), "conv": (L, B, K - 1, W)}, a group's
+nested {"rec0", "rec1", "attn"} of those, the page pools (L, num_pages, Hkv,
+ps, Dh) (or their {"q", "scale"} quantized form); per-layer views of them are
 updated in place. ``Model(cfg, quant=...)`` stores the MLP weights through a
 QuantizedAccessor (int8 serving weights).
 
 ``attn_impl`` on forward / prefill / decode_step picks the kernels of the
-dense-cache path (flash_attention, flash_decode, ssd_scan: "auto" | "cuda" |
-"torch", as kernels.ops), so an oracle can force the plain versions.
+dense-cache path (flash_attention, flash_decode, ssd_scan, rglru_scan:
+"auto" | "cuda" | "torch", as kernels.ops), so an oracle can force the plain
+versions.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from repro_torch.kernels.common import resolve_device
 
 from . import attention as attn
+from . import rglru as rg_mod
 from . import ssm as ssm_mod
 from .layers import (
     apply_embed,
@@ -39,8 +45,15 @@ from .layers import (
 
 
 class DenseBlock:
-    """Pre-norm self-attention + SwiGLU MLP; decode and the paged paths write
-    one layer's cache or page pool in place."""
+    """Pre-norm self-attention (+ a local window for ``use_window``, the
+    hybrid family's local_attn kind) + gated MLP; decode and the paged paths
+    write one layer's cache or page pool in place."""
+
+    def __init__(self, use_window: bool = False):
+        self.use_window = use_window
+
+    def _window(self, cfg):
+        return cfg.window if self.use_window else None
 
     @staticmethod
     def specs(cfg, quant=None):
@@ -51,32 +64,31 @@ class DenseBlock:
             "mlp": mlp_specs(cfg, quant=quant),
         }
 
-    @staticmethod
-    def cache_specs(cfg, batch: int, seq: int):
-        return attn.cache_specs(cfg, batch, seq)
+    def cache_specs(self, cfg, batch: int, seq: int):
+        w = self._window(cfg)
+        return attn.cache_specs(cfg, batch, min(seq, w) if w is not None else seq)
 
     @staticmethod
     def _mlp(cfg, p, x):
         return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]))
 
-    @classmethod
-    def train(cls, cfg, p, x, impl="auto"):
+    def train(self, cfg, p, x, impl="auto"):
         h = apply_norm(cfg, x, p["ln_attn"])
-        x = x + attn.self_attention(cfg, p["attn"], h, impl=impl)
-        return cls._mlp(cfg, p, x)
+        x = x + attn.self_attention(cfg, p["attn"], h, window=self._window(cfg), impl=impl)
+        return self._mlp(cfg, p, x)
 
-    @classmethod
-    def prefill(cls, cfg, p, x, max_len=None, impl="auto"):
+    def prefill(self, cfg, p, x, max_len=None, impl="auto"):
         h = apply_norm(cfg, x, p["ln_attn"])
-        y, (k, v) = attn.self_attention(cfg, p["attn"], h, return_kv=True, impl=impl)
-        x = cls._mlp(cfg, p, x + y)
-        return x, attn.pack_kv_cache(cfg, k, v, max_len=max_len)
+        w = self._window(cfg)
+        y, (k, v) = attn.self_attention(cfg, p["attn"], h, window=w, return_kv=True, impl=impl)
+        x = self._mlp(cfg, p, x + y)
+        return x, attn.pack_kv_cache(cfg, k, v, max_len=max_len, window=w)
 
-    @classmethod
-    def decode(cls, cfg, p, x, cache, pos, impl="auto"):
+    def decode(self, cfg, p, x, cache, pos, impl="auto"):
         h = apply_norm(cfg, x, p["ln_attn"])
-        y, cache = attn.self_attention_decode(cfg, p["attn"], h, cache, pos, impl=impl)
-        return cls._mlp(cfg, p, x + y), cache
+        y, cache = attn.self_attention_decode(cfg, p["attn"], h, cache, pos,
+                                              window=self._window(cfg), impl=impl)
+        return self._mlp(cfg, p, x + y), cache
 
     @classmethod
     def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None):
@@ -127,16 +139,94 @@ class SSMBlock:
         return x + y, cache
 
 
-KINDS = {"dense": DenseBlock, "ssm": SSMBlock}
+class RecBlock:
+    """Pre-norm RG-LRU temporal block + gated MLP; decode updates one layer's
+    state and conv rows in place."""
+
+    @staticmethod
+    def specs(cfg, quant=None):
+        return {
+            "ln_rec": norm_specs(cfg),
+            "rec": rg_mod.rglru_specs(cfg, quant=quant),
+            "ln_mlp": norm_specs(cfg),
+            "mlp": mlp_specs(cfg, quant=quant),
+        }
+
+    @staticmethod
+    def cache_specs(cfg, batch: int, seq: int):
+        return rg_mod.rglru_cache_specs(cfg, batch)
+
+    @staticmethod
+    def train(cfg, p, x, impl="auto"):
+        x = x + rg_mod.apply_rglru(cfg, p["rec"], apply_norm(cfg, x, p["ln_rec"]), impl=impl)
+        return DenseBlock._mlp(cfg, p, x)
+
+    @staticmethod
+    def prefill(cfg, p, x, max_len=None, impl="auto"):
+        h = apply_norm(cfg, x, p["ln_rec"])
+        y, cache = rg_mod.apply_rglru(cfg, p["rec"], h, return_state=True, impl=impl)
+        return DenseBlock._mlp(cfg, p, x + y), cache
+
+    @staticmethod
+    def decode(cfg, p, x, cache, pos, impl="auto"):
+        h = apply_norm(cfg, x, p["ln_rec"])
+        y, cache = rg_mod.apply_rglru_decode(cfg, p["rec"], h, cache, pos)
+        return DenseBlock._mlp(cfg, p, x + y), cache
+
+
+class RGGroup:
+    """RecurrentGemma's repeating unit: [rec, rec, local_attn], with nested
+    {"rec0", "rec1", "attn"} parameters and caches."""
+
+    PARTS = (("rec0", RecBlock()), ("rec1", RecBlock()), ("attn", DenseBlock(use_window=True)))
+
+    def specs(self, cfg, quant=None):
+        return {name: blk.specs(cfg, quant) for name, blk in self.PARTS}
+
+    def cache_specs(self, cfg, batch: int, seq: int):
+        return {name: blk.cache_specs(cfg, batch, seq) for name, blk in self.PARTS}
+
+    def train(self, cfg, p, x, impl="auto"):
+        for name, blk in self.PARTS:
+            x = blk.train(cfg, p[name], x, impl=impl)
+        return x
+
+    def prefill(self, cfg, p, x, max_len=None, impl="auto"):
+        caches = {}
+        for name, blk in self.PARTS:
+            x, caches[name] = blk.prefill(cfg, p[name], x, max_len=max_len, impl=impl)
+        return x, caches
+
+    def decode(self, cfg, p, x, cache, pos, impl="auto"):
+        for name, blk in self.PARTS:
+            x, _ = blk.decode(cfg, p[name], x, cache[name], pos, impl=impl)
+        return x, cache
+
+
+KINDS = {
+    "dense": DenseBlock(),
+    "local_attn": DenseBlock(use_window=True),
+    "ssm": SSMBlock(),
+    "rec": RecBlock(),
+    "rg_group": RGGroup(),
+}
 
 
 def block_program(cfg):
     """The architecture as (block kind, count) entries, as in the reference
-    (only the ported families resolve)."""
+    (only the ported families resolve). The hybrid family is n_layers //
+    len(pattern) groups (kept when that is 0, as the reference keeps it) and
+    the remainder as rec blocks."""
     if cfg.family == "dense":
         return [("dense", cfg.n_layers)]
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, len(cfg.pattern))
+        prog = [("rg_group", n_groups)]
+        if rem:
+            prog.append(("rec", rem))
+        return prog
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4: other families)"
     )
@@ -151,22 +241,20 @@ def _layer(tree, l: int):
 
 
 def _stack(layers: List[Dict]) -> Dict:
-    """Per-layer cache dicts -> one dict of stacked (L, ...) tensors."""
-    return {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+    """Per-layer cache dicts (nested for a group) -> one dict of stacked (L,
+    ...) tensors."""
+    return {k: _stack([c[k] for c in layers]) if isinstance(layers[0][k], dict)
+            else torch.stack([c[k] for c in layers]) for k in layers[0]}
 
 
 class Model:
-    """A dense (GQA) or SSM (Mamba-2) decoder on one device. ``device``
-    defaults to CUDA and raises without a GPU; pass ``device="cpu"`` to run
-    the plain versions. ``quant`` (core.QuantizedAccessor) stores the MLP
+    """A dense (GQA), SSM (Mamba-2) or hybrid (recurrentgemma) decoder on one
+    device. ``device`` defaults to CUDA and raises without a GPU; pass
+    ``device="cpu"`` to run the plain versions. ``quant`` (core.QuantizedAccessor) stores the MLP
     weights quantized, as the reference's serving-weight accessor."""
 
     def __init__(self, cfg, quant=None, device=None):
         block_program(cfg)  # refuses the families that are not ported
-        if cfg.window is not None:
-            raise NotImplementedError(
-                "local attention windows (the windowed ring-buffer cache) are not ported yet: "
-                "they come with the recurrentgemma-2b slice (ROADMAP Queue 1 item 4)")
         self.cfg = cfg
         self.quant = quant
         self.device = resolve_device(device)
@@ -197,11 +285,16 @@ class Model:
         return [KINDS[kind].cache_specs(self.cfg, batch, seq)
                 for kind, _ in block_program(self.cfg)]
 
+    def _zeros(self, spec, n: int):
+        """Zeroed tensors with a leading layer dim ``n`` for a (nested) spec dict."""
+        if isinstance(spec, dict):
+            return {k: self._zeros(v, n) for k, v in spec.items()}
+        return torch.zeros((n,) + spec.shape, dtype=spec.dtype, device=self.device)
+
     def init_cache(self, batch: int, seq: int) -> List[Dict]:
-        """Zeroed decode caches with the leading layer dim, one dict per
-        program entry (what ``prefill(max_len=seq)`` returns, zero-filled)."""
-        return [{k: torch.zeros((n,) + s.shape, dtype=s.dtype, device=self.device)
-                 for k, s in specs.items()}
+        """Zeroed decode caches with the leading layer dim, one (nested) dict
+        per program entry (the layout ``prefill(max_len=seq)`` returns)."""
+        return [self._zeros(specs, n)
                 for specs, (_, n) in zip(self.cache_specs(batch, seq), block_program(self.cfg))]
 
     def _paged_only_dense(self) -> None:
@@ -220,16 +313,14 @@ class Model:
         leading layer dim: (L, num_pages, Hkv, ps, Dh), or with ``kv_spec``
         {"q": (L, num_pages, Hkv, ps, Dq) int8, "scale": (L, num_pages, Hkv)}
         for each of k and v."""
-        def zeros(spec):
-            if isinstance(spec, dict):
-                return {k: zeros(v) for k, v in spec.items()}
-            return torch.zeros((self.cfg.n_layers,) + spec.shape, dtype=spec.dtype,
-                               device=self.device)
-
-        return [zeros(entry) for entry in self.paged_cache_specs(num_pages, page_size, kv_spec)]
+        return [self._zeros(entry, self.cfg.n_layers)
+                for entry in self.paged_cache_specs(num_pages, page_size, kv_spec)]
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return apply_embed(params["embed"], tokens)
+        x = apply_embed(params["embed"], tokens)
+        if self.cfg.family == "hybrid":  # gemma convention: an f32 sqrt cast to x's dtype
+            x = x * torch.tensor(float(self.cfg.d_model)).sqrt().to(x.dtype)
+        return x
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(self.cfg, x, params["final_norm"])
@@ -259,7 +350,10 @@ class Model:
             for p in layers:
                 x, c = blk.prefill(self.cfg, p, x, max_len=max_len, impl=attn_impl)
                 per_layer.append(c)
-            caches.append(_stack(per_layer))
+            # an entry of no layers (the hybrid family's zero-count group)
+            # keeps its empty (0, ...) cache, as the reference's scan does
+            caches.append(_stack(per_layer) if per_layer else self._zeros(
+                blk.cache_specs(self.cfg, tokens.shape[0], max_len or tokens.shape[1]), 0))
         if last_index is None:
             x_last = x[:, -1:]
         else:

@@ -138,8 +138,18 @@ def test_mamba2_has_no_paged_cache():
 
 
 def test_windowed_decode_waits_for_its_slice():
-    """A config with a local attention window is refused, naming the slice
-    that ports the windowed ring-buffer cache."""
-    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32", window=3)
-    with pytest.raises(NotImplementedError, match="recurrentgemma"):
-        build_model(cfg, device="cpu")
+    """A local attention window is ported with the recurrentgemma slice: a
+    dense-family config that sets one builds, and, as the reference's "dense"
+    block kind, ignores it (only the hybrid family's local_attn kind uses
+    the window): its prefill and decode equal the same config's without."""
+    base = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    toks = torch.from_numpy(_prompts(base, 2, 10, seed=3))
+    outs = []
+    for cfg in (base, dataclasses.replace(base, window=3)):
+        model = build_model(cfg, device="cpu")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        first, caches = model.prefill(params, toks, max_len=12)
+        logits, _ = model.decode_step(params, caches, toks[:, 0], 10)
+        outs.append((first, logits))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

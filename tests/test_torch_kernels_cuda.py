@@ -2,8 +2,9 @@
 paged decode and chunked prefill over f32/bf16 and int8/int4 pools, the
 quantized matmul, the paper-suite kernels (sum3d, stencil3d, tinymatsum
 static and dynamic, matvec right and left) with the ops dispatchers on
-MdSpans, and the dense-cache kernels (flash_attention, flash_decode,
-ssd_scan) with the ops dispatchers that reach them.
+MdSpans, the dense-cache kernels (flash_attention, flash_decode,
+ssd_scan) with the ops dispatchers that reach them, and recurrentgemma's
+(rglru_scan; the flash kernels at head dim 256 over a windowed ring).
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -20,7 +21,10 @@ summation order) and bit-identical from run to run; stencil3d and
 tinymatsum exactly equal (the same f32 additions in the same order);
 matvec rtol/atol 2e-4 (the reference's), bf16 one ulp + 2e-4. SSD scan:
 rtol/atol 1e-4 in f32 (the kernel's 64-step chunks sum in another order than
-the plain version's), bf16 y one ulp + 1e-4.
+the plain version's), bf16 y one ulp + 1e-4. RG-LRU scan: rtol/atol 1e-5
+in f32 (a sequential loop against a log-depth scan), bf16 y one ulp + 1e-5.
+The ring decode is also held against the reference's ring mask (an f32
+einsum over the absolute positions) with the attention tolerances.
 """
 import dataclasses
 
@@ -626,3 +630,168 @@ def test_ops_ssd_with_groups_raises_under_cuda_and_runs_plain_under_auto():
     torch.cuda.synchronize()
     assert kernels.launch_counts()["ssd_scan"] == 0
     torch.testing.assert_close(y, ss.ssd_torch(x, dt, A, B2, C2, chunk=8))
+
+
+# ---------------------------------------------------------------------------------
+# recurrentgemma: rglru_scan, and the flash kernels at head dim 256 over a ring
+# ---------------------------------------------------------------------------------
+# (B, T, W): small, ragged T (no multiple of the kernel's 16-step unroll), a
+# T shorter than the unroll, and recurrentgemma-2b's width
+RGLRU_CASES = [(2, 32, 16), (1, 64, 128), (2, 37, 24), (3, 5, 40), (2, 600, 2560)]
+
+
+def _rglru_inputs(b, t, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (b, t, w)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((b, t, w)).astype(np.float32))
+    bterm = torch.sqrt(1 - a * a) * x
+    h0 = torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32)).cuda()
+    return a.to("cuda", dtype), bterm.to("cuda", dtype), h0
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=_ids(RGLRU_CASES))
+@pytest.mark.parametrize("initial", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_kernel_matches_plain(case, initial, dtype):
+    """The sequential kernel against the plain associative scan: f32 y and the
+    f32 final state within rtol/atol 1e-5 (two summation trees); bf16 y within
+    one bf16 ulp + 1e-5 of the plain output."""
+    from repro_torch.kernels import rglru_scan as rs
+
+    a, b, h0 = _rglru_inputs(*case, dtype=dtype, seed=sum(case))
+    init = h0 if initial else None
+    n = rs.rglru_scan.launches
+    y, hf = rs.rglru_scan(a, b, initial_state=init, return_final_state=True)
+    torch.cuda.synchronize()
+    assert rs.rglru_scan.launches == n + 1 and y.dtype == dtype and hf.dtype == torch.float32
+    wy, whf = rs.rglru_torch(a, b, init, return_final_state=True)
+    torch.testing.assert_close(hf, whf, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, wy, rtol=1e-5, atol=1e-5)
+    else:
+        assert _within_one_bf16_ulp(y, wy, atol=1e-5)
+
+
+def test_rglru_scan_state_chaining_matches_full_run():
+    from repro_torch.kernels import rglru_scan as rs
+
+    a, b, _ = _rglru_inputs(2, 301, 256, torch.float32, 21)
+    y_full, h_full = rs.rglru_scan(a, b, return_final_state=True)
+    y1, h1 = rs.rglru_scan(a[:, :150].contiguous(), b[:, :150].contiguous(),
+                           return_final_state=True)
+    y2, h2 = rs.rglru_scan(a[:, 150:].contiguous(), b[:, 150:].contiguous(), initial_state=h1,
+                           return_final_state=True)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=0, atol=0)
+    torch.testing.assert_close(h2, h_full, rtol=0, atol=0)
+
+
+def test_rglru_scan_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels import rglru_scan as rs
+
+    a, b, h0 = _rglru_inputs(1, 8, 16, torch.float32, 22)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rglru_scan(a.cpu(), b.cpu(), impl="cuda")
+    with pytest.raises(TypeError):
+        rs.rglru_scan(a, b.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        rs.rglru_scan(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(TypeError):
+        rs.rglru_scan(a, b, initial_state=h0.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
+def test_ops_rglru_scan_launches_the_kernel(impl):
+    a, b, _ = _rglru_inputs(1, 8, 16, torch.float32, 23)
+    for mode, want in ((impl, 1), ("torch", 0)):
+        kernels.reset_launch_counts()
+        ops.rglru_scan(a, b, impl=mode)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["rglru_scan"] == want
+
+
+# (B, hq, hkv, T, D, window): recurrentgemma's MQA heads at D 256, rg-smoke's
+# window 8 and the full config's 2048 (T past it, so the band is cut)
+FLASH_256_CASES = [(2, 10, 1, 40, 256, 8), (1, 10, 1, 2100, 256, 2048), (2, 10, 1, 77, 256, None)]
+
+
+@pytest.mark.parametrize("case", FLASH_256_CASES, ids=_ids(FLASH_256_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_head_dim_256_matches_plain(case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, t, d, window = case
+    q, k, v = _rand((b, hq, t, d), dtype, 24), _rand((b, hkv, t, d), dtype, 25), \
+        _rand((b, hkv, t, d), dtype, 26)
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, fa.attention_torch(q, k, v, window=window), dtype)
+
+
+def ring_decode_reference(q, ring_k, ring_v, pos: int, window: int):
+    """The reference's windowed decode attention (models/attention.py, eager
+    masked einsum): ring slot i holds absolute position pos - ((pos % S - i)
+    mod S), live when it lies in [max(pos - window + 1, 0), pos]."""
+    s = ring_k.shape[2]
+    idx = torch.arange(s, device=q.device)
+    abs_pos = pos - ((pos % s - idx) % s)
+    live = (abs_pos >= max(pos - window + 1, 0)) & (abs_pos <= pos)
+    group = q.shape[1] // ring_k.shape[1]
+    kf = ring_k.float().repeat_interleave(group, dim=1)
+    vf = ring_v.float().repeat_interleave(group, dim=1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / np.sqrt(q.shape[-1])
+    sc = torch.where(live, sc, torch.full_like(sc, -1e30))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, dim=-1), vf).to(q.dtype)
+
+
+@pytest.mark.parametrize("window", [8, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_on_a_ring_matches_the_reference_mask(window, dtype):
+    """flash_decode at D 256, hq 10 / hkv 1, over a full ring of ``window``
+    random slots at min(pos, S - 1) with no window — the port's windowed
+    decode — against the plain version at the same position and against the
+    reference's ring mask: before the wrap, at it and after it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q = _rand((2, 10, 1, 256), dtype, 27)
+    ring_k, ring_v = _rand((2, 1, window, 256), dtype, 28), _rand((2, 1, window, 256), dtype, 29)
+    for pos in (0, window // 2 - 1, window - 1, window, window + 23, 3 * window + 5):
+        last = torch.tensor([min(pos, window - 1)], dtype=torch.int32, device="cuda")
+        got = fa.flash_decode(q, ring_k, ring_v, last)
+        torch.cuda.synchronize()
+        _assert_kernel_close(got, fa.decode_attention_torch(q, ring_k, ring_v, last), dtype)
+        _assert_kernel_close(got, ring_decode_reference(q, ring_k, ring_v, pos, window),
+                             dtype)
+
+
+def test_hybrid_serve_on_cuda_matches_the_plain_path():
+    """rg-smoke in f32 through make_prefill + make_serve_step on the card:
+    the kernels (flash_attention, flash_decode, rglru_scan, all launched)
+    give the plain path's greedy tokens; prompts wrap the window-8 ring in
+    prefill (20) and in decode (6)."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import make_prefill, make_serve_step
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True), dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    for length in (6, 20):
+        toks = torch.from_numpy(np.random.default_rng(length).integers(
+            0, cfg.vocab, size=(2, length))).cuda()
+        runs = {}
+        for impl in ("auto", "torch"):
+            kernels.reset_launch_counts()
+            logits, caches = make_prefill(model, max_len=length + 8, attn_impl=impl)(params, toks)
+            step = make_serve_step(model, attn_impl=impl)
+            nxt = torch.argmax(logits[:, -1, :cfg.vocab], -1).to(torch.int32)
+            out = [nxt.tolist()]
+            for i in range(7):
+                logits, caches = step(params, caches, nxt, length + i)
+                nxt = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+                out.append(nxt.tolist())
+            runs[impl] = (out, kernels.launch_counts())
+        assert runs["auto"][0] == runs["torch"][0]
+        need = ("flash_attention", "flash_decode", "rglru_scan")
+        assert all(runs["auto"][1][k] > 0 for k in need), runs["auto"][1]
+        assert all(runs["torch"][1][k] == 0 for k in need), runs["torch"][1]
