@@ -9,7 +9,11 @@ process per source, all at once), then runs these phases, each printing JSON
 lines; any failure raises and exits non-zero:
 
   device        GPU name and power limit, torch/CUDA versions, kernel build
-                time, and the device-to-device copy bandwidth the bounds use.
+                time, and the device-to-device copy bandwidth the bounds use;
+                then the registers and spills ptxas reported for the bf16
+                tensor-core flash_attention body, the split-K paged decode
+                body and the split combine, and the split count the planner
+                picks for the serve shape.
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
                 phase's one-row 128-token chunk; the quantized attention over
@@ -22,9 +26,13 @@ lines; any failure raises and exits non-zero:
                 same function as a yardstick (scaled_dot_product_attention
                 over the densified, dequantized cache; torch.matmul on the
                 dequantized weight), timed here only: the port never calls it.
+                The split-K paged decode also at lengths on a split boundary
+                of the serve shape's plan, one past it and inside the first
+                split, over dense, int8 and int4 pages.
                 Then the dense-cache kernels at the generate phase's shapes:
                 flash_attention on qwen2's prefill (8, 14, 256, 64) causal,
-                the engine's (1, 14, 512, 64) and a windowed case;
+                the engine's (1, 14, 512, 64), a windowed case and a ragged
+                (1, 14, 101, 64) (Tq * G not a multiple of 64);
                 flash_decode on (8, 14, 1, 64) against (8, 2, 288, 64) caches
                 at pos 0-287, one windowed; ssd_scan at mamba2-780m's width
                 (2, 512, 48, 64), N 128, a ragged T 389 and an initial state,
@@ -215,11 +223,14 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor):
 
 
 def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
-                   tolerance=None, phase="kernels"):
+                   tolerance=None, phase="kernels", device_time=False):
     """One kernel against its plain version on the same inputs, then timed
     beside the plain version and the library call (None where no single
     PyTorch call computes the function); ``tolerance(got, want)`` ->
-    (ok, description) replaces the default f32 / bf16 rule."""
+    (ok, description) replaces the default f32 / bf16 rule. ``device_time``
+    adds the device time per call of the kernel and of the library call
+    (device_ms_per_call: calls queued back to back, so a host slower than
+    the kernel does not show)."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
@@ -247,6 +258,10 @@ def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
         "bound_ms_nominal_bw": max(nbytes / NOMINAL_BW, t_ops) * 1e3,
         "bytes": nbytes, "flops": flops,
     }
+    if device_time:
+        rec["device_ms"] = device_ms_per_call(kernel, n=50)
+        rec["library_device_ms"] = (device_ms_per_call(library, n=50)
+                                    if library is not None else None)
     emit(rec)
     if not ok:
         raise AssertionError(f"{name} {case} disagrees with its plain version: {rec}")
@@ -315,7 +330,7 @@ def kernel_phase(bw):
             lambda: pa.paged_flash_decode(q, kp, vp, bt, cl),
             lambda: pa.paged_decode_attention_torch(q, kp, vp, bt, cl),
             lambda: sdpa(q, kd, vd, mask),
-            small + 2 * tokens * HKV * D * esz, 4 * tokens * HQ * D, bw, case,
+            small + 2 * tokens * HKV * D * esz, 4 * tokens * HQ * D, bw, case, device_time=True,
         )
         if dtype == torch.bfloat16:
             main["paged_decode"] = rec
@@ -327,10 +342,11 @@ def kernel_phase(bw):
                                                               bits=bits),
                 lambda: sdpa(q, kdq, vdq, mask),
                 small + 2 * tokens * HKV * dq + 2 * live_pages * HKV * 4,
-                4 * tokens * HQ * D, bw, {**case, "bits": bits},
+                4 * tokens * HQ * D, bw, {**case, "bits": bits}, device_time=True,
             )
             if dtype == torch.bfloat16 and bits == 8:
                 main["paged_decode_quant"] = rec
+        split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw)
         for c, cursors in chunk_cases:
             nb = len(cursors)
             btc = bt[:nb].contiguous()
@@ -379,6 +395,41 @@ def kernel_phase(bw):
     main.update(hybrid_checks(bw, g))
     torch.cuda.synchronize()
     return main
+
+
+def split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw):
+    """The split-K decode at lengths on a split boundary of the plan the
+    wrapper picks for the serve shape, one past it, inside the first split,
+    0 and the full table, over dense, int8 and int4 pages."""
+    from repro_torch.kernels import paged_attention as pa
+
+    b, hq, _, d = q.shape
+    _, hkv, ps, _ = kp.shape
+    max_pages = bt.shape[1]
+    splits, pps = pa.plan_decode_splits(max_pages, b, hkv, ps, d, pa.sm_count(q.device))
+    run = pps * ps
+    lens = [run, run + 1, run // 2, 0, 3 * run, 3 * run + 1, 5 * run - 1, max_pages * ps][:b]
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = torch.arange(max_pages * ps, device="cuda")[None, :] < cl[:, None]
+    mask = live[:, None, None, :]
+    tokens, live_pages = sum(lens), sum(-(-n // ps) for n in lens)
+    small = 2 * q.numel() * esz + bt.numel() * 4 + b * 4
+    case = {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page_size": ps, "lens": lens,
+            "splits": splits, "pages_per_split": pps, "check": "split boundaries"}
+    check_and_time(
+        "paged_decode", dtype,
+        lambda: pa.paged_flash_decode(q, kp, vp, bt, cl),
+        lambda: pa.paged_decode_attention_torch(q, kp, vp, bt, cl),
+        lambda: sdpa(q, densify(kp, bt), densify(vp, bt), mask),
+        small + 2 * tokens * hkv * d * esz, 4 * tokens * hq * d, bw, case)
+    for bits, (kq, ks, vq, vs, kdq, vdq, dq) in quant.items():
+        check_and_time(
+            "paged_decode_quant", dtype,
+            lambda: pa.paged_flash_decode_quant(q, kq, ks, vq, vs, bt, cl, bits=bits),
+            lambda: pa.paged_decode_attention_quant_torch(q, kq, ks, vq, vs, bt, cl, bits=bits),
+            lambda: sdpa(q, kdq, vdq, mask),
+            small + 2 * tokens * hkv * dq + 2 * live_pages * hkv * 4,
+            4 * tokens * hq * d, bw, {**case, "bits": bits})
 
 
 def _causal_keys(tq, tk, off, window=None):
@@ -439,7 +490,8 @@ def dense_cache_checks(bw, g):
     for dtype in (torch.float32, torch.bfloat16):
         esz = torch.tensor([], dtype=dtype).element_size()
         rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
-        for b, t, window in ((8, 256, None), (1, 512, None), (8, 256, 64)):
+        # (1, 101): Tq * G = 707 rows, the last 64-row block ragged
+        for b, t, window in ((8, 256, None), (1, 512, None), (8, 256, 64), (1, 101, None)):
             q, k, v = rnd(b, 14, t, 64), rnd(b, 2, t, 64), rnd(b, 2, t, 64)
             keys = _causal_keys(t, t, 0, window)
             if window is None:
@@ -456,7 +508,7 @@ def dense_cache_checks(bw, g):
                 lambda: fa.attention_torch(q, k, v, window=window), library,
                 (2 * q.numel() + k.numel() + v.numel()) * esz, 4 * b * 14 * 64 * keys, bw,
                 {"B": b, "Hq": 14, "Hkv": 2, "Tq": t, "Tk": t, "D": 64, "causal": True,
-                 "window": window})
+                 "window": window}, device_time=True)
             if dtype == torch.bfloat16 and (b, t, window) == (8, 256, None):
                 main["flash_attention"] = rec
         S = 288
@@ -596,7 +648,7 @@ def hybrid_checks(bw, g):
             (2 * q.numel() + k.numel() + v.numel()) * esz,
             4 * B * HQ * D * _causal_keys(t, t, 0, WINDOW), bw,
             {"B": B, "Hq": HQ, "Hkv": 1, "Tq": t, "Tk": t, "D": D, "causal": True,
-             "window": WINDOW})
+             "window": WINDOW}, device_time=True)
         q1, rk, rv = rnd(B, HQ, 1, D), rnd(B, 1, S, D), rnd(B, 1, S, D)
         slots = torch.arange(S, device="cuda")
         for p in (1000, S - 1, S, S + 23, 2 * S + 4):  # before, at and after the wrap
@@ -1454,8 +1506,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln] for name in _build.SOURCES}
+    ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
+    new_bodies = {fn: rec for name in ("flash_attention", "paged_attention")
+                  for fn, rec in ptxas[name].items()
+                  if any(k in fn for k in ("flash_mma_kernel", "paged_decode_kernel",
+                                           "combine_splits_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1464,6 +1519,14 @@ def main() -> int:
           "build_s": build_s, "built": sorted(_build.build_seconds),
           "copy_bw_bytes_per_s": bw, "nominal_bw_bytes_per_s": NOMINAL_BW,
           "ptxas": ptxas})
+    emit({"phase": "device", "ptxas_new_bodies": new_bodies,
+          "spills": sum(r.get("spill_stores", 0) + r.get("spill_loads", 0)
+                        for r in new_bodies.values())})
+    from repro_torch.kernels import paged_attention as pa
+    splits, pps = pa.plan_decode_splits(128, 8, 2, 16, 64, pa.sm_count(torch.device("cuda")))
+    emit({"phase": "device", "split_plan": "paged decode at the serve shape (B 8, Hkv 2, "
+          "128 pages of 16, D 64)", "sm_count": pa.sm_count(torch.device("cuda")),
+          "splits": splits, "pages_per_split": pps, "blocks": splits * 8 * 2})
     t_phase = {}
     t0 = time.perf_counter()
     main_recs = kernel_phase(bw)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -64,6 +65,38 @@ def build_log(name: str) -> str:
     """What nvcc printed (ptxas registers/spills included) for ``name``."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _demangle(names: List[str]) -> List[str]:
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel of ``name`` as ptxas printed
+    them at build time (the ``-Xptxas -v`` of FLAGS): demangled function ->
+    {"registers", "spill_stores", "spill_loads"}."""
+    funcs: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    names = list(funcs)
+    return dict(zip(_demangle(names), (funcs[n] for n in names)))
 
 
 def _start(name: str):

@@ -2,12 +2,13 @@
 // paged_attention.cu, flash_attention.cu and ssd_scan.cu; kernels/_build.py
 // hashes every header under csrc/ into each library's name, so an edit here
 // rebuilds them all): f32 conversions, warp reductions, the f32 K/V tile
-// stage and the online-softmax tile update, and the dynamic shared-memory
-// opt-in.
+// stage and the online-softmax tile update, the log-sum-exp combine of
+// split-K partials, and the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math_constants.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -109,6 +110,47 @@ __device__ inline void flash_tile(const float* q_s, const float* k_s, const floa
     acc_s[idx] = a;
   }
   __syncthreads();
+}
+
+// Split-K combine. A decode split over keys leaves, for each of ``rows``
+// query rows and each of ``splits`` splits, its running max m, sum l and
+// unnormalized f32 accumulator acc[D]; ws holds m (rows, splits), then l
+// (rows, splits), then acc (rows, splits, D). The combine is the log-sum-exp
+// merge: m* = max of m_s over live splits (l_s > 0), l* = sum l_s e^(m_s - m*),
+// out = sum acc_s e^(m_s - m*) / l*, and 0 when l* is 0 (a row with no live
+// key). A dead split (l_s == 0) is never read past its l, so its m and acc may
+// be anything. One thread per output element; out (rows, D) in T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+combine_splits_kernel(const float* __restrict__ ws, T* __restrict__ out, int rows, int splits,
+                      int D) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * D) return;
+  const int r = idx / D, d = idx - r * D;
+  const float* m = ws + static_cast<size_t>(r) * splits;
+  const float* l = ws + static_cast<size_t>(rows) * splits + static_cast<size_t>(r) * splits;
+  const float* acc = ws + 2 * static_cast<size_t>(rows) * splits +
+                     static_cast<size_t>(r) * splits * D + d;
+  float ms = -CUDART_INF_F;
+  for (int s = 0; s < splits; ++s)
+    if (l[s] > 0.f) ms = fmaxf(ms, m[s]);
+  float ls = 0.f, o = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    if (l[s] > 0.f) {
+      const float w = expf(m[s] - ms);
+      ls = fmaf(w, l[s], ls);
+      o = fmaf(w, acc[static_cast<size_t>(s) * D], o);
+    }
+  }
+  out[idx] = from_f32<T>(ls > 0.f ? o / ls : 0.f);
+}
+
+template <typename T>
+cudaError_t combine_splits(const float* ws, T* out, int rows, int splits, int D,
+                           cudaStream_t stream) {
+  const int n = rows * D;
+  combine_splits_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(ws, out, rows, splits, D);
+  return cudaGetLastError();
 }
 
 // Opt ``kern`` in to ``smem`` bytes of dynamic shared memory. The attribute

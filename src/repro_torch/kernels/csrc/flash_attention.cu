@@ -21,25 +21,43 @@
 // What bounds them on an H100: prefill is operations-heavy (4 * Tq * Tk * D
 // per head, halved by the causal band), decode is bytes: it reads each live
 // cache slot once (~0.6 MB per layer at B 8, S 288, bf16), microseconds at
-// the card's rate. Both run the f32 CUDA-core products of common.cuh's
-// flash_tile, so prefill sits far from the tensor-core rate and decode is
-// latency-bound at B * Hkv blocks.
+// the card's rate.
 //
-// What this simple design does about it: one block takes the G = Hq / Hkv
-// query heads of one KV head together (rows ordered t-major: row = t * G + g),
-// so every staged K/V tile serves all G heads of its group (GQA reuse, as the
-// TPU kernel's (G, D) decode block); prefill takes 64 such rows a block, decode
-// the G rows of its one token. K/V tiles of 64 keys (32 for D 128 and 256)
-// are staged as f32 through shared memory. At D 256 (recurrentgemma) a
-// prefill block stages 4 * (64 * 256 * 2 + 32 * 513 + 64 * 32 + 192) =
-// 205,696 bytes, under the 232,448 a block may opt in to, so one block runs
-// per SM; a decode block at G = 10 stages ~87.5 KB. flash_tile's loops over D
-// are not unrolled past 16, so registers do not grow with D. Tiles wholly
-// outside the causal / window band of a block's rows are never read (the TPU
-// kernel's `run` predicate); inside a tile every (row, key) pair is masked
-// by liveness, never by the exponent alone. Not done yet: tensor cores
-// (wgmma), TMA/cp.async staging, or a split of a long cache across blocks for
-// decode.
+// Both kernels take the G = Hq / Hkv query heads of one KV head together
+// (rows ordered t-major: row = t * G + g), so every K/V tile serves all G
+// heads of its group (GQA reuse, as the TPU kernel's (G, D) decode block).
+// Tiles wholly outside the causal / window band of a block's rows are never
+// read (the TPU kernel's `run` predicate); inside a tile every (row, key) pair
+// is masked by liveness, never by the exponent alone, and a row with no live
+// key outputs 0.
+//
+// bf16 prefill, flash_mma_kernel<D> (every D in 16..256): 64 rows a block,
+// 16 rows a warp. The products run on the tensor cores
+// (mma.sync.aligned.m16n8k16, bf16 operands, f32 accumulation): S = Q . K^T
+// and O += P . V. The Q tile is loaded once into shared memory; K/V tiles of
+// 64 keys (32 at D 256) are double-buffered in shared memory with 16-byte
+// cp.async copies, each row padded by 16 bytes so that ldmatrix reads it
+// without bank conflicts. A warp keeps S, the online softmax's row max and
+// sum (reduced across the 4 lanes of a quad by shuffles) and O in registers;
+// P goes from the S accumulator straight into the A operand of P . V.
+// P is split as P_hi + P_lo, two bf16 operands and two products into one
+// accumulator: rounding P to one bf16 errs by up to 2^-9 a term, which put
+// outputs near 0 outside the bf16 gate (one bf16 ulp of the plain output plus
+// 2e-5) at every shape tried, 256 to 2600 keys; the split leaves ~2^-17 and
+// doubles only the P . V half. At D 256 the 128 f32
+// registers a thread would need for one warp's O are halved: two warps share a
+// 16-row slab, each computes the same S (bit for bit, so their row max and sum
+// agree without an exchange) and owns 128 of the 256 output columns.
+//
+// f32 prefill and every decode run flash_kernel<T, D>: f32 CUDA-core products
+// through common.cuh's flash_tile, K/V staged as f32 through shared memory
+// (64 keys a tile, 32 for D 128 and 256; at D 256 a 64-row block stages
+// 205,696 bytes, so one block runs per SM). f32 stays off the tensor cores on
+// purpose: it is the path that holds the port to the reference in f32 (the
+// 2e-5 gate), and the tensor cores would need TF32, which keeps about three
+// decimal digits. Only bf16 is served and timed. Decode holds the G rows of
+// one token a block (B * Hkv blocks): a split of the cache across blocks is
+// not done yet.
 
 #include "common.cuh"
 
@@ -158,6 +176,279 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------------
+// bf16 prefill on the tensor cores
+// ---------------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kMmaRows = 64;  // query rows a block, 16 a warp (slab)
+constexpr int kPad = 8;       // bf16 elements padding a shared-memory row (16 bytes)
+
+template <int D> __host__ __device__ constexpr int mma_keys() { return D > 128 ? 32 : 64; }
+template <int D> __host__ __device__ constexpr int mma_col_split() { return D > 128 ? 2 : 1; }
+template <int D> struct MmaThreads {
+  static constexpr int value = (kMmaRows / 16) * 32 * mma_col_split<D>();
+};
+template <int D> __host__ __device__ constexpr size_t mma_smem() {
+  return sizeof(bf16) * (D + kPad) * (kMmaRows + 4 * mma_keys<D>());  // Q + 2 stages of K, V
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; ``bytes`` 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a . b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) -> the bf16 pair nearest to it, and the bf16 pair of what that leaves
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+template <int D>
+__global__ void __launch_bounds__(MmaThreads<D>::value)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 const int* __restrict__ q_off_ptr, int q_off_val, int hkv, int group, int tq,
+                 int tk, int causal, int has_window, int window, float scale) {
+  constexpr int NK = mma_keys<D>(), CS = mma_col_split<D>(), NTHR = MmaThreads<D>::value;
+  constexpr int LD = D + kPad;  // shared-memory row stride, bf16 elements
+  constexpr int DC = D / CS;    // output columns a warp owns
+  constexpr int CPR = D / 8;    // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // kMmaRows * LD
+  bf16* kv_s = q_s + kMmaRows * LD;               // 2 stages of (K, V), NK * LD each
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = group, hq = hkv * G;
+  const int row0 = blockIdx.x * kMmaRows;
+  const int rows_valid = min(kMmaRows, tq * G - row0);
+  const int q_off = q_off_ptr != nullptr ? *q_off_ptr : q_off_val;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slab = warp / CS, col0 = (warp % CS) * DC;
+
+  for (int i = tid; i < kMmaRows * CPR; i += NTHR) {
+    const int r = i / CPR, c = i - r * CPR;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid) {
+      const int gr = row0 + r, t = gr / G, g = gr - t * G;
+      x = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(b) * hq + h * G + g) * tq + t) * D + c * 8);
+    }
+    *reinterpret_cast<uint4*>(q_s + r * LD + c * 8) = x;
+  }
+
+  // the keys these rows can see: [j_lo, j_hi)
+  const int qp_lo = q_off + row0 / G;
+  const int qp_hi = q_off + (row0 + rows_valid - 1) / G;
+  int j_lo = 0, j_hi = tk;
+  if (causal) j_hi = min(tk, qp_hi + 1);
+  if (has_window) j_lo = max(0, qp_lo - window + 1);
+  const int n_tiles = j_hi > j_lo ? (j_hi - j_lo + NK - 1) / NK : 0;
+  const size_t kv_row0 = (static_cast<size_t>(b) * hkv + h) * tk;
+
+  auto stage = [&](int t0, int buf) {
+    bf16* ks = kv_s + buf * 2 * NK * LD;
+    bf16* vs = ks + NK * LD;
+    for (int i = tid; i < NK * CPR; i += NTHR) {
+      const int r = i / CPR, c = i - r * CPR, j = t0 + r;
+      const bool in = j < tk;  // past Tk: zeros, so a dead V row is finite
+      const size_t off = (kv_row0 + (in ? j : 0)) * D + c * 8;
+      cp_async16(ks + r * LD + c * 8, k + off, in ? 16 : 0);
+      cp_async16(vs + r * LD + c * 8, v + off, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // this thread's two rows of the slab (the accumulators' rows lane / 4 and +8)
+  const int r_a = slab * 16 + (lane >> 2);
+  const int qp_a = q_off + (row0 + r_a) / G, qp_b = q_off + (row0 + r_a + 8) / G;
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units: exp2f below
+  float o[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) stage(j_lo, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = j_lo + it * NK;
+    if (it + 1 < n_tiles) {
+      stage(t0 + NK, (it + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = kv_s + (it & 1) * 2 * NK * LD;
+    const bf16* vs = ks + NK * LD;
+
+    // S = Q . K^T, 16 rows x NK keys a warp
+    float s[NK / 8][4];
+#pragma unroll
+    for (int n = 0; n < NK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int dk = 0; dk < D / 16; ++dk) {
+      uint32_t a[4];
+      ldsm_x4(a, q_s + (slab * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dk * 16 +
+                      (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < NK / 16; ++nj) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ks + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + dk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * nj], a, bk[0], bk[1]);
+        mma_bf16(s[2 * nj + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // liveness of (row, key); a tile inside every row's band skips the test
+    const bool all_live = t0 + NK <= tk && (!causal || t0 + NK - 1 <= qp_lo) &&
+                          (!has_window || t0 > qp_hi - window);
+    uint32_t dead = 0;  // bit n * 4 + e: s[n][e] is dead
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        float x = s[n][e] * sl2;
+        if (!all_live) {
+          const int j = t0 + n * 8 + (lane & 3) * 2 + (e & 1), qp = hi ? qp_b : qp_a;
+          const bool live = j < tk && (!causal || j <= qp) && (!has_window || j > qp - window);
+          if (!live) {
+            dead |= 1u << (n * 4 + e);
+            x = kNegInf;
+          }
+        }
+        s[n][e] = x;
+        mx[hi] = fmaxf(mx[hi], x);
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      alpha[i] = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (dead >> (n * 4 + e)) & 1u ? 0.f : exp2f(s[n][e] - m_r[e >> 1]);
+        s[n][e] = p;
+        rs[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l_r[i] = l_r[i] * alpha[i] + rs[i];
+    }
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P . V: the S accumulator of keys 16 kk .. 16 kk + 15 is the A operand
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      uint32_t p_hi[4], p_lo[4];
+      split_bf16x2(s[2 * kk][0], s[2 * kk][1], p_hi[0], p_lo[0]);
+      split_bf16x2(s[2 * kk][2], s[2 * kk][3], p_hi[1], p_lo[1]);
+      split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], p_hi[2], p_lo[2]);
+      split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], p_hi[3], p_lo[3]);
+#pragma unroll
+      for (int nd = 0; nd < DC / 16; ++nd) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col0 +
+                              nd * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * nd], p_hi, bv[0], bv[1]);
+        mma_bf16(o[2 * nd + 1], p_hi, bv[2], bv[3]);
+        mma_bf16(o[2 * nd], p_lo, bv[0], bv[1]);
+        mma_bf16(o[2 * nd + 1], p_lo, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // the next iteration restages this buffer
+  }
+
+  // out = O / l (0 for a row with no live key), bf16 pairs
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_a + 8 * i;
+    if (r >= rows_valid) continue;
+    const int gr = row0 + r, t = gr / G, g = gr - t * G;
+    const float l = l_r[i] == 0.f ? 1.f : l_r[i];
+    bf16* dst = out + ((static_cast<size_t>(b) * hq + h * G + g) * tq + t) * D + col0 +
+                (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * i] / l, o[n][2 * i + 1] / l);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
+                       int tk, int causal, int has_window, int window, float scale,
+                       cudaStream_t stream) {
+  const int G = hq / hkv;
+  constexpr size_t smem = mma_smem<D>();
+  auto kern = flash_mma_kernel<D>;
+  static size_t opted[kMaxDevices] = {};
+  cudaError_t e = set_smem(kern, smem, opted);
+  if (e != cudaSuccess) return e;
+  const int tiles = (tq * G + kMmaRows - 1) / kMmaRows;
+  kern<<<dim3(tiles, hkv, batch), MmaThreads<D>::value, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<const int*>(q_off_ptr), q_off, hkv, G, tq, tk,
+      causal, has_window, window, scale);
+  return cudaGetLastError();
+}
+
 #define REPRO_DISPATCH(...)                                                          \
   switch (head_dim) {                                                                \
     case 16: return dtype == 0 ? launch<float, 16>(__VA_ARGS__)                      \
@@ -190,10 +481,25 @@ int repro_flash_attention(int dtype, const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();  // attribute only this launch's error to it
+  const auto st = static_cast<cudaStream_t>(stream);
   auto run = [&]() -> cudaError_t {
+    if (dtype == 1) {  // bf16: the tensor-core body
+      switch (head_dim) {
+        case 16: return launch_mma<16>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                       tq, tk, causal, has_window, window, scale, st);
+        case 32: return launch_mma<32>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                       tq, tk, causal, has_window, window, scale, st);
+        case 64: return launch_mma<64>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                       tq, tk, causal, has_window, window, scale, st);
+        case 128: return launch_mma<128>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                         tq, tk, causal, has_window, window, scale, st);
+        case 256: return launch_mma<256>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                         tq, tk, causal, has_window, window, scale, st);
+        default: return cudaErrorInvalidValue;
+      }
+    }
     REPRO_DISPATCH(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq, tk, causal,
-                   has_window, window, kPrefillRows, kPrefillThreads, scale,
-                   static_cast<cudaStream_t>(stream))
+                   has_window, window, kPrefillRows, kPrefillThreads, scale, st)
   };
   return static_cast<int>(run());
 }

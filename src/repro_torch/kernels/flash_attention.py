@@ -8,7 +8,8 @@ reference's ``ops.attention`` / ``ops.decode_attention`` fall back to):
   decode_attention_torch  <- ops.decode_attention's jnp path: attention_torch
                              with Tq == 1, causal, q_offset = pos
   flash_attention         <- flash_attention (Pallas) — launches
-                             csrc/flash_attention.cu::flash_kernel
+                             csrc/flash_attention.cu::flash_mma_kernel on
+                             bf16 (tensor cores), flash_kernel on f32
   flash_decode            <- flash_decode (Pallas) — the same kernel body, one
                              block per (sequence, KV head) holding its G rows
 
@@ -136,13 +137,19 @@ def _window(window):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     q_offset=0, scale: Optional[float] = None) -> torch.Tensor:
-    """GQA flash attention (kernel: flash_kernel, 64 query rows a block).
-    On CUDA: q, k, v contiguous, one of float32/bfloat16, D in HEAD_DIMS;
-    Tq and Tk free (Tq != Tk allowed). Output in q's dtype."""
+    """GQA flash attention, 64 query rows a block (kernel: flash_mma_kernel
+    on the tensor cores for bfloat16, flash_kernel's f32 CUDA-core products
+    for float32). On CUDA: q, k, v contiguous, one of float32/bfloat16, D in
+    HEAD_DIMS, bfloat16 ones on 16-byte boundaries (the kernel copies 16
+    bytes at a time); Tq and Tk free (Tq != Tk allowed). Output in q's dtype."""
     if q.device.type == "cpu":
         return attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                scale=scale)
     _check_qkv(q, k, v)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     off_t, off = _offset(q_offset, q.device)

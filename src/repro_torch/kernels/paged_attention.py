@@ -8,6 +8,9 @@ This is the port of ``repro.kernels.paged_attention``:
 
   paged_decode_attention_torch   <- paged_decode_attention_jnp (unblocked and
                                     blocked forms)
+  paged_decode_partials_torch,   the decode kernel's split-K: per-split
+  combine_splits_torch,          partials, their log-sum-exp merge and the
+  plan_decode_splits             split count (plain; no reference namesake)
   paged_prefill_chunk_torch      <- paged_prefill_chunk_jnp
   paged_flash_decode             <- paged_flash_decode (Pallas) — launches
                                     csrc/paged_attention.cu::paged_decode_kernel
@@ -158,6 +161,66 @@ def _paged_decode_torch_blocked(q, k_pool, v_pool, block_tables, context_lens, *
     return (acc / _safe(l)).reshape(b, hq, 1, d).to(q.dtype)
 
 
+def plan_decode_splits(max_pages: int, batch: int, hkv: int, page_size: int, head_dim: int,
+                       sm_count: int):
+    """(splits, pages_per_split) of the split-K decode kernel: the keys of
+    each (sequence, KV head) are cut into runs of whole tiles (~64 tokens,
+    ~32 at D 128, never less than one page), enough runs for two blocks a SM
+    where the table has that many tiles, and no run past the table. Depends
+    only on shapes and the SM count, never on the lengths."""
+    tile = max(1, (64 if head_dim <= 64 else 32) // page_size)
+    max_splits = -(-max_pages // tile)
+    want = -(-2 * sm_count // max(1, batch * hkv))
+    splits = max(1, min(want, max_splits))
+    pages_per_split = -(-(-(-max_pages // splits)) // tile) * tile
+    return -(-max_pages // pages_per_split), pages_per_split
+
+
+def paged_decode_partials_torch(q, k_pool, v_pool, block_tables, context_lens, *,
+                                pages_per_split: int, scale: Optional[float] = None):
+    """The split-K decode's partials: logical pages [s * P, (s + 1) * P) of
+    each row's table (P = ``pages_per_split``) give split s its running max
+    m, sum l and unnormalized accumulator acc, f32. Returns m, l (B, Hq, S)
+    and acc (B, Hq, S, D); a split with no live token has l = 0, m = -inf and
+    acc = 0. The decode kernel's workspace holds the same three, and the card
+    tests hold it against this."""
+    b, hq, _, d = q.shape
+    _, hkv, ps, _ = k_pool.shape
+    group = hq // hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    max_pages = block_tables.shape[1]
+    splits = -(-max_pages // pages_per_split)
+    bt = torch.nn.functional.pad(block_tables, (0, splits * pages_per_split - max_pages))
+    width = pages_per_split * ps
+    k = _gather_pages(k_pool, bt).float().reshape(b, hkv, splits, width, d)
+    v = _gather_pages(v_pool, bt).float().reshape(b, hkv, splits, width, d)
+    qg = q.reshape(b, hkv, group, d).float()
+    s = torch.einsum("bhgd,bhskd->bhgsk", qg, k) * scale
+    pos = torch.arange(splits * width, device=q.device).reshape(splits, width)
+    live = (pos[None] < torch.clamp(context_lens, max=max_pages * ps)[:, None, None])
+    live = live[:, None, None]  # (B, 1, 1, S, width)
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * live
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgsk,bhskd->bhgsd", p, v)
+    m = torch.where(l > 0, m, torch.full_like(m, -math.inf))
+    return m.reshape(b, hq, splits), l.reshape(b, hq, splits), acc.reshape(b, hq, splits, d)
+
+
+def combine_splits_torch(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp merge of split partials m, l (..., S) and acc (..., S,
+    D): m* = max of m over live splits (l > 0), l* = sum l e^(m - m*), out =
+    sum acc e^(m - m*) / l*, and 0 where l* is 0. A dead split's m and acc are
+    never used. Returns f32 (..., D)."""
+    live = l > 0
+    m_star = torch.where(live, m, torch.full_like(m, -math.inf)).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - m_star), torch.zeros_like(m))
+    l_star = (w * l).sum(dim=-1)
+    o = torch.where(live[..., None], w[..., None] * acc, torch.zeros_like(acc)).sum(dim=-2)
+    return o / torch.where(l_star > 0, l_star, torch.ones_like(l_star))[..., None]
+
+
 def paged_prefill_chunk_torch(
     q: torch.Tensor,
     chunk_k: torch.Tensor,
@@ -230,17 +293,39 @@ def paged_prefill_chunk_quant_torch(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
 # ---------------------------------------------------------------------------------
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = _build.Binding("paged_attention", {
-    "repro_paged_decode": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+    "repro_paged_decode": [_i, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                           _f, _p],
     "repro_paged_prefill_chunk": [
         _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ],
     "repro_paged_decode_quant": [
-        _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ],
     "repro_paged_prefill_chunk_quant": [
         _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ],
 })
+
+
+_SM_COUNT = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _decode_split(q, hkv: int, ps: int, max_pages: int):
+    """(splits, pages_per_split, workspace) for one decode launch: the plan
+    for these shapes and f32 room for the partials (m, l, acc) of every query
+    row and split, from PyTorch's caching allocator on q's stream."""
+    b, hq, _, d = q.shape
+    splits, pps = plan_decode_splits(max_pages, b, hkv, ps, d, sm_count(q.device))
+    ws = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
+    return splits, pps, ws
 
 
 def _check(name: str, t: torch.Tensor, *, ndim: int, dtype=None, device=None) -> None:
@@ -295,7 +380,8 @@ def paged_flash_decode(
     scale: Optional[float] = None,
     block_pages: int = 1,
 ) -> torch.Tensor:
-    """One-token GQA decode against a paged pool (kernel: paged_decode_kernel).
+    """One-token GQA decode against a paged pool (kernel: paged_decode_kernel,
+    split-K over the pages as plan_decode_splits picks, then the combine).
 
     Shapes as paged_decode_attention_torch; on CUDA the operands must be
     contiguous, q and pools one of float32/bfloat16, tables/lengths int32, and
@@ -319,11 +405,13 @@ def paged_flash_decode(
         raise ValueError(f"decode wants one query token, got q {tuple(q.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    max_pages = block_tables.shape[1]
+    splits, pps, ws = _decode_split(q, hkv, ps, max_pages)
     _LIB.launch(
         "repro_paged_decode", "paged_decode",
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, hq, hkv, d, ps, num_pages, block_tables.shape[1], scale,
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, hq, hkv, d, ps, num_pages, max_pages, splits, pps, scale,
         device=q.device,
     )
     paged_flash_decode.launches += 1
@@ -390,9 +478,10 @@ def paged_flash_decode_quant(q, k_q, k_scale, v_q, v_scale, block_tables, contex
                              bits: int = 8, scale: Optional[float] = None,
                              block_pages: int = 1) -> torch.Tensor:
     """One-token GQA decode against an intN paged pool (kernel:
-    paged_decode_kernel over a QuantPool, dequantizing each staged page as
-    float(q) * scale). Shapes as paged_decode_attention_quant_torch; on CUDA
-    q is float32/bfloat16, pools int8, scales float32, all contiguous.
+    paged_decode_kernel over a QuantPool, split-K as paged_flash_decode,
+    dequantizing 8 features of a page row at a time as float(q) * scale).
+    Shapes as paged_decode_attention_quant_torch; on CUDA q is
+    float32/bfloat16, pools int8, scales float32, all contiguous.
     ``block_pages`` as in paged_flash_decode."""
     bp = max(1, int(block_pages))
     if block_tables.shape[1] % bp:
@@ -412,12 +501,14 @@ def paged_flash_decode_quant(q, k_q, k_scale, v_q, v_scale, block_tables, contex
         raise ValueError(f"decode wants one query token, got q {tuple(q.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    max_pages = block_tables.shape[1]
+    splits, pps, ws = _decode_split(q, hkv, ps, max_pages)
     _LIB.launch(
         "repro_paged_decode_quant", "paged_decode_quant",
         _DTYPE_CODE[q.dtype], bits, q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
         v_q.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), b, hq, hkv, d, ps, num_pages, block_tables.shape[1], scale,
-        device=q.device,
+        out.data_ptr(), ws.data_ptr(), b, hq, hkv, d, ps, num_pages, max_pages, splits, pps,
+        scale, device=q.device,
     )
     paged_flash_decode_quant.launches += 1
     return out

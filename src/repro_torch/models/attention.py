@@ -13,7 +13,7 @@ pools (JAX donates the old buffers), the port writes the pools IN PLACE with
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -172,15 +172,28 @@ def self_attention(cfg, p, x: torch.Tensor, *, causal: bool = True,
     return y
 
 
+class DecodePos(NamedTuple):
+    """A decode position held both ways: ``host`` (an int) and ``dev`` (the
+    same as a one-element int32 tensor on the device). A caller that decodes
+    many layers at one host position makes the tensor once and passes this;
+    each layer checks its own capacity against the int."""
+    host: int
+    dev: torch.Tensor
+
+
 def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos, *,
                           window: Optional[int] = None, impl: str = "auto"):
     """One-token decode against one layer's dense cache or ring buffer.
 
-    x: (B, 1, D); cache k/v: (B, Hkv, S, Dh); ``pos`` (an int or a one-element
-    integer tensor on x's device) is the current token's position.
+    x: (B, 1, D); cache k/v: (B, Hkv, S, Dh); ``pos`` (an int, a one-element
+    integer tensor on x's device, or a DecodePos of both) is the current
+    token's position.
 
     Without a window (pos < S) its K/V is written IN PLACE at slot ``pos``,
-    then ops.decode_attention attends slots <= pos.
+    then ops.decode_attention attends slots <= pos. A host ``pos`` (an int or
+    a DecodePos) at or past the capacity S raises ValueError (the reference
+    would write slot pos % S and silently lose the oldest token); a tensor
+    ``pos`` alone is not read on the host, so no step waits for it.
 
     With a window the cache is a ring of S <= window slots (token p at slot
     p % S, pack_kv_cache's layout): the K/V is written at slot pos % S, on the
@@ -193,12 +206,20 @@ def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor
     of the slots, so ops.decode_attention at position min(pos, S - 1), with
     no window, computes the reference's function: the flash_decode kernel
     runs unchanged and nothing waits on the host."""
-    posv = pos.reshape(1) if isinstance(pos, torch.Tensor) else torch.full(
-        (1,), int(pos), dtype=torch.int32, device=x.device)
+    s_len = cache["k"].shape[2]
+    if isinstance(pos, DecodePos):
+        host, posv = pos.host, pos.dev.reshape(1)
+    elif isinstance(pos, torch.Tensor):
+        host, posv = None, pos.reshape(1)
+    else:
+        host = int(pos)
+        posv = torch.full((1,), host, dtype=torch.int32, device=x.device)
+    if window is None and host is not None and host >= s_len:
+        raise ValueError(f"decode at position {host} past the dense cache's capacity of "
+                         f"{s_len} tokens (make the cache with a larger max_len)")
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
-    s_len = cache["k"].shape[2]
     idx = (posv if window is None else posv % s_len).long()
     cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
     cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))

@@ -367,9 +367,12 @@ class Model:
         """One token per row against the dense-cache state prefill returned:
         tokens (B,) at position ``pos`` (an int or a one-element integer
         tensor on the model's device, the same for every row). The caches are
-        updated in place and returned. -> (logits (B, Vp), caches)."""
+        updated in place and returned. An int ``pos`` at or past the capacity of
+        a dense cache without a window raises ValueError. -> (logits (B, Vp),
+        caches)."""
         if not isinstance(pos, torch.Tensor):
-            pos = torch.full((1,), int(pos), dtype=torch.int32, device=self.device)
+            pos = attn.DecodePos(int(pos), torch.full((1,), int(pos), dtype=torch.int32,
+                                                      device=self.device))
         x = self._embed(params, tokens[:, None])
         for (blk, layers), cache in zip(self._program(params), caches):
             for l, p in enumerate(layers):

@@ -12,7 +12,8 @@ f64 product as a width-32 bound, which hypothesis refuses).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
+hypothesis = pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as st
 
 import repro.core.accessors as JA

@@ -12,7 +12,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.serving.engine.cache import PagedKVCache as JaxCache
 from repro.serving.engine.kvquant import KV_DTYPES as JAX_KV_DTYPES

@@ -15,8 +15,11 @@ import pickle
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from hypothesis import given, settings, strategies as st
+torch = pytest.importorskip("torch")
+try:  # only the property test needs hypothesis; the rest run without it
+    from hypothesis import given, settings, strategies as st
+except ImportError:
+    given = None
 
 import repro.core as J
 import repro_torch.core as T
@@ -178,14 +181,16 @@ def test_layout_laws_hold_on_the_port(case):
     _check_laws(LAYOUT_CASES[case](T))
 
 
-@settings(max_examples=25, deadline=None)
-@given(st.lists(st.integers(1, 5), min_size=1, max_size=3), st.integers(0, 3), st.data())
-def test_layout_stride_laws_property(sz, offset, data):
-    strides = tuple(data.draw(st.integers(1, 40), label=f"stride{r}") for r in range(len(sz)))
-    lay = T.LayoutStride(T.Extents.fully_dynamic(*sz), strides, offset)
-    _check_laws(lay)
-    for order in (T.LayoutRight, T.LayoutLeft):
-        _check_laws(order(T.Extents.fully_dynamic(*sz)))
+if given is not None:
+    @settings(max_examples=25, deadline=None)
+    @given(st.lists(st.integers(1, 5), min_size=1, max_size=3), st.integers(0, 3), st.data())
+    def test_layout_stride_laws_property(sz, offset, data):
+        strides = tuple(data.draw(st.integers(1, 40), label=f"stride{r}")
+                        for r in range(len(sz)))
+        lay = T.LayoutStride(T.Extents.fully_dynamic(*sz), strides, offset)
+        _check_laws(lay)
+        for order in (T.LayoutRight, T.LayoutLeft):
+            _check_laws(order(T.Extents.fully_dynamic(*sz)))
 
 
 LAYOUT_ERRORS = {

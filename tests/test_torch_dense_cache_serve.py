@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import build_model as jax_build
 from repro.models import get_config as jax_get_config
@@ -153,3 +153,48 @@ def test_windowed_decode_waits_for_its_slice():
         outs.append((first, logits))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_decode_past_the_dense_cache_capacity_is_refused():
+    """A dense cache without a window holds max_len tokens: decoding at an
+    int position at or past it raises a ValueError naming the capacity (the
+    reference would write slot pos % S and silently drop the oldest token)."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_prompts(cfg, 2, 10, seed=3))
+    _, caches = model.prefill(params, toks, max_len=12)
+    for pos in (10, 11):
+        logits, caches = model.decode_step(params, caches, toks[:, 0], pos)
+        assert torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="capacity of 12"):
+        model.decode_step(params, caches, toks[:, 0], 12)
+
+
+@pytest.mark.parametrize("form", ["int", "DecodePos"])
+def test_the_attention_layer_checks_its_own_capacity(form):
+    """The capacity check lives in self_attention_decode, so a direct caller
+    gets it too: a host position (an int, or a DecodePos carrying one beside
+    its device tensor) at or past the dense cache's S raises; a window's ring
+    wraps instead; a device tensor alone is not read on the host."""
+    from repro_torch.models import attention as attn
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_prompts(cfg, 2, 10, seed=4))
+    _, caches = model.prefill(params, toks, max_len=12)
+    p = params["blocks"][0][0]["attn"]
+    cache = {k: v[0].clone() for k, v in caches[0].items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 1, cfg.d_model)).astype(np.float32))
+    pos = (lambda n: n) if form == "int" else (
+        lambda n: attn.DecodePos(n, torch.tensor([n], dtype=torch.int32)))
+    y, _ = attn.self_attention_decode(cfg, p, x, cache, pos(11))
+    assert torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="capacity of 12"):
+        attn.self_attention_decode(cfg, p, x, cache, pos(12))
+    y, _ = attn.self_attention_decode(cfg, p, x, cache, pos(12), window=12)
+    assert torch.isfinite(y).all()
+    y, _ = attn.self_attention_decode(cfg, p, x, cache, torch.tensor([11], dtype=torch.int32))
+    assert torch.isfinite(y).all()

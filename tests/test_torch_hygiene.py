@@ -12,7 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro_torch
 from repro_torch.models import Model, build_model, from_jax_params, get_config

@@ -10,7 +10,7 @@ against its kernel twin; byte tallies are integers and compare exactly.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import accessors as JA
 from repro.core import instrument as JI

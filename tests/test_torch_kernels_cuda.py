@@ -4,7 +4,9 @@ quantized matmul, the paper-suite kernels (sum3d, stencil3d, tinymatsum
 static and dynamic, matvec right and left) with the ops dispatchers on
 MdSpans, the dense-cache kernels (flash_attention, flash_decode,
 ssd_scan) with the ops dispatchers that reach them, and recurrentgemma's
-(rglru_scan; the flash kernels at head dim 256 over a windowed ring).
+(rglru_scan; the flash kernels at head dim 256 over a windowed ring); the
+split-K paged decode at lengths on, past and inside its split boundaries,
+and the bf16 tensor-core flash_attention body at every head dim.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -30,7 +32,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
 from repro_torch.core import (
@@ -795,3 +797,150 @@ def test_hybrid_serve_on_cuda_matches_the_plain_path():
         need = ("flash_attention", "flash_decode", "rglru_scan")
         assert all(runs["auto"][1][k] > 0 for k in need), runs["auto"][1]
         assert all(runs["torch"][1][k] == 0 for k in need), runs["torch"][1]
+
+
+# -------------------------------------------------------------------------------------
+# the split-K paged decode (dense and intN pools, one body) and the bf16
+# tensor-core prefill body of flash_attention
+# -------------------------------------------------------------------------------------
+# (batch, hq, hkv, d, page_size, max_pages): one split (the table is one
+# tile), and many (the serve shape: 16 splits of 8 pages on an H100); groups
+# of 12 heads take two of the kernel's 8-row blocks
+SPLIT_CASES = [(4, 14, 2, 64, 16, 4), (8, 14, 2, 64, 16, 128), (3, 16, 2, 128, 16, 40),
+               (2, 4, 2, 16, 4, 24), (2, 12, 1, 32, 8, 20), (2, 24, 2, 64, 16, 20)]
+
+
+def _split_lens(batch, hq, hkv, d, ps, max_pages):
+    """Lengths on a split boundary, one past it, inside the first split, a
+    length-0 row and the full table, from the plan the wrapper will use."""
+    splits, pps = pa.plan_decode_splits(max_pages, batch, hkv, ps, d,
+                                        pa.sm_count(torch.device("cuda")))
+    run = pps * ps
+    full = max_pages * ps
+    cands = [0, min(run, full), min(run + 1, full), max(1, run // 2), min(3 * run, full),
+             min(3 * run + 1, full), full - 1, full]
+    return splits, tuple(cands[i % len(cands)] for i in range(batch))
+
+
+def _split_operands(case, pool, dtype):
+    """(kernel, plain, args, kwargs, dense K/V pools as f32, lengths) of one
+    split-decode case, from a seed."""
+    b, hq, hkv, d, ps, max_pages = case
+    _, lens = _split_lens(*case)
+    rng = np.random.default_rng(max_pages)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    num_pages = b * max_pages + 1
+    bt = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).reshape(
+        b, max_pages).astype(np.int32)).cuda()
+    q, kp, vp = f(b, hq, 1, d), f(num_pages, hkv, ps, d), f(num_pages, hkv, ps, d)
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if pool == "dense":
+        return (pa.paged_flash_decode, pa.paged_decode_attention_torch, (q, kp, vp, bt, cl), {},
+                (kp.float(), vp.float()), lens)
+    bits = int(pool[3:])
+    kq, vq = _quantize_pool(kp, bits), _quantize_pool(vp, bits)
+    dense = tuple(pa.dequantize_pages(*x, bits=bits) for x in (kq, vq))
+    return (pa.paged_flash_decode_quant, pa.paged_decode_attention_quant_torch,
+            (q, *kq, *vq, bt, cl), {"bits": bits}, dense, lens)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=_ids(SPLIT_CASES))
+@pytest.mark.parametrize("pool", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_decode_matches_plain_on_and_off_split_boundaries(case, pool, dtype):
+    _, _, _, d, ps, max_pages = case
+    splits, _ = _split_lens(*case)
+    assert (splits == 1) == (max_pages * ps <= (64 if d <= 64 else 32))
+    kern, plain, args, kw, _, lens = _split_operands(case, pool, dtype)
+    n = kern.launches
+    got = kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1 and got.dtype == dtype
+    _assert_kernel_close(got, plain(*args, **kw), dtype)
+    for row, length in enumerate(lens):
+        if length == 0:
+            assert torch.count_nonzero(got[row]) == 0
+    again = kern(*args, **kw)  # a fixed plan and order: the same bits every call
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=_ids(SPLIT_CASES))
+@pytest.mark.parametrize("pool", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_decode_partials_and_combine_match_their_plain_versions(case, pool, dtype,
+                                                                      monkeypatch):
+    """The decode kernel's workspace (m, l, acc of every split) against
+    paged_decode_partials_torch on the same f32 pages, and
+    combine_splits_torch over that workspace against the combine kernel's
+    output. m within 2e-5, l within rtol 2e-5, acc / l (the split's own
+    normalized output) within 2e-5; a split with no live token has l = 0 and
+    m = -inf. The combine is held like the whole kernel (one bf16 ulp + 2e-5
+    in bf16)."""
+    kern, _, args, kw, (kd, vd), _ = _split_operands(case, pool, dtype)
+    b, hq, _, d = args[0].shape
+    seen = {}
+
+    def spy(*a):
+        seen["plan"] = plan = real(*a)
+        return plan
+
+    real = pa._decode_split
+    monkeypatch.setattr(pa, "_decode_split", spy)
+    got = kern(*args, **kw)
+    torch.cuda.synchronize()
+    splits, pps, ws = seen["plan"]
+    n = b * hq * splits
+    m, l = ws[:n].view(b, hq, splits), ws[n:2 * n].view(b, hq, splits)
+    acc = ws[2 * n:].view(b, hq, splits, d)
+    q, bt, cl = args[0], args[-2], args[-1]
+    wm, wl, wacc = pa.paged_decode_partials_torch(q, kd, vd, bt, cl, pages_per_split=pps)
+    live = wl > 0
+    assert torch.equal(l > 0, live)
+    assert torch.all(l[~live] == 0) and torch.all(m[~live] == -float("inf"))
+    torch.testing.assert_close(m[live], wm[live], **TOL)
+    torch.testing.assert_close(l[live], wl[live], rtol=2e-5, atol=0)
+    torch.testing.assert_close(acc[live] / l[live][:, None], wacc[live] / wl[live][:, None], **TOL)
+    _assert_kernel_close(got, pa.combine_splits_torch(m, l, acc).to(dtype)[:, :, None], dtype)
+
+
+def test_split_plan_at_the_serve_shape():
+    splits, pps = pa.plan_decode_splits(128, 8, 2, 16, 64, pa.sm_count(torch.device("cuda")))
+    assert splits * 8 * 2 >= pa.sm_count(torch.device("cuda")) and pps % 4 == 0
+
+
+# (B, hq, hkv, T, D, window): Tq * G not a multiple of the kernel's 64 rows,
+# at every head dim, and recurrentgemma's (1, 10, 2600, 256) at window 2048
+FLASH_BF16_CASES = [(2, 6, 2, 37, 16, None), (2, 6, 2, 37, 32, 16), (1, 14, 2, 101, 64, None),
+                    (2, 12, 4, 70, 128, 24), (2, 10, 1, 45, 256, None),
+                    (1, 10, 1, 2600, 256, 2048)]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_CASES, ids=_ids(FLASH_BF16_CASES))
+def test_flash_attention_bf16_tensor_cores_match_plain(case):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, t, d, window = case
+    assert (t * hq // hkv) % 64 or t == 2600
+    q, k, v = _rand((b, hq, t, d), torch.bfloat16, 41), _rand((b, hkv, t, d), torch.bfloat16, 42), \
+        _rand((b, hkv, t, d), torch.bfloat16, 43)
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    _assert_kernel_close(got, fa.attention_torch(q, k, v, window=window), torch.bfloat16)
+
+
+def test_flash_attention_bf16_offsets_and_empty_rows():
+    """A device offset, rows that see no key (output 0), Tq != Tk."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (_rand(s, torch.bfloat16, i) for i, s in
+               enumerate(((2, 4, 9, 64), (2, 2, 30, 64), (2, 2, 30, 64))))
+    for off in (5, 21, -3):
+        got = fa.flash_attention(q, k, v, q_offset=torch.tensor(off, device="cuda"))
+        want = fa.attention_torch(q, k, v, q_offset=off)
+        _assert_kernel_close(got, want, torch.bfloat16)
+    assert torch.count_nonzero(got[:, :, :3]) == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.empty(2 * 4 * 9 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+        fa.flash_attention(flat[1:].view(2, 4, 9, 64), k, v)

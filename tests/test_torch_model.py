@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import build_model as jax_build, get_config as jax_get_config
 from repro_torch.models import ModelConfig, build_model, from_jax_params, get_config

@@ -11,7 +11,7 @@ against these plain versions in test_torch_kernels_cuda.py.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.core as J
 import repro_torch.core as T

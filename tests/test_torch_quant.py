@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core.accessors import QuantizedAccessor as JaxQuantizedAccessor
 from repro.core.distributed import (

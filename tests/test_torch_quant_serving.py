@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import build_model as jax_build, get_config as jax_get_config
 from repro.serving import GenerationParams as JaxGenerationParams

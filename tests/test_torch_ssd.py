@@ -11,7 +11,7 @@ shapes, state chaining, ngroups 2 (the plain path), plus the model's ragged
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops
 from repro.kernels import ref
