@@ -11,9 +11,11 @@ lines; any failure raises and exits non-zero:
   device        GPU name and power limit, torch/CUDA versions, kernel build
                 time, and the device-to-device copy bandwidth the bounds use;
                 then the registers and spills ptxas reported for the bf16
-                tensor-core flash_attention body, the split-K paged decode
-                body and the split combine, and the split count the planner
-                picks for the serve shape.
+                tensor-core flash_attention body, the split-K decode body
+                (paged pools and dense cache), the split combine and the
+                matvec bodies, and the split counts the planners pick for
+                the serve shape, recurrentgemma-2b's ring, qwen2-0.5b's
+                generate cache and matvec_left at 16384^2.
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
                 phase's one-row 128-token chunk; the quantized attention over
@@ -34,7 +36,9 @@ lines; any failure raises and exits non-zero:
                 the engine's (1, 14, 512, 64), a windowed case and a ragged
                 (1, 14, 101, 64) (Tq * G not a multiple of 64);
                 flash_decode on (8, 14, 1, 64) against (8, 2, 288, 64) caches
-                at pos 0-287, one windowed; ssd_scan at mamba2-780m's width
+                at pos 0-287, one windowed, with device time beside SDPA's,
+                and at the positions around its split plan's first split
+                edges, with and without a window; ssd_scan at mamba2-780m's width
                 (2, 512, 48, 64), N 128, a ragged T 389 and an initial state,
                 and the generate phase's B 4 at T 512 and 389 (tolerance 1e-4 f32, bf16 y one ulp + 1e-4; no library call
                 computes the scan, so its library_ms is null). Then
@@ -46,7 +50,8 @@ lines; any failure raises and exits non-zero:
                 (2, 10, 2600, 256) vs (2, 1, 2600, 256), window 2048;
                 flash_decode (2, 10, 1, 256) over a (2, 1, 2048, 256)
                 ring before, at and after the wrap, against its plain
-                version and against the reference's ring mask.
+                version (device time beside SDPA's) and against the
+                reference's ring mask, and around its split edges.
   generate      the dense-cache serve path, make_prefill(max_len) then
                 make_serve_step greedily: qwen2-0.5b (B 8, prompts of 256,
                 32 new tokens) and mamba2-780m (B 4, prompts of 512 and 389,
@@ -104,7 +109,8 @@ lines; any failure raises and exits non-zero:
                 HBM-filling ones (512^3, N 8M, 16384^2), sum3d and
                 tinymatsum in bf16 too, with a library call as yardstick
                 (torch.sum, torch.add, torch.mv, conv3d + pad); sum3d must
-                repeat bit for bit, and runs at a ragged size too (95x97x99,
+                repeat bit for bit (matvec right and left too), and runs at
+                a ragged size too (95x97x99,
                 509x511x513) on inputs of mean 1. Then the zero-overhead comparison
                 (ops.sum3d / ops.matvec on an MdSpan against the raw kernel
                 call: host us and device ms per call, printed, not gated),
@@ -142,10 +148,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, data sheet
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAPER_SOURCE = "src/repro_torch/kernels/csrc/paper_suite.cu"
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_splitk.cuh"  # every decode's split-K body
 PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
-    "paged_decode": ("src/repro/kernels/paged_attention.py:151", ATTN_SOURCE),
+    "paged_decode": ("src/repro/kernels/paged_attention.py:151", DECODE_SOURCE),
     "paged_prefill_chunk": ("src/repro/kernels/paged_attention.py:575", ATTN_SOURCE),
-    "paged_decode_quant": ("src/repro/kernels/paged_attention.py:387", ATTN_SOURCE),
+    "paged_decode_quant": ("src/repro/kernels/paged_attention.py:387", DECODE_SOURCE),
     "paged_prefill_chunk_quant": ("src/repro/kernels/paged_attention.py:756", ATTN_SOURCE),
     "quant_matmul": ("src/repro/kernels/quant_matmul.py:57",
                      "src/repro_torch/kernels/csrc/quant_matmul.cu"),
@@ -156,7 +163,7 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "matvec_right": ("src/repro/kernels/matvec.py:33", PAPER_SOURCE),
     "matvec_left": ("src/repro/kernels/matvec.py:64", PAPER_SOURCE),
     "flash_attention": ("src/repro/kernels/flash_attention.py:104", FLASH_SOURCE),
-    "flash_decode": ("src/repro/kernels/flash_attention.py:222", FLASH_SOURCE),
+    "flash_decode": ("src/repro/kernels/flash_attention.py:222", DECODE_SOURCE),
     "ssd_scan": ("src/repro/kernels/ssd_scan.py:85", "src/repro_torch/kernels/csrc/ssd_scan.cu"),
     "rglru_scan": ("src/repro/kernels/rglru_scan.py:50",
                    "src/repro_torch/kernels/csrc/rglru_scan.cu"),
@@ -514,6 +521,7 @@ def dense_cache_checks(bw, g):
         S = 288
         q, kc, vc = rnd(8, 14, 1, 64), rnd(8, 2, S, 64), rnd(8, 2, S, 64)
         slots = torch.arange(S, device="cuda")
+        decode_split_edges(q, kc, vc, dtype)
         for pos, window in ((0, None), (100, None), (271, None), (287, None), (287, 64)):
             pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
             live = slots <= pos
@@ -528,7 +536,8 @@ def dense_cache_checks(bw, g):
                                                        enable_gqa=True),
                 2 * q.numel() * esz + 4 + 2 * 8 * 2 * n_live * 64 * esz,
                 4 * 8 * 14 * 64 * n_live, bw,
-                {"B": 8, "Hq": 14, "Hkv": 2, "S": S, "D": 64, "pos": pos, "window": window})
+                {"B": 8, "Hq": 14, "Hkv": 2, "S": S, "D": 64, "pos": pos, "window": window},
+                device_time=True)
             if dtype == torch.bfloat16 and (pos, window) == (271, None):
                 main["flash_decode"] = rec
         for b, t, h, p, n, chunk, initial in ((2, 512, 48, 64, 128, 128, False),
@@ -558,6 +567,36 @@ def dense_cache_checks(bw, g):
             if dtype == torch.bfloat16 and (b, t, initial) == (4, 512, False):
                 main["ssd_scan"] = rec
     return main
+
+
+def decode_split_edges(q, kc, vc, dtype, window=64):
+    """flash_decode against its plain version at the positions where the
+    split-K plan for these shapes cuts the cache: 0, one before, on and one
+    past the first two split edges, and S - 1, with and without a window
+    (f32 2e-5, bf16 one ulp + 2e-5); one line for all of them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    b, hq, _, d = q.shape
+    _, hkv, s_len, _ = kc.shape
+    splits, kps = pa.plan_decode_splits(s_len, b, hkv, 1, d, pa.sm_count(q.device))
+    edges = sorted({min(max(p, 0), s_len - 1)
+                    for p in (0, kps - 1, kps, kps + 1, 2 * kps - 1, 2 * kps, 2 * kps + 1,
+                              s_len - 1)})
+    worst, ok = 0.0, True
+    for p in edges:
+        pos_t = torch.tensor([p], dtype=torch.int32, device=q.device)
+        for w in (None, window):
+            good, err = _attn_close(fa.flash_decode(q, kc, vc, pos_t, window=w),
+                                    fa.decode_attention_torch(q, kc, vc, p, window=w), dtype)
+            worst, ok = max(worst, err), ok and good
+    emit({"phase": "kernels", "kernel": "flash_decode", "check": "split edges",
+          "dtype": str(dtype).split(".")[1], "B": b, "Hq": hq, "Hkv": hkv, "S": s_len, "D": d,
+          "splits": splits, "keys_per_split": kps, "positions": edges, "window": window,
+          "max_abs_err": worst, "ok": ok})
+    if not ok:
+        raise AssertionError(f"flash_decode disagrees with its plain version on a split edge "
+                             f"of ({b}, {hq}, {hkv}, {s_len}, {d})")
 
 
 def ring_decode_reference(q, ring_k, ring_v, pos: int, window: int):
@@ -651,6 +690,7 @@ def hybrid_checks(bw, g):
              "window": WINDOW}, device_time=True)
         q1, rk, rv = rnd(B, HQ, 1, D), rnd(B, 1, S, D), rnd(B, 1, S, D)
         slots = torch.arange(S, device="cuda")
+        decode_split_edges(q1, rk, rv, dtype)
         for p in (1000, S - 1, S, S + 23, 2 * S + 4):  # before, at and after the wrap
             last = torch.tensor([min(p, S - 1)], dtype=torch.int32, device="cuda")
             live = slots <= min(p, S - 1)
@@ -665,7 +705,7 @@ def hybrid_checks(bw, g):
                 2 * q1.numel() * esz + 4 + 2 * B * n_live * D * esz,
                 4 * B * HQ * D * n_live, bw,
                 {"B": B, "Hq": HQ, "Hkv": 1, "S": S, "D": D, "pos": p,
-                 "attended_at": min(p, S - 1), "ring": True})
+                 "attended_at": min(p, S - 1), "ring": True}, device_time=True)
             ok, err = _attn_close(fa.flash_decode(q1, rk, rv, last),
                                   ring_decode_reference(q1, rk, rv, p, WINDOW), dtype)
             emit({"phase": "kernels", "kernel": "flash_decode", "check": "reference ring mask",
@@ -825,6 +865,14 @@ def paper_checks(bw, label, g):
             name, torch.float32, kernel, lambda: mv.matvec_torch(a, v), library,
             (m * m + 2 * m) * 4, 2 * m * m, bw, {"sizes": label, "I": m, "J": m},
             tolerance=_row_tolerance(a, v), phase="paper")
+    for name, kernel in (("matvec_right", lambda: mv.matvec_right(a, v)),
+                         ("matvec_left", lambda: mv.matvec_left(at, v))):
+        first, second = kernel(), kernel()
+        same = torch.equal(first, second)
+        emit({"phase": "paper", "check": f"{name}_repeats_bit_for_bit", "sizes": label,
+              "equal": same})
+        if not same:
+            raise AssertionError(f"{name} gave two results on one input")
     emit({"phase": "paper", "check": "matvec_right_over_left", "sizes": label,
           "ms_ratio": recs["matvec_right"]["ms"] / recs["matvec_left"]["ms"]})
     return recs
@@ -1507,10 +1555,11 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
-    new_bodies = {fn: rec for name in ("flash_attention", "paged_attention")
+    new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite")
                   for fn, rec in ptxas[name].items()
-                  if any(k in fn for k in ("flash_mma_kernel", "paged_decode_kernel",
-                                           "combine_splits_kernel"))}
+                  if any(k in fn for k in ("flash_mma_kernel", "split_decode_kernel",
+                                           "combine_splits_kernel", "matvec_kernel",
+                                           "matvec_splits_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1522,11 +1571,25 @@ def main() -> int:
     emit({"phase": "device", "ptxas_new_bodies": new_bodies,
           "spills": sum(r.get("spill_stores", 0) + r.get("spill_loads", 0)
                         for r in new_bodies.values())})
+    from repro_torch.kernels import matvec as mv
     from repro_torch.kernels import paged_attention as pa
-    splits, pps = pa.plan_decode_splits(128, 8, 2, 16, 64, pa.sm_count(torch.device("cuda")))
-    emit({"phase": "device", "split_plan": "paged decode at the serve shape (B 8, Hkv 2, "
-          "128 pages of 16, D 64)", "sm_count": pa.sm_count(torch.device("cuda")),
-          "splits": splits, "pages_per_split": pps, "blocks": splits * 8 * 2})
+    sms = pa.sm_count(torch.device("cuda"))
+    for what, (pages, b, hkv, ps, d, group) in (
+            ("paged decode at the serve shape (B 8, Hkv 2, 128 pages of 16, D 64)",
+             (128, 8, 2, 16, 64, 7)),
+            ("flash_decode over recurrentgemma-2b's ring (B 2, Hkv 1, 2048 slots, D 256, G 10)",
+             (2048, 2, 1, 1, 256, 10)),
+            ("flash_decode over qwen2-0.5b's generate cache (B 8, Hkv 2, 288 slots, D 64, G 7)",
+             (288, 8, 2, 1, 64, 7))):
+        splits, pps = pa.plan_decode_splits(pages, b, hkv, ps, d, sms)
+        emit({"phase": "device", "split_plan": what, "sm_count": sms, "splits": splits,
+              "pages_per_split": pps, "keys_per_split": pps * ps,
+              "blocks": splits * b * hkv * -(-group // 8)})
+    for dt, esz in (("float32", 4), ("bfloat16", 2)):
+        splits, per = mv.plan_matvec_left(16384, 16384, esz, sms)
+        emit({"phase": "device", "split_plan": f"matvec_left 16384^2 {dt}", "sm_count": sms,
+              "splits": splits, "cols_per_split": per,
+              "blocks": splits * -(-16384 // (32 * 16 // esz))})
     t_phase = {}
     t0 = time.perf_counter()
     main_recs = kernel_phase(bw)

@@ -33,7 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 WAIT, ACTIVE = 40, 8  # of the run's 80 decode steps: mid-run, batch full
 
 CLASSES = (  # first match wins, on the kernel's name
-    ("paged_decode", ("paged_decode_kernel",)),
+    ("paged_decode", ("split_decode_kernel", "combine_splits_kernel")),
     ("paged_chunk", ("paged_chunk_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "sm90_", "splitk")),
     ("copy", ("memcpy", "memset", "copy_kernel", "catarray", "indexcopy", "index_put",

@@ -16,7 +16,7 @@ LIB = _build.Binding("paper_suite", {
     "repro_sum3d": [_I, _P, _L, _P, _I, _P, _P],
     "repro_stencil3d": [_I, _P, _P, _I, _I, _I, _P],
     "repro_tinymatsum": [_I, _I, _P, _P, _P, _L, _I, _I, _P],
-    "repro_matvec": [_I, _I, _P, _P, _P, _I, _I, _P],
+    "repro_matvec": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 })
 launch = LIB.launch
 

@@ -118,38 +118,72 @@ __device__ inline void flash_tile(const float* q_s, const float* k_s, const floa
 // (rows, splits), then acc (rows, splits, D). The combine is the log-sum-exp
 // merge: m* = max of m_s over live splits (l_s > 0), l* = sum l_s e^(m_s - m*),
 // out = sum acc_s e^(m_s - m*) / l*, and 0 when l* is 0 (a row with no live
-// key). A dead split (l_s == 0) is never read past its l, so its m and acc may
-// be anything. One thread per output element; out (rows, D) in T.
+// key). A dead split (l_s == 0) is never used past its l, so its m and acc may
+// be anything (its acc is read and dropped by a select, never summed).
+//
+// A block per (32 features, row), kCombineWarps warps: warp 0 takes the row's
+// splits 32 at a time on its lanes (m*, then each split's weight e^(m_s - m*)
+// into shared memory, and l*), then warp w sums splits w, w + kCombineWarps,
+// ... of its lane's feature, and the warps' sums meet in shared memory in warp
+// order. The splits are read in parallel, not one after another: a row of 64
+// splits (the ring decode's) costs a few load latencies. Fixed order: the same
+// bits every run. Dynamic shared memory: ``splits`` floats.
+constexpr int kCombineWarps = 8;
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kCombineWarps * 32)
 combine_splits_kernel(const float* __restrict__ ws, T* __restrict__ out, int rows, int splits,
                       int D) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows * D) return;
-  const int r = idx / D, d = idx - r * D;
+  extern __shared__ float w_s[];  // splits: the weight of each split, 0 for a dead one
+  __shared__ float part[kCombineWarps][32];
+  __shared__ float l_star;
+  const int r = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* m = ws + static_cast<size_t>(r) * splits;
   const float* l = ws + static_cast<size_t>(rows) * splits + static_cast<size_t>(r) * splits;
   const float* acc = ws + 2 * static_cast<size_t>(rows) * splits +
-                     static_cast<size_t>(r) * splits * D + d;
-  float ms = -CUDART_INF_F;
-  for (int s = 0; s < splits; ++s)
-    if (l[s] > 0.f) ms = fmaxf(ms, m[s]);
-  float ls = 0.f, o = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    if (l[s] > 0.f) {
-      const float w = expf(m[s] - ms);
-      ls = fmaf(w, l[s], ls);
-      o = fmaf(w, acc[static_cast<size_t>(s) * D], o);
+                     static_cast<size_t>(r) * splits * D;
+  if (warp == 0) {
+    float mx = -CUDART_INF_F;
+    for (int s = lane; s < splits; s += 32) mx = l[s] > 0.f ? fmaxf(mx, m[s]) : mx;
+    mx = warp_max(mx);
+    float ls = 0.f;
+    for (int s = lane; s < splits; s += 32) {
+      const float lv = l[s];
+      const float w = lv > 0.f ? expf(m[s] - mx) : 0.f;
+      w_s[s] = w;
+      ls = fmaf(w, lv, ls);
+    }
+    ls = warp_sum(ls);
+    if (lane == 0) l_star = ls;
+  }
+  __syncthreads();
+  const int d = blockIdx.x * 32 + lane;
+  float o = 0.f;
+  if (d < D) {
+#pragma unroll 4
+    for (int s = warp; s < splits; s += kCombineWarps) {
+      const float w = w_s[s], a = acc[static_cast<size_t>(s) * D + d];
+      o = w > 0.f ? fmaf(w, a, o) : o;
     }
   }
-  out[idx] = from_f32<T>(ls > 0.f ? o / ls : 0.f);
+  part[warp][lane] = o;
+  __syncthreads();
+  if (warp == 0 && d < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kCombineWarps; ++w) t += part[w][lane];
+    out[static_cast<size_t>(r) * D + d] = from_f32<T>(l_star > 0.f ? t / l_star : 0.f);
+  }
 }
 
 template <typename T>
 cudaError_t combine_splits(const float* ws, T* out, int rows, int splits, int D,
                            cudaStream_t stream) {
-  const int n = rows * D;
-  combine_splits_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(ws, out, rows, splits, D);
+  if (rows > 65535 || static_cast<size_t>(splits) * sizeof(float) > 48 * 1024)
+    return cudaErrorInvalidValue;
+  combine_splits_kernel<T><<<dim3((D + 31) / 32, rows), kCombineWarps * 32,
+                             static_cast<size_t>(splits) * sizeof(float), stream>>>(
+      ws, out, rows, splits, D);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// Dense-cache GQA flash attention for Hopper (sm_90a): the prefill kernel
+// Dense-cache GQA flash attention for Hopper (sm_90a): the prefill kernels
 // (a block of query rows against contiguous K/V) and one-token decode against
-// a contiguous cache, with a plain C interface loaded through ctypes
+// a contiguous cache or ring, with a plain C interface loaded through ctypes
 // (repro_torch/kernels/flash_attention.py holds the wrappers and the plain
 // PyTorch versions these kernels are held against).
 //
@@ -20,16 +20,15 @@
 //
 // What bounds them on an H100: prefill is operations-heavy (4 * Tq * Tk * D
 // per head, halved by the causal band), decode is bytes: it reads each live
-// cache slot once (~0.6 MB per layer at B 8, S 288, bf16), microseconds at
-// the card's rate.
+// cache slot once (~0.6 MB per layer at B 8, S 288, bf16; 2 MB over
+// recurrentgemma's 2048-slot ring at D 256), microseconds at the card's rate.
 //
-// Both kernels take the G = Hq / Hkv query heads of one KV head together
-// (rows ordered t-major: row = t * G + g), so every K/V tile serves all G
-// heads of its group (GQA reuse, as the TPU kernel's (G, D) decode block).
-// Tiles wholly outside the causal / window band of a block's rows are never
-// read (the TPU kernel's `run` predicate); inside a tile every (row, key) pair
-// is masked by liveness, never by the exponent alone, and a row with no live
-// key outputs 0.
+// Prefill takes the G = Hq / Hkv query heads of one KV head together (rows
+// ordered t-major: row = t * G + g), so every K/V tile serves all G heads of
+// its group (GQA reuse, as the TPU kernel's (G, D) block). Tiles wholly
+// outside the causal / window band of a block's rows are never read (the TPU
+// kernel's `run` predicate); inside a tile every (row, key) pair is masked by
+// liveness, never by the exponent alone, and a row with no live key outputs 0.
 //
 // bf16 prefill, flash_mma_kernel<D> (every D in 16..256): 64 rows a block,
 // 16 rows a warp. The products run on the tensor cores
@@ -49,23 +48,34 @@
 // 16-row slab, each computes the same S (bit for bit, so their row max and sum
 // agree without an exchange) and owns 128 of the 256 output columns.
 //
-// f32 prefill and every decode run flash_kernel<T, D>: f32 CUDA-core products
-// through common.cuh's flash_tile, K/V staged as f32 through shared memory
-// (64 keys a tile, 32 for D 128 and 256; at D 256 a 64-row block stages
-// 205,696 bytes, so one block runs per SM). f32 stays off the tensor cores on
-// purpose: it is the path that holds the port to the reference in f32 (the
-// 2e-5 gate), and the tensor cores would need TF32, which keeps about three
-// decimal digits. Only bf16 is served and timed. Decode holds the G rows of
-// one token a block (B * Hkv blocks): a split of the cache across blocks is
-// not done yet.
+// f32 prefill runs flash_kernel<float, D>: f32 CUDA-core products through
+// common.cuh's flash_tile, K/V staged as f32 through shared memory (64 keys a
+// tile, 32 for D 128 and 256; at D 256 a 64-row block stages 205,696 bytes,
+// so one block runs per SM). f32 stays off the tensor cores on purpose: it is
+// the path that holds the port to the reference in f32 (the 2e-5 gate), and
+// the tensor cores would need TF32, which keeps about three decimal digits.
+//
+// Decode, f32 and bf16 alike, runs the split-K body the paged decodes share
+// (decode_splitk.cuh) over DenseKeys: slot j of (b, h) is row (b * Hkv + h) *
+// S + j, live iff j <= pos and, with a window, j > pos - window. The wrapper
+// plans the split with the paged planner at page_size 1 (tiles of 64 keys at
+// D <= 64, 32 above; two blocks a SM where the cache has that many tiles):
+// recurrentgemma's ring (B 2, Hkv 1, S 2048, D 256) runs 64 splits of 32 keys
+// and, its MQA group of 10 taking two blocks of 5 rows, 256 blocks; qwen2's
+// (8, 2, 288, 64) 5 splits of 64, 80 blocks. The second row block of the ring
+// reads the same keys again, mostly from L2 (the first block's split of the
+// same keys runs in the same wave). That second read was not measured on its
+// own; the arithmetic was what mattered: 5 and 5 rows a block instead of 8
+// and 2 took the split kernel from 14.0 to 10.4 us on an H100 80GB HBM3 at
+// 700 W (scripts/time_decode_matvec.py --profile), below SDPA's device time.
+// The D 256 instantiation is the decode's alone: no paged path serves D 256.
 
-#include "common.cuh"
+#include "decode_splitk.cuh"
 
 namespace {
 
 constexpr int kPrefillRows = 64;  // query rows (t * G + g) per prefill block
 constexpr int kPrefillThreads = 256;
-constexpr int kDecodeThreads = 128;
 
 template <int D>
 __host__ __device__ constexpr int kv_tile() { return D <= 64 ? 64 : 32; }
@@ -98,11 +108,10 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kPrefillThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, const int* __restrict__ q_off_ptr, int q_off_val, int hkv,
-             int group, int tq, int tk, int causal, int has_window, int window, int rows,
-             float scale) {
+             int group, int tq, int tk, int causal, int has_window, int window, float scale) {
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  constexpr int NT = kv_tile<D>();
-  const int G = group, R = rows;
+  constexpr int NT = kv_tile<D>(), R = kPrefillRows;
+  const int G = group;
   const int row0 = tile * R;
   const int rows_valid = min(R, tq * G - row0);
   extern __shared__ float smem[];
@@ -157,22 +166,22 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
-                   int tk, int causal, int has_window, int window, int rows, int threads,
-                   float scale, cudaStream_t stream) {
+                   int tk, int causal, int has_window, int window, float scale,
+                   cudaStream_t stream) {
   const int G = hq / hkv;
   constexpr int NT = kv_tile<D>();
-  const size_t R = rows;
+  constexpr size_t R = kPrefillRows;
   const size_t smem = sizeof(float) *
       (R * D * 2 + static_cast<size_t>(NT) * (2 * D + 1) + R * NT + 3 * R);
   auto kern = flash_kernel<T, D>;
   static size_t opted[kMaxDevices] = {};
   cudaError_t e = set_smem(kern, smem, opted);
   if (e != cudaSuccess) return e;
-  const int tiles = (tq * G + rows - 1) / rows;
-  kern<<<dim3(tiles, hkv, batch), threads, smem, stream>>>(
+  const int tiles = (tq * G + kPrefillRows - 1) / kPrefillRows;
+  kern<<<dim3(tiles, hkv, batch), kPrefillThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<const int*>(q_off_ptr), q_off, hkv, G, tq, tk, causal,
-      has_window, window, rows, scale);
+      has_window, window, scale);
   return cudaGetLastError();
 }
 
@@ -449,18 +458,30 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-#define REPRO_DISPATCH(...)                                                          \
+// One-token decode over the dense cache: the split body, then the combine.
+template <typename T, int D>
+cudaError_t launch_decode(const void* q, const void* k_cache, const void* v_cache, void* out,
+                          void* ws, const void* pos_ptr, int pos, int batch, int hq, int hkv,
+                          int s_len, int has_window, int window, int splits,
+                          int keys_per_split, float scale, cudaStream_t stream) {
+  const DensePool<T, D> pool{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)};
+  const DenseKeys keys{static_cast<const int*>(pos_ptr), pos, s_len, hkv, has_window, window};
+  return launch_split_decode<T, D>(q, pool, keys, out, ws, batch, hq, hkv, splits,
+                                   keys_per_split, scale, stream);
+}
+
+#define REPRO_DISPATCH(FN, ...)                                                      \
   switch (head_dim) {                                                                \
-    case 16: return dtype == 0 ? launch<float, 16>(__VA_ARGS__)                      \
-                               : launch<__nv_bfloat16, 16>(__VA_ARGS__);             \
-    case 32: return dtype == 0 ? launch<float, 32>(__VA_ARGS__)                      \
-                               : launch<__nv_bfloat16, 32>(__VA_ARGS__);             \
-    case 64: return dtype == 0 ? launch<float, 64>(__VA_ARGS__)                      \
-                               : launch<__nv_bfloat16, 64>(__VA_ARGS__);             \
-    case 128: return dtype == 0 ? launch<float, 128>(__VA_ARGS__)                    \
-                                : launch<__nv_bfloat16, 128>(__VA_ARGS__);           \
-    case 256: return dtype == 0 ? launch<float, 256>(__VA_ARGS__)                    \
-                                : launch<__nv_bfloat16, 256>(__VA_ARGS__);           \
+    case 16: return dtype == 0 ? FN<float, 16>(__VA_ARGS__)                          \
+                               : FN<__nv_bfloat16, 16>(__VA_ARGS__);                 \
+    case 32: return dtype == 0 ? FN<float, 32>(__VA_ARGS__)                          \
+                               : FN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
+    case 64: return dtype == 0 ? FN<float, 64>(__VA_ARGS__)                          \
+                               : FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
+    case 128: return dtype == 0 ? FN<float, 128>(__VA_ARGS__)                        \
+                                : FN<__nv_bfloat16, 128>(__VA_ARGS__);               \
+    case 256: return dtype == 0 ? FN<float, 256>(__VA_ARGS__)                        \
+                                : FN<__nv_bfloat16, 256>(__VA_ARGS__);               \
     default: return cudaErrorInvalidValue;                                           \
   }
 
@@ -498,28 +519,44 @@ int repro_flash_attention(int dtype, const void* q, const void* k, const void* v
         default: return cudaErrorInvalidValue;
       }
     }
-    REPRO_DISPATCH(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq, tk, causal,
-                   has_window, window, kPrefillRows, kPrefillThreads, scale, st)
+    switch (head_dim) {  // f32: flash_kernel's CUDA-core products
+      case 16: return launch<float, 16>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
+                                        tk, causal, has_window, window, scale, st);
+      case 32: return launch<float, 32>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
+                                        tk, causal, has_window, window, scale, st);
+      case 64: return launch<float, 64>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
+                                        tk, causal, has_window, window, scale, st);
+      case 128: return launch<float, 128>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                          tq, tk, causal, has_window, window, scale, st);
+      case 256: return launch<float, 256>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                          tq, tk, causal, has_window, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
   };
   return static_cast<int>(run());
 }
 
 // One-token decode: q (B, Hq, 1, D) against caches (B, Hkv, S, D); slot pos
-// is the current token (slots > pos masked and never read). One block per
-// (sequence, KV head) holds its G query rows.
+// is the current token (slots past it, and with a window slots at or before
+// pos - window, are masked and never read). The keys are cut into ``splits``
+// runs of ``keys_per_split`` (splits * keys_per_split >= S), one block per
+// (split, KV head and 8-row block of its group, sequence), merged in a second
+// kernel; ``workspace`` holds B * Hq * splits * (D + 2) floats (common.cuh's
+// combine_splits_kernel).
 int repro_flash_decode(int dtype, const void* q, const void* k_cache, const void* v_cache,
-                       void* out, const void* pos_ptr, int pos, int batch, int hq, int hkv,
-                       int s_len, int head_dim, int has_window, int window, float scale,
-                       void* stream) {
-  if ((dtype != 0 && dtype != 1) || batch <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
-      hq / hkv > kPrefillRows) {
+                       void* out, void* workspace, const void* pos_ptr, int pos, int batch,
+                       int hq, int hkv, int s_len, int head_dim, int has_window, int window,
+                       int splits, int keys_per_split, float scale, void* stream) {
+  if ((dtype != 0 && dtype != 1) || batch <= 0 || batch > 65535 || hkv <= 0 || hq % hkv != 0 ||
+      s_len <= 0 || splits <= 0 || keys_per_split <= 0 ||
+      static_cast<long long>(splits) * keys_per_split < s_len ||
+      static_cast<long long>(hkv) * ((hq / hkv + kDecodeRows - 1) / kDecodeRows) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();
-  const int group = hq / hkv;
   auto run = [&]() -> cudaError_t {
-    REPRO_DISPATCH(q, k_cache, v_cache, out, pos_ptr, pos, batch, hq, hkv, 1, s_len, 1,
-                   has_window, window, group, kDecodeThreads, scale,
+    REPRO_DISPATCH(launch_decode, q, k_cache, v_cache, out, workspace, pos_ptr, pos, batch, hq,
+                   hkv, s_len, has_window, window, splits, keys_per_split, scale,
                    static_cast<cudaStream_t>(stream))
   };
   return static_cast<int>(run());

@@ -9,8 +9,9 @@
 //   stencil3d_kernel                 <- src/repro/kernels/stencil3d.py::stencil3d_pallas
 //   tinymatsum_static_kernel<T,J,K>  <- src/repro/kernels/tinymatsum.py::tinymatsum_static
 //   tinymatsum_dynamic_kernel<T>     <- src/repro/kernels/tinymatsum.py::tinymatsum_dynamic
-//   matvec_kernel<T, Right>          <- src/repro/kernels/matvec.py::matvec_right
-//   matvec_kernel<T, Left>           <- src/repro/kernels/matvec.py::matvec_left
+//   matvec_kernel<T, Right, VEC>     <- src/repro/kernels/matvec.py::matvec_right
+//   matvec_kernel<T, Left, VEC>      <- src/repro/kernels/matvec.py::matvec_left
+//     (+ matvec_splits_kernel where Left splits j across blocks)
 //
 // These are the paper's own C++ experiments, so the C++ says what the paper
 // says. Each computes the reference function, not the Pallas BlockSpecs:
@@ -31,12 +32,16 @@
 //               reference pads to (jmax, kmax) only for TPU sublane
 //               alignment). Paper Fig. 5 is the gap between the two.
 //   MatVec      one kernel body templated on a layout policy (Right / Left,
-//               each an offset(i, j) functor, as mdspan's layout_right /
-//               layout_left), one thread per output row, f32 accumulation.
-//               With layout_left neighbouring threads read neighbouring
-//               addresses; with layout_right each reads its own row, a
-//               stride of J apart: paper Fig. 6 predicts the gap inverts on a
-//               GPU relative to a CPU.
+//               each an offset(i, j) functor and the fact of which index it
+//               stores at stride 1, as mdspan's layout_right / layout_left).
+//               The policy picks the schedule, as the reference's Pallas
+//               kernels do (contraction on lanes for right, a reduction
+//               across sublanes over a (J-blocks x I-blocks) grid for left):
+//               the lanes always walk the stride-1 index, 16 bytes a lane,
+//               with several loads in flight (below, at the MatVec section).
+//               Paper Fig. 6 is the right / left gap of the SAME schedule;
+//               with one thread per row a layout_right warp reads 32 rows a
+//               stride of J apart, so the gap here is the schedule's.
 //
 // What bounds them on an H100: all four are bytes-bound (at most 27 adds, or
 // 2 flops, per element read); the bound is the bytes each must move (inputs
@@ -161,26 +166,211 @@ tinymatsum_dynamic_kernel(const T* __restrict__ o, const T* __restrict__ s, T* _
 }
 
 // ---- MatVec -----------------------------------------------------------------
-// Layout policies: the offset of A(i, j) in the stored buffer, as mdspan's
-// layout_right (row-major, buffer (I, J)) and layout_left (column-major,
-// buffer (J, I)).
-struct Right {
+// One body, matvec_kernel<T, Layout, VEC>, mapping the warp's lanes to the
+// index its layout stores at stride 1 (Layout::kStrideOneI), with f32
+// accumulation, output in T and every sum in a fixed order (no float atomics:
+// repeated runs are bit-identical). A lane holds V = 16 /
+// sizeof(T) elements of a run of 32 * V along the contiguous index: in the
+// vector form the lane's V are adjacent and come in one 16-byte load; in the
+// scalar form (a buffer off a 16-byte boundary, or a contiguous extent that
+// is no multiple of V) they lie 32 apart and come in V coalesced loads.
+// Either way a warp's load covers 32 * V consecutive elements.
+//
+// The layout picks the schedule:
+//   Right (row-major, j contiguous): a warp per row i, kWarps rows a block;
+//         each lane loads kRightUnroll runs of A's row and of x before their
+//         FMAs (x, 64 KB at J 16384, is read by every row: it stays in L1 and
+//         L2); the lane's V sums, then the warp's 32, are added in a fixed
+//         order (warp_sum).
+//   Left  (column-major, i contiguous): a block per run of 32 * V rows (and
+//         per split of j, below); its kWarps warps take every kWarps-th j,
+//         kLeftUnroll columns of A in flight a warp before their FMAs, each
+//         lane accumulating its V rows; the warps' partial y meet once in
+//         shared memory, added in warp order. Where the runs of rows are too
+//         few for two blocks a SM (I 16384 f32: 128), j is split across
+//         blocks too: each split writes its partial y to an f32 workspace
+//         and matvec_splits_kernel adds the splits in order.
+//
+// Layout policies, as mdspan's layout_right / layout_left: the offset of
+// A(i, j) in the stored buffer, and which index is stride-1 there.
+struct Right {  // buffer (I, J)
+  static constexpr bool kStrideOneI = false;
   int64_t I, J;
   __device__ __forceinline__ int64_t offset(int64_t i, int64_t j) const { return i * J + j; }
 };
-struct Left {
+struct Left {  // buffer (J, I)
+  static constexpr bool kStrideOneI = true;
   int64_t I, J;
   __device__ __forceinline__ int64_t offset(int64_t i, int64_t j) const { return j * I + i; }
 };
 
-template <typename T, typename Layout>
+constexpr int kRightUnroll = 4;  // runs of A and of x a lane loads before its FMAs
+constexpr int kLeftUnroll = 8;   // columns of A a warp loads before its FMAs
+
+template <typename T> struct VecWidth { static constexpr int value = 16 / sizeof(T); };
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The lane's V elements of a run starting at p, of which the first n >= 1
+// exist: adjacent (VEC, one 16-byte load; then n is a multiple of V) or 32
+// apart (V loads); absent ones are 0. Every load is issued unconditionally
+// (an absent element's address is clamped into the run and its value
+// dropped), so a caller's loads of several runs go out back to back.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_run(const T* __restrict__ p, int lane, int64_t n,
+                                         float (&x)[VecWidth<T>::value]) {
+  constexpr int V = VecWidth<T>::value;
+  if constexpr (VEC) {
+    const bool in = static_cast<int64_t>(lane) * V < n;
+    const uint4 u = *reinterpret_cast<const uint4*>(p + (in ? lane * V : n - V));
+    if constexpr (sizeof(T) == 4) {
+      x[0] = __uint_as_float(u.x);
+      x[1] = __uint_as_float(u.y);
+      x[2] = __uint_as_float(u.z);
+      x[3] = __uint_as_float(u.w);
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < V / 2; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        x[2 * e] = f.x;
+        x[2 * e + 1] = f.y;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = in ? x[e] : 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int64_t k = lane + 32 * e;
+      const float v = to_f32(p[k < n ? k : n - 1]);
+      x[e] = k < n ? v : 0.f;
+    }
+  }
+}
+
+// the run offset of the lane's e-th element
+template <int V, bool VEC>
+__device__ __forceinline__ int run_elem(int lane, int e) { return VEC ? lane * V + e : lane + 32 * e; }
+
+// j on the lanes: block b holds rows b * kWarps + warp
+template <typename T, bool VEC, typename Layout>
+__device__ __forceinline__ void matvec_rows_on_warps(const T* __restrict__ a,
+                                                     const T* __restrict__ x,
+                                                     T* __restrict__ y, Layout map) {
+  constexpr int V = VecWidth<T>::value, RUN = 32 * V, U = kRightUnroll;
+  const int64_t I = map.I, J = map.J;
+  const int lane = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (i >= I) return;
+  const T* row = a + map.offset(i, 0);
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  int64_t j0 = 0;
+  for (; j0 + U * RUN <= J; j0 += U * RUN) {
+    float av[U][V], xv[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      load_run<T, VEC>(row + j0 + u * RUN, lane, RUN, av[u]);
+      load_run<T, VEC>(x + j0 + u * RUN, lane, RUN, xv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(av[u][e], xv[u][e], acc[e]);
+  }
+  for (; j0 < J; j0 += RUN) {  // the tail: fewer than U runs, the last one ragged
+    float av[V], xv[V];
+    load_run<T, VEC>(row + j0, lane, J - j0, av);
+    load_run<T, VEC>(x + j0, lane, J - j0, xv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = fmaf(av[e], xv[e], acc[e]);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < V; ++e) s += acc[e];
+  s = warp_sum(s);
+  if (lane == 0) y[i] = from_f32<T>(s);
+}
+
+// i on the lanes: block (b, s) holds rows [b * 32 V, (b + 1) * 32 V) over
+// columns [s * cols_per_split, (s + 1) * cols_per_split)
+template <typename T, bool VEC, typename Layout>
+__device__ __forceinline__ void matvec_cols_on_warps(const T* __restrict__ at,
+                                                     const T* __restrict__ x,
+                                                     T* __restrict__ y, float* __restrict__ ws,
+                                                     Layout map, int64_t cols_per_split) {
+  constexpr int V = VecWidth<T>::value, RUN = 32 * V, U = kLeftUnroll;
+  const int64_t I = map.I, J = map.J;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * RUN;
+  const int64_t n = I - i0 < RUN ? I - i0 : RUN;  // rows of this run that exist
+  const int64_t j_lo = blockIdx.y * cols_per_split;
+  const int64_t j_hi = j_lo + cols_per_split < J ? j_lo + cols_per_split : J;
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  int64_t j = j_lo + warp;
+  for (; j + (U - 1) * kWarps < j_hi; j += U * kWarps) {
+    float av[U][V], xv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      load_run<T, VEC>(at + map.offset(i0, j + u * kWarps), lane, n, av[u]);
+      xv[u] = to_f32(x[j + u * kWarps]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(av[u][e], xv[u], acc[e]);
+  }
+  for (; j < j_hi; j += kWarps) {
+    float av[V];
+    load_run<T, VEC>(at + map.offset(i0, j), lane, n, av);
+    const float xj = to_f32(x[j]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = fmaf(av[e], xj, acc[e]);
+  }
+  __shared__ float part[kWarps][RUN];
+#pragma unroll
+  for (int e = 0; e < V; ++e) part[warp][run_elem<V, VEC>(lane, e)] = acc[e];
+  __syncthreads();
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[w][r];
+    if (gridDim.y == 1) {
+      y[i0 + r] = from_f32<T>(s);
+    } else {
+      ws[blockIdx.y * I + i0 + r] = s;
+    }
+  }
+}
+
+template <typename T, typename Layout, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-matvec_kernel(const T* __restrict__ a, const T* __restrict__ x, T* __restrict__ y, Layout map) {
+matvec_kernel(const T* __restrict__ a, const T* __restrict__ x, T* __restrict__ y,
+              float* __restrict__ ws, Layout map, int64_t cols_per_split) {
+  if constexpr (Layout::kStrideOneI) {
+    matvec_cols_on_warps<T, VEC>(a, x, y, ws, map, cols_per_split);
+  } else {
+    matvec_rows_on_warps<T, VEC>(a, x, y, map);
+  }
+}
+
+// y[i] = the sum of the splits' partials ws[s * I + i], s in order
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+matvec_splits_kernel(const float* __restrict__ ws, T* __restrict__ y, int64_t I, int splits) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= map.I) return;
-  float acc = 0.f;
-  for (int64_t j = 0; j < map.J; ++j) acc = fmaf(to_f32(a[map.offset(i, j)]), to_f32(x[j]), acc);
-  y[i] = from_f32<T>(acc);
+  if (i >= I) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += ws[k * I + i];
+  y[i] = from_f32<T>(s);
 }
 
 // ---- launchers ----------------------------------------------------------------
@@ -256,17 +446,40 @@ cudaError_t launch_tiny_dynamic(int J, int K, const void* o, const void* s, void
   return cudaGetLastError();
 }
 
+// The vector form wherever the buffers allow 16-byte loads along the
+// contiguous index, the scalar form elsewhere.
 template <typename T>
-cudaError_t launch_matvec(int layout, const void* a, const void* x, void* y, int I, int J,
-                          cudaStream_t st) {
+cudaError_t launch_matvec(int layout, const void* a, const void* x, void* y, void* ws, int I,
+                          int J, int splits, int cols_per_split, cudaStream_t st) {
+  constexpr int V = VecWidth<T>::value;
   const T* ap = static_cast<const T*>(a);
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
+  const bool a16 = reinterpret_cast<uintptr_t>(a) % 16 == 0;
   if (layout == 0) {
-    matvec_kernel<T, Right><<<grid_for(I), kThreads, 0, st>>>(ap, xp, yp, Right{I, J});
-  } else {
-    matvec_kernel<T, Left><<<grid_for(I), kThreads, 0, st>>>(ap, xp, yp, Left{I, J});
+    const bool vec = a16 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && J % V == 0;
+    const unsigned int grid = static_cast<unsigned int>((I + kWarps - 1) / kWarps);
+    const Right map{I, J};
+    if (vec) {
+      matvec_kernel<T, Right, true><<<grid, kThreads, 0, st>>>(ap, xp, yp, nullptr, map, 0);
+    } else {
+      matvec_kernel<T, Right, false><<<grid, kThreads, 0, st>>>(ap, xp, yp, nullptr, map, 0);
+    }
+    return cudaGetLastError();
   }
+  const bool vec = a16 && I % V == 0;
+  const dim3 grid(static_cast<unsigned int>((I + 32 * V - 1) / (32 * V)), splits);
+  float* wp = static_cast<float*>(ws);
+  const Left map{I, J};
+  if (vec) {
+    matvec_kernel<T, Left, true><<<grid, kThreads, 0, st>>>(ap, xp, yp, wp, map, cols_per_split);
+  } else {
+    matvec_kernel<T, Left, false><<<grid, kThreads, 0, st>>>(ap, xp, yp, wp, map,
+                                                             cols_per_split);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  matvec_splits_kernel<T><<<grid_for(I), kThreads, 0, st>>>(wp, yp, I, splits);
   return cudaGetLastError();
 }
 
@@ -327,16 +540,23 @@ int repro_tinymatsum(int dtype, int is_static, const void* o, const void* s, voi
 }
 
 // y (I) = A x, A stored as layout 0 = right (buffer (I, J)) or 1 = left
-// (buffer (J, I)).
-int repro_matvec(int dtype, int layout, const void* a, const void* x, void* y, int I, int J,
-                 void* stream) {
-  if ((dtype != 0 && dtype != 1) || (layout != 0 && layout != 1) || I < 1 || J < 0) {
+// (buffer (J, I)). Left cuts j into ``splits`` runs of ``cols_per_split``
+// (splits * cols_per_split >= J); with more than one, ``workspace`` holds
+// splits * I floats of partial y. Right takes splits 1 and no workspace.
+int repro_matvec(int dtype, int layout, const void* a, const void* x, void* y, void* workspace,
+                 int I, int J, int splits, int cols_per_split, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (layout != 0 && layout != 1) || I < 1 || J < 0 ||
+      splits < 1 || splits > 65535 || cols_per_split < 1 ||
+      static_cast<int64_t>(splits) * cols_per_split < J || (layout == 0 && splits != 1) ||
+      (splits > 1 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dtype == 0 ? launch_matvec<float>(layout, a, x, y, I, J, s)
-                                   : launch_matvec<__nv_bfloat16>(layout, a, x, y, I, J, s);
+  const cudaError_t e =
+      dtype == 0 ? launch_matvec<float>(layout, a, x, y, workspace, I, J, splits, cols_per_split, s)
+                 : launch_matvec<__nv_bfloat16>(layout, a, x, y, workspace, I, J, splits,
+                                                cols_per_split, s);
   return static_cast<int>(e);
 }
 

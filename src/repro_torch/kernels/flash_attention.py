@@ -10,8 +10,12 @@ reference's ``ops.attention`` / ``ops.decode_attention`` fall back to):
   flash_attention         <- flash_attention (Pallas) — launches
                              csrc/flash_attention.cu::flash_mma_kernel on
                              bf16 (tensor cores), flash_kernel on f32
-  flash_decode            <- flash_decode (Pallas) — the same kernel body, one
-                             block per (sequence, KV head) holding its G rows
+  decode_partials_torch   the decode kernel's per-split partials over the
+                             dense cache (plain; no reference namesake)
+  flash_decode            <- flash_decode (Pallas) — launches the split-K decode
+                             body the paged decodes share
+                             (csrc/decode_splitk.cuh::split_decode_kernel
+                             over DenseKeys), then the log-sum-exp combine
 
 q (B, Hq, Tq, D), k / v (B, Hkv, Tk, D), Hq a multiple of Hkv (GQA). Query
 row i sits at absolute position i + q_offset; keys past Tk, after the query
@@ -32,6 +36,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import paged_attention as _paged
 from .paged_attention import _DTYPE_CODE, NEG_INF, _check
 
 # head dims the flash kernels are instantiated for (the paged kernels take
@@ -86,6 +91,24 @@ def decode_attention_torch(q, k_cache, v_cache, pos, *, window: Optional[int] = 
                            scale=scale)
 
 
+def decode_partials_torch(q, k_cache, v_cache, pos, *, keys_per_split: int,
+                          window: Optional[int] = None, scale: Optional[float] = None):
+    """The split-K decode's partials over a dense cache: slots [s * K, (s +
+    1) * K) (K = ``keys_per_split``) are split s, slot j live iff j <= pos
+    and, with a window, j > pos - window (paged_attention's
+    split_partials_torch). Returns m, l (B, Hq, splits) and acc (B, Hq,
+    splits, D), f32; ``combine_splits_torch`` of them is the decode."""
+    b, _, _, d = q.shape
+    s_len = k_cache.shape[2]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    j = torch.arange(s_len, device=q.device)
+    live = j <= pos
+    if window is not None:
+        live = live & (j > pos - window)
+    return _paged.split_partials_torch(q, k_cache, v_cache, live.expand(b, s_len),
+                                       keys_per_split=keys_per_split, scale=scale)
+
+
 # ---------------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------------
@@ -93,7 +116,8 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = _build.Binding("flash_attention", {
     "repro_flash_attention": [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                               _f, _p],
-    "repro_flash_decode": [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+    "repro_flash_decode": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                           _f, _p],
 })
 
 
@@ -171,10 +195,13 @@ flash_attention.launches = 0
 
 def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """One-token GQA decode against a dense cache (kernel: flash_kernel with
-    one block per (sequence, KV head) holding its G = Hq / Hkv rows). q (B,
-    Hq, 1, D); caches (B, Hkv, S, D); ``pos`` the current token's slot (an int
-    or a 0-d integer tensor on q's device). Output in q's dtype."""
+    """One-token GQA decode against a dense cache (kernel: the split-K decode
+    body over the cache's slots, split as plan_decode_splits picks for S
+    one-slot pages, then the combine). q (B, Hq, 1, D); caches (B, Hkv, S,
+    D), on 16-byte boundaries (the kernel loads 16 bytes at a time); ``pos``
+    the current token's slot (an int or a 0-d integer tensor on q's device,
+    never read on the host). Any GQA group: G > 8 takes ceil(G / 8) blocks
+    per split. Output in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale)
     _check_qkv(q, k_cache, v_cache)
@@ -182,17 +209,19 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
     _, hkv, s_len, _ = k_cache.shape
     if tq != 1:
         raise ValueError(f"decode wants one query token, got q {tuple(q.shape)}")
-    if hq // hkv > 64:
-        raise ValueError(f"GQA group {hq // hkv} above the kernel's 64 rows a block")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     pos_t, p = _offset(pos, q.device)
     has_w, w = _window(window)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    splits, kps, ws = _paged._decode_split(q, hkv, 1, s_len)
     out = torch.empty_like(q)
     _LIB.launch(
         "repro_flash_decode", "flash_decode",
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        out.data_ptr(), pos_t.data_ptr() if pos_t is not None else None, p, b, hq, hkv, s_len,
-        d, has_w, w, scale, device=q.device,
+        out.data_ptr(), ws.data_ptr(), pos_t.data_ptr() if pos_t is not None else None, p, b,
+        hq, hkv, s_len, d, has_w, w, splits, kps, scale, device=q.device,
     )
     flash_decode.launches += 1
     return out

@@ -8,12 +8,14 @@ This is the port of ``repro.kernels.paged_attention``:
 
   paged_decode_attention_torch   <- paged_decode_attention_jnp (unblocked and
                                     blocked forms)
-  paged_decode_partials_torch,   the decode kernel's split-K: per-split
-  combine_splits_torch,          partials, their log-sum-exp merge and the
-  plan_decode_splits             split count (plain; no reference namesake)
+  split_partials_torch,          the decode kernels' split-K: per-split
+  paged_decode_partials_torch,   partials (any keys; over the pages), their
+  combine_splits_torch,          log-sum-exp merge and the split count
+  plan_decode_splits             (plain; no reference namesake)
   paged_prefill_chunk_torch      <- paged_prefill_chunk_jnp
   paged_flash_decode             <- paged_flash_decode (Pallas) — launches
-                                    csrc/paged_attention.cu::paged_decode_kernel
+                                    csrc/decode_splitk.cuh::split_decode_kernel
+                                    over the pages, then the combine
   paged_flash_prefill_chunk      <- paged_flash_prefill_chunk (Pallas) —
                                     launches paged_chunk_kernel
 
@@ -165,9 +167,11 @@ def plan_decode_splits(max_pages: int, batch: int, hkv: int, page_size: int, hea
                        sm_count: int):
     """(splits, pages_per_split) of the split-K decode kernel: the keys of
     each (sequence, KV head) are cut into runs of whole tiles (~64 tokens,
-    ~32 at D 128, never less than one page), enough runs for two blocks a SM
-    where the table has that many tiles, and no run past the table. Depends
-    only on shapes and the SM count, never on the lengths."""
+    ~32 at D 128 and 256, never less than one page), enough runs for two
+    blocks a SM where the table has that many tiles, and no run past the
+    table. A dense cache of S slots is planned as S pages of one slot.
+    Depends only on shapes and the SM count, never on the lengths or the
+    position."""
     tile = max(1, (64 if head_dim <= 64 else 32) // page_size)
     max_splits = -(-max_pages // tile)
     want = -(-2 * sm_count // max(1, batch * hkv))
@@ -176,29 +180,26 @@ def plan_decode_splits(max_pages: int, batch: int, hkv: int, page_size: int, hea
     return -(-max_pages // pages_per_split), pages_per_split
 
 
-def paged_decode_partials_torch(q, k_pool, v_pool, block_tables, context_lens, *,
-                                pages_per_split: int, scale: Optional[float] = None):
-    """The split-K decode's partials: logical pages [s * P, (s + 1) * P) of
-    each row's table (P = ``pages_per_split``) give split s its running max
-    m, sum l and unnormalized accumulator acc, f32. Returns m, l (B, Hq, S)
-    and acc (B, Hq, S, D); a split with no live token has l = 0, m = -inf and
-    acc = 0. The decode kernel's workspace holds the same three, and the card
-    tests hold it against this."""
+def split_partials_torch(q, k, v, live, *, keys_per_split: int, scale: float):
+    """The split-K decode's partials over gathered keys: q (B, Hq, 1, D), k /
+    v (B, Hkv, S, D), live (B, S) bool; keys [s * K, (s + 1) * K) (K =
+    ``keys_per_split``) give split s its running max m, sum l and
+    unnormalized accumulator acc, f32. Returns m, l (B, Hq, splits) and acc
+    (B, Hq, splits, D); a split with no live key has l = 0, m = -inf and acc
+    = 0. The paged and the dense decode kernels leave the same three in
+    their workspace."""
     b, hq, _, d = q.shape
-    _, hkv, ps, _ = k_pool.shape
+    _, hkv, s_len, _ = k.shape
     group = hq // hkv
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    max_pages = block_tables.shape[1]
-    splits = -(-max_pages // pages_per_split)
-    bt = torch.nn.functional.pad(block_tables, (0, splits * pages_per_split - max_pages))
-    width = pages_per_split * ps
-    k = _gather_pages(k_pool, bt).float().reshape(b, hkv, splits, width, d)
-    v = _gather_pages(v_pool, bt).float().reshape(b, hkv, splits, width, d)
+    splits = -(-s_len // keys_per_split)
+    pad = splits * keys_per_split - s_len
+    k = torch.nn.functional.pad(k.float(), (0, 0, 0, pad)).reshape(b, hkv, splits,
+                                                                  keys_per_split, d)
+    v = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).reshape(b, hkv, splits,
+                                                                  keys_per_split, d)
+    live = torch.nn.functional.pad(live, (0, pad)).reshape(b, 1, 1, splits, keys_per_split)
     qg = q.reshape(b, hkv, group, d).float()
     s = torch.einsum("bhgd,bhskd->bhgsk", qg, k) * scale
-    pos = torch.arange(splits * width, device=q.device).reshape(splits, width)
-    live = (pos[None] < torch.clamp(context_lens, max=max_pages * ps)[:, None, None])
-    live = live[:, None, None]  # (B, 1, 1, S, width)
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None]) * live
@@ -206,6 +207,23 @@ def paged_decode_partials_torch(q, k_pool, v_pool, block_tables, context_lens, *
     acc = torch.einsum("bhgsk,bhskd->bhgsd", p, v)
     m = torch.where(l > 0, m, torch.full_like(m, -math.inf))
     return m.reshape(b, hq, splits), l.reshape(b, hq, splits), acc.reshape(b, hq, splits, d)
+
+
+def paged_decode_partials_torch(q, k_pool, v_pool, block_tables, context_lens, *,
+                                pages_per_split: int, scale: Optional[float] = None):
+    """The paged decode's partials: logical pages [s * P, (s + 1) * P) of
+    each row's table (P = ``pages_per_split``) are split s
+    (split_partials_torch over the gathered pages, keys live below the
+    row's length)."""
+    d = q.shape[-1]
+    ps = k_pool.shape[2]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    cap = block_tables.shape[1] * ps
+    live = (torch.arange(cap, device=q.device)[None, :]
+            < torch.clamp(context_lens, max=cap)[:, None])
+    return split_partials_torch(q, _gather_pages(k_pool, block_tables),
+                                _gather_pages(v_pool, block_tables), live,
+                                keys_per_split=pages_per_split * ps, scale=scale)
 
 
 def combine_splits_torch(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -319,9 +337,10 @@ def sm_count(device: torch.device) -> int:
 
 
 def _decode_split(q, hkv: int, ps: int, max_pages: int):
-    """(splits, pages_per_split, workspace) for one decode launch: the plan
-    for these shapes and f32 room for the partials (m, l, acc) of every query
-    row and split, from PyTorch's caching allocator on q's stream."""
+    """(splits, pages_per_split, workspace) for one decode launch (a dense
+    cache passes ps 1 and max_pages S): the plan for these shapes and f32 room
+    for the partials (m, l, acc) of every query row and split, from
+    PyTorch's caching allocator on q's stream."""
     b, hq, _, d = q.shape
     splits, pps = plan_decode_splits(max_pages, b, hkv, ps, d, sm_count(q.device))
     ws = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=q.device)
@@ -380,8 +399,9 @@ def paged_flash_decode(
     scale: Optional[float] = None,
     block_pages: int = 1,
 ) -> torch.Tensor:
-    """One-token GQA decode against a paged pool (kernel: paged_decode_kernel,
-    split-K over the pages as plan_decode_splits picks, then the combine).
+    """One-token GQA decode against a paged pool (kernel: split_decode_kernel
+    over PagedKeys, split-K over the pages as plan_decode_splits picks, then
+    the combine).
 
     Shapes as paged_decode_attention_torch; on CUDA the operands must be
     contiguous, q and pools one of float32/bfloat16, tables/lengths int32, and
@@ -478,7 +498,7 @@ def paged_flash_decode_quant(q, k_q, k_scale, v_q, v_scale, block_tables, contex
                              bits: int = 8, scale: Optional[float] = None,
                              block_pages: int = 1) -> torch.Tensor:
     """One-token GQA decode against an intN paged pool (kernel:
-    paged_decode_kernel over a QuantPool, split-K as paged_flash_decode,
+    split_decode_kernel over a QuantPool, split-K as paged_flash_decode,
     dequantizing 8 features of a page row at a time as float(q) * scale).
     Shapes as paged_decode_attention_quant_torch; on CUDA q is
     float32/bfloat16, pools int8, scales float32, all contiguous.

@@ -6,7 +6,10 @@ MdSpans, the dense-cache kernels (flash_attention, flash_decode,
 ssd_scan) with the ops dispatchers that reach them, and recurrentgemma's
 (rglru_scan; the flash kernels at head dim 256 over a windowed ring); the
 split-K paged decode at lengths on, past and inside its split boundaries,
-and the bf16 tensor-core flash_attention body at every head dim.
+the same split-K body over the dense cache (flash_decode) at every head dim
+and group, its workspace against the plain partials, the bf16 tensor-core
+flash_attention body at every head dim, and matvec over ragged and
+16-byte-misaligned buffers, two runs bit-identical.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -359,25 +362,56 @@ def test_tinymatsum_static_refuses_uninstantiated_extents():
     torch.testing.assert_close(ttiny.tinymatsum_dynamic(o, o, jmax=9), o + o)
 
 
-MATVEC_SHAPES = [(1, 1), (3, 5), (8, 128), (200, 384), (257, 1000)]
+# (I, J): one element, small, no multiple of 4, 8 or 128 in either extent,
+# a left run of rows split across blocks (257 x 1000: 3 splits of j on an
+# H100), a J split into many (2048^2: 8) and a ragged tail of a right row
+MATVEC_SHAPES = [(1, 1), (3, 5), (8, 128), (200, 384), (257, 1000), (1000, 257),
+                 (2048, 2048), (129, 4099)]
+
+
+def _matvec_operands(shape, layout, dtype, offset=0):
+    """A (logical (I, J)), its stored buffer for ``layout`` and x, each
+    buffer starting ``offset`` elements into a fresh allocation (offset 1:
+    off a 16-byte boundary)."""
+    a, x = _randn(shape, dtype, 7), _randn(shape[1:], dtype, 8)
+    buf = a if layout == "right" else a.t().contiguous()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        flat[offset:] = t.reshape(-1)
+        return flat[offset:].view(t.shape)
+
+    return a, shifted(buf), shifted(x)
 
 
 @pytest.mark.parametrize("shape", MATVEC_SHAPES, ids=_ids(MATVEC_SHAPES))
 @pytest.mark.parametrize("layout", ["right", "left"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
-def test_matvec_kernels_match_plain(shape, layout, dtype):
-    a, x = _randn(shape, dtype, 7), _randn(shape[1:], dtype, 8)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off16"])
+def test_matvec_kernels_match_plain(shape, layout, dtype, offset):
+    """Aligned buffers and buffers off a 16-byte boundary (the scalar-load
+    form) agree with the plain version, and two runs on one input give the
+    same bits (no float atomics; the left split depends on the shapes
+    only)."""
+    a, buf, x = _matvec_operands(shape, layout, dtype, offset)
+    assert (buf.data_ptr() % 16 == 0) == (offset == 0)
     fn = tmv.matvec_right if layout == "right" else tmv.matvec_left
-    buf = a if layout == "right" else a.t().contiguous()
     n = fn.launches
-    got = fn(buf, x)
+    got, again = fn(buf, x), fn(buf, x)
     torch.cuda.synchronize()
-    assert fn.launches == n + 1 and got.dtype == dtype and got.shape == shape[:1]
+    assert fn.launches == n + 2 and got.dtype == dtype and got.shape == shape[:1]
+    assert torch.equal(got, again)
     want = tmv.matvec_torch(a, x)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:
         assert _within_one_bf16_ulp(got, want, atol=2e-4)
+
+
+def test_matvec_left_plan_splits_j_only_where_the_rows_are_few():
+    sms = pa.sm_count(torch.device("cuda"))
+    assert tmv.plan_matvec_left(16384, 16384, 4, sms)[0] == -(-2 * sms // 128)
+    assert tmv.plan_matvec_left(1 << 20, 64, 4, sms) == (1, 64)
 
 
 def test_paper_wrappers_refuse_what_the_kernels_do_not_take():
@@ -534,6 +568,100 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_decode(q, k, k, 3)
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, k, k, window=0)
+
+
+# the split-K decode over the dense cache: every head dim, groups of 1, 7, 10
+# and 16 (two 8-row blocks from 9 on), caches of 1 to 2600 slots
+SPLIT_DENSE_S = [1, 37, 288, 2048, 2600]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 7, 10, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_split_matches_plain_on_and_off_split_edges(d, group, dtype):
+    """pos 0, one before, on and one past the plan's first split edge, and
+    S - 1, with and without a window, the position read on the device."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert d in fa.HEAD_DIMS
+    b, hkv = 2, 1 if group == 10 else 2
+    sms = pa.sm_count(torch.device("cuda"))
+    for s in SPLIT_DENSE_S:
+        q = _rand((b, hkv * group, 1, d), dtype, s)
+        kc, vc = _rand((b, hkv, s, d), dtype, s + 1), _rand((b, hkv, s, d), dtype, s + 2)
+        _, kps = pa.plan_decode_splits(s, b, hkv, 1, d, sms)
+        for pos in sorted({min(p, s - 1) for p in (0, kps - 1, kps, kps + 1, s - 1)}):
+            pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            for window in (None, 24):
+                n = fa.flash_decode.launches
+                got = fa.flash_decode(q, kc, vc, pos_t, window=window)
+                torch.cuda.synchronize()
+                assert fa.flash_decode.launches == n + 1
+                _assert_kernel_close(got, fa.decode_attention_torch(q, kc, vc, pos, window=window),
+                                     dtype)
+
+
+# (B, hq, hkv, S, D): recurrentgemma's ring, qwen2's generate cache, D 128
+# with two row blocks, and a cache shorter than one split
+DENSE_WS_CASES = [(2, 10, 1, 2048, 256), (8, 14, 2, 288, 64), (2, 16, 2, 100, 128),
+                  (3, 7, 1, 37, 32)]
+
+
+@pytest.mark.parametrize("case", DENSE_WS_CASES, ids=_ids(DENSE_WS_CASES))
+@pytest.mark.parametrize("window", [None, 24], ids=["full", "window24"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_workspace_matches_the_plain_partials(case, window, dtype, monkeypatch):
+    """The decode kernel's workspace (m, l, acc of every split) against
+    decode_partials_torch on the same f32 values, at a position on a split
+    edge (so later splits, and with a window earlier ones, are dead: l = 0,
+    m = -inf), and the combine kernel's output against combine_splits_torch
+    over that workspace, as the paged decode's workspace is held."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, s, d = case
+    q, kc, vc = _rand((b, hq, 1, d), dtype, 51), _rand((b, hkv, s, d), dtype, 52), \
+        _rand((b, hkv, s, d), dtype, 53)
+    seen = {}
+
+    def spy(*a):
+        seen["plan"] = plan = real(*a)
+        return plan
+
+    real = pa._decode_split
+    monkeypatch.setattr(pa, "_decode_split", spy)
+    _, kps = pa.plan_decode_splits(s, b, hkv, 1, d, pa.sm_count(torch.device("cuda")))
+    pos = min(kps * 3, s - 1)
+    got = fa.flash_decode(q, kc, vc, torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                          window=window)
+    torch.cuda.synchronize()
+    splits, kps, ws = seen["plan"]
+    n = b * hq * splits
+    m, l = ws[:n].view(b, hq, splits), ws[n:2 * n].view(b, hq, splits)
+    acc = ws[2 * n:].view(b, hq, splits, d)
+    wm, wl, wacc = fa.decode_partials_torch(q, kc.float(), vc.float(), pos, keys_per_split=kps,
+                                            window=window)
+    live = wl > 0
+    assert torch.equal(l > 0, live)
+    assert torch.all(l[~live] == 0) and torch.all(m[~live] == -float("inf"))
+    torch.testing.assert_close(m[live], wm[live], **TOL)
+    torch.testing.assert_close(l[live], wl[live], rtol=2e-5, atol=0)
+    torch.testing.assert_close(acc[live] / l[live][:, None], wacc[live] / wl[live][:, None], **TOL)
+    _assert_kernel_close(got, pa.combine_splits_torch(m, l, acc).to(dtype)[:, :, None], dtype)
+
+
+def test_flash_decode_takes_any_group_up_to_the_grid_limit():
+    """A GQA group of 72 query heads (above the 64 rows the unsplit decode
+    block held) runs in ceil(72 / 8) row blocks; a group whose row blocks
+    pass the grid's 65535 is refused by the launch, not run wrong."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, kc, vc = _rand((1, 72, 1, 64), torch.float32, 54), _rand((1, 1, 100, 64), torch.float32, 55), \
+        _rand((1, 1, 100, 64), torch.float32, 56)
+    _assert_kernel_close(fa.flash_decode(q, kc, vc, 60), fa.decode_attention_torch(q, kc, vc, 60),
+                         torch.float32)
+    big = torch.zeros(1, 8 * 65536, 1, 16, device="cuda")
+    with pytest.raises(RuntimeError, match="flash_decode launch failed"):
+        fa.flash_decode(big, kc[..., :16].contiguous(), vc[..., :16].contiguous(), 3)
 
 
 def _ssd_inputs(b, t, h, p, n, dtype, seed):

@@ -129,6 +129,42 @@ def test_matvec_plain_matches_pallas_both_layouts(ij):
                                rtol=2e-4, atol=2e-4)
 
 
+# ragged extents (no multiple of 4, 8 or 128): the CUDA kernels' scalar-load
+# form and ragged runs. The Pallas matvec_left sums its padded rows when J
+# passes its 512-column block and is no multiple of it (NaN in interpret
+# mode), so J stays inside one block here.
+RAGGED_IJ = [(3, 5), (37, 203), (131, 509), (300, 445), (1001, 77)]
+
+
+@pytest.mark.parametrize("ij", RAGGED_IJ)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_matvec_plain_matches_pallas_at_ragged_extents(ij, dtype):
+    i, j = ij
+    ja, ta = inputs(7, (i, j), dtype)
+    jx, tx = inputs(8, (j,), dtype)
+    tol = 2e-4 if dtype == "f32" else 2e-2
+    np.testing.assert_allclose(f32(tmv.matvec_torch(ta, tx)), f32(jax_matvec_right(ja, jx)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(f32(tmv.matvec_torch(ta, tx)), f32(jax_matvec_left(ja.T, jx)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("rows", [1, 100, 128, 16384, 1 << 20])
+@pytest.mark.parametrize("cols", [0, 1, 255, 4099, 16384])
+@pytest.mark.parametrize("elem_size", [4, 2])
+def test_matvec_left_plan_invariants(rows, cols, elem_size):
+    """The left kernel's split of j: the runs cover J, none is empty by
+    shape, each takes LEFT_MIN_COLS columns or all of J, and j is split only
+    where the runs of rows fall short of two blocks a SM (132 SMs)."""
+    splits, per = tmv.plan_matvec_left(rows, cols, elem_size, 132)
+    assert splits >= 1 and per >= 1
+    assert splits * per >= cols and (splits - 1) * per < max(cols, 1)
+    runs = -(-rows // (32 * 16 // elem_size))
+    if splits > 1:
+        assert runs * (splits - 1) < 2 * 132 and per >= tmv.LEFT_MIN_COLS
+    assert tmv.plan_matvec_left(16384, 16384, 4, 132) == (3, 5462)
+
+
 # ---------------------------------------------------------------------------------
 # the ops dispatchers
 # ---------------------------------------------------------------------------------
