@@ -11,11 +11,13 @@ lines; any failure raises and exits non-zero:
   device        GPU name and power limit, torch/CUDA versions, kernel build
                 time, and the device-to-device copy bandwidth the bounds use;
                 then the registers and spills ptxas reported for the bf16
-                tensor-core flash_attention body, the split-K decode body
-                (paged pools and dense cache), the split combine and the
-                matvec bodies, and the split counts the planners pick for
+                tensor-core flash_attention and paged chunk bodies, the
+                split-K decode body (paged pools and dense cache), the split
+                combine, the matvec bodies and quant_matmul's schedules, and
+                the split counts the planners pick for
                 the serve shape, recurrentgemma-2b's ring, qwen2-0.5b's
-                generate cache and matvec_left at 16384^2.
+                generate cache, the bf16 paged chunk (serve shape, C 5)
+                and matvec_left at 16384^2.
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
                 phase's one-row 128-token chunk; the quantized attention over
@@ -27,7 +29,12 @@ lines; any failure raises and exits non-zero:
                 ms, plain ms, bound ms, and one PyTorch call computing the
                 same function as a yardstick (scaled_dot_product_attention
                 over the densified, dequantized cache; torch.matmul on the
-                dequantized weight), timed here only: the port never calls it.
+                dequantized weight), timed here only: the port never calls it;
+                the chunk kernels and quant_matmul add the device time a call
+                of the kernel and of that call (calls queued back to back),
+                quant_matmul the schedule and K split it launched, and a line
+                lists quant_matmul's bf16 records at w_down (M 8, K 4864,
+                N 896) and at one 128-token chunk.
                 The split-K paged decode also at lengths on a split boundary
                 of the serve shape's plan, one past it and inside the first
                 split, over dense, int8 and int4 pages.
@@ -369,13 +376,14 @@ def kernel_phase(bw):
                      + nb * 4)
             case = {"B": nb, "Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS, "C": c,
                     "cursors": cursors}
+            kcat, vcat = torch.cat([kd[:nb], ck], dim=2), torch.cat([vd[:nb], cv], dim=2)
             rec = check_and_time(
                 "paged_prefill_chunk", dtype,
                 lambda: pa.paged_flash_prefill_chunk(qc, ck, cv, kp, vp, btc, cur),
                 lambda: pa.paged_prefill_chunk_torch(qc, ck, cv, kp, vp, btc, cur),
-                lambda: sdpa(qc, torch.cat([kd[:nb], ck], dim=2),
-                             torch.cat([vd[:nb], cv], dim=2), cmask),
+                lambda: sdpa(qc, kcat, vcat, cmask),
                 small + 2 * sum(cursors) * HKV * D * esz, 4 * keys * HQ * D, bw, case,
+                device_time=True,
             )
             if dtype == torch.bfloat16 and c == 128:
                 main["paged_prefill_chunk"] = rec
@@ -393,7 +401,7 @@ def kernel_phase(bw):
                                                                cur, bits=bits),
                     lambda: sdpa(qc, kk, vv, cmask),
                     small + 2 * sum(cursors) * HKV * dq + 2 * past_pages * HKV * 4,
-                    4 * keys * HQ * D, bw, {**case, "bits": bits},
+                    4 * keys * HQ * D, bw, {**case, "bits": bits}, device_time=True,
                 )
                 if dtype == torch.bfloat16 and c == 128 and bits == 8:
                     main["paged_prefill_chunk_quant"] = rec
@@ -719,12 +727,15 @@ def hybrid_checks(bw, g):
 def quant_matmul_checks(bw, g):
     """quant_matmul at the MLP's serve shapes: M = 8 decode rows and one
     128-token chunk, (K, N) = (896, 4864) for w_gate/w_up and (4864, 896) for
-    w_down, int8 and int4 weights in 128-blocks; returns the bf16 int8 record
-    of the decode w_gate/w_up shape."""
+    w_down, int8 and int4 weights in 128-blocks, each with the schedule and
+    K split the wrapper launched and the device time beside torch.matmul's;
+    returns the bf16 int8 record of the decode w_gate/w_up shape, and prints
+    the bf16 records of w_down at M 8 and of both shapes at M 128 on one
+    line."""
     from repro_torch.core import QuantizedAccessor, dequantize_array, quantize_array
     from repro_torch.kernels import quant_matmul as qmm
 
-    out = None
+    out, shown = None, []
     for m, k, n in ((8, 896, 4864), (8, 4864, 896), (128, 896, 4864), (128, 4864, 896)):
         w = torch.randn(n, k, generator=g, device="cuda") / math.sqrt(k)
         for bits in (8, 4):
@@ -735,16 +746,29 @@ def quant_matmul_checks(bw, g):
                 esz = torch.tensor([], dtype=dtype).element_size()
                 x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
                 wd = dequantize_array(bufs, acc).to(dtype)
+                wdt = wd.t()
+                qmm.quant_matmul(x, qw, sw, bits=bits)
+                plan = qmm.quant_matmul.last_plan  # the plan the wrapper launched
                 rec = check_and_time(
                     "quant_matmul", dtype,
                     lambda: qmm.quant_matmul(x, qw, sw, bits=bits),
                     lambda: qmm.quant_matmul_torch(x, qw, sw, bits=bits),
-                    lambda: torch.matmul(x, wd.t()),
+                    lambda: torch.matmul(x, wdt),
                     (m * k + m * n) * esz + qw.numel() + sw.numel() * 4, 2 * m * n * k, bw,
-                    {"M": m, "K": k, "N": n, "bits": bits, "qblock": 128},
+                    {"M": m, "K": k, "N": n, "bits": bits, "qblock": 128,
+                     "schedule": plan.schedule, "splits": plan.splits,
+                     "k_per_split": plan.k_per_split},
+                    device_time=True,
                 )
                 if (m, k, bits, dtype) == (8, 896, 8, torch.bfloat16):
                     out = rec
+                if dtype == torch.bfloat16 and (m == 128 or k == 4864):
+                    shown.append({key: rec[key] for key in (
+                        "M", "K", "N", "bits", "schedule", "splits", "k_per_split",
+                        "max_abs_err", "ms", "device_ms", "library_ms", "library_device_ms",
+                        "plain_ms", "bound_ms", "bound_by")})
+    emit({"phase": "kernels", "quant_matmul_records": shown,
+          "note": "bf16 x; w_down (M 8, K 4864, N 896) and one 128-token chunk"})
     return out
 
 
@@ -1555,11 +1579,14 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
-    new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite")
+    new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite",
+                                       "quant_matmul")
                   for fn, rec in ptxas[name].items()
                   if any(k in fn for k in ("flash_mma_kernel", "split_decode_kernel",
                                            "combine_splits_kernel", "matvec_kernel",
-                                           "matvec_splits_kernel"))}
+                                           "matvec_splits_kernel", "paged_chunk_mma_kernel",
+                                           "qmm_stream_kernel", "qmm_mma_kernel",
+                                           "qmm_fma_kernel", "qmm_sum_splits_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1585,6 +1612,11 @@ def main() -> int:
         emit({"phase": "device", "split_plan": what, "sm_count": sms, "splits": splits,
               "pages_per_split": pps, "keys_per_split": pps * ps,
               "blocks": splits * b * hkv * -(-group // 8)})
+    for what, (b, c) in (("bf16 paged chunk at the serve shape (B 1, C 128, Hq 14, Hkv 2, D 64)",
+                          (1, 128)), ("bf16 paged chunk, C 5 at B 8", (8, 5))):
+        splits = pa.plan_chunk_splits(b, 14, 2, c, 64, 128, 16, torch.bfloat16, sms)
+        emit({"phase": "device", "split_plan": what, "sm_count": sms, "splits": splits,
+              "blocks": splits * -(-c * 7 // 64) * 2 * b})
     for dt, esz in (("float32", 4), ("bfloat16", 2)):
         splits, per = mv.plan_matvec_left(16384, 16384, esz, sms)
         emit({"phase": "device", "split_plan": f"matvec_left 16384^2 {dt}", "sm_count": sms,

@@ -6,8 +6,10 @@ interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``, into
 the source, the shared headers (``csrc/*.cuh``) and the flags, so a stale
 build is never loaded and a finished one is reused. ``load(name)`` builds on first use; ``build_all()`` starts one nvcc
 per source, all at once, and waits for them. ``Binding`` declares a source's C
-entries and launches them, raising on a non-zero CUDA error code. Nothing is
-built at import.
+entries and launches them, raising on a non-zero CUDA error code; where the
+Python planner of a source assumes its tile and warp constants, the Binding
+holds them and checks them against the library's ``repro_geometry`` when it
+loads. Nothing is built at import.
 """
 from __future__ import annotations
 
@@ -150,13 +152,31 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def check_geometry(name: str, lib: ctypes.CDLL, expected: Dict[str, int]) -> None:
+    """Raise unless ``lib``'s ``repro_geometry(int* out, int n)`` (the
+    constants its kernels were built with) gives ``expected``'s values, in
+    its order: the constants the source's Python planner assumes."""
+    fn = lib.repro_geometry
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int), ctypes.c_int], ctypes.c_int
+    buf = (ctypes.c_int * len(expected))()
+    count = fn(buf, len(expected))
+    if count != len(expected) or list(buf) != list(expected.values()):
+        raise RuntimeError(
+            f"{name}: the planner assumes {expected}, the library was built with "
+            f"{list(buf)[:count]} ({count} values)"
+        )
+
+
 class Binding:
     """The C entries of one source, ``signatures`` mapping each entry's name
     to its argument types (the CUDA stream last); every entry returns a CUDA
-    error code. The library is built and loaded on the first launch."""
+    error code. The library is built and loaded on the first launch, and
+    ``geometry`` (the constants the planner assumes, when given) is checked
+    against it then."""
 
-    def __init__(self, name: str, signatures: Dict[str, Sequence]):
-        self.name, self.signatures = name, signatures
+    def __init__(self, name: str, signatures: Dict[str, Sequence],
+                 geometry: Optional[Dict[str, int]] = None):
+        self.name, self.signatures, self.geometry = name, signatures, geometry
         self._lib: Optional[ctypes.CDLL] = None
 
     def lib(self) -> ctypes.CDLL:
@@ -167,6 +187,8 @@ class Binding:
                 getattr(lib, fn).restype = ctypes.c_int
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            if self.geometry is not None:
+                check_geometry(self.name, lib, self.geometry)
             self._lib = lib
         return self._lib
 

@@ -8,7 +8,9 @@
 //   Pool  the element policy: DensePool<T, D> (pages or a cache in T) or
 //         QuantPool<BITS, D> (int8 / int4 split-half bytes with one f32 scale
 //         per (page, head)); ``load`` turns 8 features of one K or V row into
-//         f32, ``stage`` fills the paged chunk kernel's shared-memory tile.
+//         f32, ``stage`` fills the f32 paged chunk kernel's shared-memory
+//         tile, and ``row_bytes`` / ``to_bf16`` / ``scale_of`` feed the bf16
+//         chunk body's tensor-core tile.
 //   Keys  the key-source policy: ``at(b, h)`` gives sequence b's live keys as
 //         one interval [lo, hi) and ``row(j)`` the K/V row of key j.
 //         PagedKeys walks the block table (live iff j < context_lens[b]);
@@ -96,12 +98,14 @@ struct DensePool {
                         Src src) const {
     load_kv_tile<T, D>(k, v, k_s, v_s, NT, src);
   }
+  // the bf16 chunk body (paged_attention.cu::paged_chunk_mma_kernel): a row
+  // is staged as it is stored, straight into the bf16 tile, with no scale
+  static constexpr bool kQuant = false;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  __device__ const unsigned char* row_bytes(bool is_v, long long row) const {
+    return reinterpret_cast<const unsigned char*>((is_v ? v : k) + row * D);
+  }
 };
-
-__device__ __forceinline__ float signed_nibble(int b) {
-  const int n = b & 0xF;
-  return static_cast<float>(n >= 8 ? n - 16 : n);
-}
 
 // A pool of intN pages with one f32 scale per (page, head). ``stage`` takes a
 // whole number of pages (NT / page_size of them): it reads each staged page's
@@ -181,6 +185,34 @@ struct QuantPool {
         k_s[t * (D + 1) + j + D / 2] = k1;
         v_s[t * D + j + D / 2] = v1;
       }
+    }
+  }
+  // the bf16 chunk body: a row's DQ bytes are staged raw, then ``to_bf16``
+  // writes 4 of them (bytes 4c .. 4c + 3) as bf16 integers (exact) into the
+  // row's features, and ``scale_of`` gives the (page, head) scale that
+  // multiplies the row's column of S (K) or of P (V)
+  static constexpr bool kQuant = true;
+  static constexpr int kRowBytes = DQ;
+  __device__ const unsigned char* row_bytes(bool is_v, long long row) const {
+    return reinterpret_cast<const unsigned char*>((is_v ? v : k) + row * DQ);
+  }
+  __device__ float scale_of(bool is_v, long long row, int page_size) const {
+    return (is_v ? v_scale : k_scale)[row / page_size];
+  }
+  __device__ static void to_bf16(uint32_t w, int c, __nv_bfloat16* dst) {
+    float f[4];
+    if constexpr (BITS == 8) {
+      int8x4_to_f32(w, f);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 4 * c) = __floats2bfloat162_rn(f[0], f[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 4 * c + 2) = __floats2bfloat162_rn(f[2], f[3]);
+    } else {  // split-half: lo nibbles are features 4c.., hi nibbles D/2 + 4c..
+      nib4_to_f32(w & 0x0F0F0F0Fu, f);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 4 * c) = __floats2bfloat162_rn(f[0], f[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 4 * c + 2) = __floats2bfloat162_rn(f[2], f[3]);
+      nib4_to_f32((w >> 4) & 0x0F0F0F0Fu, f);
+      *reinterpret_cast<__nv_bfloat162*>(dst + D / 2 + 4 * c) = __floats2bfloat162_rn(f[0], f[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dst + D / 2 + 4 * c + 2) =
+          __floats2bfloat162_rn(f[2], f[3]);
     }
   }
 };

@@ -189,7 +189,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------------
 // bf16 prefill on the tensor cores
 // ---------------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
 constexpr int kMmaRows = 64;  // query rows a block, 16 a warp (slab)
 constexpr int kPad = 8;       // bf16 elements padding a shared-memory row (16 bytes)
 
@@ -200,53 +199,6 @@ template <int D> struct MmaThreads {
 };
 template <int D> __host__ __device__ constexpr size_t mma_smem() {
   return sizeof(bf16) * (D + kPad) * (kMmaRows + 4 * mma_keys<D>());  // Q + 2 stages of K, V
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; ``bytes`` 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a . b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> the bf16 pair nearest to it, and the bf16 pair of what that leaves
-__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
 template <int D>
@@ -326,99 +278,15 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* ks = kv_s + (it & 1) * 2 * NK * LD;
     const bf16* vs = ks + NK * LD;
 
-    // S = Q . K^T, 16 rows x NK keys a warp
-    float s[NK / 8][4];
-#pragma unroll
-    for (int n = 0; n < NK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int dk = 0; dk < D / 16; ++dk) {
-      uint32_t a[4];
-      ldsm_x4(a, q_s + (slab * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dk * 16 +
-                      (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < NK / 16; ++nj) {
-        uint32_t bk[4];
-        ldsm_x4(bk, ks + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + dk * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * nj], a, bk[0], bk[1]);
-        mma_bf16(s[2 * nj + 1], a, bk[2], bk[3]);
-      }
-    }
-
     // liveness of (row, key); a tile inside every row's band skips the test
     const bool all_live = t0 + NK <= tk && (!causal || t0 + NK - 1 <= qp_lo) &&
                           (!has_window || t0 > qp_hi - window);
-    uint32_t dead = 0;  // bit n * 4 + e: s[n][e] is dead
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        float x = s[n][e] * sl2;
-        if (!all_live) {
-          const int j = t0 + n * 8 + (lane & 3) * 2 + (e & 1), qp = hi ? qp_b : qp_a;
-          const bool live = j < tk && (!causal || j <= qp) && (!has_window || j > qp - window);
-          if (!live) {
-            dead |= 1u << (n * 4 + e);
-            x = kNegInf;
-          }
-        }
-        s[n][e] = x;
-        mx[hi] = fmaxf(mx[hi], x);
-      }
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      alpha[i] = exp2f(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < NK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (dead >> (n * 4 + e)) & 1u ? 0.f : exp2f(s[n][e] - m_r[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l_r[i] = l_r[i] * alpha[i] + rs[i];
-    }
-#pragma unroll
-    for (int n = 0; n < DC / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P . V: the S accumulator of keys 16 kk .. 16 kk + 15 is the A operand
-#pragma unroll
-    for (int kk = 0; kk < NK / 16; ++kk) {
-      uint32_t p_hi[4], p_lo[4];
-      split_bf16x2(s[2 * kk][0], s[2 * kk][1], p_hi[0], p_lo[0]);
-      split_bf16x2(s[2 * kk][2], s[2 * kk][3], p_hi[1], p_lo[1]);
-      split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], p_hi[2], p_lo[2]);
-      split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], p_hi[3], p_lo[3]);
-#pragma unroll
-      for (int nd = 0; nd < DC / 16; ++nd) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col0 +
-                              nd * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * nd], p_hi, bv[0], bv[1]);
-        mma_bf16(o[2 * nd + 1], p_hi, bv[2], bv[3]);
-        mma_bf16(o[2 * nd], p_lo, bv[0], bv[1]);
-        mma_bf16(o[2 * nd + 1], p_lo, bv[2], bv[3]);
-      }
-    }
+    auto live = [&](int col, int hi) {
+      const int j = t0 + col, qp = hi ? qp_b : qp_a;
+      return j < tk && (!causal || j <= qp) && (!has_window || j > qp - window);
+    };
+    mma_softmax_tile<D, NK, DC, LD>(q_s, ks, vs, slab, col0, sl2, all_live, live, false,
+                                    nullptr, nullptr, o, m_r, l_r);
     __syncthreads();  // the next iteration restages this buffer
   }
 

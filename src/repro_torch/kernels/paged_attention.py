@@ -13,11 +13,15 @@ This is the port of ``repro.kernels.paged_attention``:
   combine_splits_torch,          log-sum-exp merge and the split count
   plan_decode_splits             (plain; no reference namesake)
   paged_prefill_chunk_torch      <- paged_prefill_chunk_jnp
+  paged_prefill_chunk_tiled_torch  the bf16 chunk body's tiles, runs and
+                                    scale folding, in plain f32, and
+  plan_chunk_splits                 its runs (no reference namesakes)
   paged_flash_decode             <- paged_flash_decode (Pallas) — launches
                                     csrc/decode_splitk.cuh::split_decode_kernel
                                     over the pages, then the combine
   paged_flash_prefill_chunk      <- paged_flash_prefill_chunk (Pallas) —
-                                    launches paged_chunk_kernel
+                                    launches paged_chunk_mma_kernel (bf16,
+                                    tensor cores) or paged_chunk_kernel (f32)
 
 and over quantized pools (int8 or int4 page bytes with one f32 scale per
 (physical page, KV head), serving.engine.kvquant.PagedQuantSpec's encoding):
@@ -53,7 +57,13 @@ from repro_torch.core.distributed import (  # noqa: F401  (re-exported: the refe
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+# csrc/paged_attention.cu's kGeometry for the bf16 chunk body, in its order
+# (query rows a block, keys a tile at each head dim, the most runs a launch
+# takes); the library is checked against it when it loads
+GEOMETRY = {"chunk_rows": 64, "chunk_keys_d16": 64, "chunk_keys_d32": 64, "chunk_keys_d64": 64,
+            "chunk_keys_d128": 64, "chunk_keys_d256": 32, "chunk_max_splits": 64}
+MAX_CHUNK_SPLITS = GEOMETRY["chunk_max_splits"]
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -306,6 +316,119 @@ def paged_prefill_chunk_quant_torch(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
     )
 
 
+def chunk_tile_keys(head_dim: int) -> int:
+    """Keys a tile of the bf16 chunk body (paged_chunk_mma_kernel) holds."""
+    return GEOMETRY[f"chunk_keys_d{head_dim}"]
+
+
+def _online_softmax(qr, tiles, scale):
+    """(m, l, acc) of rows ``qr`` (Hkv, R, D) over ``tiles`` in order, each
+    (k, v (Hkv, n, D), column scales of K and V (Hkv, n), liveness
+    broadcastable to (Hkv, R, n)): S's columns take K's scale, P's columns
+    V's scale after l took P."""
+    hkv, r, d = qr.shape
+    m = torch.full((hkv, r, 1), NEG_INF, device=qr.device)
+    l = torch.zeros((hkv, r, 1), device=qr.device)
+    acc = torch.zeros((hkv, r, d), device=qr.device)
+    for k, v, cs_k, cs_v, live in tiles:
+        s = torch.einsum("hrd,hkd->hrk", qr, k) * scale * cs_k[:, None, :]
+        s = torch.where(live, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new) * live
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("hrk,hkd->hrd", p * cs_v[:, None, :], v)
+        m = m_new
+    return m[..., 0], l[..., 0], acc
+
+
+def paged_prefill_chunk_tiled_torch(q, chunk_k, chunk_v, k_pool, v_pool, block_tables, cursors,
+                                    *, k_scale=None, v_scale=None, bits: Optional[int] = None,
+                                    scale: Optional[float] = None, tile: Optional[int] = None,
+                                    splits: int = 1) -> torch.Tensor:
+    """The bf16 chunk body's arithmetic in plain f32, block by block as the
+    kernel runs: the query rows of each KV head t-major (row = t * G + g) in
+    blocks of GEOMETRY["chunk_rows"]; a block's keys in tiles of ``tile``
+    (chunk_tile_keys(D) by default), first the past's ceil(past_len / tile)
+    (logical positions below past_len = min(cursor, max_pages * page_size),
+    a tile spanning pages as it may), then the chunk's own up to the block's
+    last query position, causal; an online softmax (m, l, acc) across the
+    tiles. Over an intN pool (``bits`` set, with k_scale / v_scale) the pages
+    stay integers: each key's (page, head) scale multiplies its column of S
+    for K, and its column of P for V (after l took P), as the kernel folds
+    them; the present has scale 1. With ``splits`` > 1 a block's n tiles are
+    cut into the kernel's runs (run s takes tiles [n s / S, n (s + 1) / S)),
+    each run's partial is kept apart and the partials are merged by
+    combine_splits_torch. A row with l == 0 outputs 0. Shapes as
+    paged_prefill_chunk_torch; returns q's dtype."""
+    b, hq, c, d = q.shape
+    num_pages, hkv, ps, _ = k_pool.shape
+    group = hq // hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    tile = tile or chunk_tile_keys(d)
+    rows_a_block = GEOMETRY["chunk_rows"]
+    dev = q.device
+    if bits == 4:
+        k_pool, v_pool = unpack_int4_splithalf(k_pool), unpack_int4_splithalf(v_pool)
+    pages = block_tables.long().clamp(0, num_pages - 1)
+    k_past = _gather_pages(k_pool, pages).float()  # (B, Hkv, cap, D) integers or values
+    v_past = _gather_pages(v_pool, pages).float()
+    cap = k_past.shape[2]
+    if bits is not None:  # (B, Hkv, cap): each key's page scale
+        sk = k_scale[pages].movedim(2, 1).repeat_interleave(ps, dim=2).float()
+        sv = v_scale[pages].movedim(2, 1).repeat_interleave(ps, dim=2).float()
+    else:
+        sk = sv = torch.ones((b, hkv, cap), device=dev)
+    past_len = cursors.long().clamp(0, cap).tolist()
+    # (B, Hkv, C * G, D): row t * G + g is query t of head h * G + g
+    qr = q.float().reshape(b, hkv, group, c, d).transpose(2, 3).reshape(b, hkv, c * group, d)
+    out = torch.empty_like(qr)
+    for i in range(b):
+        past = []  # the past's tiles: every block of this sequence has the same
+        for j0 in range(0, past_len[i], tile):
+            j = torch.arange(j0, min(j0 + tile, cap), device=dev)
+            past.append((k_past[i][:, j], v_past[i][:, j], sk[i][:, j], sv[i][:, j],
+                         (j < past_len[i])[None, None, :]))
+        for row0 in range(0, c * group, rows_a_block):
+            rows = torch.arange(row0, min(row0 + rows_a_block, c * group), device=dev)
+            t_row = rows // group
+            tiles = list(past)
+            for t0 in range(0, int(t_row[-1]) + 1, tile):  # the present, to the last row's t
+                tk = torch.arange(t0, min(t0 + tile, c), device=dev)
+                ones = torch.ones((hkv, tk.numel()), device=dev)
+                tiles.append((chunk_k[i][:, tk].float(), chunk_v[i][:, tk].float(), ones, ones,
+                              (tk[None, :] <= t_row[:, None])[None]))
+            n = len(tiles)
+            parts = [_online_softmax(qr[i][:, rows], tiles[n * sp // splits:n * (sp + 1) // splits],
+                                     scale) for sp in range(splits)]
+            if splits == 1:
+                m, l, acc = parts[0]
+                out[i][:, rows] = acc / _safe(l)[..., None]
+            else:
+                m, l, acc = (torch.stack(x, dim=-1 if j < 2 else -2)
+                             for j, x in enumerate(zip(*parts)))
+                out[i][:, rows] = combine_splits_torch(m, l, acc)
+    return out.reshape(b, hkv, c, group, d).transpose(2, 3).reshape(b, hq, c, d).to(q.dtype)
+
+
+def plan_chunk_splits(batch: int, hq: int, hkv: int, chunk: int, head_dim: int, max_pages: int,
+                      page_size: int, dtype: torch.dtype, sm_count: int) -> int:
+    """The runs the bf16 chunk body cuts each block's key tiles into: enough
+    blocks for about one and a half a SM where the 64-row blocks are fewer
+    (each run adds its partial's writes and the combine's reads, so more
+    runs cost more than they hide), at most one run a tile of the longest
+    possible past plus the chunk and MAX_CHUNK_SPLITS;
+    1 for float32 (one run, no combine) and where the combine's grid would
+    not take the B * Hq * C rows. Depends only on shapes and the SM count,
+    never on the cursors (they stay on the device)."""
+    if dtype != torch.bfloat16 or batch * hq * chunk > 65535:
+        return 1
+    blocks = -(-chunk * (hq // hkv) // GEOMETRY["chunk_rows"]) * hkv * batch
+    nk = chunk_tile_keys(head_dim)
+    tiles = -(-max_pages * page_size // nk) + -(-chunk // nk)
+    return max(1, min(-(-3 * sm_count // (2 * blocks)), tiles, MAX_CHUNK_SPLITS))
+
+
 # ---------------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------------
@@ -314,15 +437,16 @@ _LIB = _build.Binding("paged_attention", {
     "repro_paged_decode": [_i, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                            _f, _p],
     "repro_paged_prefill_chunk": [
-        _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p, _i, _p,
     ],
     "repro_paged_decode_quant": [
         _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ],
     "repro_paged_prefill_chunk_quant": [
         _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _p,
     ],
-})
+}, geometry=GEOMETRY)
 
 
 _SM_COUNT = {}
@@ -358,6 +482,18 @@ def _check(name: str, t: torch.Tensor, *, ndim: int, dtype=None, device=None) ->
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _chunk_split(q, hkv: int, ps: int, max_pages: int):
+    """(splits, workspace) for one chunk launch: plan_chunk_splits for these
+    shapes and, with more than one run, f32 room for every run's partial (m,
+    l, acc) of every query row."""
+    b, hq, c, d = q.shape
+    splits = plan_chunk_splits(b, hq, hkv, c, d, max_pages, ps, q.dtype, sm_count(q.device))
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty(b * hq * c * splits * (d + 2), dtype=torch.float32,
+                               device=q.device)
 
 
 def _check_attention_operands(q, k_pool, v_pool, block_tables, lens, lens_name,
@@ -453,7 +589,11 @@ def paged_flash_prefill_chunk(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Chunked-prefill GQA attention, past from the pool and present from the
-    chunk's own K/V (kernel: paged_chunk_kernel). Shapes as
+    chunk's own K/V (kernel: paged_chunk_mma_kernel on the tensor cores for
+    bfloat16, its key tiles cut into plan_chunk_splits runs merged by
+    common.cuh's combine where the 64-row blocks are few; paged_chunk_kernel's
+    f32 CUDA-core products for float32; operands off 16 bytes are staged with
+    plain loads). Shapes as
     paged_prefill_chunk_torch; C need not be a power of two nor a page
     multiple. On CUDA, chunk_k/chunk_v share q's dtype and everything is
     contiguous. Rows past a row's valid length come out as garbage the caller
@@ -471,12 +611,13 @@ def paged_flash_prefill_chunk(
             raise ValueError(f"{name} must be {(b, hkv, c, d)}, got {tuple(t.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    splits, ws = _chunk_split(q, hkv, ps, block_tables.shape[1])
     _LIB.launch(
         "repro_paged_prefill_chunk", "paged_prefill_chunk",
         _DTYPE_CODE[q.dtype], q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(), cursors.data_ptr(),
         out.data_ptr(), b, hq, hkv, c, d, ps, num_pages, block_tables.shape[1], scale,
-        device=q.device,
+        ws.data_ptr() if ws is not None else None, splits, device=q.device,
     )
     paged_flash_prefill_chunk.launches += 1
     return out
@@ -542,8 +683,10 @@ def paged_flash_prefill_chunk_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
                                     scale: Optional[float] = None) -> torch.Tensor:
     """Chunked-prefill GQA attention with the past read from an intN pool
     and dequantized per staged page; the present (chunk_k/chunk_v, q's dtype)
-    is never read through the pool (kernel: paged_chunk_kernel over a
-    QuantPool). Shapes as paged_prefill_chunk_quant_torch."""
+    is never read through the pool (kernel: paged_chunk_mma_kernel over a
+    QuantPool for bfloat16: the bytes staged as bf16 integers, each key's
+    (page, head) scale on its column of S and of P; paged_chunk_kernel for
+    float32). Shapes as paged_prefill_chunk_quant_torch."""
     if q.device.type == "cpu":
         return paged_prefill_chunk_quant_torch(
             q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale, block_tables, cursors,
@@ -559,13 +702,14 @@ def paged_flash_prefill_chunk_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
             raise ValueError(f"{name} must be {(b, hkv, c, d)}, got {tuple(t.shape)}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    splits, ws = _chunk_split(q, hkv, ps, block_tables.shape[1])
     _LIB.launch(
         "repro_paged_prefill_chunk_quant", "paged_prefill_chunk_quant",
         _DTYPE_CODE[q.dtype], bits, q.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(),
         k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(),
         block_tables.data_ptr(), cursors.data_ptr(), out.data_ptr(),
         b, hq, hkv, c, d, ps, num_pages, block_tables.shape[1], scale,
-        device=q.device,
+        ws.data_ptr() if ws is not None else None, splits, device=q.device,
     )
     paged_flash_prefill_chunk_quant.launches += 1
     return out

@@ -9,7 +9,13 @@ split-K paged decode at lengths on, past and inside its split boundaries,
 the same split-K body over the dense cache (flash_decode) at every head dim
 and group, its workspace against the plain partials, the bf16 tensor-core
 flash_attention body at every head dim, and matvec over ragged and
-16-byte-misaligned buffers, two runs bit-identical.
+16-byte-misaligned buffers, two runs bit-identical; quant_matmul's three
+schedules (stream, mma, fma) at M 1-130, N 896 / 4864 / 130, K of one
+block and split unevenly, int8 and int4, over a q one byte off 16 too, and
+the bf16 tensor-core chunk body over dense, int8 and int4 pools at every
+head dim (cursor 0, one page, tiles across pages of different scales, C 5,
+128, 256), over pools off 16 bytes, against its tiled twin, two runs
+bit-identical.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -41,6 +47,7 @@ from repro_torch import kernels
 from repro_torch.core import (
     Extents, LayoutLeft, LayoutRight, MdSpan, QuantizedAccessor, quantize_array,
 )
+from repro_torch.kernels import _build
 from repro_torch.kernels import matvec as tmv
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -1072,3 +1079,181 @@ def test_flash_attention_bf16_offsets_and_empty_rows():
     with pytest.raises(ValueError, match="16-byte"):
         flat = torch.empty(2 * 4 * 9 * 64 + 1, dtype=torch.bfloat16, device="cuda")
         fa.flash_attention(flat[1:].view(2, 4, 9, 64), k, v)
+
+
+# ---------------------------------------------------------------------------------
+# quant_matmul's schedules (stream, mma, fma) and the bf16 tensor-core chunk body
+# ---------------------------------------------------------------------------------
+# (M, N, K, qblock): decode rows 1-16 and chunk rows 17-130 at the MLP's two
+# shapes and an N no multiple of any tile; K of one block; K split unevenly
+# (896 = 512 + 384 at decode; 4864 over five splits at M 128)
+QMM_SCHED_CASES = ([(m, n, k, 128) for m in (1, 8, 13, 16, 17, 128, 130)
+                    for n, k in ((896, 4864), (4864, 896), (130, 896))]
+                   + [(1, 896, 128, 128), (17, 896, 128, 128), (8, 130, 192, 64),
+                      (40, 130, 192, 64), (5, 70, 96, 32), (20, 70, 96, 32)])
+
+
+def _qmm_operands(m, n, k, qblock, bits, dtype, offset=0):
+    """x, q, scale from a seed; ``offset`` puts q one byte past a 16-byte
+    boundary (a contiguous tensor off 16 bytes)."""
+    g = torch.Generator(device="cuda").manual_seed(m * 7 + n + k)
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    w = torch.randn(n, k, generator=g, device="cuda") / k ** 0.5
+    bufs = quantize_array(w, QuantizedAccessor(torch.float32, bits=bits, block=qblock))
+    q = bufs["q"]
+    if offset:
+        flat = torch.empty(q.numel() + 16, dtype=torch.int8, device="cuda")
+        q2 = flat[offset:offset + q.numel()].view(q.shape)
+        q2.copy_(q)
+        q = q2
+    return x, q, bufs["scale"]
+
+
+@pytest.mark.parametrize("case", QMM_SCHED_CASES, ids=_ids(QMM_SCHED_CASES))
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_matmul_schedules_match_plain_and_repeat(case, bits, dtype):
+    """Every schedule (stream, mma, fma) against the plain version
+    (f32 2e-5, bf16 one ulp + 2e-5), the planned schedule as expected, and
+    two calls bit-identical (a fixed split order, no atomics)."""
+    m, n, k, qblock = case
+    x, q, scale = _qmm_operands(m, n, k, qblock, bits, dtype)
+    plan = qmm.plan_quant_matmul(m, n, k, qblock, bits, dtype,
+                                 pa.sm_count(torch.device("cuda")))
+    bf16 = dtype == torch.bfloat16
+    assert plan.schedule == (("stream" if qblock % (64 * (8 // bits)) == 0 else "fma")
+                             if bf16 and m <= 16 else "mma" if bf16 else "fma")
+    launches = qmm.quant_matmul.launches
+    got = qmm.quant_matmul(x, q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert qmm.quant_matmul.launches == launches + 1 and got.dtype == dtype
+    assert qmm.quant_matmul.last_plan == plan
+    want = qmm.quant_matmul_torch(x, q, scale, bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+    torch.testing.assert_close(qmm.quant_matmul(x, q, scale, bits=bits), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [8, 130])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_matmul_takes_a_misaligned_q(m, bits, dtype):
+    """q one byte off 16: decode and chunk rows both go to fma, which reads q
+    byte by byte (stream and mma load 16 bytes at a time)."""
+    x, q, scale = _qmm_operands(m, 896, 4864, 128, bits, dtype, offset=1)
+    assert q.data_ptr() % 16 == 1 and q.is_contiguous()
+    plan = qmm.plan_quant_matmul(m, 896, 4864, 128, bits, dtype,
+                                 pa.sm_count(torch.device("cuda")), aligned=False)
+    assert plan.schedule == "fma"
+    got = qmm.quant_matmul(x, q, scale, bits=bits)
+    assert qmm.quant_matmul.last_plan == plan
+    want = qmm.quant_matmul_torch(x, q, scale, bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+    torch.testing.assert_close(qmm.quant_matmul(x, q, scale, bits=bits), got, rtol=0, atol=0)
+
+
+# (batch, hq, hkv, d, ps, C, max_pages, cursors): cursor 0, exactly one page,
+# tiles that cross pages of different scales (page 4 and 16 under 64-key
+# tiles), C 5, 128 (the serve shape) and 256, at every head dim
+CHUNK_MMA_CASES = [(2, 4, 2, 16, 4, 5, 12, (0, 4)), (2, 6, 2, 32, 16, 128, 6, (16, 70)),
+                   (1, 14, 2, 64, 16, 128, 24, (256,)), (2, 14, 2, 64, 16, 256, 40, (0, 300)),
+                   (2, 8, 2, 128, 16, 40, 8, (16, 100)), (2, 10, 1, 256, 16, 37, 8, (0, 90)),
+                   (2, 14, 2, 64, 8, 130, 20, (8, 123))]
+
+
+def _chunk_mma_operands(case, pool, dtype, offset=0):
+    b, hq, hkv, d, ps, c, max_pages, cursors = case
+    q, ck, cv, kp, vp, bt, cur = _chunk_inputs(b, hq, hkv, d, ps, c, max_pages, cursors,
+                                               dtype=dtype)
+    if pool == "dense":
+        pools, kw = (kp, vp), {}
+        kern, plain = pa.paged_flash_prefill_chunk, pa.paged_prefill_chunk_torch
+    else:
+        bits = int(pool[3:])
+        pools, kw = (*_quantize_pool(kp, bits), *_quantize_pool(vp, bits)), {"bits": bits}
+        kern, plain = pa.paged_flash_prefill_chunk_quant, pa.paged_prefill_chunk_quant_torch
+    if offset:  # every pool one element off its 16-byte boundary
+        shifted = []
+        for t in pools:
+            if t.dim() == 4:
+                flat = torch.empty(t.numel() + 16, dtype=t.dtype, device="cuda")
+                t2 = flat[offset:offset + t.numel()].view(t.shape)
+                t2.copy_(t)
+                t = t2
+            shifted.append(t)
+        pools = tuple(shifted)
+    return kern, plain, (q, ck, cv, *pools, bt, cur), kw
+
+
+@pytest.mark.parametrize("case", CHUNK_MMA_CASES, ids=_ids(CHUNK_MMA_CASES))
+@pytest.mark.parametrize("pool", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chunk_body_matches_plain_at_every_head_dim_and_repeats(case, pool, dtype):
+    kern, plain, args, kw = _chunk_mma_operands(case, pool, dtype)
+    n = kern.launches
+    got = kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1 and got.dtype == dtype
+    _assert_kernel_close(got, plain(*args, **kw), dtype)
+    torch.testing.assert_close(kern(*args, **kw), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pool", ["dense", "int8", "int4"])
+def test_chunk_body_takes_misaligned_pools(pool):
+    """Pools one element off 16 bytes: the bf16 body stages with plain
+    loads; the result is the aligned call's, bit for bit."""
+    case = CHUNK_MMA_CASES[2]
+    kern, plain, args, kw = _chunk_mma_operands(case, pool, torch.bfloat16, offset=1)
+    assert args[3].data_ptr() % 16 != 0
+    got = kern(*args, **kw)
+    _assert_kernel_close(got, plain(*args, **kw), torch.bfloat16)
+    kern2, _, args2, _ = _chunk_mma_operands(case, pool, torch.bfloat16)
+    torch.testing.assert_close(kern2(*args2, **kw), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pool", ["dense", "int8", "int4"])
+def test_chunk_body_matches_its_tiled_twin(pool):
+    """The bf16 body against paged_prefill_chunk_tiled_torch (its tiles and
+    scale folding in f32) at the serve shape."""
+    kern, _, args, kw = _chunk_mma_operands(CHUNK_MMA_CASES[2], pool, torch.bfloat16)
+    q, ck, cv, *pools, bt, cur = args
+    if pool == "dense":
+        want = pa.paged_prefill_chunk_tiled_torch(q, ck, cv, *pools, bt, cur)
+    else:
+        kq, ks, vq, vs = pools
+        want = pa.paged_prefill_chunk_tiled_torch(q, ck, cv, kq, vq, bt, cur, k_scale=ks,
+                                                  v_scale=vs, bits=kw["bits"])
+    _assert_kernel_close(kern(*args, **kw), want, torch.bfloat16)
+
+
+def test_planners_assume_the_kernels_geometry():
+    """The tile and warp constants quant_matmul's and the chunk body's
+    planners use are the ones the libraries were built with (checked when a
+    library loads; a disagreement raises)."""
+    for binding, geometry in ((qmm._LIB, qmm.GEOMETRY), (pa._LIB, pa.GEOMETRY)):
+        _build.check_geometry(binding.name, binding.lib(), geometry)
+
+
+def test_chunk_body_splits_its_tiles_where_blocks_are_few():
+    """The serve shape (one sequence, C 128, G 7) has 28 blocks of 64 rows:
+    the bf16 body cuts their tiles into runs merged by the combine, and
+    matches the plain version and the tiled twin in one run and in the
+    kernel's own runs; f32 takes one."""
+    case = CHUNK_MMA_CASES[2]
+    b, hq, hkv, d, ps, c, max_pages, _ = case
+    sms = pa.sm_count(torch.device("cuda"))
+    splits = pa.plan_chunk_splits(b, hq, hkv, c, d, max_pages, ps, torch.bfloat16, sms)
+    assert splits > 1
+    assert pa.plan_chunk_splits(b, hq, hkv, c, d, max_pages, ps, torch.float32, sms) == 1
+    kern, plain, args, kw = _chunk_mma_operands(case, "dense", torch.bfloat16)
+    got = kern(*args, **kw)
+    _assert_kernel_close(got, plain(*args, **kw), torch.bfloat16)
+    q, ck, cv, kp, vp, bt, cur = args
+    for runs in (1, splits):
+        want = pa.paged_prefill_chunk_tiled_torch(q, ck, cv, kp, vp, bt, cur, splits=runs)
+        _assert_kernel_close(got, want, torch.bfloat16)
