@@ -115,18 +115,23 @@ lines; any failure raises and exits non-zero:
                 reference's sizes (96^3, N 100k/200k of 3x3, 2048^2) and at
                 HBM-filling ones (512^3, N 8M, 16384^2), sum3d and
                 tinymatsum in bf16 too, with a library call as yardstick
-                (torch.sum, torch.add, torch.mv, conv3d + pad); sum3d must
+                (torch.sum, torch.add, torch.mv, conv3d + pad) and, for sum3d
+                and tinymatsum, device times beside it; sum3d must
                 repeat bit for bit (matvec right and left too), and runs at
                 a ragged size too (95x97x99,
-                509x511x513) on inputs of mean 1. Then the zero-overhead comparison
+                509x511x513) on inputs of mean 1; tinymatsum also at 8x8 (N
+                1M) and on a view off 16 bytes (N 100k), with a
+                tinymatsum_static_over_dynamic line (device ms) for each
+                case. Then the zero-overhead comparison
                 (ops.sum3d / ops.matvec on an MdSpan against the raw kernel
                 call: host us and device ms per call, printed, not gated),
                 and the main path: the ops dispatchers on MdSpans at the
                 HBM sizes, counts zeroed just before and read just after,
                 every output checked against its plain version and every
                 kernel launched. Tolerances: sum3d 1e-5 * sum(|x|), stencil
-                1e-4, tinymatsum 1e-6 (bf16 2e-2), matvec 1e-5 *
-                sum_j |A_ij v_j| per row (sums of up to 16384 terms).
+                1e-4, tinymatsum bit-equal (the same f32 additions and
+                roundings), matvec 1e-5 * sum_j |A_ij v_j| per row (sums of
+                up to 16384 terms).
   kernels line  {"kernels": [...]} with the numbers of each of the 15
                 kernels that replace the reference's 15 Pallas functions.
 
@@ -780,6 +785,10 @@ PAPER_SIZES = {  # the reference's own (its benchmarks and tests), and HBM-filli
     "hbm": dict(cube=512, ragged=(509, 511, 513), tiny_n=(8_000_000,), mat=16384),
 }  # ragged: a sum3d size that is no multiple of the first pass's unrolled stride
 TINY_JK = (3, 3)  # the paper's tiny matrices
+TINY_EXTRA = {  # (N, (J, K), elements the buffers start off 16 bytes)
+    "reference": [(100_000, TINY_JK, 1)],  # a view 4 (f32) / 2 (bf16) bytes off
+    "hbm": [(1_000_000, (8, 8), 0)],  # the static kernel's largest instantiation
+}
 
 
 def _allclose(rtol, atol):
@@ -787,6 +796,20 @@ def _allclose(rtol, atol):
         ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
         return ok, f"allclose rtol={rtol} atol={atol}"
     return tolerance
+
+
+def _equal(got, want):
+    """tinymatsum: the kernels make the plain version's f32 additions and
+    roundings, so the bits must agree."""
+    return torch.equal(got, want), "torch.equal"
+
+
+def _offset_view(t, elems):
+    """t's values in a buffer that starts ``elems`` elements into a fresh
+    allocation."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    flat[elems:] = t.reshape(-1)
+    return flat[elems:].view(t.shape)
 
 
 def _sum_tolerance(x):
@@ -827,7 +850,10 @@ def paper_checks(bw, label, g):
     (PAPER_SIZES[label]), timed beside it and a library call: sum3d and
     tinymatsum in f32 and bf16, stencil3d and matvec (both layouts) in f32.
     sum3d must also repeat bit for bit, and is checked at a ragged size too.
-    Returns the f32 record of each kernel (tinymatsum: the last N)."""
+    tinymatsum also runs at 8 x 8 (HBM sizes) and on a view off 16 bytes
+    (the reference's), with device times and each case's static / dynamic
+    ratio. Returns the f32 record of each kernel (tinymatsum: the last 3 x 3
+    N)."""
     import torch.nn.functional as F
     from repro_torch.kernels import matvec as mv
     from repro_torch.kernels import stencil3d as st
@@ -843,13 +869,14 @@ def paper_checks(bw, label, g):
         check_and_time("sum3d", dtype, lambda: sm.sum3d(xr), lambda: sm.sum3d_torch(xr),
                        lambda: torch.sum(xr, dtype=torch.float32), xr.numel() * esz + 4,
                        xr.numel(), bw, {"sizes": label, "shape": list(sizes["ragged"])},
-                       tolerance=_sum_tolerance(xr), phase="paper")
+                       tolerance=_sum_tolerance(xr), phase="paper", device_time=True)
         del xr
         x = _sum_input(g, n3, n3, n3, dtype=dtype)
         case = {"sizes": label, "shape": [n3] * 3}
         rec = check_and_time("sum3d", dtype, lambda: sm.sum3d(x), lambda: sm.sum3d_torch(x),
                              lambda: torch.sum(x, dtype=torch.float32), x.numel() * esz + 4,
-                             x.numel(), bw, case, tolerance=_sum_tolerance(x), phase="paper")
+                             x.numel(), bw, case, tolerance=_sum_tolerance(x), phase="paper",
+                             device_time=True)
         first, second = sm.sum3d(x), sm.sum3d(x)
         same = torch.equal(first, second)
         emit({"phase": "paper", "check": "sum3d_repeats_bit_for_bit", "sizes": label,
@@ -866,18 +893,25 @@ def paper_checks(bw, label, g):
                 2 * x.numel() * esz, 26 * (n3 - 2) ** 3, bw, case,
                 tolerance=_allclose(1e-4, 1e-4), phase="paper")
         del x
-        for n in sizes["tiny_n"]:
-            o, s = _randn(g, n, *TINY_JK, dtype=dtype), _randn(g, n, *TINY_JK, dtype=dtype)
-            tol = 1e-6 if dtype == torch.float32 else 2e-2
+        for n, jk, off in [(n, TINY_JK, 0) for n in sizes["tiny_n"]] + TINY_EXTRA[label]:
+            o, s = _randn(g, n, *jk, dtype=dtype), _randn(g, n, *jk, dtype=dtype)
+            if off:  # a view off 16 bytes: the kernels' scalar staging form
+                o, s = _offset_view(o, off), _offset_view(s, off)
+            case = {"sizes": label, "N": n, "J": jk[0], "K": jk[1], "data_ptr_mod_16":
+                    o.data_ptr() % 16}
+            dev = {}
             for name, fn in (("tinymatsum_static", tm.tinymatsum_static),
                              ("tinymatsum_dynamic", tm.tinymatsum_dynamic)):
                 rec = check_and_time(
                     name, dtype, lambda: fn(o, s), lambda: tm.tinymatsum_torch(o, s),
-                    lambda: torch.add(o, s), 3 * o.numel() * esz, o.numel(), bw,
-                    {"sizes": label, "N": n, "J": TINY_JK[0], "K": TINY_JK[1]},
-                    tolerance=_allclose(tol, tol), phase="paper")
-                if dtype == torch.float32:
+                    lambda: torch.add(o, s), 3 * o.numel() * esz, o.numel(), bw, case,
+                    tolerance=_equal, phase="paper", device_time=True)
+                dev[name] = rec["device_ms"]
+                if dtype == torch.float32 and (n, jk, off) == (sizes["tiny_n"][-1], TINY_JK, 0):
                     recs[name] = rec
+            emit({"phase": "paper", "check": "tinymatsum_static_over_dynamic", **case,
+                  "dtype": str(dtype).split(".")[1],
+                  "device_ms_ratio": dev["tinymatsum_static"] / dev["tinymatsum_dynamic"]})
             del o, s
     m = sizes["mat"]
     a, v = _randn(g, m, m), _randn(g, m)
@@ -1020,8 +1054,8 @@ def paper_main_path(g, label="hbm"):
         "sum3d_right": _sum_tolerance(x)(out["sum3d_right"], sm.sum3d_torch(x))[0],
         "sum3d_left": _sum_tolerance(x_left)(out["sum3d_left"], sm.sum3d_torch(x_left))[0],
         "stencil3d": _allclose(1e-4, 1e-4)(out["stencil3d"], st.stencil3d_torch(x))[0],
-        "tinymatsum_static": _allclose(1e-6, 1e-6)(out["tinymatsum_static"], tiny)[0],
-        "tinymatsum_dynamic": _allclose(1e-6, 1e-6)(out["tinymatsum_dynamic"], tiny)[0],
+        "tinymatsum_static": _equal(out["tinymatsum_static"], tiny)[0],
+        "tinymatsum_dynamic": _equal(out["tinymatsum_dynamic"], tiny)[0],
         "matvec_right": _row_tolerance(a, v)(out["matvec_right"], mv.matvec_torch(a, v))[0],
         "matvec_left": _row_tolerance(a_left, v)(out["matvec_left"],
                                                  mv.matvec_torch(a_left, v))[0],
@@ -1586,7 +1620,11 @@ def main() -> int:
                                            "combine_splits_kernel", "matvec_kernel",
                                            "matvec_splits_kernel", "paged_chunk_mma_kernel",
                                            "qmm_stream_kernel", "qmm_mma_kernel",
-                                           "qmm_fma_kernel", "qmm_sum_splits_kernel"))}
+                                           "qmm_fma_kernel", "qmm_sum_splits_kernel",
+                                           "tinymatsum_static_kernel<float, (int)3, (int)3>",
+                                           "tinymatsum_static_kernel<float, (int)8, (int)8>",
+                                           "tinymatsum_static_kernel<__nv_bfloat16, (int)3",
+                                           "tinymatsum_dynamic_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1622,6 +1660,15 @@ def main() -> int:
         emit({"phase": "device", "split_plan": f"matvec_left 16384^2 {dt}", "sm_count": sms,
               "splits": splits, "cols_per_split": per,
               "blocks": splits * -(-16384 // (32 * 16 // esz))})
+    from repro_torch.kernels import tinymatsum as tm
+    for dt in (torch.float32, torch.bfloat16):
+        o = torch.empty(8_000_000, 3, 3, dtype=dt, device="cuda")
+        for static in (True, False):
+            plan = tm.plan_for(o, o, o, static)
+            emit({"phase": "device", "split_plan": f"tinymatsum_{'static' if static else 'dynamic'}"
+                  f" N 8M 3x3 {str(dt).split('.')[1]}", "sm_count": sms, **vars(plan),
+                  "smem": tm.stage_bytes(3, 3, o.element_size(), plan.bn)})
+        del o
     t_phase = {}
     t0 = time.perf_counter()
     main_recs = kernel_phase(bw)

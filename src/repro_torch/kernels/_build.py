@@ -169,8 +169,8 @@ def check_geometry(name: str, lib: ctypes.CDLL, expected: Dict[str, int]) -> Non
 
 class Binding:
     """The C entries of one source, ``signatures`` mapping each entry's name
-    to its argument types (the CUDA stream last); every entry returns a CUDA
-    error code. The library is built and loaded on the first launch, and
+    to its argument types (the CUDA stream last, for the entries ``launch``
+    calls); every entry returns a CUDA error code. The library is built and loaded on the first launch, and
     ``geometry`` (the constants the planner assumes, when given) is checked
     against it then."""
 

@@ -24,13 +24,22 @@
 //   Stencil3D   one thread per output element reading its 27 neighbours,
 //               summed in f32 in the plain version's order (di, dj, dk);
 //               interior only, the boundary (and I, J or K < 3) gives 0.
-//   TinyMatSum  one thread per (J, K) matrix. The static kernel takes J and K
-//               as TEMPLATE parameters (the card's extents<3, 3>): both loops
-//               unroll and every offset folds to a constant. The dynamic
-//               kernel takes them as runtime ints over the same unpadded
-//               (N, J, K) buffers, with runtime loops and index math (the
-//               reference pads to (jmax, kmax) only for TPU sublane
-//               alignment). Paper Fig. 5 is the gap between the two.
+//   TinyMatSum  one body, tinymatsum_body<T, Ext>, templated on an extents
+//               policy: StaticJK<J, K> (the card's extents<3, 3>: J and K are
+//               template arguments, the per-matrix loops unroll and every
+//               offset folds to a constant) or DynamicJK (runtime ints, runtime
+//               loops and index math), over the same unpadded (N, J, K)
+//               buffers (the reference pads to (jmax, kmax) only for TPU
+//               sublane alignment). Paper Fig. 5 is the gap between the two.
+//               Each thread sums whole matrices by that loop nest; the bytes
+//               move apart from it: a block stages contiguous spans of
+//               matrices through shared memory with 16-byte copies and
+//               stores them back with 16-byte stores, other blocks' loads in
+//               flight meanwhile (below, at the TinyMatrixSum section).
+//               Reading one matrix a thread from global memory would put a
+//               warp's 32 lanes 36 bytes apart on every load and store.
+//               Dynamic matrices too large to stage are summed a block a
+//               matrix from global memory (the unstaged form).
 //   MatVec      one kernel body templated on a layout policy (Right / Left,
 //               each an offset(i, j) functor and the fact of which index it
 //               stores at stride 1, as mdspan's layout_right / layout_left).
@@ -48,25 +57,15 @@
 // read once, outputs written once) over the device memory rate. Offsets are
 // int64: the phase sizes pass 2^27 elements.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stddef.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiny = 8;  // static TinyMatSum instantiates J, K in 1..8
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Sum of v over the block, in a fixed order (warp shuffles, then warp 0 over
 // the per-warp sums); the result is valid in thread 0.
@@ -135,34 +134,180 @@ stencil3d_kernel(const T* __restrict__ x, T* __restrict__ out, int I, int J, int
 }
 
 // ---- TinyMatrixSum ----------------------------------------------------------
+// A block walks spans of bn consecutive matrices, span blockIdx.x, then
+// + gridDim.x, ...: bn J K elements of each operand, bn J K sizeof(T) a
+// multiple of 16 bytes (the wrapper's plan_tinymatsum picks bn and the grid).
+// A span's o and s land in shared memory; each thread then runs the paper's
+// loop nest over (j, k) for its matrices of the span (m = threadIdx.x,
+// + kThreads, ...) out of it, writing o + s over o's copy, and the block
+// stores the span. The plan makes the grid the blocks that fit on the card at
+// once (registers included: a block left for a second wave would run with few
+// others on its SM), so an SM's other blocks keep loads in flight while one
+// block sums and stores.
+//
+// Vector form (o, s and out on 16 bytes, N J K sizeof(T) a multiple of 16):
+// 16-byte cp.async copies in and 16-byte stores out, consecutive lanes on
+// consecutive chunks. Scalar form (anything else): the same spans and stage
+// layout, one element a lane, consecutive lanes on consecutive elements,
+// through registers.
+//
+// Stage layout: matrix m of a span at m * P elements (tiny_stride). A warp
+// reads element (j, k) of 32 matrices P apart, so P = J K with J K sizeof(T)
+// an even number of 16-byte chunks would put 8 to 32 lanes on one bank; such
+// a matrix gets one chunk of padding, an odd chunk count: 16-byte reads then
+// hit distinct bank groups and 4-byte ones at most 4 lanes a bank. A padded
+// matrix is whole chunks, so the 16-byte copies stay whole; an odd J K (the
+// paper's 3 x 3) needs no padding, its stride already spreads the banks.
+//
+// Unstaged form (bn 0; dynamic extents only): matrices so large that the
+// fewest that make whole chunks do not fit a block's shared memory (f32 J K
+// past ~7264) are summed straight from global memory, a block a matrix.
+__host__ __device__ constexpr int tiny_stride(int jk, int esize) {
+  return (jk * esize) % 16 == 0 && (jk * esize / 16) % 2 == 0 ? jk + 16 / esize : jk;
+}
+
+// Extents policies, as mdspan's extents<J, K> and dextents<2>.
+template <int J, int K> struct StaticJK {
+  __device__ static constexpr int j() { return J; }
+  __device__ static constexpr int k() { return K; }
+};
+struct DynamicJK {
+  int J, K;
+  __device__ int j() const { return J; }
+  __device__ int k() const { return K; }
+};
+
+// The paper's per-matrix loop nest, o's copy a += s's copy b: with static
+// extents both loops unroll (a constant trip count) and every offset is a
+// constant; with dynamic ones they stay runtime loops over runtime offsets
+// (scripts/time_tinymatsum.py --sass counts each one's instructions a matrix).
+template <typename T, typename Ext> struct WholeChunks : std::false_type {};
+template <typename T, int J, int K>
+struct WholeChunks<T, StaticJK<J, K>>
+    : std::bool_constant<tiny_stride(J * K, sizeof(T)) * sizeof(T) % 16 == 0> {};
+
+template <typename T, typename Ext>
+__device__ __forceinline__ void sum_matrix(T* __restrict__ a, const T* __restrict__ b, Ext ext) {
+  if constexpr (WholeChunks<T, Ext>::value) {
+    a = static_cast<T*>(__builtin_assume_aligned(a, 16));  // a whole number of chunks
+    b = static_cast<const T*>(__builtin_assume_aligned(b, 16));
+  }
+#pragma unroll
+  for (int j = 0; j < ext.j(); ++j)
+#pragma unroll
+    for (int k = 0; k < ext.k(); ++k) {
+      const int e = j * ext.k() + k;
+      a[e] = from_f32<T>(to_f32(a[e]) + to_f32(b[e]));
+    }
+}
+
+// Items i = threadIdx.x, + kThreads, ... of a span cut into matrices of
+// ``per`` items: (m, w) = (i / per, i % per), advanced without a division.
+struct SpanWalk {
+  int per, m, w, dm, dw;
+  __device__ explicit SpanWalk(int per_)
+      : per(per_), m(threadIdx.x / per_), w(threadIdx.x % per_), dm(kThreads / per_),
+        dw(kThreads % per_) {}
+  __device__ void next() {
+    m += dm;
+    w += dw;
+    if (w >= per) {
+      w -= per;
+      ++m;
+    }
+  }
+};
+
+template <typename T, typename Ext>
+__device__ __forceinline__ void tinymatsum_body(const T* __restrict__ o, const T* __restrict__ s,
+                                                T* __restrict__ out, int64_t n, Ext ext, int bn,
+                                                bool vec) {
+  extern __shared__ __align__(16) unsigned char tiny_smem[];
+  constexpr int V = 16 / sizeof(T);
+  const int JK = ext.j() * ext.k();
+  const int P = tiny_stride(JK, sizeof(T));
+  T* const so = reinterpret_cast<T*>(tiny_smem);  // o's copy of the span
+  T* const ss = so + bn * P;                      // s's copy
+  const int64_t spans = (n + bn - 1) / bn;
+  for (int64_t span = blockIdx.x; span < spans; span += gridDim.x) {
+    const int64_t e0 = span * bn * JK;
+    const int64_t left = n - span * bn;
+    const int cnt = static_cast<int>(left < bn ? left : bn);  // matrices in the span
+    const int elems = cnt * JK;
+    if (vec && P == JK) {
+      for (int c = threadIdx.x; c < elems / V; c += kThreads) {
+        cp_async16(so + c * V, o + e0 + c * V, 16);
+        cp_async16(ss + c * V, s + e0 + c * V, 16);
+      }
+    } else if (vec) {  // padded: J K sizeof(T) is whole chunks
+      SpanWalk w(JK / V);
+      for (int c = threadIdx.x; c < elems / V; c += kThreads, w.next()) {
+        const int d = w.m * P + w.w * V;
+        cp_async16(so + d, o + e0 + c * V, 16);
+        cp_async16(ss + d, s + e0 + c * V, 16);
+      }
+    } else {
+      SpanWalk w(JK);
+      for (int e = threadIdx.x; e < elems; e += kThreads, w.next()) {
+        const int d = w.m * P + w.w;
+        so[d] = o[e0 + e];
+        ss[d] = s[e0 + e];
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int m = threadIdx.x; m < cnt; m += kThreads) sum_matrix(so + m * P, ss + m * P, ext);
+    __syncthreads();
+    if (vec && P == JK) {
+      for (int c = threadIdx.x; c < elems / V; c += kThreads) {
+        *reinterpret_cast<uint4*>(out + e0 + c * V) = *reinterpret_cast<const uint4*>(so + c * V);
+      }
+    } else if (vec) {
+      SpanWalk w(JK / V);
+      for (int c = threadIdx.x; c < elems / V; c += kThreads, w.next()) {
+        *reinterpret_cast<uint4*>(out + e0 + c * V) =
+            *reinterpret_cast<const uint4*>(so + w.m * P + w.w * V);
+      }
+    } else {
+      SpanWalk w(JK);
+      for (int e = threadIdx.x; e < elems; e += kThreads, w.next()) out[e0 + e] = so[w.m * P + w.w];
+    }
+    __syncthreads();  // the next span's copies overwrite the stage
+  }
+}
+
+// The unstaged form: matrix m by block m, + gridDim.x, ...; the block's
+// threads take its elements in the loop nest's (row-major) order,
+// consecutive lanes on consecutive elements.
+template <typename T>
+__device__ __forceinline__ void tinymatsum_unstaged(const T* __restrict__ o,
+                                                    const T* __restrict__ s,
+                                                    T* __restrict__ out, int64_t n, int J, int K) {
+  const int64_t jk = static_cast<int64_t>(J) * K;
+  for (int64_t m = blockIdx.x; m < n; m += gridDim.x) {
+    for (int64_t e = m * jk + threadIdx.x; e < (m + 1) * jk; e += kThreads) {
+      out[e] = from_f32<T>(to_f32(o[e]) + to_f32(s[e]));
+    }
+  }
+}
+
 template <typename T, int J, int K>
 __global__ void __launch_bounds__(kThreads)
 tinymatsum_static_kernel(const T* __restrict__ o, const T* __restrict__ s, T* __restrict__ out,
-                         int64_t n) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (m >= n) return;
-  const int64_t base = m * (J * K);
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int64_t e = base + j * K + k;
-      out[e] = from_f32<T>(to_f32(o[e]) + to_f32(s[e]));
-    }
+                         int64_t n, int bn, int vec) {
+  tinymatsum_body(o, s, out, n, StaticJK<J, K>{}, bn, vec != 0);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 tinymatsum_dynamic_kernel(const T* __restrict__ o, const T* __restrict__ s, T* __restrict__ out,
-                          int64_t n, int J, int K) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (m >= n) return;
-  const int64_t base = m * (static_cast<int64_t>(J) * K);
-  for (int j = 0; j < J; ++j)
-    for (int k = 0; k < K; ++k) {
-      const int64_t e = base + static_cast<int64_t>(j) * K + k;
-      out[e] = from_f32<T>(to_f32(o[e]) + to_f32(s[e]));
-    }
+                          int64_t n, int J, int K, int bn, int vec) {
+  if (bn == 0) {
+    tinymatsum_unstaged(o, s, out, n, J, K);
+  } else {
+    tinymatsum_body(o, s, out, n, DynamicJK{J, K}, bn, vec != 0);
+  }
 }
 
 // ---- MatVec -----------------------------------------------------------------
@@ -208,12 +353,6 @@ constexpr int kRightUnroll = 4;  // runs of A and of x a lane loads before its F
 constexpr int kLeftUnroll = 8;   // columns of A a warp loads before its FMAs
 
 template <typename T> struct VecWidth { static constexpr int value = 16 / sizeof(T); };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // The lane's V elements of a run starting at p, of which the first n >= 1
 // exist: adjacent (VEC, one 16-byte load; then n is a multiple of V) or 32
@@ -398,52 +537,99 @@ cudaError_t launch_stencil3d(const void* x, void* out, int I, int J, int K, cuda
   return cudaGetLastError();
 }
 
-template <typename T, int J, int K>
-cudaError_t launch_static(const void* o, const void* s, void* out, int64_t n, cudaStream_t st) {
-  tinymatsum_static_kernel<T, J, K><<<grid_for(n), kThreads, 0, st>>>(
-      static_cast<const T*>(o), static_cast<const T*>(s), static_cast<T*>(out), n);
-  return cudaGetLastError();
+// The wrapper's plan: matrices a span (0: the unstaged form), blocks, and the
+// vector form (1) or the scalar one (0).
+struct TinyPlan {
+  int bn, grid, vec;
+};
+
+// Shared memory of a block: both operands' copies of a span.
+int64_t tiny_smem_bytes(int64_t jk, int esize, const TinyPlan& p) {
+  if (p.bn == 0) return 0;
+  return 2 * static_cast<int64_t>(p.bn) * tiny_stride(static_cast<int>(jk), esize) * esize;
 }
 
-// Runtime (J, K) -> the instantiation with those template arguments.
-template <typename T, int J>
-cudaError_t static_for_k(int K, const void* o, const void* s, void* out, int64_t n,
-                         cudaStream_t st) {
+// A kernel instantiation and its record for set_smem (the attribute is
+// raised once, where a plan needs more than 48 KB).
+template <typename Kernel> struct TinyKernel {
+  Kernel kern;
+  size_t* opted;
+};
+template <typename T>
+using StaticFn = void (*)(const T*, const T*, T*, int64_t, int, int);
+template <typename T>
+using DynamicFn = void (*)(const T*, const T*, T*, int64_t, int, int, int, int);
+
+template <typename T, int J, int K> TinyKernel<StaticFn<T>> static_entry() {
+  static size_t opted[kMaxDevices] = {};
+  return {tinymatsum_static_kernel<T, J, K>, opted};
+}
+
+// Runtime (J, K) -> the instantiation with those template arguments
+// (kern nullptr where there is none).
+template <typename T, int J> TinyKernel<StaticFn<T>> static_for_k(int K) {
   switch (K) {
-    case 1: return launch_static<T, J, 1>(o, s, out, n, st);
-    case 2: return launch_static<T, J, 2>(o, s, out, n, st);
-    case 3: return launch_static<T, J, 3>(o, s, out, n, st);
-    case 4: return launch_static<T, J, 4>(o, s, out, n, st);
-    case 5: return launch_static<T, J, 5>(o, s, out, n, st);
-    case 6: return launch_static<T, J, 6>(o, s, out, n, st);
-    case 7: return launch_static<T, J, 7>(o, s, out, n, st);
-    case 8: return launch_static<T, J, 8>(o, s, out, n, st);
-    default: return cudaErrorInvalidValue;
+    case 1: return static_entry<T, J, 1>();
+    case 2: return static_entry<T, J, 2>();
+    case 3: return static_entry<T, J, 3>();
+    case 4: return static_entry<T, J, 4>();
+    case 5: return static_entry<T, J, 5>();
+    case 6: return static_entry<T, J, 6>();
+    case 7: return static_entry<T, J, 7>();
+    case 8: return static_entry<T, J, 8>();
+    default: return {nullptr, nullptr};
   }
 }
 
-template <typename T>
-cudaError_t launch_tiny_static(int J, int K, const void* o, const void* s, void* out, int64_t n,
-                               cudaStream_t st) {
+template <typename T> TinyKernel<StaticFn<T>> static_kernel(int J, int K) {
   switch (J) {
-    case 1: return static_for_k<T, 1>(K, o, s, out, n, st);
-    case 2: return static_for_k<T, 2>(K, o, s, out, n, st);
-    case 3: return static_for_k<T, 3>(K, o, s, out, n, st);
-    case 4: return static_for_k<T, 4>(K, o, s, out, n, st);
-    case 5: return static_for_k<T, 5>(K, o, s, out, n, st);
-    case 6: return static_for_k<T, 6>(K, o, s, out, n, st);
-    case 7: return static_for_k<T, 7>(K, o, s, out, n, st);
-    case 8: return static_for_k<T, 8>(K, o, s, out, n, st);
-    default: return cudaErrorInvalidValue;
+    case 1: return static_for_k<T, 1>(K);
+    case 2: return static_for_k<T, 2>(K);
+    case 3: return static_for_k<T, 3>(K);
+    case 4: return static_for_k<T, 4>(K);
+    case 5: return static_for_k<T, 5>(K);
+    case 6: return static_for_k<T, 6>(K);
+    case 7: return static_for_k<T, 7>(K);
+    case 8: return static_for_k<T, 8>(K);
+    default: return {nullptr, nullptr};
   }
 }
 
-template <typename T>
-cudaError_t launch_tiny_dynamic(int J, int K, const void* o, const void* s, void* out, int64_t n,
-                                cudaStream_t st) {
-  tinymatsum_dynamic_kernel<T><<<grid_for(n), kThreads, 0, st>>>(
-      static_cast<const T*>(o), static_cast<const T*>(s), static_cast<T*>(out), n, J, K);
+template <typename T> TinyKernel<DynamicFn<T>> dynamic_kernel() {
+  static size_t opted[kMaxDevices] = {};
+  return {tinymatsum_dynamic_kernel<T>, opted};
+}
+
+// Blocks of ``k`` with ``smem`` bytes of shared memory that fit on one SM at once
+// (registers included), into *blocks.
+template <typename Kernel>
+cudaError_t tiny_occupancy(const TinyKernel<Kernel>& k, int64_t smem, int* blocks) {
+  if (k.kern == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t e = set_smem(k.kern, static_cast<size_t>(smem), k.opted);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.kern, kThreads,
+                                                       static_cast<size_t>(smem));
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_tiny(const TinyKernel<Kernel>& k, int64_t smem, const TinyPlan& p,
+                        cudaStream_t st, Args... args) {
+  if (k.kern == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t e = set_smem(k.kern, static_cast<size_t>(smem), k.opted);
+  if (e != cudaSuccess) return e;
+  const Kernel kern = k.kern;
+  kern<<<p.grid, kThreads, smem, st>>>(args..., p.bn, p.vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_tiny(int is_static, int J, int K, const void* o, const void* s, void* out,
+                     int64_t n, const TinyPlan& p, int64_t smem, cudaStream_t st) {
+  const T* op = static_cast<const T*>(o);
+  const T* sp = static_cast<const T*>(s);
+  T* outp = static_cast<T*>(out);
+  if (is_static) return launch_tiny(static_kernel<T>(J, K), smem, p, st, op, sp, outp, n);
+  return launch_tiny(dynamic_kernel<T>(), smem, p, st, op, sp, outp, n, J, K);
 }
 
 // The vector form wherever the buffers allow 16-byte loads along the
@@ -483,6 +669,15 @@ cudaError_t launch_matvec(int layout, const void* a, const void* x, void* y, voi
   return cudaGetLastError();
 }
 
+// What _paper_suite.py's GEOMETRY assumes of this file, in its order:
+// threads a block, the shared memory a block gets without opting in and with
+// it, the static kernel's largest J and
+// K, and tiny_stride at two shapes (8 x 8 f32, 4 x 4 bf16: padded) and one
+// (3 x 3 f32: not) that the planner's copy of it must match.
+constexpr int kGeometry[] = {kThreads, 48 * 1024, static_cast<int>(kMaxSmem),
+                             kMaxTiny, tiny_stride(64, 4), tiny_stride(16, 2),
+                             tiny_stride(9, 4)};
+
 }  // namespace
 
 extern "C" {
@@ -519,22 +714,55 @@ int repro_stencil3d(int dtype, const void* x, void* out, int I, int J, int K, vo
 }
 
 // out = o + s over n (J, K) matrices; is_static picks the kernel with J and K
-// as template arguments (1..8 each) or as runtime ints.
+// as template arguments (1..8 each) or as runtime ints. The plan
+// (tinymatsum.py's plan_tinymatsum): bn matrices a span (bn J K sizeof(T) a
+// multiple of 16), staged in 2 bn tiny_stride(J K) elements (at most kMaxSmem
+// bytes), or bn 0 for the dynamic kernel's unstaged form (vec 0); ``grid``
+// blocks; ``vec`` 1 only where o, s and out lie on 16 bytes and n J K
+// sizeof(T) is a multiple of 16.
 int repro_tinymatsum(int dtype, int is_static, const void* o, const void* s, void* out, int64_t n,
-                     int J, int K, void* stream) {
+                     int J, int K, int bn, int grid, int vec, void* stream) {
+  const int esize = dtype == 0 ? 4 : 2;
+  const int64_t jk = static_cast<int64_t>(J) * K;
+  const bool aligned = reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if ((dtype != 0 && dtype != 1) || n < 1 || J < 1 || K < 1 ||
-      (is_static && (J > kMaxTiny || K > kMaxTiny))) {
+      (is_static && (J > kMaxTiny || K > kMaxTiny)) || bn < 0 || (bn == 0 && (is_static || vec)) ||
+      grid < 1 || (vec != 0 && vec != 1) ||
+      (bn > 0 && (jk * esize > static_cast<int64_t>(kMaxSmem) || bn * jk * esize % 16 != 0)) ||
+      (vec && (!aligned || n * jk * esize % 16 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TinyPlan p{bn, grid, vec};
+  const int64_t smem = tiny_smem_bytes(jk, esize, p);
+  if (smem > static_cast<int64_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  (void)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      dtype == 0 ? run_tiny<float>(is_static, J, K, o, s, out, n, p, smem, st)
+                 : run_tiny<__nv_bfloat16>(is_static, J, K, o, s, out, n, p, smem, st);
+  return static_cast<int>(e);
+}
+
+// How many blocks of the kernel repro_tinymatsum would launch for (dtype,
+// is_static, J, K) with ``smem`` bytes of shared memory fit on one SM at once, into
+// *blocks (0 where none fits): the planner's grid, so that every block is
+// resident and the walk over spans is persistent.
+int repro_tinymatsum_blocks_per_sm(int dtype, int is_static, int J, int K, int64_t smem,
+                                   int* blocks) {
+  if ((dtype != 0 && dtype != 1) || J < 1 || K < 1 || smem < 0 ||
+      smem > static_cast<int64_t>(kMaxSmem) || blocks == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (is_static) {
-    e = dtype == 0 ? launch_tiny_static<float>(J, K, o, s, out, n, st)
-                   : launch_tiny_static<__nv_bfloat16>(J, K, o, s, out, n, st);
+  if (dtype == 0) {
+    e = is_static ? tiny_occupancy(static_kernel<float>(J, K), smem, blocks)
+                  : tiny_occupancy(dynamic_kernel<float>(), smem, blocks);
   } else {
-    e = dtype == 0 ? launch_tiny_dynamic<float>(J, K, o, s, out, n, st)
-                   : launch_tiny_dynamic<__nv_bfloat16>(J, K, o, s, out, n, st);
+    e = is_static ? tiny_occupancy(static_kernel<__nv_bfloat16>(J, K), smem, blocks)
+                  : tiny_occupancy(dynamic_kernel<__nv_bfloat16>(), smem, blocks);
   }
   return static_cast<int>(e);
 }
@@ -558,6 +786,13 @@ int repro_matvec(int dtype, int layout, const void* a, const void* x, void* y, v
                  : launch_matvec<__nv_bfloat16>(layout, a, x, y, workspace, I, J, splits,
                                                 cols_per_split, s);
   return static_cast<int>(e);
+}
+
+// Copies up to ``n`` values of kGeometry into ``out``; returns how many it has.
+int repro_geometry(int* out, int n) {
+  constexpr int count = static_cast<int>(sizeof(kGeometry) / sizeof(kGeometry[0]));
+  for (int i = 0; i < n && i < count; ++i) out[i] = kGeometry[i];
+  return count;
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -38,6 +38,7 @@ The ring decode is also held against the reference's ring mask (an f32
 einsum over the absolute positions) with the attention tolerances.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -48,6 +49,7 @@ from repro_torch.core import (
     Extents, LayoutLeft, LayoutRight, MdSpan, QuantizedAccessor, quantize_array,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels import _paper_suite as paper_suite
 from repro_torch.kernels import matvec as tmv
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -360,6 +362,196 @@ def test_tinymatsum_kernels_match_plain(case, static, dtype):
     torch.cuda.synchronize()
     assert fn.launches == n + 1 and got.dtype == dtype
     assert torch.equal(got, ttiny.tinymatsum_torch(o, s))
+
+
+EXTENTS = [(j, k) for j in range(1, 9) for k in range(1, 9)]
+
+
+@pytest.mark.parametrize("jk", EXTENTS, ids=_ids(EXTENTS))
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_tinymatsum_kernels_match_plain_at_every_extent(jk, static, dtype):
+    """Every instantiated (J, K): padded and unpadded stages, the vector form
+    (N J K whole 16-byte chunks) and the scalar one (N 1001: ragged for most
+    extents), each bit-equal to the plain version."""
+    fn = ttiny.tinymatsum_static if static else ttiny.tinymatsum_dynamic
+    for n in (1024, 1001):
+        o, s = _randn((n, *jk), dtype, 4), _randn((n, *jk), dtype, 5)
+        assert torch.equal(fn(o, s), ttiny.tinymatsum_torch(o, s))
+
+
+def _tiny_plan(n, j, k, dtype, static):
+    """plan_tinymatsum for aligned buffers, with the card's SM count and the
+    kernel's occupancy (what the wrappers plan for aligned tensors)."""
+    dev = torch.device("cuda")
+    code, esz = paper_suite.DTYPE_CODE[dtype], torch.tensor([], dtype=dtype).element_size()
+    return ttiny.plan_tinymatsum(
+        n, j, k, esz, True, pa.sm_count(dev),
+        lambda smem: paper_suite.tinymatsum_blocks_per_sm(code, static, j, k, smem, dev))
+
+
+def _tiny_edges(plan):
+    """N on either side of one span, of one wave of blocks, and several waves."""
+    wave = plan.bn * plan.grid
+    return [1, plan.bn - 1, plan.bn, plan.bn + 1, wave - 1, wave, wave + 1, 3 * wave + 5]
+
+
+TINY_EDGE_SHAPES = [(3, 3), (8, 8), (5, 7)]
+
+
+@pytest.mark.parametrize("jk", TINY_EDGE_SHAPES, ids=_ids(TINY_EDGE_SHAPES))
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_tinymatsum_at_span_and_wave_edges(jk, static, dtype):
+    """N at the edges of the HBM-size plan's spans and waves, run with that
+    plan (partial spans, blocks with no span, several spans a block) and with
+    each N's own plan; both bit-equal to the plain version."""
+    fn = ttiny.tinymatsum_static if static else ttiny.tinymatsum_dynamic
+    esz = torch.tensor([], dtype=dtype).element_size()
+    big = _tiny_plan(8_000_000, *jk, dtype, static)
+    for n in _tiny_edges(big):
+        o, s = _randn((n, *jk), dtype, n), _randn((n, *jk), dtype, n + 1)
+        want = ttiny.tinymatsum_torch(o, s)
+        plan = dataclasses.replace(big, vec=big.vec and n * jk[0] * jk[1] * esz % 16 == 0)
+        assert torch.equal(fn(o, s, plan=plan), want), n
+        assert torch.equal(fn(o, s), want), n
+
+
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+def test_tinymatsum_any_grid(static):
+    """One block and a few, walking many spans each, in the scalar and the
+    vector form."""
+    fn = ttiny.tinymatsum_static if static else ttiny.tinymatsum_dynamic
+    o, s = _randn((10_007, 4, 4), torch.float32, 11), _randn((10_007, 4, 4), torch.float32, 12)
+    want = ttiny.tinymatsum_torch(o, s)
+    base = ttiny.plan_tinymatsum(10_007, 4, 4, 4, True, 1, lambda smem: 1)
+    for grid in (1, 3):
+        plan = dataclasses.replace(base, grid=grid, vec=False)
+        assert torch.equal(fn(o, s, plan=plan), want)
+    o, s = o[:10_000], s[:10_000]
+    for grid in (1, 3):
+        plan = dataclasses.replace(base, grid=grid)
+        assert torch.equal(fn(o, s, plan=plan), ttiny.tinymatsum_torch(o, s))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_tinymatsum_grid_is_the_resident_blocks(dtype):
+    """The library's occupancy query answers for every instantiation at its
+    plan's shared memory (the dynamic kernel past 48 KB too, after its
+    opt-in), and the wrappers' plan launches no more blocks than fit on the
+    card at once."""
+    dev = torch.device("cuda")
+    code, esz = paper_suite.DTYPE_CODE[dtype], torch.tensor([], dtype=dtype).element_size()
+    sms = pa.sm_count(dev)
+    for j, k in EXTENTS:
+        for static in (True, False):
+            plan = _tiny_plan(8_000_000, j, k, dtype, static)
+            smem = ttiny.stage_bytes(j, k, esz, plan.bn)
+            assert paper_suite.tinymatsum_blocks_per_sm(code, static, j, k, smem, dev) >= 1
+    assert paper_suite.tinymatsum_blocks_per_sm(code, False, 100, 100, 80_032, dev) >= 1
+    assert paper_suite.tinymatsum_blocks_per_sm(code, False, 200, 200, 0, dev) >= 1
+    o = _randn((8_000_000, 3, 3), dtype, 18)
+    out = torch.empty_like(o)
+    for static in (True, False):
+        plan = ttiny.plan_for(o, o, out, static)
+        smem = ttiny.stage_bytes(3, 3, esz, plan.bn)
+        resident = paper_suite.tinymatsum_blocks_per_sm(code, static, 3, 3, smem, dev)
+        assert plan.grid == min(-(-8_000_000 // plan.bn), resident * sms)
+
+
+def _offset_view(t, elems):
+    """t's values in a buffer that starts ``elems`` elements into a fresh
+    allocation (off a 16-byte boundary for elems * size % 16 != 0)."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device="cuda")
+    flat[elems:] = t.reshape(-1)
+    return flat[elems:].view(t.shape)
+
+
+# (dtype, elements off): f32 4, 8, 12 bytes off; bf16 2 bytes off
+TINY_OFFSETS = [(torch.float32, 1), (torch.float32, 2), (torch.float32, 3),
+                (torch.bfloat16, 1)]
+
+
+@pytest.mark.parametrize("dt_off", TINY_OFFSETS, ids=["f32+4", "f32+8", "f32+12", "bf16+2"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("which", ["both", "o", "s"])
+def test_tinymatsum_off_16_bytes_takes_the_scalar_form(dt_off, static, which):
+    """Views whose data_ptr lies off 16 bytes plan the scalar staging form,
+    run the kernel (one launch) and give the plain version's bits; a plan
+    that asks for the vector form there is refused."""
+    dtype, off = dt_off
+    fn = ttiny.tinymatsum_static if static else ttiny.tinymatsum_dynamic
+    o, s = _randn((100_000, 3, 3), dtype, 13), _randn((100_000, 3, 3), dtype, 14)
+    if which in ("both", "o"):
+        o = _offset_view(o, off)
+    if which in ("both", "s"):
+        s = _offset_view(s, off)
+    assert (o.data_ptr() % 16 != 0) or (s.data_ptr() % 16 != 0)
+    n = fn.launches
+    got = fn(o, s)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert torch.equal(got, ttiny.tinymatsum_torch(o, s))
+    plan = ttiny.plan_tinymatsum(100_000, 3, 3, o.element_size(), True, 132, lambda smem: 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(o, s, plan=plan)
+
+
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_tinymatsum_two_runs_give_the_same_bits(static, dtype):
+    fn = ttiny.tinymatsum_static if static else ttiny.tinymatsum_dynamic
+    o, s = _randn((1_000_003, 3, 3), dtype, 15), _randn((1_000_003, 3, 3), dtype, 16)
+    first, second = fn(o, s), fn(o, s)
+    assert torch.equal(first, second)
+    assert torch.equal(first, ttiny.tinymatsum_torch(o, s))
+
+
+# (N, J, K, dtype): staged past 48 KB (the opt-in), then unstaged (the fewest
+# whole chunks of both operands pass a block's shared memory)
+TINY_LARGE = [(37, 100, 100, torch.float32), (23, 90, 90, torch.bfloat16),
+              (50, 101, 101, torch.float32), (9, 200, 200, torch.float32),
+              (5, 300, 300, torch.bfloat16), (3, 1, 100_000, torch.float32)]
+
+
+@pytest.mark.parametrize("case", TINY_LARGE, ids=[f"{n}x{j}x{k}" for n, j, k, _ in TINY_LARGE])
+def test_tinymatsum_dynamic_takes_large_matrices(case):
+    """The dynamic kernel at J K past any stage: the opt-in stage where the
+    fewest whole chunks fit, the unstaged form where they do not (aligned
+    and off 16 bytes); one launch each, bit-equal to the plain version."""
+    n, j, k, dtype = case
+    o, s = _randn((n, j, k), dtype, 19), _randn((n, j, k), dtype, 20)
+    esz = o.element_size()
+    unit = 16 // math.gcd(j * k * esz, 16)
+    staged = ttiny.stage_bytes(j, k, esz, unit) <= paper_suite.GEOMETRY["smem_opt_in"]
+    assert (ttiny.plan_for(o, s, o, False).bn == 0) == (not staged)
+    for a, b in ((o, s), (_offset_view(o, 1), _offset_view(s, 1))):
+        before = ttiny.tinymatsum_dynamic.launches
+        got = ttiny.tinymatsum_dynamic(a, b, jmax=j, kmax=k)
+        torch.cuda.synchronize()
+        assert ttiny.tinymatsum_dynamic.launches == before + 1
+        assert torch.equal(got, ttiny.tinymatsum_torch(a, b))
+
+
+def test_tinymatsum_past_2_31_elements():
+    """bf16 (N, 8, 8) with N J K past 2^31 (4.3 GB an operand): the int64
+    offsets; compared with the plain version a slice at a time."""
+    n = (1 << 31) // 64 + 4099
+    g = torch.Generator(device="cuda").manual_seed(17)
+    o = torch.empty(n, 8, 8, dtype=torch.bfloat16, device="cuda")
+    s = torch.empty_like(o)
+    for t in (o, s):
+        for a in range(0, n, 1 << 22):
+            t[a:a + (1 << 22)] = torch.randn(min(1 << 22, n - a), 8, 8, generator=g,
+                                             device="cuda").to(torch.bfloat16)
+    assert o.numel() > 1 << 31
+    for fn in (ttiny.tinymatsum_static, ttiny.tinymatsum_dynamic):
+        got = fn(o, s)
+        for a in range(0, n, 1 << 22):
+            sl = slice(a, a + (1 << 22))
+            assert torch.equal(got[sl], ttiny.tinymatsum_torch(o[sl], s[sl])), (fn.__name__, a)
+        del got
+        torch.cuda.empty_cache()
 
 
 def test_tinymatsum_static_refuses_uninstantiated_extents():
@@ -1235,7 +1427,8 @@ def test_planners_assume_the_kernels_geometry():
     """The tile and warp constants quant_matmul's and the chunk body's
     planners use are the ones the libraries were built with (checked when a
     library loads; a disagreement raises)."""
-    for binding, geometry in ((qmm._LIB, qmm.GEOMETRY), (pa._LIB, pa.GEOMETRY)):
+    for binding, geometry in ((qmm._LIB, qmm.GEOMETRY), (pa._LIB, pa.GEOMETRY),
+                              (paper_suite.LIB, paper_suite.GEOMETRY)):
         _build.check_geometry(binding.name, binding.lib(), geometry)
 
 
