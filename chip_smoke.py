@@ -13,11 +13,13 @@ lines; any failure raises and exits non-zero:
                 then the registers and spills ptxas reported for the bf16
                 tensor-core flash_attention and paged chunk bodies, the
                 split-K decode body (paged pools and dense cache), the split
-                combine, the matvec bodies and quant_matmul's schedules, and
-                the split counts the planners pick for
-                the serve shape, recurrentgemma-2b's ring, qwen2-0.5b's
-                generate cache, the bf16 paged chunk (serve shape, C 5)
-                and matvec_left at 16384^2.
+                combine, the matvec bodies, quant_matmul's schedules and
+                ssd_scan's two kernels, and the split counts the planners
+                pick for the serve shape, recurrentgemma-2b's ring,
+                qwen2-0.5b's generate cache, the bf16 paged chunk (serve
+                shape, C 5) and matvec_left at 16384^2, and ssd_scan's grid
+                at mamba2-780m's B 2 and 4 beside its resident blocks an SM
+                (the library's occupancy query).
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
                 phase's one-row 128-token chunk; the quantized attention over
@@ -47,8 +49,10 @@ lines; any failure raises and exits non-zero:
                 and at the positions around its split plan's first split
                 edges, with and without a window; ssd_scan at mamba2-780m's width
                 (2, 512, 48, 64), N 128, a ragged T 389 and an initial state,
-                and the generate phase's B 4 at T 512 and 389 (tolerance 1e-4 f32, bf16 y one ulp + 1e-4; no library call
-                computes the scan, so its library_ms is null). Then
+                the generate phase's B 4 at T 512 and 389, and T 65 (tolerance
+                1e-4 f32, bf16 y one ulp + 1e-4; device ms beside the dtype's
+                own bound; two runs bit-equal; no library call computes the
+                scan, so its library_ms is null). Then
                 recurrentgemma-2b's: rglru_scan at (2, 2600, 2560) and
                 (2, 2040, 2560), from an initial state too, and two
                 chained halves against one run (1e-5 f32, bf16 one ulp +
@@ -499,9 +503,11 @@ def dense_cache_checks(bw, g):
     the engine's (1, 14, 512, 64), a windowed prefill; decode (8, 14, 1, 64)
     against (8, 2, 288, 64) caches at several positions, one with a window;
     SSD (2, 512, 48, 64) with N 128 (the plain version at chunk 128), a ragged
-    T 389 (plain chunk = T, the model's setting) and an initial state, and the
-    generate phase's own B 4 at T 512 and 389. f32 and bf16. Returns the bf16
-    records at the generate phase's main shapes."""
+    T 389 (plain chunk = T, the model's setting) and an initial state, the
+    generate phase's own B 4 at T 512 and 389, and T 65 (one step past the
+    kernel's 64-step chunk), with device ms and the dtype's own bound (bf16
+    bytes, f32 operations); two runs at B 4 x 512 bit-equal. f32 and bf16.
+    Returns the bf16 records at the generate phase's main shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -557,7 +563,8 @@ def dense_cache_checks(bw, g):
                                                (2, 389, 48, 64, 128, 389, False),
                                                (2, 512, 48, 64, 128, 128, True),
                                                (4, 512, 48, 64, 128, 128, False),
-                                               (4, 389, 48, 64, 128, 389, False)):
+                                               (4, 389, 48, 64, 128, 389, False),
+                                               (1, 65, 48, 64, 128, 65, False)):
             x = rnd(b, t, h, p)
             dt = F.softplus(torch.randn(b, t, h, generator=g, device="cuda"))
             A = -torch.exp(0.3 * torch.randn(h, generator=g, device="cuda"))
@@ -576,7 +583,15 @@ def dense_cache_checks(bw, g):
                 + state_bytes, ssd_flops(b, t, h, p, n), bw,
                 {"b": b, "t": t, "h": h, "p": p, "n": n, "plain_chunk": chunk,
                  "initial_state": initial},
-                tolerance=_scan_tolerance(x.numel(), dtype))
+                tolerance=_scan_tolerance(x.numel(), dtype), device_time=True)
+            if (b, t, initial) == (4, 512, False):
+                run = lambda: ss.ssd_scan(x, dt, A, Bm, Cm, return_final_state=True)
+                (y1, s1), (y2, s2) = run(), run()
+                same = torch.equal(y1, y2) and torch.equal(s1, s2)
+                emit({"phase": "kernels", "kernel": "ssd_scan", "check": "two_runs_bit_equal",
+                      "dtype": str(dtype).split(".")[1], "b": b, "t": t, "ok": same})
+                if not same:
+                    raise AssertionError(f"ssd_scan {dtype}: two runs differ")
             if dtype == torch.bfloat16 and (b, t, initial) == (4, 512, False):
                 main["ssd_scan"] = rec
     return main
@@ -1614,7 +1629,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
     new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite",
-                                       "quant_matmul")
+                                       "quant_matmul", "ssd_scan")
                   for fn, rec in ptxas[name].items()
                   if any(k in fn for k in ("flash_mma_kernel", "split_decode_kernel",
                                            "combine_splits_kernel", "matvec_kernel",
@@ -1624,7 +1639,8 @@ def main() -> int:
                                            "tinymatsum_static_kernel<float, (int)3, (int)3>",
                                            "tinymatsum_static_kernel<float, (int)8, (int)8>",
                                            "tinymatsum_static_kernel<__nv_bfloat16, (int)3",
-                                           "tinymatsum_dynamic_kernel"))}
+                                           "tinymatsum_dynamic_kernel", "cb_kernel",
+                                           "ssd_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1669,6 +1685,12 @@ def main() -> int:
                   f" N 8M 3x3 {str(dt).split('.')[1]}", "sm_count": sms, **vars(plan),
                   "smem": tm.stage_bytes(3, 3, o.element_size(), plan.bn)})
         del o
+    from repro_torch.kernels import ssd_scan as ss
+    for dt in (torch.float32, torch.bfloat16):
+        for b in (2, 4):
+            emit({"phase": "device", "split_plan": f"ssd_scan mamba2-780m B {b} "
+                  f"{str(dt).split('.')[1]}", "sm_count": sms, "blocks": ss.grid_blocks(b, 48, 64),
+                  "resident_blocks_per_sm": ss.blocks_per_sm(dt, 128, torch.device("cuda"))})
     t_phase = {}
     t0 = time.perf_counter()
     main_recs = kernel_phase(bw)

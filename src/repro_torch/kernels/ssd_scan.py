@@ -5,7 +5,8 @@ Port of ``repro.kernels.ssd_scan`` and of the reference's chunked jnp twin:
 
   ssd_torch  <- ops.ssd_jnp (the chunked twin, any ngroups)
   ssd_scan   <- ssd_scan (Pallas, ngroups 1) — launches
-                csrc/ssd_scan.cu::ssd_kernel
+                csrc/ssd_scan.cu::cb_kernel (C . B once per sequence and
+                chunk, into a workspace) then ::ssd_kernel (the scan)
 
 Per head h, with a_t = exp(dt_t * A_h): S_t = a_t S_{t-1} + dt_t x_t B_t^T and
 y_t = C_t . S_t, computed chunk by chunk (an intra-chunk masked product plus
@@ -22,11 +23,13 @@ ragged tail the same way, so it tiles the chunk = t case of a ragged prompt
 rounding only.
 
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
-launches the kernel or raises. Its launches are counted in ``.launches``.
+launches the kernels or raises. Its calls are counted in ``.launches``: one a
+call, the two kernels of the C entry together.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -36,6 +39,10 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 256  # n_state the kernel's shared-memory tiles hold at most
+# csrc/ssd_scan.cu's kGeometry, in its order; the library is checked against
+# it when it loads: the kernel's chunk (the C . B workspace's tile), the
+# columns of P a block takes and its threads.
+GEOMETRY = {"chunk": 64, "p_slice": 32, "threads": 256}
 
 
 # ---------------------------------------------------------------------------------
@@ -87,8 +94,29 @@ def ssd_torch(x, dt, A, B, C, *, chunk: int = 64, initial_state=None,
 # ---------------------------------------------------------------------------------
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _LIB = _build.Binding("ssd_scan", {
-    "repro_ssd_scan": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
-})
+    "repro_ssd_scan": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+    "repro_ssd_blocks_per_sm": [_i, _i, ctypes.POINTER(_i)],  # no stream
+}, geometry=GEOMETRY)
+
+
+def grid_blocks(b: int, h: int, p: int) -> int:
+    """Blocks of the scan kernel for b sequences of h heads of head dim p: one
+    per (sequence, head, GEOMETRY["p_slice"] columns of p)."""
+    return b * h * -(-p // GEOMETRY["p_slice"])
+
+
+@functools.lru_cache(maxsize=64)
+def blocks_per_sm(dtype: torch.dtype, n: int, device: torch.device) -> int:
+    """Blocks of the scan kernel for ``dtype`` and state size n that fit on
+    one SM of ``device`` at once, registers and shared memory included (the
+    library's occupancy query), asked once each."""
+    out = _i(0)
+    with torch.cuda.device(device):
+        rc = _LIB.lib().repro_ssd_blocks_per_sm(_DTYPE_CODE[dtype], n, ctypes.byref(out))
+    if rc != 0:
+        msg = _LIB.lib().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"ssd_scan occupancy query failed: CUDA error {rc} ({msg})")
+    return out.value
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -104,8 +132,9 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state: Optional[torch.Tensor] = None,
              return_final_state: bool = False):
-    """SSD chunked scan, ngroups 1 (kernel: ssd_kernel, one block per
-    (sequence, head, 32 columns of p)). On CUDA: x, B, C one of
+    """SSD chunked scan, ngroups 1 (kernels: cb_kernel, a block per
+    (sequence, 64-step chunk), then ssd_kernel, a block per (sequence, head,
+    GEOMETRY["p_slice"] columns of p)). On CUDA: x, B, C one of
     float32/bfloat16 (B, C in x's dtype), dt, A and the initial state float32,
     all contiguous, n <= MAX_STATE; any t (``chunk`` sets only the plain
     version's chunking, see the module docstring)."""
@@ -133,11 +162,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state: Optional[torch.T
         _check("initial_state", initial_state, (b, h, p, n), torch.float32, dev)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    q = GEOMETRY["chunk"]
+    cb = torch.empty((b, -(-t // q), q, q), dtype=torch.float32, device=dev)  # C . B a chunk
     _LIB.launch(
         "repro_ssd_scan", "ssd_scan",
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), initial_state.data_ptr() if initial_state is not None else None,
-        y.data_ptr(), state.data_ptr(), b, t, h, p, n, device=dev,
+        y.data_ptr(), state.data_ptr(), cb.data_ptr(), b, t, h, p, n, device=dev,
     )
     ssd_scan.launches += 1
     if return_final_state:

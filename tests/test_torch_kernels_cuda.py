@@ -683,9 +683,16 @@ FLASH_MASKS = [(True, None), (True, 24), (False, None)]
 DECODE_DENSE_CASES = [(2, 4, 2, 128, 32), (8, 14, 2, 288, 64), (2, 16, 2, 100, 128)]
 POSITIONS = [0, 31, 57, 127, 287]
 # (b, t, h, p, n): the reference's sweep shapes, a ragged t, a p that is no
-# multiple of the kernel's 32-column slice, and mamba2-780m's width
+# multiple of the kernel's 32-column slice, and mamba2-780m's width; the
+# chunk edges t = 1, 63, 64, 65 at that width; n 256 (MAX_STATE) with p 72
+# (two slices and a ragged third) and n 16; the generate phase's B 2 x 389
+# and B 4 x 512; n 5 and p 7 (rows off 16 bytes: the scalar staging and
+# stores)
 SSD_CASES = [(2, 128, 4, 16, 32), (1, 64, 8, 8, 16), (2, 100, 3, 40, 16), (1, 517, 4, 64, 128),
-             (2, 512, 48, 64, 128)]
+             (2, 512, 48, 64, 128), (1, 1, 48, 64, 128), (1, 63, 48, 64, 128),
+             (1, 64, 48, 64, 128), (1, 65, 48, 64, 128), (1, 130, 4, 72, 256),
+             (2, 150, 6, 48, 16), (2, 389, 48, 64, 128), (4, 512, 48, 64, 128),
+             (2, 77, 3, 7, 5)]
 
 
 def _rand(shape, dtype, seed, scale=1.0):
@@ -863,12 +870,14 @@ def test_flash_decode_takes_any_group_up_to_the_grid_limit():
         fa.flash_decode(big, kc[..., :16].contiguous(), vc[..., :16].contiguous(), 3)
 
 
-def _ssd_inputs(b, t, h, p, n, dtype, seed):
+def _ssd_inputs(b, t, h, p, n, dtype, seed, decay=1.0):
+    """x, dt, A, B, C, s0; ``decay`` > 1 scales dt's spread and |A| up
+    (dt softplus(decay N(0, 1)), A -2 decay e^(0.3 N(0, 1)))."""
     rng = np.random.default_rng(seed)
     f = lambda *s, sc=1.0: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * sc)
     x = f(b, t, h, p, sc=0.5).to("cuda", dtype)
-    dt = torch.nn.functional.softplus(f(b, t, h)).cuda()
-    A = (-torch.exp(f(h, sc=0.3))).cuda()
+    dt = torch.nn.functional.softplus(f(b, t, h, sc=decay)).cuda()
+    A = (-torch.exp(f(h, sc=0.3)) * (2 * decay if decay > 1 else 1.0)).cuda()
     B = f(b, t, 1, n, sc=0.3).to("cuda", dtype)
     C = f(b, t, 1, n, sc=0.3).to("cuda", dtype)
     s0 = f(b, h, p, n, sc=0.5).cuda()
@@ -899,6 +908,78 @@ def test_ssd_scan_kernel_matches_plain(case, initial, dtype):
             torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
         else:
             assert _within_one_bf16_ulp(y, wy, atol=1e-4)
+
+
+def _ssd_close(kernel_out, plain_out, dtype):
+    """The kernel's y and final state against the plain version's: the state
+    rtol/atol 1e-4, y likewise in f32 and within one bf16 ulp + 1e-4 in
+    bf16."""
+    (y, st), (wy, ws) = kernel_out, plain_out
+    torch.testing.assert_close(st, ws, rtol=1e-4, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    else:
+        assert _within_one_bf16_ulp(y, wy, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_strong_decay_underflows_inside_a_chunk(dtype):
+    """dt |A| up to ~45 (mean ~4.5): exp(s) underflows to 0 inside most 64-step
+    chunks, and exp(min(s_t - s_u, 0)) keeps every term finite; against the
+    plain version at chunk 16 and chunk = t, with an initial state."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, s0 = _ssd_inputs(2, 130, 4, 64, 128, dtype, 5, decay=2.0)
+    assert float((dt * -A).max()) > 30
+    got = ss.ssd_scan(x, dt, A, B, C, initial_state=s0, return_final_state=True)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(o.float()).all()) for o in got)
+    for chunk in (16, 130):
+        _ssd_close(got, ss.ssd_torch(x, dt, A, B, C, chunk=chunk, initial_state=s0,
+                                     return_final_state=True), dtype)
+
+
+@pytest.mark.parametrize("case", [(2, 389, 48, 64, 128), (1, 130, 4, 72, 256)],
+                         ids=["mamba2_b2x389", "n256"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_two_runs_give_the_same_bits(case, dtype):
+    """No float atomics: y and the final state are bit-equal from run to run."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, s0 = _ssd_inputs(*case, dtype=dtype, seed=21)
+    y1, s1 = ss.ssd_scan(x, dt, A, B, C, initial_state=s0, return_final_state=True)
+    y2, s2 = ss.ssd_scan(x, dt, A, B, C, initial_state=s0, return_final_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_scan_counts_one_launch_a_call():
+    """The C . B kernel and the scan kernel launch from one C entry: a call
+    counts once, in ssd_scan.launches and in launch_counts()."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, B, C, _ = _ssd_inputs(1, 130, 4, 64, 128, torch.bfloat16, 22)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        ss.ssd_scan(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == 3 and kernels.launch_counts()["ssd_scan"] == 3
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_ssd_scan_grid_fills_the_card_in_one_wave(batch):
+    """At mamba2-780m's width in bf16 (the generate phase's dtype), B 2 and 4:
+    the scan's blocks cover every SM, and all of them are resident at once
+    (the library's occupancy query)."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    dev = torch.device("cuda")
+    sms = pa.sm_count(dev)
+    blocks = ss.grid_blocks(batch, 48, 64)
+    assert sms <= blocks <= ss.blocks_per_sm(torch.bfloat16, 128, dev) * sms
+    assert ss.blocks_per_sm(torch.float32, 128, dev) >= 1
+    assert ss.blocks_per_sm(torch.bfloat16, ss.MAX_STATE, dev) >= 1
+    assert ss.blocks_per_sm(torch.float32, ss.MAX_STATE, dev) >= 1
 
 
 def test_ssd_scan_state_chaining_matches_full_run():
@@ -1425,10 +1506,13 @@ def test_chunk_body_matches_its_tiled_twin(pool):
 
 def test_planners_assume_the_kernels_geometry():
     """The tile and warp constants quant_matmul's and the chunk body's
-    planners use are the ones the libraries were built with (checked when a
-    library loads; a disagreement raises)."""
+    planners use, and ssd_scan's chunk and slice (its workspace and grid),
+    are the ones the libraries were built with (checked when a library
+    loads; a disagreement raises)."""
+    from repro_torch.kernels import ssd_scan as ss
+
     for binding, geometry in ((qmm._LIB, qmm.GEOMETRY), (pa._LIB, pa.GEOMETRY),
-                              (paper_suite.LIB, paper_suite.GEOMETRY)):
+                              (paper_suite.LIB, paper_suite.GEOMETRY), (ss._LIB, ss.GEOMETRY)):
         _build.check_geometry(binding.name, binding.lib(), geometry)
 
 
