@@ -18,8 +18,11 @@ lines; any failure raises and exits non-zero:
                 pick for the serve shape, recurrentgemma-2b's ring,
                 qwen2-0.5b's generate cache, the bf16 paged chunk (serve
                 shape, C 5) and matvec_left at 16384^2, and ssd_scan's grid
-                at mamba2-780m's B 2 and 4 beside its resident blocks an SM
-                (the library's occupancy query).
+                at mamba2-780m's B 2 and 4 and stencil3d's at 96^3 and
+                512^3, each beside its resident blocks an SM (the library's
+                occupancy query), and rglru_scan's at recurrentgemma-2b's
+                (2, *, 2560) (one block a work item of 32 columns);
+                rglru_kernel and stencil3d_kernel join the ptxas lines.
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
                 phase's one-row 128-token chunk; the quantized attention over
@@ -54,10 +57,11 @@ lines; any failure raises and exits non-zero:
                 own bound; two runs bit-equal; no library call computes the
                 scan, so its library_ms is null). Then
                 recurrentgemma-2b's: rglru_scan at (2, 2600, 2560) and
-                (2, 2040, 2560), from an initial state too, and two
-                chained halves against one run (1e-5 f32, bf16 one ulp +
-                1e-5; library_ms null: no single PyTorch call computes a
-                linear recurrence stably); flash_attention at D 256,
+                (2, 2040, 2560), from an initial state too, with device ms,
+                and two chained halves bit-equal to one run (1e-5 f32, bf16
+                one ulp + 1e-5 against the plain version; library_ms null:
+                no single PyTorch call computes a linear recurrence
+                stably); flash_attention at D 256,
                 (2, 10, 2600, 256) vs (2, 1, 2600, 256), window 2048;
                 flash_decode (2, 10, 1, 256) over a (2, 1, 2048, 256)
                 ring before, at and after the wrap, against its plain
@@ -118,10 +122,10 @@ lines; any failure raises and exits non-zero:
                 right and left), each against its plain version at the
                 reference's sizes (96^3, N 100k/200k of 3x3, 2048^2) and at
                 HBM-filling ones (512^3, N 8M, 16384^2), sum3d and
-                tinymatsum in bf16 too, with a library call as yardstick
-                (torch.sum, torch.add, torch.mv, conv3d + pad) and, for sum3d
-                and tinymatsum, device times beside it; sum3d must
-                repeat bit for bit (matvec right and left too), and runs at
+                stencil3d and tinymatsum in bf16 too, with a library call as
+                yardstick (torch.sum, torch.add, torch.mv, conv3d + pad) and,
+                for sum3d, stencil3d and tinymatsum, device times beside it;
+                sum3d must repeat bit for bit (matvec right and left too), and runs at
                 a ragged size too (95x97x99,
                 509x511x513) on inputs of mean 1; tinymatsum also at 8x8 (N
                 1M) and on a view off 16 bytes (N 100k), with a
@@ -662,9 +666,10 @@ def hybrid_checks(bw, g):
     over a full (2, 1, 2048, 256) ring at min(pos, 2047) for positions
     before, at and after the wrap, against its plain version and against the
     reference's ring mask. f32 (rglru 1e-5, attention 2e-5) and bf16 (one
-    ulp + the f32 tolerance). Returns the rglru_scan record of the path's own
-    call (f32 a and b at T 2600: the model computes them in f32 at any
-    dtype); the flash kernels' main records stay qwen2's."""
+    ulp + the f32 tolerance; the chained halves bit-equal, as the kernel
+    runs each column's chain in t order). Returns the rglru_scan record of
+    the path's own call (f32 a and b at T 2600: the model computes them in
+    f32 at any dtype); the flash kernels' main records stay qwen2's."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rs
@@ -686,7 +691,7 @@ def hybrid_checks(bw, g):
                 lambda: flat(*rs.rglru_torch(a, b, h0, return_final_state=True)),
                 None, 3 * a.numel() * esz + B * W * 4 * (2 if initial else 1),
                 2 * a.numel(), bw, {"B": B, "T": t, "W": W, "initial_state": initial},
-                tolerance=_scan_tolerance(a.numel(), dtype, 1e-5))
+                tolerance=_scan_tolerance(a.numel(), dtype, 1e-5), device_time=True)
             if dtype == torch.float32 and (t, initial) == (2600, False):
                 main["rglru_scan"] = rec
             if t == 2600 and not initial:  # two chained halves == one run
@@ -696,7 +701,7 @@ def hybrid_checks(bw, g):
                 y2, h2 = rs.rglru_scan(a[:, t // 2:].contiguous(), b[:, t // 2:].contiguous(),
                                        initial_state=h1, return_final_state=True)
                 got, want = flat(torch.cat([y1, y2], 1), h2), flat(y_full, h_full)
-                ok, tol = _scan_tolerance(a.numel(), dtype, 1e-5)(got, want)
+                ok, tol = _equal(got, want)  # the chain's order: the bits of one run
                 emit({"phase": "kernels", "kernel": "rglru_scan", "check": "chained halves",
                       "dtype": str(dtype).split(".")[1], "B": B, "T": t, "W": W,
                       "max_abs_err": float((got - want).abs().max()), "tolerance": tol,
@@ -815,7 +820,8 @@ def _allclose(rtol, atol):
 
 def _equal(got, want):
     """tinymatsum: the kernels make the plain version's f32 additions and
-    roundings, so the bits must agree."""
+    roundings, so the bits must agree; rglru_scan's chained halves: the
+    kernel's chain in t order gives the bits of one run."""
     return torch.equal(got, want), "torch.equal"
 
 
@@ -862,8 +868,8 @@ def _sum_input(g, *shape, dtype=torch.float32):
 
 def paper_checks(bw, label, g):
     """Each paper-suite kernel against its plain version at one size set
-    (PAPER_SIZES[label]), timed beside it and a library call: sum3d and
-    tinymatsum in f32 and bf16, stencil3d and matvec (both layouts) in f32.
+    (PAPER_SIZES[label]), timed beside it and a library call: sum3d,
+    stencil3d and tinymatsum in f32 and bf16, matvec (both layouts) in f32.
     sum3d must also repeat bit for bit, and is checked at a ragged size too.
     tinymatsum also runs at 8 x 8 (HBM sizes) and on a view off 16 bytes
     (the reference's), with device times and each case's static / dynamic
@@ -899,14 +905,15 @@ def paper_checks(bw, label, g):
               "equal": same})
         if not same:
             raise AssertionError(f"sum3d gave two results on one input: {first} {second}")
+        ones = torch.ones(1, 1, 3, 3, 3, dtype=dtype, device=x.device)
+        rec_st = check_and_time(
+            "stencil3d", dtype, lambda: st.stencil3d(x), lambda: st.stencil3d_torch(x),
+            lambda: F.pad(F.conv3d(x[None, None], ones)[0, 0], (1, 1, 1, 1, 1, 1)),
+            2 * x.numel() * esz, 26 * (n3 - 2) ** 3, bw, case,
+            tolerance=_allclose(1e-4, 1e-4), phase="paper", device_time=True)
         if dtype == torch.float32:
             recs["sum3d"] = rec
-            ones = torch.ones(1, 1, 3, 3, 3, device=x.device)
-            recs["stencil3d"] = check_and_time(
-                "stencil3d", dtype, lambda: st.stencil3d(x), lambda: st.stencil3d_torch(x),
-                lambda: F.pad(F.conv3d(x[None, None], ones)[0, 0], (1, 1, 1, 1, 1, 1)),
-                2 * x.numel() * esz, 26 * (n3 - 2) ** 3, bw, case,
-                tolerance=_allclose(1e-4, 1e-4), phase="paper")
+            recs["stencil3d"] = rec_st
         del x
         for n, jk, off in [(n, TINY_JK, 0) for n in sizes["tiny_n"]] + TINY_EXTRA[label]:
             o, s = _randn(g, n, *jk, dtype=dtype), _randn(g, n, *jk, dtype=dtype)
@@ -1629,7 +1636,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
     new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite",
-                                       "quant_matmul", "ssd_scan")
+                                       "quant_matmul", "ssd_scan", "rglru_scan")
                   for fn, rec in ptxas[name].items()
                   if any(k in fn for k in ("flash_mma_kernel", "split_decode_kernel",
                                            "combine_splits_kernel", "matvec_kernel",
@@ -1640,7 +1647,8 @@ def main() -> int:
                                            "tinymatsum_static_kernel<float, (int)8, (int)8>",
                                            "tinymatsum_static_kernel<__nv_bfloat16, (int)3",
                                            "tinymatsum_dynamic_kernel", "cb_kernel",
-                                           "ssd_kernel"))}
+                                           "ssd_kernel", "rglru_kernel",
+                                           "stencil3d_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1691,6 +1699,22 @@ def main() -> int:
             emit({"phase": "device", "split_plan": f"ssd_scan mamba2-780m B {b} "
                   f"{str(dt).split('.')[1]}", "sm_count": sms, "blocks": ss.grid_blocks(b, 48, 64),
                   "resident_blocks_per_sm": ss.blocks_per_sm(dt, 128, torch.device("cuda"))})
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import stencil3d as st
+    for dt in (torch.float32, torch.bfloat16):
+        name, esz = str(dt).split(".")[1], torch.tensor([], dtype=dt).element_size()
+        g = rs.GEOMETRY
+        emit({"phase": "device", "split_plan": f"rglru_scan recurrentgemma-2b (2, *, 2560) {name}",
+              "sm_count": sms, "grid": 2 * -(-2560 // g["columns"]),
+              "ring_bytes": g["stages"] * 2 * g["steps"] * g["columns"] * esz, **g})
+        for n3 in (PAPER_SIZES["reference"]["cube"], PAPER_SIZES["hbm"]["cube"]):
+            x = torch.empty(n3, n3, n3, dtype=dt, device="cuda")
+            plan = st.plan_for(x)
+            emit({"phase": "device", "split_plan": f"stencil3d {n3}^3 {name}", "sm_count": sms,
+                  "grid": [plan.tiles_k, plan.tiles_j, plan.runs], "blocks": plan.blocks,
+                  "run": plan.run, "resident_blocks_per_sm":
+                  st.stencil3d_blocks_per_sm(st.DTYPE_CODE[dt], x.device)})
+            del x
     t_phase = {}
     t0 = time.perf_counter()
     main_recs = kernel_phase(bw)

@@ -1,10 +1,10 @@
-// Helpers the port's kernels share (included by paged_attention.cu,
-// flash_attention.cu, quant_matmul.cu and ssd_scan.cu; kernels/_build.py
-// hashes every header under csrc/ into each library's name, so an edit here
-// rebuilds them all): f32 conversions, warp reductions, the f32 K/V tile
-// stage and the online-softmax tile update, the tensor-core and cp.async
-// pieces of the bf16 bodies (mma.sync m16n8k16, ldmatrix, the hi + lo split
-// of an f32 pair), integer-to-float conversion, the log-sum-exp combine of
+// Helpers the port's kernels share (included by every source under csrc/;
+// kernels/_build.py hashes every header under csrc/ into each library's name,
+// so an edit here rebuilds them all): f32 conversions, warp reductions, the
+// f32 K/V tile stage and the online-softmax tile update, the tensor-core and
+// cp.async pieces of the bf16 bodies and the staged kernels (mma.sync
+// m16n8k16, ldmatrix, 16-, 8- and 4-byte copies, the hi + lo split of an f32
+// pair), integer-to-float conversion, the log-sum-exp combine of
 // split-K partials, and the dynamic shared-memory opt-in.
 #pragma once
 
@@ -132,6 +132,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 // 8 bytes global -> shared (rows shorter than 16 bytes); ``bytes`` 0 fills zeros
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes global -> shared (single f32 values, bf16 pairs); ``bytes`` 0 fills zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }

@@ -21,9 +21,18 @@
 //               partial per block, then a one-block second pass over the
 //               partials in a fixed order. No float atomics: the grid depends
 //               on the size only, so repeated runs are bit-identical.
-//   Stencil3D   one thread per output element reading its 27 neighbours,
-//               summed in f32 in the plain version's order (di, dj, dk);
-//               interior only, the boundary (and I, J or K < 3) gives 0.
+//   Stencil3D   each output sums its 27 neighbours from 0 in f32 in the
+//               plain version's order (di, dj, dk); interior only, the
+//               boundary (and I, J or K < 3) gives 0. A block owns a
+//               kStJ x kStK tile of (j, k) and walks a run of i-planes; each
+//               input plane's (kStJ + 2) x (kStK + 2) window lands in a ring
+//               of kStPlanes planes in shared memory, kStPlanes - 1 planes
+//               ahead (cp.async), and each thread keeps the neighbourhoods
+//               of its kStRows outputs of three planes in registers,
+//               reading (kStRows + 2) x 3 values a plane from shared memory
+//               instead of 27 an output from L1. Loads are reused, never
+//               partial sums: a separable or running sum would round
+//               differently (below, at the Stencil3D section).
 //   TinyMatSum  one body, tinymatsum_body<T, Ext>, templated on an extents
 //               policy: StaticJK<J, K> (the card's extents<3, 3>: J and K are
 //               template arguments, the per-matrix loops unroll and every
@@ -111,26 +120,199 @@ sum_partials_kernel(const float* __restrict__ partials, int nparts, float* __res
 }
 
 // ---- Stencil3D --------------------------------------------------------------
-// Block: 32 consecutive k by 8 consecutive j of one i-plane.
+// A block owns the tile j0 .. j0 + kStJ - 1, k0 .. k0 + kStK - 1 (a thread a
+// k, kStRows consecutive j-rows each) and the run of output planes
+// i0 .. i0 + run - 1 (blockIdx: k-tile, j-tile, run; the wrapper's
+// plan_stencil3d picks run). Its interior planes ib .. ie - 1 (0 and I - 1
+// excluded) need input planes ib - 1 .. ie; each is staged as the window
+// j0 - 1 .. j0 + kStJ, k0 - 1 .. k0 + kStK (cells outside the array as zeros:
+// only boundary outputs, which are 0, would read them). A staged row keeps
+// the body on 16 bytes: the body at kPad (the elements in 16 bytes), the halo
+// at kPad - 1 and kPad + kStK. With ``vec`` (x on 16 bytes, K * sizeof(T) a
+// multiple of 16: the entry point checks) the body goes by 16-byte cp.async and each halo by one
+// 4-byte cp.async (f32: the value; bf16: the aligned pair that holds it),
+// each thread's copies fixed for the run but for the plane's offset;
+// otherwise by plain loads. Plane n is read after the copies of plane
+// n + kStPlanes - 1 are issued, so kStPlanes - 1 planes are in flight.
+//
+// What bounds it: the bytes (x read once, out written once), and in bf16 the
+// additions come close: an output is 27 dependent f32 additions whatever the
+// schedule (the order is fixed); what the schedule decides is the rest. A thread keeps its (kStRows + 2) x 3
+// values of each of three planes in registers, reads (kStRows + 2) x 3 new
+// values a plane from shared memory (4.5 an output at kStRows 4, against 27
+// loads from L1 one output a thread), sums its kStRows outputs side by side
+// (independent chains), and the plane loop is unrolled by three so that the
+// window rotates by renaming, not by moves. The tile is wide in k (a staged
+// row is 256 bytes in f32) and one block holds few threads, so that several
+// blocks share an SM: scripts/time_rglru_stencil.py --variants times the
+// alternatives.
+constexpr int kStJ = 8;          // j-rows of a tile
+constexpr int kStK = 64;         // k of a tile: a thread each (two warps a row group)
+constexpr int kStRows = 4;       // consecutive j-rows a thread
+constexpr int kStPlanes = 4;     // planes of the ring (>= 2)
+constexpr int kStRun = 32;       // output planes of a run at most (the planner's ceiling)
+constexpr int kStThreads = kStJ / kStRows * kStK;
+constexpr int kStMaxGridYZ = 65535;
+static_assert(kStJ % kStRows == 0, "whole rows a thread");
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stencil3d_kernel(const T* __restrict__ x, T* __restrict__ out, int I, int J, int K) {
-  const int k = blockIdx.x * 32 + (threadIdx.x & 31);
-  const int j = blockIdx.y * 8 + (threadIdx.x >> 5);
-  const int i = blockIdx.z;
-  if (j >= J || k >= K) return;
-  const int64_t jk = static_cast<int64_t>(J) * K;
-  const int64_t o = i * jk + static_cast<int64_t>(j) * K + k;
-  float acc = 0.f;
-  if (i > 0 && i < I - 1 && j > 0 && j < J - 1 && k > 0 && k < K - 1) {
-#pragma unroll
-    for (int di = -1; di <= 1; ++di)
-#pragma unroll
-      for (int dj = -1; dj <= 1; ++dj)
-#pragma unroll
-        for (int dk = -1; dk <= 1; ++dk) acc += to_f32(x[o + di * jk + dj * K + dk]);
+struct StencilStage {
+  static constexpr int kPad = 16 / static_cast<int>(sizeof(T));  // elements in 16 bytes
+  static constexpr int kLD = 2 * kPad + kStK;                     // a staged row
+  static constexpr int kRows = kStJ + 2;
+  static constexpr int kPlane = kRows * kLD;
+  static constexpr int kChunks = kStK / kPad;               // 16-byte copies a row body
+  static constexpr int kCopies = kRows * kChunks + 2 * kRows;  // a plane's copies (vec)
+  static constexpr int kMine = (kCopies + kStThreads - 1) / kStThreads;  // a thread's
+};
+
+// One cp.async of each staged plane, fixed for the block: ``src`` the offset
+// in a plane of x (-1: a cell outside the array, zero-filled), ``dst`` in a
+// plane of the ring (-1: none), 16 or 4 bytes.
+struct StencilCopy {
+  int64_t src;
+  int dst;
+  bool wide;
+};
+
+template <typename T>
+__device__ __forceinline__ StencilCopy stencil_copy(int c, int j0, int k0, int J, int K) {
+  using S = StencilStage<T>;
+  if (c >= S::kCopies) return {-1, -1, false};
+  if (c < S::kRows * S::kChunks) {  // body: K * sizeof(T) % 16 == 0, a chunk is in or out
+    const int r = c / S::kChunks, col = (c - r * S::kChunks) * S::kPad;
+    const int jr = j0 - 1 + r, kc = k0 + col;
+    const bool ok = jr >= 0 && jr < J && kc < K;
+    return {ok ? static_cast<int64_t>(jr) * K + kc : -1, r * S::kLD + S::kPad + col, true};
   }
-  out[o] = from_f32<T>(acc);
+  // halo: f32 the value, bf16 the 4-byte pair that holds it (in the value's
+  // row: K is a multiple of 8); ``lo`` elements of the copy precede the value
+  const int h = c - S::kRows * S::kChunks, r = h >> 1, right = h & 1;
+  const int lo = static_cast<int>(4 / sizeof(T)) - 1;
+  const int jr = j0 - 1 + r, kc = right ? k0 + kStK : k0 - 1 - lo;
+  const bool ok = jr >= 0 && jr < J && kc >= 0 && kc + lo < K;
+  return {ok ? static_cast<int64_t>(jr) * K + kc : -1,
+          r * S::kLD + (right ? S::kPad + kStK : S::kPad - 1 - lo), false};
+}
+
+// Stage input plane p into ``dst`` (a plane of the ring).
+template <typename T>
+__device__ __forceinline__ void stencil_stage(const T* __restrict__ x, T* dst, int p,
+                                              const StencilCopy (&mine)[StencilStage<T>::kMine],
+                                              int j0, int k0, int J, int K, bool vec) {
+  using S = StencilStage<T>;
+  const int64_t base = static_cast<int64_t>(p) * J * K;
+  if (vec) {
+#pragma unroll
+    for (int m = 0; m < S::kMine; ++m) {
+      const StencilCopy& c = mine[m];
+      if (c.dst < 0) continue;
+      const T* src = c.src >= 0 ? x + base + c.src : x;
+      if (c.wide) {
+        cp_async16(dst + c.dst, src, c.src >= 0 ? 16 : 0);
+      } else {
+        cp_async4(dst + c.dst, src, c.src >= 0 ? 4 : 0);
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < S::kRows * (kStK + 2); e += kStThreads) {
+    const int r = e / (kStK + 2), c = e - r * (kStK + 2) - 1;  // c in -1 .. kStK
+    const int jr = j0 - 1 + r, kc = k0 + c;
+    dst[r * S::kLD + S::kPad + c] = jr >= 0 && jr < J && kc >= 0 && kc < K
+                                        ? x[base + static_cast<int64_t>(jr) * K + kc]
+                                        : from_f32<T>(0.f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStThreads)
+stencil3d_kernel(const T* __restrict__ x, T* __restrict__ out, int I, int J, int K, int run,
+                 bool vec) {
+  using S = StencilStage<T>;
+  constexpr int W = kStRows + 2;  // staged rows a thread reads
+  __shared__ __align__(16) T ring[kStPlanes * S::kPlane];
+  const int kk = threadIdx.x % kStK, jt = threadIdx.x / kStK * kStRows;
+  const int k0 = blockIdx.x * kStK, j0 = blockIdx.y * kStJ;
+  const int i0 = blockIdx.z * run, i1 = min(i0 + run, I);
+  const int k = k0 + kk;
+  const int64_t jk = static_cast<int64_t>(J) * K;
+  T* op = out + static_cast<int64_t>(j0 + jt) * K + k;
+  bool in[kStRows], inner[kStRows];
+#pragma unroll
+  for (int q = 0; q < kStRows; ++q) {
+    const int j = j0 + jt + q;
+    in[q] = j < J && k < K;
+    inner[q] = j > 0 && j < J - 1 && k > 0 && k < K - 1;
+    if (in[q]) {  // the run's boundary planes
+      if (i0 == 0) op[q * K] = from_f32<T>(0.f);
+      if (I > 1 && I - 1 >= i0 && I - 1 < i1) op[q * K + (I - 1) * jk] = from_f32<T>(0.f);
+    }
+  }
+  const int ib = max(i0, 1), ie = min(i1, I - 1);
+  if (ib >= ie) return;
+  const int n_in = ie - ib + 2;  // staged planes ib - 1 .. ie
+  StencilCopy mine[S::kMine];
+#pragma unroll
+  for (int m = 0; m < S::kMine; ++m)
+    mine[m] = stencil_copy<T>(threadIdx.x + m * kStThreads, j0, k0, J, K);
+#pragma unroll
+  for (int n = 0; n < kStPlanes - 1; ++n) {
+    if (n < n_in) stencil_stage(x, ring + n * S::kPlane, ib - 1 + n, mine, j0, k0, J, K, vec);
+    cp_async_commit();
+  }
+  // Plane n: wait for it, issue plane n + kStPlanes - 1, read the thread's
+  // W x 3 values of it into ``cur`` and, from n 2 on, write output plane
+  // ib + n - 2 = the sum over (older, mid, cur) in the order (di, dj, dk).
+  auto plane = [&](int n, const float (&older)[W][3], const float (&mid)[W][3],
+                   float (&cur)[W][3]) {
+    cp_async_wait<kStPlanes - 2>();
+    __syncthreads();  // plane n landed; every thread is done with plane n - 1's slot
+    const int ahead = n + kStPlanes - 1;
+    if (ahead < n_in)
+      stencil_stage(x, ring + (ahead % kStPlanes) * S::kPlane, ib - 1 + ahead, mine, j0, k0, J,
+                    K, vec);
+    cp_async_commit();
+    const T* sp = ring + (n % kStPlanes) * S::kPlane + jt * S::kLD + S::kPad - 1 + kk;
+#pragma unroll
+    for (int r = 0; r < W; ++r)
+#pragma unroll
+      for (int dk = 0; dk < 3; ++dk) cur[r][dk] = to_f32(sp[r * S::kLD + dk]);
+    if (n < 2) return;
+    // the kStRows sums side by side (independent chains), each in the order
+    // (di, dj, dk); a boundary output takes 0 instead
+    float acc[kStRows];
+#pragma unroll
+    for (int q = 0; q < kStRows; ++q) acc[q] = 0.f;
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+      for (int dk = 0; dk < 3; ++dk)
+#pragma unroll
+        for (int q = 0; q < kStRows; ++q) acc[q] += older[q + dj][dk];
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+      for (int dk = 0; dk < 3; ++dk)
+#pragma unroll
+        for (int q = 0; q < kStRows; ++q) acc[q] += mid[q + dj][dk];
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+      for (int dk = 0; dk < 3; ++dk)
+#pragma unroll
+        for (int q = 0; q < kStRows; ++q) acc[q] += cur[q + dj][dk];
+    T* o = op + (ib - 2 + n) * jk;
+#pragma unroll
+    for (int q = 0; q < kStRows; ++q)
+      if (in[q]) o[q * K] = from_f32<T>(inner[q] ? acc[q] : 0.f);
+  };
+  float wa[W][3], wb[W][3], wc[W][3];  // the window's three planes, rotated by name
+  for (int n = 0; n < n_in; n += 3) {
+    plane(n, wb, wc, wa);
+    if (n + 1 < n_in) plane(n + 1, wc, wa, wb);
+    if (n + 2 < n_in) plane(n + 2, wa, wb, wc);
+  }
 }
 
 // ---- TinyMatrixSum ----------------------------------------------------------
@@ -530,10 +712,13 @@ cudaError_t launch_sum3d(const void* x, int64_t n, void* partials, int max_block
 }
 
 template <typename T>
-cudaError_t launch_stencil3d(const void* x, void* out, int I, int J, int K, cudaStream_t st) {
-  const dim3 grid((K + 31) / 32, (J + 7) / 8, I);
-  stencil3d_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(x), static_cast<T*>(out),
-                                                 I, J, K);
+cudaError_t launch_stencil3d(const void* x, void* out, int I, int J, int K, int run, bool vec,
+                             cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((static_cast<int64_t>(K) + kStK - 1) / kStK),
+                  static_cast<unsigned>((static_cast<int64_t>(J) + kStJ - 1) / kStJ),
+                  static_cast<unsigned>((static_cast<int64_t>(I) + run - 1) / run));
+  stencil3d_kernel<T><<<grid, kStThreads, 0, st>>>(static_cast<const T*>(x),
+                                                   static_cast<T*>(out), I, J, K, run, vec);
   return cudaGetLastError();
 }
 
@@ -671,12 +856,14 @@ cudaError_t launch_matvec(int layout, const void* a, const void* x, void* y, voi
 
 // What _paper_suite.py's GEOMETRY assumes of this file, in its order:
 // threads a block, the shared memory a block gets without opting in and with
-// it, the static kernel's largest J and
-// K, and tiny_stride at two shapes (8 x 8 f32, 4 x 4 bf16: padded) and one
-// (3 x 3 f32: not) that the planner's copy of it must match.
+// it, the static kernel's largest J and K, tiny_stride at two shapes (8 x 8
+// f32, 4 x 4 bf16: padded) and one (3 x 3 f32: not) that the planner's copy
+// of it must match; then the stencil's tile (j, k), its j-rows a thread, its
+// longest run, the planes of its ring and its threads a block.
 constexpr int kGeometry[] = {kThreads, 48 * 1024, static_cast<int>(kMaxSmem),
                              kMaxTiny, tiny_stride(64, 4), tiny_stride(16, 2),
-                             tiny_stride(9, 4)};
+                             tiny_stride(9, 4), kStJ, kStK, kStRows, kStRun, kStPlanes,
+                             kStThreads};
 
 }  // namespace
 
@@ -701,16 +888,43 @@ int repro_sum3d(int dtype, const void* x, int64_t n, void* partials, int max_blo
   return static_cast<int>(e);
 }
 
-// out (I, J, K) = the 27-point box sum of x on the interior, 0 elsewhere.
-int repro_stencil3d(int dtype, const void* x, void* out, int I, int J, int K, void* stream) {
-  if ((dtype != 0 && dtype != 1) || I < 1 || J < 1 || K < 1 || I > 65535 || J > 8 * 65535) {
+// out (I, J, K) = the 27-point box sum of x on the interior, 0 elsewhere. The
+// plan (stencil3d.py's plan_stencil3d): ``run`` output planes a block (1 ..
+// kStRun), so the grid is (ceil(K / kStK), ceil(J / kStJ), ceil(I / run)),
+// its y and z at most kStMaxGridYZ. The staging takes the 16-byte copies
+// where x lies on 16 bytes and K * sizeof(T) is a multiple of 16, plain loads
+// elsewhere.
+int repro_stencil3d(int dtype, const void* x, void* out, int I, int J, int K, int run,
+                    void* stream) {
+  if ((dtype != 0 && dtype != 1) || I < 1 || J < 1 || K < 1 || run < 1 || run > kStRun ||
+      (static_cast<int64_t>(J) + kStJ - 1) / kStJ > kStMaxGridYZ ||
+      (static_cast<int64_t>(I) + run - 1) / run > kStMaxGridYZ) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int esize = dtype == 0 ? 4 : 2;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   static_cast<int64_t>(K) * esize % 16 == 0;
+  (void)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = dtype == 0 ? launch_stencil3d<float>(x, out, I, J, K, run, vec, s)
+                                   : launch_stencil3d<__nv_bfloat16>(x, out, I, J, K, run, vec, s);
+  return static_cast<int>(e);
+}
+
+// Blocks of the stencil kernel for ``dtype`` that fit on one SM at once
+// (registers and the ring), into *blocks: the planner's count of resident
+// blocks, from which it picks the run length.
+int repro_stencil3d_blocks_per_sm(int dtype, int* blocks) {
+  if ((dtype != 0 && dtype != 1) || blocks == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dtype == 0 ? launch_stencil3d<float>(x, out, I, J, K, s)
-                                   : launch_stencil3d<__nv_bfloat16>(x, out, I, J, K, s);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      dtype == 0
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, stencil3d_kernel<float>,
+                                                          kStThreads, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, stencil3d_kernel<__nv_bfloat16>,
+                                                          kStThreads, 0));
 }
 
 // out = o + s over n (J, K) matrices; is_static picks the kernel with J and K

@@ -13,6 +13,12 @@ as in the reference); an optional f32 initial state (B, W). Returns y (B, T,
 W) in a's dtype [and the f32 final state (B, W)]. Any T: the Pallas kernel's
 ``T % chunk == 0`` has no counterpart, so no padding is needed.
 
+The kernel runs the recurrence as a sequential chain, one lane a column, in
+t order (so two chained halves give the bits of one run), and keeps a ring of
+stages of a and b in shared memory full from other warps, so the chain never
+waits on device memory (the source's header). A block owns GEOMETRY["columns"]
+columns of one sequence; the library launches one block for each.
+
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
 launches the kernel or raises. Its launches are counted in ``.launches``.
 """
@@ -26,6 +32,10 @@ import torch
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/rglru_scan.cu's kGeometry, in its order; the library is checked against
+# it when it loads: the columns of a work item (one chain lane each), the time
+# steps of a stage, the stages of the ring and the threads of a block.
+GEOMETRY = {"columns": 32, "steps": 32, "stages": 4, "threads": 96}
 
 
 # ---------------------------------------------------------------------------------
@@ -84,15 +94,16 @@ def rglru_torch(a, b, initial_state: Optional[torch.Tensor] = None,
 # ---------------------------------------------------------------------------------
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _LIB = _build.Binding("rglru_scan", {
-    "repro_rglru_scan": [_i, _p, _p, _p, _p, _p, _i, _i, _i],
-})
+    "repro_rglru_scan": [_i, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+}, geometry=GEOMETRY)
 
 
 def rglru_scan(a, b, *, initial_state: Optional[torch.Tensor] = None,
                return_final_state: bool = False):
-    """The recurrence (kernel: rglru_kernel, one thread per (b, w) column).
-    On CUDA: a and b contiguous, one of float32/bfloat16 (b in a's dtype), the
-    initial state float32 (B, W) and contiguous; any T."""
+    """The recurrence (kernel: rglru_kernel, a chain lane per column fed by a
+    ring of staged steps). On CUDA: a
+    and b contiguous, one of float32/bfloat16 (b in a's dtype), the initial
+    state float32 (B, W) and contiguous; any T."""
     if a.device.type == "cpu":
         return rglru_torch(a, b, initial_state, return_final_state)
     if a.device.type != "cuda":

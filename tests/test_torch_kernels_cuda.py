@@ -15,7 +15,10 @@ block and split unevenly, int8 and int4, over a q one byte off 16 too, and
 the bf16 tensor-core chunk body over dense, int8 and int4 pools at every
 head dim (cursor 0, one page, tiles across pages of different scales, C 5,
 128, 256), over pools off 16 bytes, against its tiled twin, two runs
-bit-identical.
+bit-identical; rglru_scan at its ring's stage edges, off 16 bytes and on
+grids that walk many work items (chained halves and every form bit-equal),
+and stencil3d's staged planes at 512^3, any run length, K off 16 bytes and
+the grid's reach.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -346,6 +349,92 @@ def test_stencil3d_kernel_matches_plain(shape, dtype):
     assert torch.equal(got, tst.stencil3d_torch(x))
     if min(shape) < 3:
         assert not got.any()
+
+
+# The redesigned kernel's edges: the paper's HBM size; I no multiple of the
+# planned run (150 = 4 x 32 + 22); J and K no multiples of the 8 x 64 tile,
+# K off 16 bytes (65, 131: the plain-load staging) and on them (68, 72)
+STENCIL_EDGE_SHAPES = [(512, 512, 512), (150, 512, 512), (9, 37, 65), (6, 19, 131),
+                       (11, 45, 68), (5, 50, 72), (70, 3, 33)]
+
+
+@pytest.mark.parametrize("shape", STENCIL_EDGE_SHAPES, ids=_ids(STENCIL_EDGE_SHAPES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_stencil3d_edges_are_equal_to_plain(shape, dtype):
+    x = _randn(shape, dtype, 5)
+    plan = tst.plan_for(x)
+    n = tst.stencil3d.launches
+    got = tst.stencil3d(x)
+    torch.cuda.synchronize()
+    assert tst.stencil3d.launches == n + 1
+    assert torch.equal(got, tst.stencil3d_torch(x))
+    if shape == (150, 512, 512):
+        assert plan.run == tst.MAX_RUN and 150 % plan.run != 0
+
+
+def _stencil_raw(x, run):
+    """The kernel through its C entry with an explicit run length."""
+    out = torch.empty_like(x)
+    i, j, k = x.shape
+    paper_suite.launch("repro_stencil3d", "stencil3d", paper_suite.DTYPE_CODE[x.dtype],
+                       x.data_ptr(), out.data_ptr(), i, j, k, run, device=x.device)
+    return out
+
+
+@pytest.mark.parametrize("run", [1, 2, 7, tst.MAX_RUN])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_stencil3d_any_run_length_is_equal_to_plain(run, dtype):
+    """Runs of one plane, of a few, and of the longest, over an I that none
+    divides, on 16 bytes (the 16-byte copies) and on a view off them (plain
+    loads): one result."""
+    x = _randn((67, 40, 96), dtype, 6)
+    want = tst.stencil3d_torch(x)
+    v = _offset_view(x, 1)
+    assert v.data_ptr() % 16 != 0
+    assert torch.equal(_stencil_raw(x, run), want) and torch.equal(_stencil_raw(v, run), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_stencil3d_off_16_bytes_and_two_runs_give_the_same_bits(dtype):
+    """A view off 16 bytes stages with plain loads and gives the plain
+    version's bits; two runs are bit-equal."""
+    x = _randn((33, 40, 96), dtype, 7)
+    v = _offset_view(x, 1)
+    assert v.data_ptr() % 16 != 0
+    got = tst.stencil3d(v)
+    assert torch.equal(got, tst.stencil3d_torch(x)) and torch.equal(tst.stencil3d(v), got)
+    assert torch.equal(tst.stencil3d(x), tst.stencil3d(x))
+
+
+def test_stencil3d_grid_reach():
+    """The grid's y (J / TILE_J tiles) and z (I / MAX_RUN runs) end at 65535:
+    at the edge the kernel runs, past it the wrapper refuses."""
+    assert tst.MAX_I == tst.MAX_RUN * 65535 and tst.MAX_J == tst.TILE_J * 65535
+    for shape in ((tst.MAX_I, 1, 1), (1, tst.MAX_J, 1), (3, tst.MAX_J, 3)):
+        x = torch.ones(shape, device="cuda")
+        assert torch.equal(tst.stencil3d(x), tst.stencil3d_torch(x))
+    for shape in ((tst.MAX_I + 1, 1, 1), (1, tst.MAX_J + 1, 1)):
+        with pytest.raises(ValueError, match="grid covers"):
+            tst.stencil3d(torch.ones(shape, device="cuda"))
+    with pytest.raises(RuntimeError, match="launch failed"):  # the C entry's own check
+        _stencil_raw(torch.ones((tst.MAX_I + 1, 1, 1), device="cuda"), tst.MAX_RUN)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_stencil3d_plan_fills_the_card(dtype):
+    """512^3: runs of MAX_RUN planes, more blocks than the card holds at once; 96^3
+    (the reference's): runs shortened to the shortest whose blocks fit the
+    resident slots (the library's occupancy query) at once, more blocks than
+    SMs."""
+    dev = torch.device("cuda")
+    resident = paper_suite.stencil3d_blocks_per_sm(paper_suite.DTYPE_CODE[dtype], dev)
+    slots = resident * pa.sm_count(dev)
+    assert resident >= 1
+    big = tst.plan_for(torch.empty(512, 512, 512, dtype=dtype, device=dev))
+    assert big.run == tst.MAX_RUN and big.blocks >= slots
+    small = tst.plan_for(torch.empty(96, 96, 96, dtype=dtype, device=dev))
+    assert small.run < tst.MAX_RUN and pa.sm_count(dev) < small.blocks <= slots
 
 
 TINY_CASES = [(1, 1, 1), (10, 3, 3), (513, 5, 7), (70001, 8, 8), (257, 1, 8), (100, 8, 1)]
@@ -1121,6 +1210,75 @@ def test_ops_rglru_scan_launches_the_kernel(impl):
         assert kernels.launch_counts()["rglru_scan"] == want
 
 
+# The staged chain's edges (a stage is 32 steps of 32 columns): recurrentgemma-
+# 2b's prompts; T 1, 31, 32, 33 and 5 (shorter than a stage); W no multiple of
+# 32 (40, 2561: in bf16 2561 leaves every row off 16 bytes, so the ring takes
+# plain loads); bf16 W odd (33); B 1 (8 blocks, under the SM count); B x W
+# past what the card holds at once (4096 blocks, one a work item: several waves)
+RGLRU_EDGE_CASES = [(2, 2600, 2560), (2, 2040, 2560), (2, 1, 64), (2, 31, 64), (2, 32, 64),
+                    (2, 33, 64), (3, 5, 96), (2, 70, 40), (1, 45, 2561), (2, 40, 33),
+                    (1, 64, 256), (8, 40, 16384)]
+
+
+@pytest.mark.parametrize("case", RGLRU_EDGE_CASES, ids=_ids(RGLRU_EDGE_CASES))
+@pytest.mark.parametrize("initial", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_stage_edges_match_plain(case, initial, dtype):
+    """The kernel against the plain scan at the ring's edges, with the
+    existing test's tolerance (f32 1e-5; bf16 y one ulp + 1e-5)."""
+    from repro_torch.kernels import rglru_scan as rs
+
+    a, b, h0 = _rglru_inputs(*case, dtype=dtype, seed=sum(case) + 1)
+    init = h0 if initial else None
+    y, hf = rs.rglru_scan(a, b, initial_state=init, return_final_state=True)
+    torch.cuda.synchronize()
+    wy, whf = rs.rglru_torch(a, b, init, return_final_state=True)
+    torch.testing.assert_close(hf, whf, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, wy, rtol=1e-5, atol=1e-5)
+    else:
+        assert _within_one_bf16_ulp(y, wy, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", [(2, 2600, 2560, 1299), (2, 77, 96, 33), (3, 100, 40, 63)],
+                         ids=["rg2b_2600_at_1299", "t77_at_33", "w40_t100_at_63"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_chained_halves_are_bit_equal_off_stage_edges(case, dtype):
+    """Split at a T that is no multiple of the 32-step stage, from an initial
+    state: the second half's chain starts from the first's f32 state, so the
+    two halves give one run's bits (y and the final state)."""
+    from repro_torch.kernels import rglru_scan as rs
+
+    bsz, t, w, cut = case
+    a, b, h0 = _rglru_inputs(bsz, t, w, dtype, 40 + t)
+    y_full, h_full = rs.rglru_scan(a, b, initial_state=h0, return_final_state=True)
+    y1, h1 = rs.rglru_scan(a[:, :cut].contiguous(), b[:, :cut].contiguous(), initial_state=h0,
+                           return_final_state=True)
+    y2, h2 = rs.rglru_scan(a[:, cut:].contiguous(), b[:, cut:].contiguous(), initial_state=h1,
+                           return_final_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], 1), y_full) and torch.equal(h2, h_full)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_two_runs_and_every_form_give_the_same_bits(dtype):
+    """Two runs are bit-equal and count one launch each; a view off 16 bytes
+    (the ring's plain loads) gives the 16-byte copies' bits."""
+    from repro_torch.kernels import rglru_scan as rs
+
+    a, b, h0 = _rglru_inputs(2, 300, 320, dtype, 51)
+    kernels.reset_launch_counts()
+    y1, s1 = rs.rglru_scan(a, b, initial_state=h0, return_final_state=True)
+    y2, s2 = rs.rglru_scan(a, b, initial_state=h0, return_final_state=True)
+    torch.cuda.synchronize()
+    assert rs.rglru_scan.launches == 2 and kernels.launch_counts()["rglru_scan"] == 2
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    av, bv = _offset_view(a, 1), _offset_view(b, 1)
+    assert av.data_ptr() % 16 != 0
+    yv, sv = rs.rglru_scan(av, bv, initial_state=h0, return_final_state=True)
+    assert torch.equal(yv, y1) and torch.equal(sv, s1)
+
+
 # (B, hq, hkv, T, D, window): recurrentgemma's MQA heads at D 256, rg-smoke's
 # window 8 and the full config's 2048 (T past it, so the band is cut)
 FLASH_256_CASES = [(2, 10, 1, 40, 256, 8), (1, 10, 1, 2100, 256, 2048), (2, 10, 1, 77, 256, None)]
@@ -1506,13 +1664,19 @@ def test_chunk_body_matches_its_tiled_twin(pool):
 
 def test_planners_assume_the_kernels_geometry():
     """The tile and warp constants quant_matmul's and the chunk body's
-    planners use, and ssd_scan's chunk and slice (its workspace and grid),
-    are the ones the libraries were built with (checked when a library
-    loads; a disagreement raises)."""
+    planners use, ssd_scan's chunk and slice (its workspace and grid),
+    rglru_scan's columns, steps, stages and threads, and the stencil's tile,
+    rows, run and ring (paper_suite's stencil keys) are the ones the
+    libraries were built with (checked when a library loads; a disagreement
+    raises)."""
+    from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssd_scan as ss
 
+    assert {"stencil_tile_j", "stencil_tile_k", "stencil_rows", "stencil_run",
+            "stencil_planes", "stencil_threads"} <= set(paper_suite.GEOMETRY)
     for binding, geometry in ((qmm._LIB, qmm.GEOMETRY), (pa._LIB, pa.GEOMETRY),
-                              (paper_suite.LIB, paper_suite.GEOMETRY), (ss._LIB, ss.GEOMETRY)):
+                              (paper_suite.LIB, paper_suite.GEOMETRY), (ss._LIB, ss.GEOMETRY),
+                              (rs._LIB, rs.GEOMETRY)):
         _build.check_geometry(binding.name, binding.lib(), geometry)
 
 
