@@ -9,7 +9,9 @@ process per source, all at once), then runs these phases, each printing JSON
 lines; any failure raises and exits non-zero:
 
   device        GPU name and power limit, torch/CUDA versions, kernel build
-                time, and the device-to-device copy bandwidth the bounds use;
+                time, and the device-to-device copy rate (printed beside each
+                bound; the bounds use the data sheet's HBM3 rate, 3.35e12
+                B/s, which no kernel's bytes can beat);
                 then the registers and spills ptxas reported for the bf16
                 tensor-core flash_attention and paged chunk bodies, the
                 split-K decode body (paged pools and dense cache), the split
@@ -21,8 +23,10 @@ lines; any failure raises and exits non-zero:
                 at mamba2-780m's B 2 and 4 and stencil3d's at 96^3 and
                 512^3, each beside its resident blocks an SM (the library's
                 occupancy query), and rglru_scan's at recurrentgemma-2b's
-                (2, *, 2560) (one block a work item of 32 columns);
-                rglru_kernel and stencil3d_kernel join the ptxas lines.
+                (2, *, 2560) (one block a work item of 32 columns), and
+                sum3d's grid at 96^3 and 512^3 beside its resident blocks;
+                rglru_kernel, stencil3d_kernel and sum3d_kernel join the
+                ptxas lines.
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
                 phase's one-row 128-token chunk; the quantized attention over
@@ -127,7 +131,9 @@ lines; any failure raises and exits non-zero:
                 for sum3d, stencil3d and tinymatsum, device times beside it;
                 sum3d must repeat bit for bit (matvec right and left too), and runs at
                 a ragged size too (95x97x99,
-                509x511x513) on inputs of mean 1; tinymatsum also at 8x8 (N
+                509x511x513) on inputs of mean 1, and, at 95x97x99 on a view 4
+                (f32) / 2 (bf16) bytes off 16 (its scalar head and tail), on
+                integers in [-3, 3] whose total it must give exactly; tinymatsum also at 8x8 (N
                 1M) and on a view off 16 bytes (N 100k), with a
                 tinymatsum_static_over_dynamic line (device ms) for each
                 case. Then the zero-overhead comparison
@@ -136,9 +142,9 @@ lines; any failure raises and exits non-zero:
                 and the main path: the ops dispatchers on MdSpans at the
                 HBM sizes, counts zeroed just before and read just after,
                 every output checked against its plain version and every
-                kernel launched. Tolerances: sum3d 1e-5 * sum(|x|), stencil
-                1e-4, tinymatsum bit-equal (the same f32 additions and
-                roundings), matvec 1e-5 * sum_j |A_ij v_j| per row (sums of
+                kernel launched. Tolerances: sum3d 1e-5 * sum(|x|) (exact on
+                the integer view), stencil 1e-4, tinymatsum bit-equal (the
+                same f32 additions and roundings), matvec 1e-5 * sum_j |A_ij v_j| per row (sums of
                 up to 16384 terms).
   kernels line  {"kernels": [...]} with the numbers of each of the 15
                 kernels that replace the reference's 15 Pallas functions.
@@ -257,7 +263,9 @@ def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
     (ok, description) replaces the default f32 / bf16 rule. ``device_time``
     adds the device time per call of the kernel and of the library call
     (device_ms_per_call: calls queued back to back, so a host slower than
-    the kernel does not show)."""
+    the kernel does not show). ``l2_resident``: the bytes fit in the card's
+    L2, so timed calls after the first read from it and may beat
+    ``bound_ms`` (an HBM bound)."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
@@ -274,7 +282,7 @@ def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
         ok = excess <= 0.0
         tol = f"<= 1 bf16 ulp of the plain output + {BF16_ATOL}, elementwise"
         extra = {"max_bf16_ulps": ulps}
-    t_bytes, t_ops = nbytes / bw, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / NOMINAL_BW, flops / PEAK_FLOPS[dtype]
     rec = {
         "phase": phase, "kernel": name, "dtype": str(dtype).split(".")[1], **case,
         "max_abs_err": err, "tolerance": tol, "ok": ok, **extra,
@@ -282,8 +290,10 @@ def check_and_time(name, dtype, kernel, plain, library, nbytes, flops, bw, case,
         "library_ms": time_ms(library, reps=10) if library is not None else None,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_ms_nominal_bw": max(nbytes / NOMINAL_BW, t_ops) * 1e3,
+        "bound_ms_copy_rate": max(nbytes / bw, t_ops) * 1e3,
         "bytes": nbytes, "flops": flops,
+        "l2_resident": got.is_cuda and nbytes <= torch.cuda.get_device_properties(
+            got.device).L2_cache_size,
     }
     if device_time:
         rec["device_ms"] = device_ms_per_call(kernel, n=50)
@@ -803,7 +813,7 @@ def quant_matmul_checks(bw, g):
 PAPER_SIZES = {  # the reference's own (its benchmarks and tests), and HBM-filling ones
     "reference": dict(cube=96, ragged=(95, 97, 99), tiny_n=(100_000, 200_000), mat=2048),
     "hbm": dict(cube=512, ragged=(509, 511, 513), tiny_n=(8_000_000,), mat=16384),
-}  # ragged: a sum3d size that is no multiple of the first pass's unrolled stride
+}  # ragged: a sum3d size that is no multiple of a 16-byte vector or of the walk's stride
 TINY_JK = (3, 3)  # the paper's tiny matrices
 TINY_EXTRA = {  # (N, (J, K), elements the buffers start off 16 bytes)
     "reference": [(100_000, TINY_JK, 1)],  # a view 4 (f32) / 2 (bf16) bytes off
@@ -845,6 +855,18 @@ def _sum_tolerance(x):
     return tolerance
 
 
+def _exact_sum(x):
+    """sum3d on integers in [-3, 3] (``_sum_integers``) of at most 2^21
+    elements: every partial sum is an integer below 2^24, exact in f32 in
+    any order, so the kernel must equal the exact total (summed in double)."""
+    if x.numel() > 2 ** 21:
+        raise ValueError(f"an exact f32 sum needs n <= 2^21, got {x.numel()}")
+
+    def tolerance(got, want):
+        return bool(torch.equal(got.float(), want.float())), "exact (torch.equal with the f64 sum)"
+    return tolerance
+
+
 def _row_tolerance(a, v):
     """matvec: each y_i is a sum of J products, whose rounding in another
     order grows with their magnitudes: |got_i - want_i| <= 1e-5 *
@@ -866,11 +888,17 @@ def _sum_input(g, *shape, dtype=torch.float32):
     return (torch.randn(*shape, generator=g, device=g.device) + 1.0).to(dtype)
 
 
+def _sum_integers(g, *shape, dtype=torch.float32):
+    """Integers in [-3, 3], for the sums that must be exact."""
+    return torch.randint(-3, 4, shape, generator=g, device=g.device).to(dtype)
+
+
 def paper_checks(bw, label, g):
     """Each paper-suite kernel against its plain version at one size set
     (PAPER_SIZES[label]), timed beside it and a library call: sum3d,
     stencil3d and tinymatsum in f32 and bf16, matvec (both layouts) in f32.
-    sum3d must also repeat bit for bit, and is checked at a ragged size too.
+    sum3d must also repeat bit for bit, and is checked at a ragged size too,
+    aligned and, on integer inputs summed exactly, on a view off 16 bytes.
     tinymatsum also runs at 8 x 8 (HBM sizes) and on a view off 16 bytes
     (the reference's), with device times and each case's static / dynamic
     ratio. Returns the f32 record of each kernel (tinymatsum: the last 3 x 3
@@ -892,6 +920,20 @@ def paper_checks(bw, label, g):
                        xr.numel(), bw, {"sizes": label, "shape": list(sizes["ragged"])},
                        tolerance=_sum_tolerance(xr), phase="paper", device_time=True)
         del xr
+        if label == "reference":
+            # a view 4 (f32) / 2 (bf16) bytes off 16: the kernel's scalar head and
+            # tail. Integers in [-3, 3], n <= 2^21: every partial sum is exact in f32
+            # in any order, so the kernel must give the exact total (an element
+            # dropped or added twice shows)
+            xo = _offset_view(_sum_integers(g, *sizes["ragged"], dtype=dtype), 1)
+            check_and_time("sum3d", dtype, lambda: sm.sum3d(xo),
+                           lambda: xo.double().sum().float(),
+                           lambda: torch.sum(xo, dtype=torch.float32), xo.numel() * esz + 4,
+                           xo.numel(), bw, {"sizes": label, "shape": list(sizes["ragged"]),
+                                            "data_ptr_mod_16": xo.data_ptr() % 16,
+                                            "inputs": "integers in [-3, 3]"},
+                           tolerance=_exact_sum(xo), phase="paper", device_time=True)
+            del xo
         x = _sum_input(g, n3, n3, n3, dtype=dtype)
         case = {"sizes": label, "shape": [n3] * 3}
         rec = check_and_time("sum3d", dtype, lambda: sm.sum3d(x), lambda: sm.sum3d_torch(x),
@@ -1648,7 +1690,7 @@ def main() -> int:
                                            "tinymatsum_static_kernel<__nv_bfloat16, (int)3",
                                            "tinymatsum_dynamic_kernel", "cb_kernel",
                                            "ssd_kernel", "rglru_kernel",
-                                           "stencil3d_kernel"))}
+                                           "stencil3d_kernel", "sum3d_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -1701,6 +1743,7 @@ def main() -> int:
                   "resident_blocks_per_sm": ss.blocks_per_sm(dt, 128, torch.device("cuda"))})
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import stencil3d as st
+    from repro_torch.kernels import sum3d as sm
     for dt in (torch.float32, torch.bfloat16):
         name, esz = str(dt).split(".")[1], torch.tensor([], dtype=dt).element_size()
         g = rs.GEOMETRY
@@ -1714,6 +1757,12 @@ def main() -> int:
                   "grid": [plan.tiles_k, plan.tiles_j, plan.runs], "blocks": plan.blocks,
                   "run": plan.run, "resident_blocks_per_sm":
                   st.stencil3d_blocks_per_sm(st.DTYPE_CODE[dt], x.device)})
+            del x
+        for n3 in (PAPER_SIZES["reference"]["cube"], PAPER_SIZES["hbm"]["cube"]):
+            x = torch.empty(n3, n3, n3, dtype=dt, device="cuda")
+            emit({"phase": "device", "split_plan": f"sum3d {n3}^3 {name}", "sm_count": sms,
+                  "grid": sm.grid_for(x), "resident_blocks_per_sm":
+                  sm.sum3d_blocks_per_sm(sm.DTYPE_CODE[dt], x.device)})
             del x
     t_phase = {}
     t0 = time.perf_counter()

@@ -18,17 +18,21 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # with the opt-in, the static kernel's largest J and K, and tiny_stride at
 # 8 x 8 f32, 4 x 4 bf16 and 3 x 3 f32), then what the stencil's planner does
 # (its tile of j and k, the j-rows of a thread, its longest run of i-planes,
-# the planes of its ring, its threads a block)
+# the planes of its ring, its threads a block), then what sum3d's planner
+# does (threads a block, the bytes of a vector load, vectors in flight a
+# thread)
 GEOMETRY = {
     "threads": 256, "smem_default": 48 * 1024, "smem_opt_in": 232448,
     "tiny_max_extent": 8, "tiny_stride_8x8_f32": 68, "tiny_stride_4x4_bf16": 24,
     "tiny_stride_3x3_f32": 9, "stencil_tile_j": 8, "stencil_tile_k": 64, "stencil_rows": 4,
     "stencil_run": 32, "stencil_planes": 4, "stencil_threads": 128,
+    "sum3d_threads": 256, "sum3d_vector_bytes": 16, "sum3d_vectors": 4,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 LIB = _build.Binding("paper_suite", {
-    "repro_sum3d": [_I, _P, _L, _P, _I, _P, _P],
+    "repro_sum3d": [_I, _P, _L, _I, _P, _P, _P],
+    "repro_sum3d_blocks_per_sm": [_I, ctypes.POINTER(_I)],  # no stream
     "repro_stencil3d": [_I, _P, _P, _I, _I, _I, _I, _P],
     "repro_stencil3d_blocks_per_sm": [_I, ctypes.POINTER(_I)],  # no stream
     "repro_tinymatsum": [_I, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
@@ -54,18 +58,29 @@ def tinymatsum_blocks_per_sm(code: int, is_static: bool, j: int, k: int, smem: i
     return out.value
 
 
+def _blocks_per_sm(what: str, code: int, device: torch.device) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(LIB.lib(), f"repro_{what}_blocks_per_sm")(code, ctypes.byref(out))
+    if rc != 0:
+        msg = LIB.lib().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} occupancy query failed: CUDA error {rc} ({msg})")
+    return out.value
+
+
 @functools.lru_cache(maxsize=16)
 def stencil3d_blocks_per_sm(code: int, device: torch.device) -> int:
     """Blocks of the stencil kernel for dtype code ``code`` that fit on one SM
     of ``device`` at once, registers and its ring included (the library's
     occupancy query), asked once each."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = LIB.lib().repro_stencil3d_blocks_per_sm(code, ctypes.byref(out))
-    if rc != 0:
-        msg = LIB.lib().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"stencil3d occupancy query failed: CUDA error {rc} ({msg})")
-    return out.value
+    return _blocks_per_sm("stencil3d", code, device)
+
+
+@functools.lru_cache(maxsize=16)
+def sum3d_blocks_per_sm(code: int, device: torch.device) -> int:
+    """Blocks of the Sum3D kernel for dtype code ``code`` that fit on one SM
+    of ``device`` at once (the library's occupancy query), asked once each."""
+    return _blocks_per_sm("sum3d", code, device)
 
 
 def check_operands(what: str, *tensors: torch.Tensor) -> int:

@@ -5,7 +5,7 @@
 // wrappers and the plain PyTorch versions they are held against).
 //
 // What they replace (the JAX reference package's Pallas TPU kernels):
-//   sum3d_partials_kernel + sum_partials_kernel <- src/repro/kernels/sum3d.py::sum3d_pallas
+//   sum3d_kernel<T>                  <- src/repro/kernels/sum3d.py::sum3d_pallas
 //   stencil3d_kernel                 <- src/repro/kernels/stencil3d.py::stencil3d_pallas
 //   tinymatsum_static_kernel<T,J,K>  <- src/repro/kernels/tinymatsum.py::tinymatsum_static
 //   tinymatsum_dynamic_kernel<T>     <- src/repro/kernels/tinymatsum.py::tinymatsum_dynamic
@@ -16,11 +16,27 @@
 // These are the paper's own C++ experiments, so the C++ says what the paper
 // says. Each computes the reference function, not the Pallas BlockSpecs:
 //
-//   Sum3D       a grid-stride reduction over the physical buffer, f32
-//               accumulators (four per thread, independent loads), one
-//               partial per block, then a one-block second pass over the
-//               partials in a fixed order. No float atomics: the grid depends
-//               on the size only, so repeated runs are bit-identical.
+//   Sum3D       bound by the bytes: it reads each element once and adds it
+//               once. Reaching the copy rate takes enough bytes in flight:
+//               at ~3e12 B/s and 0.6-0.8 us of latency an SM needs some
+//               14-18 KB outstanding. One scalar a load, four in flight a
+//               thread, gives a bf16 SM ~16 KB, just at the edge; so each
+//               thread loads whole 16-byte vectors (4 f32, 8 bf16), kSumVecs
+//               of them in flight a step (64 B), with f32 accumulators, and
+//               the grid is the blocks resident on the card at once (the
+//               occupancy query x the SMs; fewer where the buffer is small),
+//               split evenly by a grid-stride walk, so every SM holds the
+//               same share and no last wave runs part-empty. The elements
+//               before the first 16-byte boundary and after the last whole
+//               vector (each fewer than a vector's) are added one a thread by
+//               block 0. One cooperative launch: each block writes its
+//               partial, the grid synchronizes (the grid is one wave, so it
+//               is co-resident; a launch the card cannot hold is refused
+//               with an error), and block 0 folds the partials in index
+//               order. Deterministic: every addition's order is fixed by n,
+//               the alignment and the grid (which depend on the size and
+//               the device only), none by timing, and no float atomics, so
+//               repeated runs are bit-identical.
 //   Stencil3D   each output sums its 27 neighbours from 0 in f32 in the
 //               plain version's order (di, dj, dk); interior only, the
 //               boundary (and I, J or K < 3) gives 0. A block owns a
@@ -66,6 +82,8 @@
 // read once, outputs written once) over the device memory rate. Offsets are
 // int64: the phase sizes pass 2^27 elements.
 
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -76,47 +94,97 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiny = 8;  // static TinyMatSum instantiates J, K in 1..8
 
+// ---- Sum3D ------------------------------------------------------------------
+// The buffer as the kernel reads it: ``head`` elements before the first
+// 16-byte boundary (the launch derives it from x's address), then nvec whole
+// 16-byte vectors, then the tail (head and tail each fewer than a vector's
+// elements). Vector v belongs to thread v % kSumThreads of block
+// (v / kSumThreads) % gridDim.x: a grid-stride walk, kSumVecs vectors in
+// flight a step, so the blocks' shares differ by at most one vector a thread.
+// A thread adds lane k of each vector into acc[k] in walk order, then sums
+// its lanes pairwise; block 0's threads add one head and one tail element
+// each; block_sum gives the block's partial.
+constexpr int kSumThreads = 256;
+constexpr int kSumVecBytes = 16;
+constexpr int kSumVecs = 4;
+
 // Sum of v over the block, in a fixed order (warp shuffles, then warp 0 over
 // the per-warp sums); the result is valid in thread 0.
 __device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[kWarps];
+  constexpr int kSumWarps = kSumThreads / 32;
+  __shared__ float warp_sums[kSumWarps];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < kWarps ? warp_sums[lane] : 0.f;
+    v = lane < kSumWarps ? warp_sums[lane] : 0.f;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   return v;
 }
 
-// ---- Sum3D ------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sum3d_partials_kernel(const T* __restrict__ x, int64_t n, float* __restrict__ partials) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  for (; e + 3 * stride < n; e += 4 * stride) {
-    a0 += to_f32(x[e]);
-    a1 += to_f32(x[e + stride]);
-    a2 += to_f32(x[e + 2 * stride]);
-    a3 += to_f32(x[e + 3 * stride]);
+// The elements of one 16-byte vector into acc: 4 f32, or 8 bf16 (a bf16's
+// f32 value is its bits in the high half).
+__device__ __forceinline__ void add_vec(float (&acc)[4], const uint4 v) {
+  acc[0] += __uint_as_float(v.x);
+  acc[1] += __uint_as_float(v.y);
+  acc[2] += __uint_as_float(v.z);
+  acc[3] += __uint_as_float(v.w);
+}
+__device__ __forceinline__ void add_vec(float (&acc)[8], const uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[2 * k] += __uint_as_float(w[k] << 16);
+    acc[2 * k + 1] += __uint_as_float(w[k] & 0xffff0000u);
   }
-  for (; e < n; e += stride) a0 += to_f32(x[e]);
-  const float total = block_sum((a0 + a1) + (a2 + a3));
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-__global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const float* __restrict__ partials, int nparts, float* __restrict__ out) {
-  float acc = 0.f;
-  for (int p = threadIdx.x; p < nparts; p += kThreads) acc += partials[p];
-  const float total = block_sum(acc);
-  if (threadIdx.x == 0) out[0] = total;
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+sum3d_kernel(const T* __restrict__ x, int64_t n, int head, float* __restrict__ partials,
+             float* __restrict__ out) {
+  constexpr int L = kSumVecBytes / static_cast<int>(sizeof(T));
+  const int64_t nvec = (n - head) / L;
+  const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x + head);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSumThreads;
+  int64_t v = static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x;
+  float acc[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) acc[k] = 0.f;
+  for (; v + (kSumVecs - 1) * stride < nvec; v += kSumVecs * stride) {
+    uint4 r[kSumVecs];
+#pragma unroll
+    for (int u = 0; u < kSumVecs; ++u) r[u] = __ldg(xv + v + u * stride);
+#pragma unroll
+    for (int u = 0; u < kSumVecs; ++u) add_vec(acc, r[u]);
+  }
+  for (; v < nvec; v += stride) add_vec(acc, __ldg(xv + v));
+#pragma unroll
+  for (int w = 1; w < L; w *= 2) {
+#pragma unroll
+    for (int k = 0; k < L; k += 2 * w) acc[k] += acc[k + w];
+  }
+  float s = acc[0];
+  if (blockIdx.x == 0) {
+    const int64_t tail = head + nvec * L;
+    const int t = static_cast<int>(threadIdx.x);
+    if (t < head) s += to_f32(x[t]);
+    if (t < n - tail) s += to_f32(x[tail + t]);
+  }
+  const float total = block_sum(s);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  cooperative_groups::this_grid().sync();  // every partial written and visible
+  if (blockIdx.x != 0) return;
+  float f = 0.f;
+  for (int p = threadIdx.x; p < static_cast<int>(gridDim.x); p += kSumThreads) {
+    f += __ldcg(partials + p);
+  }
+  f = block_sum(f);
+  if (threadIdx.x == 0) out[0] = f;
 }
 
 // ---- Stencil3D --------------------------------------------------------------
@@ -697,18 +765,21 @@ matvec_splits_kernel(const float* __restrict__ ws, T* __restrict__ y, int64_t I,
 // ---- launchers ----------------------------------------------------------------
 unsigned int grid_for(int64_t n) { return static_cast<unsigned int>((n + kThreads - 1) / kThreads); }
 
+// One cooperative launch of ``grid`` blocks; the head runs to x's first
+// 16-byte boundary (all n where n is fewer).
 template <typename T>
-cudaError_t launch_sum3d(const void* x, int64_t n, void* partials, int max_blocks, void* out,
+cudaError_t launch_sum3d(const void* x, int64_t n, int grid, void* partials, void* out,
                          cudaStream_t st) {
-  int64_t want = (n + kThreads * 8 - 1) / (kThreads * 8);
-  const int nblocks = static_cast<int>(want < max_blocks ? (want < 1 ? 1 : want) : max_blocks);
-  sum3d_partials_kernel<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(x), n, static_cast<float*>(partials));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  sum_partials_kernel<<<1, kThreads, 0, st>>>(static_cast<const float*>(partials), nblocks,
-                                              static_cast<float*>(out));
-  return cudaGetLastError();
+  const T* xt = static_cast<const T*>(x);
+  const int64_t to_boundary = static_cast<int64_t>(
+      (kSumVecBytes - reinterpret_cast<uintptr_t>(x) % kSumVecBytes) % kSumVecBytes) /
+      static_cast<int64_t>(sizeof(T));
+  int head = static_cast<int>(to_boundary < n ? to_boundary : n);
+  float* pt = static_cast<float*>(partials);
+  float* ot = static_cast<float*>(out);
+  void* args[] = {&xt, &n, &head, &pt, &ot};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(sum3d_kernel<T>), grid,
+                                     kSumThreads, args, 0, st);
 }
 
 template <typename T>
@@ -859,11 +930,12 @@ cudaError_t launch_matvec(int layout, const void* a, const void* x, void* y, voi
 // it, the static kernel's largest J and K, tiny_stride at two shapes (8 x 8
 // f32, 4 x 4 bf16: padded) and one (3 x 3 f32: not) that the planner's copy
 // of it must match; then the stencil's tile (j, k), its j-rows a thread, its
-// longest run, the planes of its ring and its threads a block.
+// longest run, the planes of its ring and its threads a block; then Sum3D's
+// threads a block, vector bytes and vectors in flight a thread.
 constexpr int kGeometry[] = {kThreads, 48 * 1024, static_cast<int>(kMaxSmem),
                              kMaxTiny, tiny_stride(64, 4), tiny_stride(16, 2),
                              tiny_stride(9, 4), kStJ, kStK, kStRows, kStRun, kStPlanes,
-                             kStThreads};
+                             kStThreads, kSumThreads, kSumVecBytes, kSumVecs};
 
 }  // namespace
 
@@ -873,19 +945,38 @@ extern "C" {
 // returns the cudaError_t of the launch (0 on success); nothing here
 // synchronizes or allocates.
 
-// Sum of the n elements of x into out[0] (f32); partials: max_blocks f32 of
-// scratch.
-int repro_sum3d(int dtype, const void* x, int64_t n, void* partials, int max_blocks, void* out,
+// Sum of the n elements of x into out[0] (f32), in one cooperative launch
+// of ``grid`` blocks (sum3d.py's plan_sum3d: at least 1, at most the blocks
+// the card holds at once; a larger grid is refused with
+// cudaErrorCooperativeLaunchTooLarge). Scratch: ``partials``, grid f32.
+int repro_sum3d(int dtype, const void* x, int64_t n, int grid, void* partials, void* out,
                 void* stream) {
-  if ((dtype != 0 && dtype != 1) || n < 0 || max_blocks < 1) {
+  const int esize = dtype == 0 ? 4 : 2;
+  if ((dtype != 0 && dtype != 1) || n < 0 || reinterpret_cast<uintptr_t>(x) % esize != 0 ||
+      grid < 1 || partials == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();  // attribute only this launch's error to it
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dtype == 0
-      ? launch_sum3d<float>(x, n, partials, max_blocks, out, s)
-      : launch_sum3d<__nv_bfloat16>(x, n, partials, max_blocks, out, s);
+      ? launch_sum3d<float>(x, n, grid, partials, out, s)
+      : launch_sum3d<__nv_bfloat16>(x, n, grid, partials, out, s);
   return static_cast<int>(e);
+}
+
+// Blocks of the Sum3D kernel for ``dtype`` that fit on one SM at once, into
+// *blocks: the planner's grid is at most this times the SMs (one wave).
+int repro_sum3d_blocks_per_sm(int dtype, int* blocks) {
+  if ((dtype != 0 && dtype != 1) || blocks == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  (void)cudaGetLastError();
+  return static_cast<int>(
+      dtype == 0
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, sum3d_kernel<float>,
+                                                          kSumThreads, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, sum3d_kernel<__nv_bfloat16>,
+                                                          kSumThreads, 0));
 }
 
 // out (I, J, K) = the 27-point box sum of x on the interior, 0 elsewhere. The

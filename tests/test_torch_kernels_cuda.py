@@ -316,8 +316,9 @@ def _randn(shape, dtype, seed):
     return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
 
-# one element, small, a partial last block, the reference's size, and one
-# whose first pass runs the full 1024-block grid with a ragged tail
+# one element, small, a partial last step of the walk, the reference's size
+# (216 f32 / 108 bf16 blocks of a whole step each, fewer than a wave), and
+# one whose grid is a few hundred blocks with its last step part-empty
 SUM3D_SHAPES = [(1, 1, 1), (4, 4, 8), (5, 7, 130), (96, 96, 96), (3, 1000, 1001)]
 
 
@@ -332,6 +333,108 @@ def test_sum3d_kernel_matches_plain_and_repeats_bit_for_bit(shape, dtype):
     want = tsum.sum3d_torch(x)
     assert abs(float(got) - float(want)) <= 1e-5 * float(x.float().abs().sum()) + 1e-6
     assert torch.equal(tsum.sum3d(x), got)
+
+
+def _sum3d_close(got, x):
+    want = tsum.sum3d_torch(x)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert abs(float(got) - float(want)) <= 1e-5 * float(x.float().abs().sum()) + 1e-6
+
+
+def _sum3d_wave(dtype):
+    """The card's resident blocks of the kernel (the occupancy query x SMs)."""
+    dev = torch.device("cuda")
+    return paper_suite.sum3d_blocks_per_sm(paper_suite.DTYPE_CODE[dtype], dev) * pa.sm_count(dev)
+
+
+# views 4 / 8 / 12 bytes off 16 (f32) and 2 / 6 / 14 (bf16): the scalar head
+SUM3D_OFFSETS = [(torch.float32, 1), (torch.float32, 2), (torch.float32, 3),
+                 (torch.bfloat16, 1), (torch.bfloat16, 3), (torch.bfloat16, 7)]
+
+
+@pytest.mark.parametrize("dt_off", SUM3D_OFFSETS, ids=["f32+4", "f32+8", "f32+12", "bf16+2",
+                                                       "bf16+6", "bf16+14"])
+@pytest.mark.parametrize("shape", [(1, 1, 3), (5, 7, 130), (95, 97, 99)],
+                         ids=["1x1x3", "5x7x130", "95x97x99"])
+def test_sum3d_views_off_16_bytes(dt_off, shape):
+    dtype, off = dt_off
+    x = _offset_view(_randn(shape, dtype, 21), off)
+    assert x.data_ptr() % 16 == off * x.element_size()
+    got = tsum.sum3d(x)
+    _sum3d_close(got, x)
+    assert torch.equal(tsum.sum3d(x), got)
+
+
+def _stride_sizes(dtype):
+    """n of 1, 7, 8, 9, 31 and 33 elements, and n one vector either side of
+    a whole grid-stride of a full wave (VECS strides, so the grid is one
+    wave), and on it."""
+    lanes = tsum.VEC_BYTES // torch.tensor([], dtype=dtype).element_size()
+    stride = _sum3d_wave(dtype) * tsum.THREADS * lanes
+    return [1, 7, 8, 9, 31, 33] + [tsum.VECS * stride + d for d in (-lanes, 0, lanes)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_sum3d_small_sizes_and_stride_edges(dtype):
+    for n in _stride_sizes(dtype):
+        x = _randn((1, 1, n), dtype, n % 1000)
+        _sum3d_close(tsum.sum3d(x), x)
+    full = tsum.grid_for(torch.empty(1, 1, _stride_sizes(dtype)[-2], dtype=dtype, device="cuda"))
+    assert full == _sum3d_wave(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_sum3d_is_exact_on_integers_at_every_offset(dtype):
+    """Integers in [-3, 3], n <= 2^21: every partial sum is an integer below
+    2^24, exact in f32 in any order, so the kernel equals the exact total bit
+    for bit at every alignment: head, vectors and tail add each element once."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    lanes = tsum.VEC_BYTES // esz
+    walk = 2_048_000  # whole steps of its grid: 500 (f32) / 250 (bf16) blocks
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for n in [1, 7, 9, 33, 1000, 3 * 2 ** 19 + 5, 2 ** 21, walk - lanes, walk, walk + lanes]:
+        vals = torch.randint(-3, 4, (n,), generator=g, device="cuda").to(dtype)
+        exact = float(vals.double().sum())
+        for off in range(16 // esz):
+            x = _offset_view(vals.view(1, 1, n), off)
+            assert float(tsum.sum3d(x)) == exact, (n, off)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_sum3d_launches_one_kernel_a_call(dtype):
+    """One CUDA kernel a call, the partials folded in it (the profiler's
+    count, after a first call has loaded the library)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _randn((96, 96, 96), dtype, 23)
+    tsum.sum3d(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = tsum.sum3d(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "sum3d_kernel" in names[0], names
+    _sum3d_close(got, x)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_sum3d_grid_is_at_most_one_wave(dtype):
+    """The occupancy query answers, and the wrapper's grid is at most the
+    card's resident blocks: all of them at 512^3, fewer at 96^3 where the
+    buffer does not give each a whole step."""
+    wave = _sum3d_wave(dtype)
+    assert wave >= pa.sm_count(torch.device("cuda"))
+    assert tsum.grid_for(torch.empty(512, 512, 512, dtype=dtype, device="cuda")) == wave
+    assert 1 <= tsum.grid_for(torch.empty(96, 96, 96, dtype=dtype, device="cuda")) < wave
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_sum3d_two_runs_bit_equal_at_512(dtype):
+    x = (_randn((512, 512, 512), torch.float32, 24) + 1.0).to(dtype)
+    first = tsum.sum3d(x)
+    _sum3d_close(first, x)
+    assert torch.equal(tsum.sum3d(x), first)
 
 
 STENCIL_SHAPES = [(1, 4, 4), (2, 5, 5), (3, 3, 3), (4, 4, 4), (6, 8, 16), (12, 10, 132),
@@ -1666,14 +1769,15 @@ def test_planners_assume_the_kernels_geometry():
     """The tile and warp constants quant_matmul's and the chunk body's
     planners use, ssd_scan's chunk and slice (its workspace and grid),
     rglru_scan's columns, steps, stages and threads, and the stencil's tile,
-    rows, run and ring (paper_suite's stencil keys) are the ones the
-    libraries were built with (checked when a library loads; a disagreement
-    raises)."""
+    rows, run and ring (paper_suite's stencil keys), and Sum3D's threads,
+    vector bytes and vectors in flight, are the ones the libraries were built
+    with (checked when a library loads; a disagreement raises)."""
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssd_scan as ss
 
     assert {"stencil_tile_j", "stencil_tile_k", "stencil_rows", "stencil_run",
             "stencil_planes", "stencil_threads"} <= set(paper_suite.GEOMETRY)
+    assert {"sum3d_threads", "sum3d_vector_bytes", "sum3d_vectors"} <= set(paper_suite.GEOMETRY)
     for binding, geometry in ((qmm._LIB, qmm.GEOMETRY), (pa._LIB, pa.GEOMETRY),
                               (paper_suite.LIB, paper_suite.GEOMETRY), (ss._LIB, ss.GEOMETRY),
                               (rs._LIB, rs.GEOMETRY)):
