@@ -155,6 +155,7 @@ It needs one GPU and exits non-zero without one (or without the repo).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -197,6 +198,12 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
 DENSE_PATH = ("paged_decode", "paged_prefill_chunk")
 GENERATE_PATH = ("flash_attention", "flash_decode", "ssd_scan", "rglru_scan")
 QUANT_PATH = ("paged_decode_quant", "paged_prefill_chunk_quant", "quant_matmul")
+QUANT_KV_PATH = ("paged_decode_quant", "paged_prefill_chunk_quant")
+VERIFY_C = (2, 5)  # verify widths K + 1 checked in the kernels phase
+VERIFY_CURSORS = [37, 130, 255, 16] * 2  # B 8: mid-page and on page boundaries
+SPEC_K, SPEC_S = 4, 2  # the speculative phases' draft length and windows a dispatch
+SPEC_KEYS = ("fused_steps", "spec_windows", "spec_accepted_tokens", "accepted_tokens_per_step",
+             "draft_hit_rate", "spec_rollback_tokens", "spec_backoffs")
 PAPER_PATH = ("sum3d", "stencil3d", "tinymatsum_static", "tinymatsum_dynamic", "matvec_right",
               "matvec_left")
 
@@ -335,6 +342,9 @@ def kernel_phase(bw):
                    (5, [0, 3, 17, 100, 517, 1024, 1500, 2000]),
                    (128, [256]))
     quant_chunk_cases = {128, 256}
+    # the speculative verify window: C = K + 1 (serve_spec's K 4 gives 5) at
+    # cursors mid-page and on page boundaries, over dense and intN pools
+    chunk_cases += tuple((c, VERIFY_CURSORS) for c in VERIFY_C)
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         esz = torch.tensor([], dtype=dtype).element_size()
@@ -397,8 +407,9 @@ def kernel_phase(bw):
             keys = sum(cur_b * c + c * (c + 1) // 2 for cur_b in cursors)
             small = ((2 * qc.numel() + ck.numel() + cv.numel()) * esz + btc.numel() * 4
                      + nb * 4)
+            verify = cursors is VERIFY_CURSORS
             case = {"B": nb, "Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS, "C": c,
-                    "cursors": cursors}
+                    "cursors": cursors, **({"verify": True} if verify else {})}
             kcat, vcat = torch.cat([kd[:nb], ck], dim=2), torch.cat([vd[:nb], cv], dim=2)
             rec = check_and_time(
                 "paged_prefill_chunk", dtype,
@@ -410,7 +421,9 @@ def kernel_phase(bw):
             )
             if dtype == torch.bfloat16 and c == 128:
                 main["paged_prefill_chunk"] = rec
-            if c not in quant_chunk_cases:
+            if verify:
+                main[f"verify_paged_prefill_chunk_{rec['dtype']}_C{c}"] = rec
+            if c not in quant_chunk_cases and not verify:
                 continue
             past_pages = sum(-(-n // PS) for n in cursors)
             for bits, (kq, ks, vq, vs, kdq, vdq, dq) in quant.items():
@@ -428,6 +441,8 @@ def kernel_phase(bw):
                 )
                 if dtype == torch.bfloat16 and c == 128 and bits == 8:
                     main["paged_prefill_chunk_quant"] = rec
+                if verify:
+                    main[f"verify_paged_prefill_chunk_quant{bits}_{rec['dtype']}_C{c}"] = rec
     main["quant_matmul"] = quant_matmul_checks(bw, g)
     main.update(dense_cache_checks(bw, g))
     main.update(hybrid_checks(bw, g))
@@ -1196,7 +1211,6 @@ def generate_model(arch, dtype, n_layers=None, smoke=False, device="cuda", condi
     """The model at full width (``n_layers`` deep unless smoke), random weights
     from a seeded generator, rescaled by condition_attention if asked."""
     from repro_torch.models import build_model, get_config
-    import dataclasses
 
     cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype=dtype)
     if n_layers and not smoke:
@@ -1394,7 +1408,6 @@ def depth_sensitivity(prompt, layers, conditioned=False, device="cuda", arch="qw
     then one decode_step — other matmul shapes either way. This bounds how
     deep a token-exact check can go."""
     from repro_torch.models import build_model, get_config
-    import dataclasses
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32", n_layers=layers)
     model = build_model(cfg, device=device)
@@ -1455,7 +1468,6 @@ def exact_model(cfg_name, smoke, device, n_layers, conditioned, quantized=False)
     """The f32 model at full width (``n_layers`` deep unless smoke) with
     seeded random weights, rescaled by condition_attention if asked."""
     from repro_torch.models import build_model, get_config
-    import dataclasses
 
     cfg = dataclasses.replace(get_config(cfg_name, smoke=smoke), dtype="float32")
     if not smoke:
@@ -1591,26 +1603,31 @@ def serve_setup(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, qua
                                     max_batch=8, chunked_prefill=True, chunk_tokens=128,
                                     kv_dtype=kv_dtype)
     w = SimpleNamespace(cfg=cfg, prompts=prompts, config=config, n_new=n_new, device=device,
-                        weights="int8" if quantized else cfg.dtype)
+                        weights="int8" if quantized else cfg.dtype, model=model, params=params)
     w.requests = lambda ps=prompts: [Request(i, p, GenerationParams(max_new_tokens=n_new))
                                      for i, p in enumerate(ps)]
-    w.engine = lambda: ServeEngine(model, params, config, device=device)
+    w.engine = lambda **kw: ServeEngine(model, params, dataclasses.replace(config, **kw),
+                                        device=device)
     w.engine().run(w.requests(prompts[:2]))
     return w
 
 
 def serve_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, workload=None,
-                phase="serve", need=DENSE_PATH):
-    """One serving run of the workload on a fresh engine, launch counts zeroed
-    just before and read just after; every kernel in ``need`` must launch."""
+                phase="serve", need=DENSE_PATH, engine_kw=None):
+    """One serving run of the workload on a fresh engine (``engine_kw``:
+    EngineConfig fields over the workload's), launch counts zeroed just before
+    and read just after; every kernel in ``need`` must launch. The record
+    carries the chunk widths the attention kernels launched at."""
     from repro_torch import kernels
 
     w = workload or serve_setup(cfg_name, smoke, device, n_new)
-    cfg, prompts, config, n_new = w.cfg, w.prompts, w.config, w.n_new
-    eng = w.engine()
+    cfg, prompts, n_new = w.cfg, w.prompts, w.n_new
+    eng = w.engine(**(engine_kw or {}))
+    config = eng.config
     reqs = w.requests()
     kernels.reset_launch_counts()
-    eng.run(reqs)
+    with chunk_widths() as widths:
+        eng.run(reqs)
     launches = kernels.launch_counts()
     m = eng.metrics()
     rec = {
@@ -1623,9 +1640,14 @@ def serve_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, wor
                              "decode_steps", "wall_s", "kv_pool_bytes",
                              "peak_pages_in_use", "pages_shared", "prefill_tokens_skipped",
                              "preemptions")},
+        **{k: m[k] for k in SPEC_KEYS if k in m},
         "launches": {k: launches[k] for k in need},
+        "chunk_widths": dict(sorted(widths.items())),
     }
+    if engine_kw:
+        rec["engine"] = engine_kw
     emit(rec)
+    rec["tokens"] = [eng.results[i].generated for i in range(len(prompts))]  # not printed
     if m["generated_tokens"] != len(prompts) * n_new or m["failed"]:
         raise AssertionError(f"{phase} phase did not complete every request: {m}")
     for seq in eng.results.values():
@@ -1656,6 +1678,182 @@ def serve_quant_phase(dense_pool_bytes, cfg_name="qwen2-0.5b", smoke=False, devi
         raise AssertionError(f"int8 pool only {runs['int8']['kv_pool_bytes_vs_dense']:.3f}x "
                              "smaller than the dense pool")
     return runs
+
+
+class chunk_widths:
+    """Within the block, count the C of every chunk-attention launch on the
+    card, keyed "C" (dense pages) or "C q" (intN pages): ops' bindings of
+    the chunk wrappers are wrapped for the block and restored after it."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.counts, self.saved = {}, {}
+        for name, tag in (("paged_flash_prefill_chunk", ""),
+                          ("paged_flash_prefill_chunk_quant", " q")):
+            fn = getattr(ops, name)
+            self.saved[name] = fn
+
+            def counted(q, *a, _fn=fn, _tag=tag, **kw):
+                if q.is_cuda:
+                    key = f"{q.shape[2]}{_tag}"
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                return _fn(q, *a, **kw)
+
+            setattr(ops, name, counted)
+        return self.counts
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
+        return False
+
+
+def engine_exact_spec_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_layers=2,
+                            n_new=16, pool_pages=160):
+    """Greedy tokens of the speculative engine (spec_tokens SPEC_K, multi_step
+    SPEC_S, backoff off so every plannable dispatch speculates) on ``device``
+    against the plain engine (spec_tokens 0, multi_step 1) on the CPU, at full
+    width and ``n_layers`` in f32 on the reference's init, over f32 and int8
+    pages, monolithic prefill (so every chunk launch is a verify window);
+    then the multi_step=4 engine against the multi_step=1 engine, both on
+    ``device``. Launch counts are zeroed just before and read just after each
+    run: the decode and chunk kernels of the pages' kind must have launched,
+    the chunk kernel at C = SPEC_K + 1."""
+    from repro_torch.models import build_model
+
+    cfg, model, params = exact_model(cfg_name, smoke, device, n_layers, False)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = _to_cpu(params)
+    prompts = exact_requests(cfg.vocab)
+    runs = {}
+    for kv in ("f32", "int8"):
+        config = exact_config(pool_pages, kv)
+        need = DENSE_PATH if kv == "f32" else QUANT_KV_PATH
+        t0 = time.perf_counter()
+        want, _, _, _ = run_engine(cpu_model, cpu_params, prompts, n_new, config, "cpu")
+        cpu_s = time.perf_counter() - t0
+        spec_conf = dataclasses.replace(config, spec_tokens=SPEC_K, multi_step=SPEC_S,
+                                        spec_backoff=0)
+        with chunk_widths() as widths:
+            got, m, launches, wall = run_engine(model, params, prompts, n_new, spec_conf, device)
+        plain_card, _, _, _ = run_engine(model, params, prompts, n_new, config, device)
+        fused, m_fused, fused_launches, fused_wall = run_engine(
+            model, params, prompts, n_new, dataclasses.replace(config, multi_step=4), device)
+        rec = {
+            "phase": "engine_exact_spec", "model": cfg.name, "dtype": "float32",
+            "n_layers": cfg.n_layers, "init": "reference", "kv_dtype": kv,
+            "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+            "new_tokens": n_new, "spec_tokens": SPEC_K, "multi_step": SPEC_S,
+            "spec_tokens_equal_cpu_plain": got == want,
+            "multi_step_4_tokens_equal_multi_step_1": fused == plain_card,
+            "card_plain_tokens_equal_cpu_plain": plain_card == want,
+            **{k: m[k] for k in SPEC_KEYS}, "fused_steps_multi_step_4": m_fused["fused_steps"],
+            "launches": {k: launches[k] for k in need}, "chunk_widths": dict(widths),
+            "launches_multi_step_4": {k: fused_launches[k] for k in need},
+            "wall_s": wall, "wall_s_multi_step_4": fused_wall, "cpu_s": cpu_s,
+        }
+        emit(rec)
+        if got != want:
+            bad = [i for i in range(len(want)) if got[i] != want[i]]
+            raise AssertionError(f"engine_exact_spec {kv}: speculative tokens differ from the "
+                                 f"CPU plain engine's for requests {bad}")
+        if fused != plain_card:
+            raise AssertionError(f"engine_exact_spec {kv}: multi_step=4 tokens differ from "
+                                 "multi_step=1")
+        if m["spec_windows"] <= 0 or m_fused["fused_steps"] <= 0:
+            raise AssertionError(f"engine_exact_spec {kv}: no window ran: {rec}")
+        if device == "cuda":
+            verify_key = f"{SPEC_K + 1}" + ("" if kv == "f32" else " q")
+            if any(launches[k] <= 0 for k in need) or widths.get(verify_key, 0) <= 0:
+                raise AssertionError(f"engine_exact_spec {kv}: the verify path did not launch "
+                                     f"{need} at C = {SPEC_K + 1}: {rec}")
+            if any(fused_launches[k] <= 0 for k in need[:1]):
+                raise AssertionError(f"engine_exact_spec {kv}: multi_step=4 never launched "
+                                     f"{need[0]}")
+        runs[kv] = rec
+    return runs
+
+
+def predictable_stream_check(w, n_new=32):
+    """The reference's predictable stream (tests/test_speculative.py, the
+    predictable-stream test) at the workload's full width: every parameter
+    zeroed but the embedding, so the logits are uniformly zero and greedy
+    pins token 0. The speculative engine's tokens must equal the plain
+    engine's, with accepted_tokens_per_step > 1.5."""
+    from repro_torch.serving import GenerationParams
+    from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
+
+    def zeroed(tree, top=True):
+        if isinstance(tree, dict):
+            return {k: v if top and k == "embed" else zeroed(v, False) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [zeroed(v, False) for v in tree]
+        return torch.zeros_like(tree)
+
+    zp = zeroed(w.params)
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    econf = EngineConfig(num_pages=64, page_size=8, max_batch=1, max_pages_per_seq=8)
+    mk = lambda: [Request(0, prompt, GenerationParams(max_new_tokens=n_new))]
+    plain = ServeEngine(w.model, zp, econf, device=w.device).run(mk())[0].generated
+    eng = ServeEngine(w.model, zp, dataclasses.replace(econf, spec_tokens=3, multi_step=2),
+                      device=w.device)
+    got = eng.run(mk())[0].generated
+    m = eng.metrics()
+    rec = {"phase": "serve_spec_predictable", "model": w.cfg.name, "dtype": w.cfg.dtype,
+           "n_layers": w.cfg.n_layers, "spec_tokens": 3, "multi_step": 2, "new_tokens": n_new,
+           "tokens_equal_plain": got == plain, **{k: m[k] for k in SPEC_KEYS}}
+    emit(rec)
+    if got != plain or m["accepted_tokens_per_step"] <= 1.5:
+        raise AssertionError(f"predictable stream: {rec}")
+    return rec
+
+
+def serve_spec_phase(workload, quant_workload=None, plain_tokens=None):
+    """The serve workload with speculation (spec_tokens SPEC_K, multi_step
+    SPEC_S) beside the same run with multi_step=4 alone, in the order fused,
+    spec, spec, fused on fresh engines (host-bound metrics spread from run to
+    run); acceptance on random weights is printed, not gated, and so is how
+    many requests' greedy tokens equal ``plain_tokens`` (a plain serve run's:
+    in bf16 the verify's chunk kernel and the one-token decode round
+    differently, so a near tie may flip). Then one
+    speculative run over int8 pages (``quant_workload``, rows 3-4 of the
+    verify path) and the predictable stream at full width. Every run must
+    complete every request and launch its path's kernels, the chunk kernel
+    at C = SPEC_K + 1 in the speculative runs."""
+    spec_kw = dict(spec_tokens=SPEC_K, multi_step=SPEC_S)
+    order = (("multi_step_4", dict(multi_step=4)), ("spec", spec_kw), ("spec", spec_kw),
+             ("multi_step_4", dict(multi_step=4)))
+    runs = {}
+    for label, kw in order:
+        rec = serve_phase(workload=workload, phase="serve_spec", engine_kw=kw)
+        runs.setdefault(label, []).append(rec)
+    quant = None
+    if quant_workload is not None:
+        quant = serve_phase(workload=quant_workload, phase="serve_spec", need=QUANT_KV_PATH,
+                            engine_kw=spec_kw)
+    for rec in runs["spec"] + ([quant] if quant else []):
+        key = f"{SPEC_K + 1}" + ("" if rec["kv_dtype"] == "f32" else " q")
+        if workload.device == "cuda" and rec["chunk_widths"].get(key, 0) <= 0:
+            raise AssertionError(f"serve_spec never verified at C = {SPEC_K + 1}: {rec}")
+        if rec["spec_windows"] <= 0:
+            raise AssertionError(f"serve_spec ran no speculative window: {rec}")
+    summary = {"phase": "serve_spec_summary", "order": [label for label, _ in order]}
+    for label, recs in runs.items():
+        for k in ("tokens_per_s", "step_ms_p50", "step_ms_p95", "ttft_s_p95", "decode_steps",
+                  "fused_steps") + (SPEC_KEYS[1:] if label == "spec" else ()):
+            summary[f"{label}_{k}"] = [r[k] for r in recs]
+        if plain_tokens is not None:
+            summary[f"{label}_requests_equal_plain"] = [
+                sum(a == b for a, b in zip(r["tokens"], plain_tokens)) for r in recs]
+            summary[f"{label}_first_differing_token"] = [
+                [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                 for a, b in zip(r["tokens"], plain_tokens)] for r in recs]
+    emit(summary)
+    predictable = predictable_stream_check(workload)
+    return runs, quant, predictable
 
 
 # =====================================================================================
@@ -1783,6 +1981,9 @@ def main() -> int:
     engine_exact_phase(n_layers=24, conditioned=True)
     t_phase["engine_exact"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    engine_exact_spec_phase(n_layers=2)
+    t_phase["engine_exact_spec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for kv in ("int8", "int4"):
         engine_exact_quant_phase(kv, n_layers=2)
     engine_exact_quant_phase("int8", n_layers=24, conditioned=True, n_new=8)
@@ -1796,6 +1997,11 @@ def main() -> int:
                                                 "ttft_s_p95")},
           "step_ms_p50_median": statistics.median(r["step_ms_p50"] for r in runs)})
     t_phase["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_spec_phase(workload, serve_setup(kv_dtype="int8"), plain_tokens=serve["tokens"])
+    t_phase["serve_spec"] = time.perf_counter() - t0
+    del workload
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serve_quant = serve_quant_phase(serve["kv_pool_bytes"])
     t_phase["serve_quant"] = time.perf_counter() - t0

@@ -11,8 +11,9 @@ kernel schedule.
   "torch"  the plain PyTorch version
   "auto"   the kernel for CUDA tensors, the plain version for CPU tensors
 
-``sample_tokens`` and ``ssd_decode_step`` are plain PyTorch in the reference
-too (jnp, not Pallas), so they have no kernel here either; a dense ``matmul``
+``sample_tokens``, ``verify_draft_tokens`` and ``ssd_decode_step`` are plain
+PyTorch in the reference too (jnp, not Pallas), so they have no kernel here
+either; a dense ``matmul``
 is ``torch.matmul``, as the reference leaves it to XLA.
 """
 from __future__ import annotations
@@ -364,27 +365,67 @@ def _xla_log(x: torch.Tensor) -> torch.Tensor:
     return m + _LOG_Q2 * e
 
 
+# fold_in domain tags of the speculative verify (the reference's
+# ``repro.kernels.ops.SPEC_ACCEPT_FOLD`` / ``SPEC_RESAMPLE_FOLD``): each (stream,
+# position) base key fans out into an acceptance-uniform and a resample-Gumbel
+# stream, disjoint from sample_tokens' draws (which fold no tag).
+SPEC_ACCEPT_FOLD = 0x5ACC
+SPEC_RESAMPLE_FOLD = 0x5E5A
+
+
+def position_keys(seed: torch.Tensor, pos: torch.Tensor):
+    """The key pair (k0, k1) of ``jax.random.fold_in(jax.random.PRNGKey(seed),
+    pos)``, elementwise over broadcast seed / pos: PRNGKey(s) is (0, s) and
+    fold_in(key, p) is threefry(key, (0, p)). seed holds uint32 stream ids,
+    pos positions (any integer dtype; both reduced mod 2**32, as JAX's uint32
+    conversion does). Returns int64 tensors holding uint32 values."""
+    seed = seed.long() & _M32
+    pos = pos.long() & _M32
+    seed, pos = torch.broadcast_tensors(seed, pos)
+    zero = torch.zeros_like(seed)
+    return _threefry2x32(zero, seed, zero, pos)
+
+
+def fold_in(k0: torch.Tensor, k1: torch.Tensor, data: int):
+    """``jax.random.fold_in(key, data)`` for a key pair and a uint32 tag."""
+    return _threefry2x32(k0, k1, torch.zeros_like(k0), torch.full_like(k0, data & _M32))
+
+
+def _unit_floats(k0: torch.Tensor, k1: torch.Tensor, n: Optional[int]) -> torch.Tensor:
+    """JAX's uniform [0, 1) f32 draw of a key under partitionable threefry
+    bits: element i is the xor of the two words of threefry(key, (0, i)),
+    whose top 23 bits become the mantissa of a float in [1, 2), minus 1.
+    ``n`` None draws the scalar (element 0, as a shape () draw takes); else
+    (..., n) from keys (...)."""
+    if n is None:
+        b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(k0), torch.zeros_like(k0))
+    else:
+        col = torch.arange(n, device=k0.device, dtype=torch.int64)
+        b0, b1 = _threefry2x32(k0[..., None], k1[..., None], torch.zeros_like(col), col)
+    return (((b0 ^ b1) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_from_key(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(key)`` (shape (), [0, 1)) for each key pair, bit
+    for bit: max(0, f * 1 + 0) is f."""
+    return _unit_floats(k0, k1, None)
+
+
+def gumbel_from_key(k0: torch.Tensor, k1: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,))`` for each key pair (...): (..., n),
+    bit for bit. u = max(tiny, f * (1 - tiny) + tiny), where 1 - tiny == 1 in
+    f32, and the noise is -log(-log(u)) with XLA's rounding of log."""
+    f = _unit_floats(k0, k1, n)
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp_min(f + tiny, tiny)
+    return -_xla_log(-_xla_log(u))
+
+
 def gumbel_noise(seed: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
     """(B, n) standard Gumbel noise, bit-equal to the reference's
     ``jax.random.gumbel(jax.random.fold_in(jax.random.PRNGKey(seed[b]),
-    pos[b]), (n,))`` (threefry2x32 with partitionable random bits). seed
-    holds uint32 stream ids, pos int32 positions (any integer dtype; both are
-    reduced mod 2**32, as JAX's uint32 conversion does).
-
-    PRNGKey(s) is the pair (0, s); fold_in(key, p) is threefry(key, (0, p));
-    bit i of the row is the xor of the two words of threefry(key, (0, i));
-    the top 23 bits become a uniform f in [0, 1), u = max(tiny, f + tiny),
-    and the noise is -log(-log(u))."""
-    seed = seed.long() & _M32
-    pos = pos.long() & _M32
-    zero = torch.zeros_like(seed)
-    k0, k1 = _threefry2x32(zero, seed, zero, pos)
-    col = torch.arange(n, device=seed.device, dtype=torch.int64)[None, :]
-    b0, b1 = _threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(col), col)
-    f = (((b0 ^ b1) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.clamp_min(f + tiny, tiny)  # f * (1 - tiny) + tiny; 1 - tiny == 1 in f32
-    return -_xla_log(-_xla_log(u))
+    pos[b]), (n,))`` (threefry2x32 with partitionable random bits)."""
+    return gumbel_from_key(*position_keys(seed, pos), n)
 
 
 def _filter_topk_topp(x, temperature, top_k, top_p, *, vocab: int):
@@ -392,7 +433,9 @@ def _filter_topk_topp(x, temperature, top_k, top_p, *, vocab: int):
     (pad columns already -inf). Returns z = x / max(temperature, eps) with the
     filtered-out entries at -inf: top-k keeps the k largest (ties at the k-th
     value all kept), then top-p keeps the smallest head of the scaled
-    distribution whose mass reaches top_p (the crossing token included)."""
+    distribution whose mass reaches top_p (the crossing token included).
+    Shared by sample_tokens and verify_draft_tokens, so the speculative
+    accept test and ordinary sampling see the same distribution."""
     k_eff = torch.clamp(torch.where(top_k > 0, top_k, torch.full_like(top_k, vocab)), 1, vocab)
     x_desc = torch.sort(x, dim=-1, descending=True).values
     kth = torch.gather(x_desc, 1, (k_eff[:, None] - 1).long())
@@ -439,3 +482,69 @@ def sample_tokens(logits, temperature, top_k, top_p, seed, pos, *, vocab: int,
     g = gumbel_noise(seed, pos, vp)
     tok = torch.argmax(z + g, dim=-1).to(torch.int32)
     return torch.where(temperature > 0, tok, greedy)
+
+
+def verify_draft_tokens(logits, draft, temperature, top_k, top_p, seed, pos0, active, *,
+                        vocab: int, sampled: Optional[bool] = None):
+    """Speculative accept / resample over one verify window's logits.
+
+    logits (B, C, Vp): the target model's rows for present positions lens ..
+    lens + K (C = K + 1; row j predicts the token at absolute position
+    pos0[b] + j, pos0 = lens + 1); draft (B, K) proposed tokens (clipped to
+    the vocabulary: a garbage proposal is rejected, never a crash);
+    temperature / top_k / top_p / seed (B,): the rows sample_tokens takes;
+    active (B,): the phase bitmap.
+
+    Returns (tokens_out (B, C) int32, committed (B,) int32, chosen_lp (B, C)
+    f32): the first committed[b] = n_acc + 1 entries of tokens_out[b] are
+    final, n_acc accepted draft tokens then one correction (first rejection)
+    or bonus (all accepted) token; inactive rows commit 0. chosen_lp is the
+    unmasked log-probability of every tokens_out entry.
+
+    Greedy rows (temperature 0): tokens_out is the argmax of each row and
+    draft j is accepted where argmax_j == draft_j, so the committed stream is
+    the one-token-at-a-time greedy stream. Sampled rows accept d_j with
+    probability p_j(d_j) under the distribution sample_tokens draws from
+    (_filter_topk_topp), resample the first rejection with d_j masked out,
+    and draw the bonus row unmasked; the uniform and the noise come from
+    fold_in(fold_in(PRNGKey(seed), pos0 + j), SPEC_ACCEPT_FOLD /
+    SPEC_RESAMPLE_FOLD), the reference's bits. ``sampled``: the caller's
+    host-side knowledge of whether any row has temperature > 0 (None: read it
+    from the device, one sync), in place of the reference's lax.cond."""
+    b, c, vp = logits.shape
+    k = c - 1
+    col = torch.arange(vp, device=logits.device)
+    x = torch.where(col < vocab, logits.float(), torch.full_like(logits, -math.inf,
+                                                                   dtype=torch.float32))
+    greedy = torch.argmax(x, dim=-1).to(torch.int32)  # (B, C)
+    draft = torch.clamp(draft.to(torch.int32), 0, vocab - 1)
+    accept = greedy[:, :k] == draft  # (B, K)
+    tokens_out = greedy
+    if sampled is None:
+        sampled = bool((temperature > 0).any())
+    if sampled:
+        z = _filter_topk_topp(
+            x.reshape(b * c, vp), temperature.repeat_interleave(c),
+            top_k.repeat_interleave(c), top_p.repeat_interleave(c), vocab=vocab,
+        ).reshape(b, c, vp)
+        pos = pos0.long()[:, None] + torch.arange(c, device=logits.device)[None, :]
+        k0, k1 = position_keys(seed[:, None], pos)  # (B, C)
+        u = uniform_from_key(*fold_in(k0, k1, SPEC_ACCEPT_FOLD))
+        g = gumbel_from_key(*fold_in(k0, k1, SPEC_RESAMPLE_FOLD), vp)  # (B, C, Vp)
+        probs = torch.softmax(z, dim=-1)
+        d = draft.long()[:, :, None]
+        acc = u[:, :k] < probs[:, :k].gather(-1, d)[..., 0]
+        zm = z.clone()
+        zm[:, :k].scatter_(-1, d, -math.inf)  # the rejected draft token is out
+        resamp = torch.argmax(zm + g, dim=-1).to(torch.int32)  # (B, C)
+        acc_f = torch.cat([acc, torch.zeros_like(acc[:, :1])], dim=1)
+        draft_f = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+        tok = torch.where(acc_f, draft_f, resamp)
+        samp = (temperature > 0)[:, None]
+        tokens_out = torch.where(samp, tok, greedy)
+        accept = torch.where(samp, acc, accept)
+    n_acc = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)
+    committed = torch.where(active > 0, n_acc + 1, torch.zeros_like(n_acc)).to(torch.int32)
+    lp = torch.log_softmax(logits[..., :vocab].float(), dim=-1)
+    chosen_lp = lp.gather(-1, tokens_out.long()[..., None])[..., 0]
+    return tokens_out, committed, chosen_lp

@@ -282,6 +282,65 @@ def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
     return _out_proj(p, out, x.dtype), cache
 
 
+def self_attention_verify_paged(cfg, p, x: torch.Tensor, cache, block_tables: torch.Tensor,
+                                context_lens: torch.Tensor, kv_spec=None):
+    """Speculative verify: C = K + 1 tokens a row scored in one chunk call.
+
+    x: (B, C, D), the embeddings of [current token, draft_1 .. draft_K];
+    context_lens (B,) tokens already resident, any alignment. Token j's K/V
+    is appended in place at position lens + j by the decode path's
+    one-token law, in a loop over j: over an intN pool the page-scale
+    lifecycle (_quant_append: a fresh scale at slot 0, the page's own
+    otherwise) is order-dependent within a page. The present is then
+    gathered back from the pool (dequantized under ``kv_spec``) and cast to
+    q's dtype, so each draft row attends the bytes a one-token decode would
+    read, and one chunk-attention call with cursors = context_lens scores
+    all C rows against the past and the causal present. Rejected positions
+    need no undo: they lie past the rolled-back lens and later appends
+    overwrite them. Inactive rows (nulled table and lens) write the null
+    page."""
+    b, c, _ = x.shape
+    ps = _page_size(cache, kv_spec)
+    q, k, v = _project_qkv(cfg, p, x)  # (B, H, C, Dh)
+    lens = context_lens.to(torch.int32)
+    pos = lens[:, None] + torch.arange(c, device=x.device, dtype=torch.int32)[None, :]
+    q = apply_rope(q, pos, cfg.rope_theta).contiguous()
+    k = apply_rope(k, pos, cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    pages, slots = [], []
+    for j in range(c):
+        pj = pos[:, j]
+        page = block_tables[rows, (pj // ps).long()].long()
+        slot = (pj % ps).long()
+        pages.append(page)
+        slots.append(slot)
+        if kv_spec is not None:
+            _quant_append(cache["k"], k[:, :, j, :], page, slot, kv_spec)
+            _quant_append(cache["v"], v[:, :, j, :], page, slot, kv_spec)
+        else:
+            cache["k"][page, :, slot, :] = k[:, :, j, :].to(cache["k"].dtype)
+            cache["v"][page, :, slot, :] = v[:, :, j, :].to(cache["v"].dtype)
+    pg, sl = torch.stack(pages, dim=1), torch.stack(slots, dim=1)  # (B, C)
+    ck, cv = cache["k"], cache["v"]
+    if kv_spec is not None:
+        k_pres = kv_spec.decode_pages(ck["q"][pg, :, sl, :][:, :, :, None, :],
+                                      ck["scale"][pg])[..., 0, :]  # (B, C, Hkv, Dh)
+        v_pres = kv_spec.decode_pages(cv["q"][pg, :, sl, :][:, :, :, None, :],
+                                      cv["scale"][pg])[..., 0, :]
+    else:
+        k_pres, v_pres = ck[pg, :, sl, :], cv[pg, :, sl, :]
+    k_pres = k_pres.transpose(1, 2).to(q.dtype).contiguous()  # (B, Hkv, C, Dh)
+    v_pres = v_pres.transpose(1, 2).to(q.dtype).contiguous()
+    if kv_spec is not None:
+        out = ops.paged_prefill_chunk_attention_quant(
+            q, k_pres, v_pres, ck["q"], ck["scale"], cv["q"], cv["scale"], block_tables, lens,
+            bits=kv_spec.bits,
+        )
+    else:
+        out = ops.paged_prefill_chunk_attention(q, k_pres, v_pres, ck, cv, block_tables, lens)
+    return _out_proj(p, out, x.dtype), cache
+
+
 def _scatter_chunk_pages(cache, kp: torch.Tensor, vp: torch.Tensor, dest: torch.Tensor,
                          kv_spec=None) -> None:
     """Scatter whole chunk pages into the pool in place. kp/vp: (B, nP, Hkv,

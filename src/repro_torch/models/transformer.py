@@ -108,6 +108,14 @@ class DenseBlock:
         )
         return cls._mlp(cfg, p, x + y)
 
+    @classmethod
+    def verify_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None):
+        h = apply_norm(cfg, x, p["ln_attn"])
+        y, _ = attn.self_attention_verify_paged(
+            cfg, p["attn"], h, cache, block_tables, context_lens, kv_spec=kv_spec,
+        )
+        return cls._mlp(cfg, p, x + y)
+
 
 class SSMBlock:
     """Pre-norm Mamba-2 mixer (no MLP); decode updates one layer's state and
@@ -382,7 +390,7 @@ class Model:
     def decode_step_paged(self, params, caches, tokens: torch.Tensor,
                           block_tables: torch.Tensor, context_lens: torch.Tensor, *,
                           kv_spec=None, write_tables=None, n_new=None,
-                          last_index=None, active=None):
+                          last_index=None, active=None, spec_verify: bool = False):
         """The mixed serving step; the page pools in ``caches`` are updated in
         place and returned.
 
@@ -399,19 +407,28 @@ class Model:
         quantized: appends and chunk scatters quantize, attention runs the
         dequantizing kernels.
 
+        ``spec_verify=True`` with tokens (B, C) is the speculative verify
+        step: C = K + 1 rows of [current token, draft] appended and scored
+        per layer (DenseBlock.verify_paged), context_lens the resident length
+        (any alignment), ``active`` honored as in decode, and the lm_head
+        applied to all C rows: it returns logits (B, C, Vp).
+
         Returns (logits (B, Vp), caches)."""
         self._paged_only_dense()
         cfg = self.cfg
-        chunk = tokens.dim() == 2
+        chunk = tokens.dim() == 2 and not spec_verify
         if active is not None and not chunk:
             on = active > 0
             block_tables = torch.where(on[:, None], block_tables, torch.zeros_like(block_tables))
             context_lens = torch.where(on, context_lens, torch.zeros_like(context_lens))
-        x = self._embed(params, tokens if chunk else tokens[:, None])
+        x = self._embed(params, tokens if tokens.dim() == 2 else tokens[:, None])
         pool = caches[0]
         for l, p in enumerate(params["blocks"][0]):
             cache = _layer(pool, l)
-            if chunk:
+            if spec_verify:
+                x = DenseBlock.verify_paged(cfg, p, x, cache, block_tables, context_lens,
+                                            kv_spec=kv_spec)
+            elif chunk:
                 x = DenseBlock.prefill_chunk_paged(
                     cfg, p, x, cache, block_tables, write_tables, context_lens, n_new,
                     kv_spec=kv_spec,
@@ -420,6 +437,9 @@ class Model:
                 x = DenseBlock.decode_paged(
                     cfg, p, x, cache, block_tables, context_lens, kv_spec=kv_spec,
                 )
+        if spec_verify:
+            # row j of the window decides draft j + 1 (the last row the bonus)
+            return self._head(params, x), caches
         if chunk:
             # only each row's requested position pays the vocab matmul
             rows = torch.arange(x.shape[0], device=x.device)

@@ -9,6 +9,7 @@ from .params import (
 from .sampling import GREEDY, SamplingParams, stream_seed
 from .step import (
     make_chunked_prefill_step,
+    make_paged_serve_multistep,
     make_paged_serve_step,
     make_prefill,
     make_serve_step,
@@ -24,6 +25,7 @@ __all__ = [
     "SamplingParams",
     "Sequence",
     "make_chunked_prefill_step",
+    "make_paged_serve_multistep",
     "make_paged_serve_step",
     "make_prefill",
     "make_serve_step",

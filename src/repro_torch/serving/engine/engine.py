@@ -26,24 +26,30 @@ skip). Preemption is recompute-style in both regimes.
 
 The decode hot path stays on the device: tables and lengths live in device
 mirrors beside the pools, sampling runs inside the step, and the only
-per-token device-to-host traffic is one packed (2, B) fetch of the sampled
-ids and their log-probabilities.
+per-token device-to-host traffic is one packed fetch of the sampled ids and
+their log-probabilities (plus the top-k log-probability pair with
+``logprobs_k``). Over a horizon the scheduler proves event-free, the engine
+runs ``multi_step`` steps in one dispatch, a host loop with no transfer
+inside it, and fetches their (K, B) ids once; token-exact against K = 1
+because sampling folds absolute positions. With ``spec_tokens`` a dispatch
+runs speculative windows instead (serving/speculative.py): an n-gram draft,
+one verify pass through the chunk kernel, the longest agreeing prefix plus
+one token committed, the rest rolled back by the lengths alone.
 
 Quantization composes with all of it: ``kv_dtype`` "int8" / "int4" stores the
 pages as intN bytes with per-(page, head) scales (kvquant.PagedQuantSpec), and
 a model built with ``build_model(cfg, quantized=True)`` runs its MLP on int8
 weights; the allocator, the prefix index and CoW never look at the bytes.
 
-Not ported yet (refused by EngineConfig, naming the ROADMAP item):
-speculative decoding, the host page tier, multi-step fused decode,
-grammar-constrained decoding, beam search, top-k logprobs, autotuning and
-logits recording.
+Not ported yet (refused by EngineConfig, naming the ROADMAP item): the host
+page tier, grammar-constrained decoding, beam search, autotuning and logits
+recording.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,10 +59,13 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.runtime.health import StragglerPolicy
 from repro_torch.serving.params import FINISH_ERROR, GenerationParams, RequestHandle
 from repro_torch.serving.sampling import pack_slot_params, stream_seed
+from repro_torch.serving.speculative import NGramProposer, make_paged_serve_spec_multistep
 from repro_torch.serving.step import (
     make_chunked_prefill_step,
+    make_paged_serve_multistep,
     make_paged_serve_step,
     make_prefill,
+    top_logprobs,
 )
 from repro_torch.serving.telemetry import EngineTrace, MetricsRegistry
 
@@ -67,12 +76,9 @@ from .scheduler import Scheduler, SchedulerConfig
 # EngineConfig fields whose features wait for a later slice: field -> (value
 # that means "off", the ROADMAP Queue 1 item that ports it)
 _NOT_PORTED = {
-    "spec_tokens": (0, "item 2 (speculative decoding)"),
     "host_pool_pages": (0, "item 2 (the host KV tier)"),
-    "multi_step": (1, "item 2 (multi-step fused decode as a CUDA graph)"),
     "grammar_states": (0, "item 2 (constrained decoding)"),
     "max_beam_width": (0, "item 2 (beam search)"),
-    "logprobs_k": (0, "item 2 (top-k logprobs)"),
     "autotune": (False, "item 7 (perf tooling and autotuning)"),
     "record_logits": (False, "item 7 (perf tooling)"),
 }
@@ -94,17 +100,44 @@ class EngineConfig:
     trace_capacity: int = 65536
     slow_step_threshold: float = 2.0  # StragglerPolicy threshold on decode steps
     kv_dtype: str = "f32"  # "f32" | "int8" | "int4": the KV page representation
+    multi_step: int = 1  # fused decode horizon K: when the scheduler proves the
+    # next K steps event-free, run them as one dispatch (a host loop with no
+    # device-to-host transfer) and fetch their (K, B) ids once. 1 = off;
+    # token-exact for any K
+    spec_tokens: int = 0  # speculative draft length K (0 = off): each decode
+    # step becomes a window of an n-gram draft, one verify pass at C = K + 1
+    # and the longest agreeing prefix + 1 token committed; greedy requests are
+    # token-exact against spec_tokens=0. Windows fuse multi_step at a time
+    # under the same horizon contract, tokens_per_step = K + 1
+    spec_ngram: int = 2  # n-gram order of the draft lookup key
+    spec_table_size: int = 512  # n-gram hash buckets a slot (power of two)
+    spec_accept_floor: float = 2.0  # adaptive backoff: while the EMA of
+    # accepted tokens a window is under this floor, the planner runs plain
+    # decode for spec_backoff dispatches, then re-probes; consecutive
+    # under-floor probes double the wait (capped at 32x spec_backoff). 0 = off
+    spec_backoff: int = 32  # base plain-dispatch count between re-probes
+    logprobs_k: int = 0  # top-k logprob width of the decode step; > 0 lets
+    # requests opt in (GenerationParams.logprobs <= this), the pair riding the
+    # ids fetch
     # not ported yet: any value other than "off" raises (see _NOT_PORTED)
-    spec_tokens: int = 0
     host_pool_pages: int = 0
-    multi_step: int = 1
     grammar_states: int = 0
     max_beam_width: int = 0
-    logprobs_k: int = 0
     autotune: bool = False
     record_logits: bool = False
 
     def __post_init__(self):
+        if self.spec_tokens and self.record_logits:
+            raise ValueError(
+                "spec_tokens does not compose with record_logits: recording needs "
+                "per-step host logits rows, but the speculative window never "
+                "materializes them off the device"
+            )
+        if self.spec_tokens < 0 or self.multi_step < 1 or self.logprobs_k < 0:
+            raise ValueError(
+                f"spec_tokens {self.spec_tokens} must be >= 0, multi_step "
+                f"{self.multi_step} >= 1 and logprobs_k {self.logprobs_k} >= 0"
+            )
         for name, (off, item) in _NOT_PORTED.items():
             if getattr(self, name) != off:
                 raise NotImplementedError(
@@ -123,11 +156,24 @@ class EngineConfig:
         )
 
 
-def _fetch_ids_lp(ids: torch.Tensor, lp: torch.Tensor):
-    """One device-to-host copy of (ids int32, log-probs f32), packed as int32
-    bits; returns two numpy arrays."""
-    packed = torch.stack([ids.to(torch.int32), lp.float().view(torch.int32)]).cpu().numpy()
-    return packed[0], packed[1].view(np.float32)
+def _fetch(*parts: torch.Tensor) -> List[np.ndarray]:
+    """One device-to-host copy of several tensors (integer ones as int32,
+    floating ones as f32 bits, concatenated); returns numpy arrays of their
+    shapes, int32 or float32."""
+    flat = [(p.float().view(torch.int32) if p.is_floating_point() else p.to(torch.int32))
+            .reshape(-1) for p in parts]
+    host = torch.cat(flat).cpu().numpy()
+    out, i = [], 0
+    for p in parts:
+        a = host[i:i + p.numel()].reshape(tuple(p.shape))
+        i += p.numel()
+        out.append(a.view(np.float32) if p.is_floating_point() else a)
+    return out
+
+
+def _top_pairs(vals: np.ndarray, ids: np.ndarray, n: int) -> List[Tuple[int, float]]:
+    """The first ``n`` (token id, logprob) pairs of one top-k row."""
+    return [(int(t), float(v)) for t, v in zip(ids[:n], vals[:n])]
 
 
 class ServeEngine:
@@ -156,12 +202,54 @@ class ServeEngine:
         self._h_host = self.registry.histogram("host_overhead_s")
         self._h_chunk = self.registry.histogram("chunk_time_s")
         self._c_decode = self.registry.counter("decode_steps")
+        self._c_fused = self.registry.counter("fused_steps")
         self._c_pf_computed = self.registry.counter("prefill_tokens_computed")
         self._c_pf_skipped = self.registry.counter("prefill_tokens_skipped")
         self._c_slow = self.registry.counter("slow_steps")
+        self._last_step_time: Optional[float] = None  # fused-horizon arrival estimate
         self._straggler = StragglerPolicy(threshold=config.slow_step_threshold)
         self._vocab = model.cfg.vocab
-        self._step = make_paged_serve_step(model, self.cache.kv_spec)
+        self._lp_k = int(config.logprobs_k)
+        kv_spec = self.cache.kv_spec
+        self._step = make_paged_serve_step(model, kv_spec, logprobs_k=self._lp_k)
+        self._k = int(config.multi_step)
+        if self._k > 1:
+            self._multistep = make_paged_serve_multistep(model, self._k, kv_spec,
+                                                         logprobs_k=self._lp_k)
+        # speculative decoding (serving/speculative.py): the window step is a
+        # sibling of the multistep, plus the proposer's two per-slot device
+        # arrays (hist, table), updated in place by each window; rows are
+        # rebuilt on the host only for slots whose context changed outside a
+        # window (_spec_stale), as _sync_slot_state does for the slot vectors
+        self._spec_k = int(config.spec_tokens)
+        if self._spec_k:
+            self._spec_windows = self._k
+            # every legal position plus one full window past it, so the
+            # window's history write never clamps for an active row
+            hist_len = config.max_pages_per_seq * config.page_size + self._spec_k + 2
+            self._proposer = NGramProposer(
+                spec_tokens=self._spec_k, ngram=config.spec_ngram,
+                table_size=config.spec_table_size, vocab=self._vocab, hist_len=hist_len,
+            )
+            self._spec_step = make_paged_serve_spec_multistep(
+                model, self._spec_windows, self._proposer, kv_spec, logprobs_k=self._lp_k,
+            )
+            b = config.max_batch
+            self._hist_dev = torch.zeros((b, hist_len), dtype=torch.int32, device=self.device)
+            self._table_dev = torch.zeros((b, config.spec_table_size + 1), dtype=torch.int32,
+                                          device=self.device)
+            self._spec_stale: set = set()
+            # adaptive backoff: EMA of a dispatch's mean accepted tokens a
+            # window, plain dispatches left before the next probe, and the
+            # current (doubling) backoff length
+            self._spec_accept_ema: Optional[float] = None
+            self._spec_backoff_left = 0
+            self._spec_backoff_len = int(config.spec_backoff)
+            self._c_spec_windows = self.registry.counter("spec_windows")
+            self._c_spec_backoffs = self.registry.counter("spec_backoffs")
+            self._c_spec_accepted = self.registry.counter("spec_accepted_tokens")
+            self._c_spec_hits = self.registry.counter("spec_draft_hits")
+            self._c_spec_rollback = self.registry.counter("spec_rollback_tokens")
         self._prefill = make_prefill(model)
         # per-slot device vectors for the fused step: fed-back tokens + the
         # packed policy/phase arrays (slot_f32 (2, B): temperature, top_p;
@@ -206,13 +294,18 @@ class ServeEngine:
             raise ValueError("submit(Request(...)) takes no extra params/rid")
         self._next_rid = max(self._next_rid, request.rid + 1)
         p = request.params
-        if p.logprobs:
+        if p.logprobs > self._lp_k:
             raise ValueError(
                 f"request {request.rid} asks for {p.logprobs} logprobs but the engine "
-                f"computes none (EngineConfig.logprobs_k is not ported yet)"
+                f"computes logprobs_k={self._lp_k} — raise EngineConfig.logprobs_k"
             )
         if p.record_logits:
             raise ValueError(f"request {request.rid} asks for record_logits; not ported yet")
+        if p.speculative and not self._spec_k:
+            raise ValueError(
+                f"request {request.rid} asks for speculative decoding but the engine "
+                f"was built with spec_tokens=0 — set EngineConfig.spec_tokens"
+            )
         need = self.cache.pages_for(len(request.prompt) + p.max_new_tokens)
         if need > self.config.max_pages_per_seq:
             raise ValueError(
@@ -267,10 +360,19 @@ class ServeEngine:
             sampled=sp.temperature > 0,
         )
         lp = torch.log_softmax(logits_row[:self._vocab].float(), dim=-1)[tok.long()]
-        ids, lps = _fetch_ids_lp(tok, lp)
-        state.generated.append(int(ids[0]))
-        state.cum_logprob += float(lps[0])
+        n_lp = state.request.logprobs
+        # the row's top-k pair rides the id's fetch
+        extra = top_logprobs(logits_row[None], self._vocab, self._lp_k) if n_lp else ()
+        got = _fetch(tok, lp, *extra)
+        state.generated.append(int(got[0][0]))
+        state.cum_logprob += float(got[1][0])
+        if n_lp:
+            state.logprobs[len(state.generated) - 1] = _top_pairs(got[2][0], got[3][0], n_lp)
         self._slots_stale = True  # the slot's next decode input is host-known
+        if self._spec_k:
+            # the proposer's rows for this slot are rebuilt from the new
+            # context before its next speculative window
+            self._spec_stale.add(state.slot)
         if state.first_token_time is None:
             state.first_token_time = time.perf_counter() - self._t0
 
@@ -389,41 +491,241 @@ class ServeEngine:
         self._slots_stale = False
         self._slot_sig = sig
 
+    def _fused_k(self, now: float) -> int:
+        """How many decode steps one dispatch runs: K when the scheduler
+        proves the horizon event-free and no pending arrival lands inside it
+        (estimated from the last measured step), else 1. A short horizon first
+        pre-appends decode pages up to the window
+        (Scheduler.reserve_decode_tokens) and re-proves."""
+        if self._k <= 1:
+            return 1
+        if self.scheduler.event_free_horizon(self.queue) < self._k:
+            if self.queue:
+                return 1
+            for slot, st in self.scheduler.running.items():
+                if st.phase == DECODING:
+                    self.scheduler.reserve_decode_tokens(slot, self._k)
+            if self.scheduler.event_free_horizon(self.queue) < self._k:
+                return 1
+        if self._pending:
+            est = self._last_step_time if self._last_step_time else 2e-3
+            if self._pending[0].request.arrival_time <= now + self._k * est:
+                return 1
+        return self._k
+
+    # -- speculative path (serving/speculative.py) --------------------------------
+    def _spec_plan(self, now: float, decoding) -> int:
+        """Windows to run speculatively in this dispatch (0 = plain decode).
+        Speculation is batch-wide: every decoding slot must be eligible (no
+        per-request opt-out; grammar and branch groups, which the reference
+        also excludes here, are refused at GenerationParams until ROADMAP
+        Queue 1 item 2), the window's page budget (S * (K + 1) tokens a
+        slot) must pre-reserve, the horizon must prove S windows event-free
+        at tokens_per_step = K + 1, and no pending arrival may land inside
+        the window. Any failure degrades to plain decode for this dispatch.
+
+        Adaptive backoff: while the acceptance EMA sits under
+        spec_accept_floor, the planner answers 0 for a backoff of plain
+        dispatches before probing another window."""
+        if not decoding or self.queue:
+            return 0
+        if self._spec_backoff_left:
+            self._spec_backoff_left -= 1
+            return 0
+        if any(st.request.params.speculative is False for st in decoding.values()):
+            return 0
+        c = self._spec_k + 1
+        s = self._spec_windows
+        for slot in decoding:
+            if not self.scheduler.reserve_decode_tokens(slot, s * c):
+                return 0
+        if self.scheduler.event_free_horizon(self.queue, tokens_per_step=c) < s:
+            return 0
+        if self._pending:
+            est = self._last_step_time if self._last_step_time else 2e-3
+            if self._pending[0].request.arrival_time <= now + s * est:
+                return 0
+        return s
+
+    def _sync_spec_state(self, decoding) -> None:
+        """Rebuild the proposer's hist / table rows of slots whose context
+        changed outside a speculative window (admission, plain steps,
+        preemption-recompute): the speculative twin of _sync_slot_state. A
+        rebuilt row equals what the window's device updates would have made
+        (NGramProposer's insertion law), so plain and speculative dispatches
+        mix without drift."""
+        stale = sorted(s for s in self._spec_stale if s in decoding)
+        if stale:
+            rows = [self._proposer.rebuild_row(decoding[slot].context) for slot in stale]
+            idx = torch.tensor(stale, dtype=torch.long, device=self.device)
+            self._hist_dev.index_copy_(
+                0, idx, torch.from_numpy(np.stack([h for h, _ in rows])).to(self.device))
+            self._table_dev.index_copy_(
+                0, idx, torch.from_numpy(np.stack([t for _, t in rows])).to(self.device))
+        self._spec_stale.difference_update(stale)
+
+    def _observe_dispatch(self, t_dev: float, n: int) -> None:
+        """Record a dispatch of ``n`` steps (or windows) that took ``t_dev``:
+        n step-time entries of t_dev / n, the straggler verdict on one."""
+        per = t_dev / n
+        for _ in range(n):
+            self._h_step.observe(per)
+        self._last_step_time = per
+        self._c_decode.inc(n)
+        verdict = self._straggler.observe(per)
+        if verdict != "ok":
+            self._c_slow.inc()
+            if self.trace is not None:
+                self.trace.instant("slow_step", -1, verdict=verdict, step_ms=per * 1e3,
+                                   ema_ms=(self._straggler.ema or 0.0) * 1e3)
+
+    def _decode_spec_once(self, decoding, s: int) -> None:
+        """One speculative dispatch: S windows of propose -> verify -> accept
+        with no device-to-host transfer between them. Each window commits 1 ..
+        K + 1 tokens a slot; the rejected suffix is never covered by the
+        advanced lens (its KV sits in pre-reserved owned pages, and later
+        appends overwrite it). The only bulk transfer is one packed fetch of
+        the (S, B, K + 1) ids, the committed counts and the log-probs."""
+        wall0 = time.perf_counter()
+        self._sync_slot_state()
+        self._sync_spec_state(decoding)
+        tables, lens = self.cache.device_state()
+        kd = self._spec_k
+        c = kd + 1
+        tr = self.trace
+        if tr is not None:
+            tr.begin("spec_window", -1, windows=s, k=kd, batch=len(decoding))
+        want_lp = self._lp_k and any(st.request.logprobs for st in decoding.values())
+        t0 = time.perf_counter()
+        out = self._spec_step(
+            self.params, self.cache.pools, self._tokens_dev, tables, lens, self._slot_f32,
+            self._slot_i32, self._hist_dev, self._table_dev, sampled=self._any_sampled,
+        )
+        toks, committed, last, new_lens, _, lps, hist, table = out[:8]
+        got = _fetch(toks, committed, lps, *(out[8] if want_lp else ()))
+        ids, acc, lp_arr = got[:3]  # (S, B, C), (S, B), (S, B, C)
+        lp_vals, lp_ids = got[3:] if want_lp else (None, None)  # (S, B, C, k)
+        t_dev = time.perf_counter() - t0
+        self.cache.adopt_lens_device(new_lens)
+        self._tokens_dev = last
+        self._hist_dev, self._table_dev = hist, table
+        self._c_fused.inc(s)
+        self._observe_dispatch(t_dev, s)  # one window = one model dispatch, as a step
+        win_acc = win_n = 0
+        for i in range(s):
+            for slot, state in decoding.items():
+                if state.done:
+                    continue  # finished mid-dispatch: its later windows are discarded
+                a = int(acc[i, slot])
+                take = 0
+                for j in range(a):
+                    state.generated.append(int(ids[i, slot, j]))
+                    state.cum_logprob += float(lp_arr[i, slot, j])
+                    take += 1
+                    n_lp = state.request.logprobs
+                    if n_lp and lp_vals is not None:
+                        state.logprobs[len(state.generated) - 1] = _top_pairs(
+                            lp_vals[i, slot, j], lp_ids[i, slot, j], n_lp)
+                    if state.done:
+                        break  # EOS or the length cap inside the window
+                # the host mirror follows the honest count; a truncated slot
+                # is done and sweeps out, and free_slot marks its device row
+                # dirty, repairing the lens the window over-advanced
+                self.cache.bump_len(slot, take)
+                win_n += 1
+                win_acc += take
+                self._c_spec_windows.inc()
+                self._c_spec_accepted.inc(take)
+                # draft hits: committed tokens that came from the draft (the
+                # last committed one is the target's correction or bonus)
+                self._c_spec_hits.inc(min(take, max(a - 1, 0)))
+                self._c_spec_rollback.inc(c - a)
+        mean = win_acc / win_n if win_n else 0.0
+        ema = self._spec_accept_ema
+        self._spec_accept_ema = mean if ema is None else 0.6 * ema + 0.4 * mean
+        if self.config.spec_backoff:
+            if self._spec_accept_ema < self.config.spec_accept_floor:
+                self._spec_backoff_left = self._spec_backoff_len
+                self._spec_backoff_len = min(self._spec_backoff_len * 2,
+                                             32 * self.config.spec_backoff)
+                self._c_spec_backoffs.inc()
+                if tr is not None:
+                    tr.instant("spec_backoff", -1, ema=self._spec_accept_ema,
+                               floor=self.config.spec_accept_floor,
+                               dispatches=self._spec_backoff_left)
+            else:
+                self._spec_backoff_len = int(self.config.spec_backoff)
+        if tr is not None:
+            tr.instant("spec_accept", -1, windows=win_n, accepted=win_acc, mean=mean)
+            tr.end("spec_window", -1)
+        self._h_host.observe((time.perf_counter() - wall0 - t_dev) / s)
+
     def _decode_once(self) -> None:
-        """One fused decode step over every slot; PREFILLING and empty slots
-        are masked on the device by the phase bitmap."""
+        """One device dispatch of the decode hot path: a speculative dispatch
+        (``spec_tokens``), a fused K-step window over an event-free horizon,
+        or a single fused step. PREFILLING and empty slots are masked on the
+        device by the phase bitmap. Tokens are sampled on the device; the
+        only device-to-host traffic is one packed fetch a dispatch."""
+        now = time.perf_counter() - self._t0
         running = self.scheduler.running
         decoding = {s: st for s, st in running.items() if st.phase == DECODING}
+        if self._spec_k:
+            n_win = self._spec_plan(now, decoding)
+            if n_win:
+                self._decode_spec_once(decoding, n_win)
+                return
+            # plain decode makes tokens the proposer's device rows never saw
+            self._spec_stale.update(decoding)
         wall0 = time.perf_counter()
+        k = self._fused_k(now)
         self._sync_slot_state()
         tables, lens = self.cache.device_state()
         tr = self.trace
+        span = "fused_window" if k > 1 else "decode"
         if tr is not None:
-            tr.begin("decode", -1, k=1, batch=len(decoding))
+            tr.begin(span, -1, k=k, batch=len(decoding))
+        # the top-k pair is computed whenever logprobs_k > 0 but fetched only
+        # when a decoding request asked for it
+        want_lp = self._lp_k and any(st.request.logprobs for st in decoding.values())
         t0 = time.perf_counter()
-        nxt, _, new_lens, _, lp = self._step(
-            self.params, self.cache.pools, self._tokens_dev, tables, lens,
-            self._slot_f32, self._slot_i32, sampled=self._any_sampled,
-        )
-        ids, lps = _fetch_ids_lp(nxt, lp)  # the step's only device-to-host copy
+        if k > 1:
+            out = self._multistep(
+                self.params, self.cache.pools, self._tokens_dev, tables, lens,
+                self._slot_f32, self._slot_i32, sampled=self._any_sampled,
+            )
+            toks, last, new_lens, _, lps = out[:5]
+            top = out[5] if want_lp else ()
+            self._c_fused.inc(k)
+        else:
+            out = self._step(
+                self.params, self.cache.pools, self._tokens_dev, tables, lens,
+                self._slot_f32, self._slot_i32, sampled=self._any_sampled,
+            )
+            last, _, new_lens, _, lps = out[:5]
+            toks, lps = last[None], lps[None]  # (1, B)
+            top = tuple(t[None] for t in out[5]) if want_lp else ()
+        # the dispatch's only device-to-host copy
+        got = _fetch(toks, lps, *top)
+        ids, lp_arr = got[:2]  # (K, B)
+        lp_vals, lp_ids = got[2:] if want_lp else (None, None)  # (K, B, k)
         t_dev = time.perf_counter() - t0
         self.cache.adopt_lens_device(new_lens)
-        self._tokens_dev = nxt
-        self._h_step.observe(t_dev)
-        self._c_decode.inc()
-        verdict = self._straggler.observe(t_dev)
-        if verdict != "ok":
-            self._c_slow.inc()
-            if tr is not None:
-                tr.instant("slow_step", -1, verdict=verdict, step_ms=t_dev * 1e3,
-                           ema_ms=(self._straggler.ema or 0.0) * 1e3)
-        for slot, state in decoding.items():
-            state.generated.append(int(ids[slot]))
-            state.cum_logprob += float(lps[slot])
-            self.cache.bump_len(slot)
+        self._tokens_dev = last
+        self._observe_dispatch(t_dev, k)
+        for i in range(k):
+            for slot, state in decoding.items():
+                if state.done:
+                    continue  # finished mid-window (EOS): the overrun ids are discarded
+                state.generated.append(int(ids[i, slot]))
+                state.cum_logprob += float(lp_arr[i, slot])
+                self.cache.bump_len(slot)
+                n_lp = state.request.logprobs
+                if n_lp and lp_vals is not None:
+                    state.logprobs[len(state.generated) - 1] = _top_pairs(
+                        lp_vals[i, slot], lp_ids[i, slot], n_lp)
         if tr is not None:
-            tr.end("decode", -1)
-        self._h_host.observe(time.perf_counter() - wall0 - t_dev)
+            tr.end(span, -1)
+        self._h_host.observe((time.perf_counter() - wall0 - t_dev) / k)
 
     def _sweep_finished(self) -> None:
         for slot in list(self.scheduler.running):
@@ -495,6 +797,7 @@ class ServeEngine:
         self.registry.reset()
         if self.trace is not None:
             self.trace.clear()
+        self._last_step_time = None
         self._straggler = StragglerPolicy(threshold=self.config.slow_step_threshold)
         self.cache.reset_stats()
 
@@ -511,6 +814,22 @@ class ServeEngine:
         e2e = np.array([s.finish_time - s.request.arrival_time for s in states])
         ttft = np.array([s.first_token_time - s.request.arrival_time for s in states])
         n_tok = sum(len(s.generated) for s in states)
+        # speculative telemetry, absent when spec_tokens=0 (the plain snapshot
+        # keeps its shape): accepted_tokens_per_step is the mean tokens
+        # committed a slot-window (>= 1: the correction token always commits),
+        # draft_hit_rate the share of proposed draft tokens that committed,
+        # spec_rollback_tokens the positions written then rolled back
+        spec: Dict[str, float] = {}
+        if self._spec_k:
+            w = self._c_spec_windows.value
+            spec = {
+                "spec_windows": w,
+                "spec_accepted_tokens": self._c_spec_accepted.value,
+                "accepted_tokens_per_step": self._c_spec_accepted.value / w if w else 0.0,
+                "draft_hit_rate": self._c_spec_hits.value / (w * self._spec_k) if w else 0.0,
+                "spec_rollback_tokens": self._c_spec_rollback.value,
+                "spec_backoffs": self._c_spec_backoffs.value,
+            }
         return {
             "requests": len(states),
             "failed": len(failed),
@@ -518,6 +837,7 @@ class ServeEngine:
             "wall_s": float(wall),
             "tokens_per_s": float(n_tok / span) if span > 0 else float("inf"),
             "decode_steps": self._c_decode.value,
+            "fused_steps": self._c_fused.value,
             "step_ms_p50": self._h_step.percentile(50) * 1e3,
             "step_ms_p95": self._h_step.percentile(95) * 1e3,
             "decode_ms_total": self._h_step.total * 1e3,
@@ -532,5 +852,6 @@ class ServeEngine:
             "slow_steps": self._c_slow.value,
             "prefill_tokens_computed": self._c_pf_computed.value,
             "prefill_tokens_skipped": self._c_pf_skipped.value,
+            **spec,
             **self.cache.stats(),
         }

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional, Sequence as Seq, Tuple
+from typing import Deque, Dict, List, Optional, Sequence as Seq, Tuple
 
 from repro_torch.serving.params import FINISH_EOS, FINISH_LENGTH, GenerationParams, Sequence
 from repro_torch.serving.sampling import SamplingParams
@@ -58,6 +58,10 @@ class Request:
     def sampling(self) -> SamplingParams:
         return self.params.sampling
 
+    @property
+    def logprobs(self) -> int:
+        return self.params.logprobs
+
     def __repr__(self):
         return f"Request(rid={self.rid}, prompt=<{len(self.prompt)} tokens>, params={self.params})"
 
@@ -76,6 +80,10 @@ class RequestState:
 
     request: Request
     generated: List[int] = dataclasses.field(default_factory=list)
+    # generated-token index -> [(token_id, logprob), ...] of the top
+    # request.logprobs candidates at that position (empty unless requested);
+    # keyed by token index, so preemption-recompute overwrites in place
+    logprobs: Dict[int, List[Tuple[int, float]]] = dataclasses.field(default_factory=dict)
     slot: Optional[int] = None  # batch slot while running, None while queued
     # chunked prefill: tokens of context whose KV is computed and resident for
     # the current residency; None once the prefill completes (or always, in
@@ -144,7 +152,7 @@ class RequestState:
 
     @property
     def sequences(self) -> List[Sequence]:
-        return [Sequence(tokens=list(self.generated), logprobs={},
+        return [Sequence(tokens=list(self.generated), logprobs=dict(self.logprobs),
                          cumulative_logprob=self.cum_logprob,
                          finish_reason=self.finish_reason)]
 

@@ -10,6 +10,10 @@ engine step the scheduler:
      preempting the most recently admitted other sequence when the pool runs
      dry. Preemption is recompute-style: the victim releases its pages and
      requeues at the front with its generated tokens kept.
+
+For the fused decode window and the speculative window it also proves an
+event-free horizon (``event_free_horizon``) and pre-appends the pages a
+window will write (``reserve_decode_tokens``).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 from .cache import PagedKVCache
-from .request import RequestQueue, RequestState
+from .request import DECODING, RequestQueue, RequestState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +144,48 @@ class Scheduler:
                     "KV pool exhausted while copy-on-write needed a page — "
                     "num_pages is too small for this request"
                 )
+
+    # -- fused-decode horizon --------------------------------------------------------
+    def reserve_decode_tokens(self, slot: int, n_tokens: int) -> bool:
+        """Best-effort page pre-append: grow ``slot``'s owned pages until it
+        can take ``n_tokens`` more tokens beyond lens[slot] with no host
+        intervention, so a fused (or speculative) window proves its whole page
+        budget up front. Never preempts: a dry pool or the per-sequence page
+        cap returns False and the caller degrades. Appended pages are ordinary
+        owned pages, freed with the slot and filled by later decode either
+        way."""
+        cache = self.cache
+        while cache.capacity_tokens(slot) < n_tokens:
+            if len(cache.pages_of[slot]) >= cache.max_pages_per_seq:
+                return False
+            if not cache.append_page(slot):
+                return False
+        return True
+
+    def event_free_horizon(self, queue: RequestQueue, tokens_per_step: int = 1) -> int:
+        """Largest K such that the next K decode steps need no scheduler
+        intervention, the precondition of a fused window
+        (make_paged_serve_multistep): the queue is empty (nothing becomes
+        admittable mid-horizon), every slot is DECODING with no CoW pending,
+        and each has K steps of both owned page capacity and max_new_tokens
+        budget. EOS is not predictable: a window may overrun an EOS by up to
+        K - 1 tokens, which the engine discards; their writes stay inside the
+        slot's owned pages because K never exceeds its capacity.
+        ``tokens_per_step`` is a step's token footprint: 1 for plain decode,
+        K_draft + 1 for a speculative window."""
+        if queue or not self.running:
+            return 0
+        k = 1 << 30
+        for slot, state in self.running.items():
+            if state.phase != DECODING or self.cache.needs_cow(slot):
+                return 0
+            # the reference refuses beam groups here (host-side selection
+            # between steps); the port has none until ROADMAP Queue 1 item 2
+            # ports BranchGroup, so every state is a groupless one
+            capacity = self.cache.capacity_tokens(slot)
+            remaining = state.request.max_new_tokens - len(state.generated)
+            k = min(k, capacity // tokens_per_step, max(remaining, 0) // tokens_per_step)
+        return max(k, 0)
 
     def finish(self, slot: int) -> RequestState:
         state = self.running.pop(slot)

@@ -1,9 +1,10 @@
 """GenerationParams / Sequence / RequestHandle — the generation API.
 
-Port of ``repro.serving.params`` for single-branch generation. The
-parallel-generation and speculative fields keep their names but are refused
-at construction until their slice is ported (ROADMAP Queue 1 item 2):
-``n > 1``, ``beam_width``, ``grammar`` and ``speculative=True``.
+Port of ``repro.serving.params`` for single-branch generation, with top-k
+logprobs (``logprobs``, up to ``EngineConfig.logprobs_k``) and speculative
+decoding (``speculative``). The parallel-generation fields keep their names
+but are refused at construction until their slice is ported (ROADMAP Queue 1
+item 2): ``n > 1``, ``beam_width`` and ``grammar``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .sampling import SamplingParams
 
-_LATER = "is not ported yet (ROADMAP Queue 1 item 2: parallel generation, speculative decoding)"
+_LATER = ("is not ported yet (ROADMAP Queue 1 item 2: best-of-n, beam search, "
+          "constrained decoding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,11 +28,16 @@ class GenerationParams:
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
+    # top-k logprobs returned per generated token (<= EngineConfig.logprobs_k)
     logprobs: int = 0
     n: int = 1
     beam_width: int = 0
     grammar: Optional[Any] = None
     record_logits: Optional[bool] = None
+    # speculative decoding: None follows EngineConfig.spec_tokens, True
+    # requires a speculating engine (submit() checks), False opts this request
+    # out; any such slot makes the whole dispatch plain decode (speculation
+    # is a batch-wide window)
     speculative: Optional[bool] = None
 
     def __post_init__(self):
@@ -47,8 +54,6 @@ class GenerationParams:
             raise NotImplementedError(f"beam_width (beam search) {_LATER}")
         if self.grammar is not None:
             raise NotImplementedError(f"grammar (constrained decoding) {_LATER}")
-        if self.speculative:
-            raise NotImplementedError(f"speculative=True {_LATER}")
 
     @property
     def sampling(self) -> SamplingParams:
@@ -64,9 +69,10 @@ FINISH_ERROR = "error"
 
 @dataclasses.dataclass
 class Sequence:
-    """One generated branch: tokens, top-k logprobs per position (empty here:
-    the engine computes none yet), the cumulative log-probability of the
-    chosen tokens, and why it stopped ("eos" | "length" | "error" | None)."""
+    """One generated branch: tokens, the top-k logprobs per generated-token
+    index (``[(token_id, logprob), ...]``, empty unless the request asked for
+    them), the cumulative log-probability of the chosen tokens, and why it
+    stopped ("eos" | "length" | "error" | None)."""
 
     tokens: List[int]
     logprobs: Dict[int, List[Tuple[int, float]]]

@@ -11,7 +11,22 @@ Reproducibility contract:
     sampler's noise is keyed on the stream seed and the absolute position
     only, so a rerun, another batch composition, or a preempted-and-recomputed
     request gives the same tokens. The noise is the reference's threefry
-    stream bit for bit (``kernels.ops.gumbel_noise``).
+    stream bit for bit (``kernels.ops.gumbel_noise``);
+  - the fused K-step window (EngineConfig.multi_step) samples with the same
+    fold, so it is token-exact against single steps.
+
+Speculative stream contract (serving/speculative.py,
+``kernels.ops.verify_draft_tokens``): greedy requests are token-exact between
+the speculative and the plain paths (accepting argmax-agreeing draft
+prefixes reproduces the serial stream). Sampled requests stay a pure function
+of (seed, rid, position): the verify derives per-position keys with the same
+fold_in(PRNGKey(stream), position) base as sample_tokens, then folds the tag
+``ops.SPEC_ACCEPT_FOLD`` (the acceptance uniform) or
+``ops.SPEC_RESAMPLE_FOLD`` (the resample Gumbel noise), the reference's bits.
+The speculative sampled stream differs from the plain one (rejection
+sampling draws other randomness than Gumbel-max): only reproducibility, not
+equality across the two paths, holds above temperature 0. A request opts out
+with GenerationParams.speculative=False.
 """
 from __future__ import annotations
 

@@ -6,7 +6,12 @@ to compile.
 The fused decode step keeps the decode hot path on the device: it appends,
 attends, samples (``kernels.ops.sample_tokens``) and advances the lengths
 (``context_lens + active``) without the logits ever leaving the device; the
-engine fetches only the sampled ids and their log-probabilities.
+engine fetches only the sampled ids and their log-probabilities (and, with
+``logprobs_k``, the top-k log-probability pair). ``make_paged_serve_multistep``
+runs K such steps in one host loop with no device-to-host transfer inside it:
+each sampled token feeds the next step's embedding on the device, and the K
+steps' outputs stack there for one fetch. The speculative sibling is
+``serving.speculative.make_paged_serve_spec_multistep``.
 """
 from __future__ import annotations
 
@@ -29,35 +34,104 @@ def make_serve_step(model, attn_impl: str = "auto"):
     return serve_step
 
 
-def make_paged_serve_step(model, kv_spec=None):
+def top_logprobs(logits: torch.Tensor, vocab: int, k: int):
+    """(vals (B, k) f32, ids (B, k) int32): the top-k log-probabilities of
+    each row's next-token distribution (pad columns excluded), computed on
+    the device from the logits the sampler reads. Ordered by (-value, id),
+    as ``jax.lax.top_k`` orders ties (the lower id first), which torch.topk
+    does not promise: the key is the value's order-preserving int32 bits
+    above the inverted id, and an int64 topk over it."""
+    lp = torch.log_softmax(logits[:, :vocab].float(), dim=-1) + 0.0  # -0.0 -> +0.0
+    bits = lp.view(torch.int32).long()
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)  # float order as ints
+    ids = torch.arange(vocab, device=lp.device, dtype=torch.int64)
+    key = ordered * (1 << 32) + (0xFFFFFFFF - ids)
+    top = torch.topk(key, k, dim=-1).indices
+    return lp.gather(1, top), top.to(torch.int32)
+
+
+def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
+                  context_lens, slot_f32, slot_i32, sampled):
+    """One fused decode iteration: append -> attend -> sample, on the device.
+
+    slot_f32 (2, B): [temperature, top_p]; slot_i32 (3, B): [active, top_k,
+    seed bits]. ``active`` is the phase bitmap (inactive rows write the null
+    page); the sampled position is ``context_lens + 1``, the length of the
+    context the new token extends, so K fused steps sample what K single
+    steps would. Returns (next_tokens (B,) int32, logits (B, Vp), new_lens
+    (B,), caches, chosen_lp (B,) f32): chosen_lp is log P(next_token |
+    prefix)."""
+    active = slot_i32[0]
+    logits, caches = model.decode_step_paged(
+        params, caches, tokens, block_tables, context_lens, kv_spec=kv_spec, active=active,
+    )
+    nxt = ops.sample_tokens(
+        logits, slot_f32[0], slot_i32[1], slot_f32[1], slot_i32[2], context_lens + 1,
+        vocab=vocab, sampled=sampled,
+    )
+    new_lens = context_lens + (active > 0).to(context_lens.dtype)
+    lp = torch.log_softmax(logits[:, :vocab].float(), dim=-1)
+    chosen_lp = lp.gather(1, nxt[:, None].long())[:, 0]
+    return nxt, logits, new_lens, caches, chosen_lp
+
+
+def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0):
     """The fused decode step over the engine's pools (``kv_spec``: their
     quantized element representation, None for dense pages)."""
     vocab = model.cfg.vocab
 
     def fused_serve_step(params, caches, tokens, block_tables, context_lens, slot_f32,
                          slot_i32, sampled: Optional[bool] = None):
-        """One batched decode token per active slot, sampled on the device.
-
-        slot_f32 (2, B): [temperature, top_p]; slot_i32 (3, B): [active, top_k,
-        seed bits]. ``active`` is the phase bitmap (inactive rows write the
-        null page); the sampled position is ``context_lens + 1``, the length of
-        the context the new token extends. ``sampled`` is the host's knowledge
-        of whether any slot has temperature > 0. Returns (next_tokens (B,)
-        int32, logits (B, Vp), new_lens (B,), caches, chosen_lp (B,) f32)."""
-        active = slot_i32[0]
-        logits, caches = model.decode_step_paged(
-            params, caches, tokens, block_tables, context_lens, kv_spec=kv_spec, active=active,
-        )
-        nxt = ops.sample_tokens(
-            logits, slot_f32[0], slot_i32[1], slot_f32[1], slot_i32[2], context_lens + 1,
-            vocab=vocab, sampled=sampled,
-        )
-        new_lens = context_lens + (active > 0).to(context_lens.dtype)
-        lp = torch.log_softmax(logits[:, :vocab].float(), dim=-1)
-        chosen_lp = lp.gather(1, nxt[:, None].long())[:, 0]
-        return nxt, logits, new_lens, caches, chosen_lp
+        """One batched decode token per active slot, sampled on the device
+        (_fused_decode). ``sampled`` is the host's knowledge of whether any
+        slot has temperature > 0 (None: one read of the device). Returns
+        (next_tokens (B,) int32, logits (B, Vp), new_lens (B,), caches,
+        chosen_lp (B,) f32[, (vals, ids) (B, logprobs_k) when logprobs_k])."""
+        out = _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
+                            context_lens, slot_f32, slot_i32, sampled)
+        if not logprobs_k:
+            return out
+        return out + (top_logprobs(out[1], vocab, logprobs_k),)
 
     return fused_serve_step
+
+
+def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: int = 0):
+    """K fused decode iterations in one dispatch: a host loop of K
+    _fused_decode calls with no device-to-host transfer inside it (the
+    reference's ``lax.scan``). Legal only over an event-free horizon
+    (Scheduler.event_free_horizon): no admission, no page append past owned
+    capacity, no CoW, no max-token finish within K, so the loop never needs
+    the host. Each sampled token feeds the next iteration's embedding lookup
+    and the lengths advance on the device."""
+    vocab = model.cfg.vocab
+
+    def fused_multistep(params, caches, tokens, block_tables, context_lens, slot_f32,
+                        slot_i32, sampled: Optional[bool] = None):
+        """Returns (tokens (K, B) int32, last_tokens (B,), new_lens (B,),
+        caches, chosen_lps (K, B) f32[, (vals, ids) (K, B, logprobs_k) when
+        logprobs_k]), all on the device, for one fetch. ``sampled`` as in
+        the single step; None reads the device once, before the loop."""
+        if sampled is None:
+            sampled = bool((slot_f32[0] > 0).any())
+        toks, lps, vals, ids = [], [], [], []
+        for _ in range(k_steps):
+            tokens, logits, context_lens, caches, lp = _fused_decode(
+                model, kv_spec, vocab, params, caches, tokens, block_tables, context_lens,
+                slot_f32, slot_i32, sampled,
+            )
+            toks.append(tokens)
+            lps.append(lp)
+            if logprobs_k:
+                v, i = top_logprobs(logits, vocab, logprobs_k)
+                vals.append(v)
+                ids.append(i)
+        out = (torch.stack(toks), tokens, context_lens, caches, torch.stack(lps))
+        if logprobs_k:
+            out = out + ((torch.stack(vals), torch.stack(ids)),)
+        return out
+
+    return fused_multistep
 
 
 def make_chunked_prefill_step(model, kv_spec=None):

@@ -18,7 +18,11 @@ head dim (cursor 0, one page, tiles across pages of different scales, C 5,
 bit-identical; rglru_scan at its ring's stage edges, off 16 bytes and on
 grids that walk many work items (chained halves and every form bit-equal),
 and stencil3d's staged planes at 512^3, any run length, K off 16 bytes and
-the grid's reach.
+the grid's reach; the chunk kernels at the speculative verify's shape (B 8,
+C 2 and 5, cursors mid-page and page-aligned), the fused K-step and the
+speculative S-window dispatches under set_sync_debug_mode("error") (no
+device-to-host transfer inside), and the speculative and fused engines on
+the card against the plain engine on the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -1802,3 +1806,167 @@ def test_chunk_body_splits_its_tiles_where_blocks_are_few():
     for runs in (1, splits):
         want = pa.paged_prefill_chunk_tiled_torch(q, ck, cv, kp, vp, bt, cur, splits=runs)
         _assert_kernel_close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------------
+# the speculative verify window (the chunk kernels at C = K + 1, cursors at any
+# alignment) and the fused K-step / S-window dispatches
+# ---------------------------------------------------------------------------------
+VERIFY_CURSORS = (37, 130, 255, 16, 0, 1, 47, 48)  # mid-page and page-aligned, B 8
+
+
+@pytest.mark.parametrize("c", [2, 5])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_chunk_kernel_at_the_verify_shape(c, dtype):
+    args = _chunk_inputs(8, 14, 2, 64, 16, c, 20, VERIFY_CURSORS, dtype=dtype)
+    n = pa.paged_flash_prefill_chunk.launches
+    got = pa.paged_flash_prefill_chunk(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_prefill_chunk.launches == n + 1
+    want = pa.paged_prefill_chunk_torch(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("c", [2, 5])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_chunk_quant_kernel_at_the_verify_shape(c, bits, dtype):
+    q, ck, cv, kp, vp, bt, cur = _chunk_inputs(8, 14, 2, 64, 16, c, 20, VERIFY_CURSORS,
+                                               dtype=dtype)
+    args = (q, ck, cv, *_quantize_pool(kp, bits), *_quantize_pool(vp, bits), bt, cur)
+    got = pa.paged_flash_prefill_chunk_quant(*args, bits=bits)
+    torch.cuda.synchronize()
+    want = pa.paged_prefill_chunk_quant_torch(*args, bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+def _tree(fn, tree):
+    """``fn`` on every tensor of a nested dict / list."""
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _smoke_serving_state(kv_dtype="f32", batch=4, ps=4, max_pages=12):
+    """The smoke model on the card with seeded weights, its page pools, and
+    decode state for ``batch`` rows at lengths mid-page and on boundaries."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.engine import KV_DTYPES
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    spec = KV_DTYPES[kv_dtype]
+    num_pages = batch * max_pages + 1
+    caches = model.init_paged_cache(num_pages, ps, kv_spec=spec)
+    rng = np.random.default_rng(1)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).reshape(
+        batch, max_pages).astype(np.int32)).cuda()
+    lens = torch.tensor([5, 8, 13, 3][:batch], dtype=torch.int32, device="cuda")
+    toks = torch.tensor(rng.integers(0, cfg.vocab, size=batch), dtype=torch.int32,
+                        device="cuda")
+    slot_f32 = torch.tensor([[0.0, 0.9, 0.0, 0.8], [1.0, 0.95, 1.0, 1.0]],
+                            device="cuda")[:, :batch].contiguous()
+    slot_i32 = torch.tensor([[1, 1, 0, 1], [0, 20, 0, 5], [7, 8, 9, 10]], dtype=torch.int32,
+                            device="cuda")[:, :batch].contiguous()
+    return cfg, model, params, spec, caches, bt, lens, toks, slot_f32, slot_i32
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_fused_multistep_window_makes_no_host_sync(kv_dtype):
+    """K = 4 fused steps, greedy and sampled, with the top-k pair: under
+    set_sync_debug_mode("error") any device-to-host transfer inside the
+    window raises; the window's tokens equal K single steps'."""
+    from repro_torch.serving.step import make_paged_serve_multistep, make_paged_serve_step
+
+    cfg, model, params, spec, caches, bt, lens, toks, f32, i32 = _smoke_serving_state(kv_dtype)
+    multi = make_paged_serve_multistep(model, 4, spec, logprobs_k=3)
+    single = make_paged_serve_step(model, spec)
+    for sampled in (False, True):
+        fresh, other = _tree(torch.clone, caches), _tree(torch.clone, caches)
+        n = pa.paged_flash_decode.launches + pa.paged_flash_decode_quant.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = multi(params, fresh, toks, bt, lens, f32, i32, sampled=sampled)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = pa.paged_flash_decode.launches + pa.paged_flash_decode_quant.launches - n
+        assert launched == 4 * cfg.n_layers
+        t, l = toks, lens
+        for k in range(4):
+            nxt, _, l, _, _ = single(params, other, t, bt, l, f32, i32, sampled=sampled)
+            assert torch.equal(nxt, out[0][k]), (sampled, k)
+            t = nxt
+        assert torch.equal(l, out[2])
+        assert out[5][0].shape == (4, 4, 3)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_speculative_windows_make_no_host_sync(kv_dtype):
+    """S = 2 speculative windows at K = 4 (the verify on the chunk kernel at
+    C 5, cursors mid-page): no device-to-host transfer inside the dispatch."""
+    from repro_torch.serving.speculative import NGramProposer, make_paged_serve_spec_multistep
+
+    cfg, model, params, spec, caches, bt, lens, toks, f32, i32 = _smoke_serving_state(kv_dtype)
+    prop = NGramProposer(spec_tokens=4, ngram=2, table_size=64, vocab=cfg.vocab, hist_len=60)
+    step = make_paged_serve_spec_multistep(model, 2, prop, spec, logprobs_k=2)
+    rows = [prop.rebuild_row([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 9, 7, 9][:int(n) + 1])
+            for n in lens.tolist()]
+    hist = torch.from_numpy(np.stack([h for h, _ in rows])).cuda()
+    table = torch.from_numpy(np.stack([t for _, t in rows])).cuda()
+    chunk = pa.paged_flash_prefill_chunk if spec is None else pa.paged_flash_prefill_chunk_quant
+    for sampled in (False, True):
+        n = chunk.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step(params, caches, toks, bt, lens, f32, i32, hist, table, sampled=sampled)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert chunk.launches - n == 2 * cfg.n_layers
+        committed = out[1].cpu()
+        assert committed.shape == (2, 4) and (committed[:, 2] == 0).all()
+        assert ((committed[:, [0, 1, 3]] >= 1) & (committed[:, [0, 1, 3]] <= 5)).all()
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_spec_and_fused_engines_on_cuda_match_the_plain_engine_on_cpu(kv_dtype):
+    """Greedy tokens of the speculative (K 4, S 2) and fused (K 4) engines on
+    the card equal the plain engine's on the CPU; the verify ran the chunk
+    kernel."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import GenerationParams
+    from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    params_gpu = _tree(lambda t: t.cuda(), params_cpu)
+    rng = np.random.default_rng(10)
+    prompts = [(rng.integers(0, cfg.vocab, size=4).tolist() * 3)[:10] for _ in range(3)]
+    base = dict(num_pages=64, page_size=4, max_batch=3, max_pages_per_seq=12, kv_dtype=kv_dtype)
+    mk = lambda: [Request(i, p, GenerationParams(max_new_tokens=16))
+                  for i, p in enumerate(prompts)]
+    want = ServeEngine(cpu, params_cpu, EngineConfig(**base), device="cpu").run(mk())
+    chunk = "paged_prefill_chunk" + ("_quant" if kv_dtype != "f32" else "")
+    for extra in (dict(spec_tokens=4, multi_step=2, spec_backoff=0), dict(multi_step=4)):
+        kernels.reset_launch_counts()
+        eng = ServeEngine(gpu, params_gpu, EngineConfig(**base, **extra), device="cuda")
+        got = eng.run(mk())
+        counts = kernels.launch_counts()
+        for i in range(len(prompts)):
+            assert got[i].generated == want[i].generated, (extra, i)
+        if "spec_tokens" in extra:
+            assert eng.metrics()["spec_windows"] > 0 and counts[chunk] > 0
+        else:
+            assert eng.metrics()["fused_steps"] > 0

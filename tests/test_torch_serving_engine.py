@@ -284,8 +284,7 @@ def test_trace_exports_valid_chrome_json(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec_tokens", 2), ("host_pool_pages", 8), ("multi_step", 4),
-    ("grammar_states", 4), ("max_beam_width", 2), ("logprobs_k", 2), ("autotune", True),
+    ("host_pool_pages", 8), ("grammar_states", 4), ("max_beam_width", 2), ("autotune", True),
     ("record_logits", True),
 ])
 def test_unported_engine_options_raise(field, value):
@@ -294,7 +293,7 @@ def test_unported_engine_options_raise(field, value):
 
 
 @pytest.mark.parametrize("kw", [dict(n=2, temperature=1.0), dict(beam_width=2),
-                                dict(grammar=object()), dict(speculative=True)])
+                                dict(grammar=object())])
 def test_unported_generation_params_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GenerationParams(**kw)
