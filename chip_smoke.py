@@ -46,7 +46,11 @@ lines; any failure raises and exits non-zero:
                 N 896) and at one 128-token chunk.
                 The split-K paged decode also at lengths on a split boundary
                 of the serve shape's plan, one past it and inside the first
-                split, over dense, int8 and int4 pages.
+                split, over dense, int8 and int4 pages, and over an aliased
+                and permuted block table (rows 1-3 fork row 0: its pages, one
+                private last page each, other lengths; rows 4-7 take rows
+                0-3's tables in a permuted order), dense and int8 pages, the
+                reordered rows bit-equal to their parents, with device ms.
                 Then the dense-cache kernels at the generate phase's shapes:
                 flash_attention on qwen2's prefill (8, 14, 256, 64) causal,
                 the engine's (1, 14, 512, 64), a windowed case and a ragged
@@ -100,6 +104,23 @@ lines; any failure raises and exits non-zero:
                 three lines measure how far two plain computations of the
                 same logits drift apart: the reference's init is chaotic at
                 24 layers, the rescaled one is not.
+  engine_exact_spec
+                qwen2-0.5b at 2 layers, f32: the K 4 / S 2 speculative
+                engine on the card against the plain engine on the CPU, f32
+                and int8 pages; multi_step 4 against 1 on the card.
+  engine_exact_branch
+                qwen2-0.5b at full width, 2 layers, f32, reference init,
+                page 16, monolithic and chunked prefill: best-of-n (n 4,
+                prompts of 37 and 48 tokens, 12 new) equal to the CPU engine
+                and branch b to a serial request at seed + b; beam (width 4,
+                n 2) equal to the CPU engine, scores within 1e-4, counters
+                equal, a reorder; a JSON grammar (every output parses,
+                multi_step 4 equal to 1, card equal to CPU); the host tier
+                (pool 58, 32 host pages, f32 and int4 pages) equal to a
+                tier-less large-pool engine (f32) or to the same tiered
+                engine on the CPU (int4), swapping out and prefetching,
+                every promoted page byte-equal to the bytes demoted, a
+                retained session's follow-up prefetching. Rows 1-4 launch.
   engine_exact_quant
                 the same requests with int8 MLP weights (build_model(...,
                 quantized=True)) over int8 and int4 KV pages: greedy tokens of
@@ -116,6 +137,16 @@ lines; any failure raises and exits non-zero:
                 after each run (the serving path), and both attention
                 kernels must have launched; the kernels line reports the
                 first run's.
+  serve_spec    the serve workload with multi_step 4 and with speculation,
+                a speculative run over int8 pages, the predictable stream.
+  serve_branch  the serve workload as a mix: four best-of-n requests (n 4),
+                four beam groups (width 4, n 2), four JSON-grammar requests
+                and four plain ones, in a pool of 56 pages with a 256-page
+                host tier: tokens/s beside plain serve's, step ms p50, TTFT
+                p95, peak pages beside n full copies', the fork / reorder /
+                CoW and swap / prefetch counters. Every grammar output
+                parses, beam results are ranked, the tier swapped and
+                prefetched, the allocator conserves, rows 1 and 2 launched.
   serve_quant   the serve workload with int8 MLP weights over int8, then
                 int4, KV pages, one run each, counts zeroed just before and
                 read just after; the three quantized kernels must have
@@ -394,6 +425,7 @@ def kernel_phase(bw):
             if dtype == torch.bfloat16 and bits == 8:
                 main["paged_decode_quant"] = rec
         split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw)
+        main.update(aliased_decode_checks(q, kp, vp, quant[8], dtype, esz, bw))
         for c, cursors in chunk_cases:
             nb = len(cursors)
             btc = bt[:nb].contiguous()
@@ -483,6 +515,82 @@ def split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw):
             lambda: sdpa(q, kdq, vdq, mask),
             small + 2 * tokens * hkv * dq + 2 * live_pages * hkv * 4,
             4 * tokens * hq * d, bw, {**case, "bits": bits})
+
+
+def aliased_tables(max_pages, ps, num_pages, seed=0):
+    """Block tables as best-of-n forks and beam reorders leave them, B 8: row
+    0 owns its pages (its last page partly filled); rows 1-3 are forks of
+    row 0 (a leading run of its pages, then one private last page each,
+    different lengths); rows 4-7 take rows 0-3's tables and lengths in a
+    permuted order (a beam reorder rebinds whole rows)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(np.arange(1, num_pages))
+    n0 = max_pages - 2
+    tables = np.zeros((8, max_pages), np.int32)
+    lens = np.zeros((8,), np.int32)
+    tables[0, :n0] = pool[:n0]
+    lens[0] = (n0 - 1) * ps + 5
+    for r, m in zip((1, 2, 3), (n0 - 1, n0 // 2, 1)):
+        tables[r, :m] = pool[:m]
+        tables[r, m] = pool[n0 + r]
+        lens[r] = m * ps + 1 + 3 * r
+    perm = [2, 0, 3, 1]
+    tables[4:], lens[4:] = tables[perm], lens[perm]
+    return (torch.from_numpy(tables).cuda(), torch.from_numpy(lens).cuda(),
+            [int(n) for n in lens])
+
+
+def aliased_decode_checks(q, kp, vp, q8, dtype, esz, bw):
+    """The split-K paged decode (rows 1 and 3) at the serve shape over an
+    aliased and permuted block table (aliased_tables), over ``dtype`` pages
+    and int8 pages: each against its plain version, and the rows that read
+    a reordered row's table with its query bit-equal to it. Returns the
+    records by name for PERF.md."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import KV_DTYPES
+
+    b, hq, _, d = q.shape
+    num, hkv, ps, _ = kp.shape
+    max_pages = 128
+    bt, cl, lens = aliased_tables(max_pages, ps, num)
+    qa = q.clone()
+    qa[4:] = q[[2, 0, 3, 1]]
+    live = torch.arange(max_pages * ps, device="cuda")[None, :] < cl[:, None]
+    mask = live[:, None, None, :]
+    tokens = sum(lens)
+    live_pages = sum(-(-n // ps) for n in lens)
+    # the bytes the function must move: each distinct page it reads, once
+    distinct = len({int(p) for r in range(b) for p in bt[r, :-(-lens[r] // ps)].tolist()})
+    small = 2 * qa.numel() * esz + bt.numel() * 4 + b * 4
+    case = {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page_size": ps, "lens": lens,
+            "table": "aliased (rows 1-3 fork row 0) and permuted (rows 4-7 = rows 2, 0, 3, 1)",
+            "distinct_pages": distinct, "row_pages": live_pages}
+    out = {}
+    got = pa.paged_flash_decode(qa, kp, vp, bt, cl)
+    if not torch.equal(got[4:], got[[2, 0, 3, 1]]):
+        raise AssertionError("aliased decode: a reordered row differs from its parent row")
+    out[f"aliased_paged_decode_{str(dtype).split('.')[1]}"] = check_and_time(
+        "paged_decode", dtype,
+        lambda: pa.paged_flash_decode(qa, kp, vp, bt, cl),
+        lambda: pa.paged_decode_attention_torch(qa, kp, vp, bt, cl),
+        lambda: sdpa(qa, densify(kp, bt), densify(vp, bt), mask),
+        small + 2 * distinct * hkv * ps * d * esz, 4 * tokens * hq * d, bw, case,
+        device_time=True)
+    kq, ks, vq, vs, _, _, dq = q8
+    spec = KV_DTYPES["int8"]
+    kdq = densify(spec.decode_pages(kq, ks).to(dtype), bt)
+    vdq = densify(spec.decode_pages(vq, vs).to(dtype), bt)
+    got = pa.paged_flash_decode_quant(qa, kq, ks, vq, vs, bt, cl, bits=8)
+    if not torch.equal(got[4:], got[[2, 0, 3, 1]]):
+        raise AssertionError("aliased int8 decode: a reordered row differs from its parent row")
+    out[f"aliased_paged_decode_quant_{str(dtype).split('.')[1]}"] = check_and_time(
+        "paged_decode_quant", dtype,
+        lambda: pa.paged_flash_decode_quant(qa, kq, ks, vq, vs, bt, cl, bits=8),
+        lambda: pa.paged_decode_attention_quant_torch(qa, kq, ks, vq, vs, bt, cl, bits=8),
+        lambda: sdpa(qa, kdq, vdq, mask),
+        small + 2 * distinct * hkv * (ps * dq + 4), 4 * tokens * hq * d, bw,
+        {**case, "bits": 8}, device_time=True)
+    return out
 
 
 def _causal_keys(tq, tk, off, window=None):
@@ -1437,21 +1545,12 @@ def depth_sensitivity(prompt, layers, conditioned=False, device="cuda", arch="qw
 
 
 def run_engine(model, params, prompts, n_new, config, device):
-    """One engine run over ``prompts`` with launch counts zeroed just before
-    and read just after: (greedy tokens per request, metrics, launches,
-    wall seconds)."""
-    from repro_torch import kernels
-    from repro_torch.serving import GenerationParams
-    from repro_torch.serving.engine import Request, ServeEngine
-
-    eng = ServeEngine(model, params, config, device=device)
-    reqs = [Request(i, p, GenerationParams(max_new_tokens=n_new)) for i, p in enumerate(prompts)]
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = eng.run(reqs)
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    return [res[i].generated for i in range(len(prompts))], eng.metrics(), launches, wall
+    """One engine run of greedy requests over ``prompts`` (run_jobs): (tokens
+    per request, metrics, launches, wall seconds)."""
+    seqs, m, launches, wall, _ = run_jobs(
+        model, params, config, device,
+        [(p, dict(max_new_tokens=n_new), i) for i, p in enumerate(prompts)])
+    return [seqs[i][0][0] for i in range(len(prompts))], m, launches, wall
 
 
 EXACT_MODES = (("monolithic", {}), ("chunked", dict(chunked_prefill=True, chunk_tokens=128)))
@@ -1857,6 +1956,348 @@ def serve_spec_phase(workload, quant_workload=None, plain_tokens=None):
 
 
 # =====================================================================================
+# phases: engine_exact_branch, serve_branch
+# =====================================================================================
+BRANCH_SAMPLE = dict(temperature=0.8, top_k=8)
+BRANCH_LENS = (37, 48)  # a shared last page partly filled (37 of 16-token pages), and aligned
+KV_ROWS = ("paged_decode", "paged_prefill_chunk", "paged_decode_quant",
+           "paged_prefill_chunk_quant")  # rows 1-4 of PERF.md's table
+
+
+def json_grammar(vocab, n_items=3):
+    """The reference's fixed JSON-array grammar over tokens 0-12 for the
+    characters "[],0123456789" and eos 13: (dfa, eos, decode)."""
+    from repro_torch.serving.grammar import JSON_ARRAY_CHARS, fixed_json_array_dfa
+
+    charmap = {ch: i for i, ch in enumerate(JSON_ARRAY_CHARS)}
+    eos = len(JSON_ARRAY_CHARS)
+    dfa = fixed_json_array_dfa(charmap, eos, vocab, n_items=n_items)
+    return dfa, eos, lambda toks: "".join(JSON_ARRAY_CHARS[t] for t in toks if t != eos)
+
+
+def run_jobs(model, params, config, device, jobs, prepare=None):
+    """One engine run of ``jobs`` [(prompt, GenerationParams kwargs, rid)]
+    with launch counts zeroed just before and read just after: (rid ->
+    [(tokens, cumulative_logprob, finish_reason)] a sequence, metrics,
+    launches, wall seconds, engine). ``prepare(engine)`` runs before."""
+    from repro_torch import kernels
+    from repro_torch.serving import GenerationParams
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(model, params, config, device=device)
+    if prepare is not None:
+        prepare(eng)
+    handles = {rid: eng.submit(p, GenerationParams(**g), rid=rid) for p, g, rid in jobs}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    seqs = {rid: [(s.tokens, s.cumulative_logprob, s.finish_reason) for s in h.sequences]
+            for rid, h in handles.items()}
+    return seqs, eng.metrics(), launches, wall, eng
+
+
+def _tokens_of(seqs):
+    return {rid: [t for t, _, _ in v] for rid, v in seqs.items()}
+
+
+def _score_gap(a, b):
+    return max((abs(x[1] - y[1]) for rid in a for x, y in zip(a[rid], b[rid])), default=0.0)
+
+
+def watch_tier(cache):
+    """Wrap the cache's tier: each page a demotion copies is snapshotted
+    (every pool leaf: intN bytes and scales) under its chain key, and each
+    page a promotion lands is compared with that snapshot, byte for byte.
+    Returns the list of promoted pages checked (grows during the run)."""
+    from repro_torch.serving.engine.kvquant import pool_leaves
+
+    tier, seen, checked = cache.tier, {}, []
+    demote, promote = tier.demote, tier.promote
+
+    def watched_demote(keys, dev_pages, retain_s=0.0):
+        before = set(tier._index)
+        n = demote(keys, dev_pages, retain_s=retain_s)
+        for key, page in zip(keys, dev_pages):
+            if key in tier._index and key not in before:
+                seen[key] = [leaf[:, page].to("cpu", copy=True) for leaf in pool_leaves(cache.pools)]
+        return n
+
+    def watched_promote(keys, dst_pages):
+        n = promote(keys, dst_pages)
+        for key, page in zip(keys, dst_pages):
+            got = [leaf[:, page].cpu() for leaf in pool_leaves(cache.pools)]
+            if not all(torch.equal(a, b) for a, b in zip(got, seen[key])):
+                raise AssertionError(f"promoted page {page} differs from the bytes demoted")
+            checked.append(page)
+        return n
+
+    tier.demote, tier.promote = watched_demote, watched_promote
+    return checked
+
+
+def engine_exact_branch_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_layers=2,
+                              n_new=12):
+    """Best-of-n, beam search, a JSON grammar and the host KV tier through
+    the serving engine on ``device`` at full width, ``n_layers`` deep, f32,
+    the reference's init, page 16, monolithic and chunked prefill. Gates:
+    best-of-n (n 4, prompts of 37 and 48 tokens) equals the same engine on
+    the CPU, and branch b a serial n=1 request at seed + b with the same
+    rid; beam (width 4, n 2) equals the CPU engine's tokens, its scores
+    within 1e-4 and its fork / reorder / CoW counters, with a reorder; every
+    grammar output parses, multi_step 4 equals 1, and the card equals the
+    CPU; the host tier (a pool that preempts, 32 host pages, f32 and int4
+    pages) equals a tier-less large-pool engine (f32; over int4 pages, where
+    a recompute re-quantizes decode-appended pages and so differs by design,
+    the same tiered engine on the CPU, counters too), swaps out, prefetches
+    (swap_in_pages == prefetch_hits > 0), lands every promoted page byte for
+    byte as demoted, and a retained session's follow-up hits the tier. Rows
+    1-4 must launch; counts are zeroed just before each run."""
+    from repro_torch.models import build_model
+
+    cfg, model, params = exact_model(cfg_name, smoke, device, n_layers, False)
+    cpu_model = model if device == "cpu" else build_model(cfg, device="cpu")
+    cpu_params = params if device == "cpu" else _to_cpu(params)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in BRANCH_LENS]
+    dfa, eos, decode = json_grammar(cfg.vocab)
+    seen_rows = {k: 0 for k in KV_ROWS}
+    recs = []
+
+    def need(rec, launches, rows):
+        for k in KV_ROWS:
+            seen_rows[k] += launches[k]
+        rec["launches"] = {k: launches[k] for k in KV_ROWS}
+        if device == "cuda" and any(launches[k] <= 0 for k in rows):
+            raise AssertionError(f"engine_exact_branch {rec['part']} {rec['mode']} never "
+                                 f"launched {rows}: {rec}")
+
+    for mode, extra in EXACT_MODES:
+        rows = DENSE_PATH if mode == "chunked" else DENSE_PATH[:1]
+        config = exact_config(160, max_beam_width=4, grammar_states=dfa.n_states, **extra)
+        base = {"phase": "engine_exact_branch", "model": cfg.name, "dtype": "float32",
+                "n_layers": cfg.n_layers, "init": "reference", "mode": mode, "page_size": 16}
+        # best-of-n
+        jobs = [(p, dict(max_new_tokens=n_new, seed=7 + i, n=4, **BRANCH_SAMPLE), i)
+                for i, p in enumerate(prompts)]
+        got, m, launches, wall, _ = run_jobs(model, params, config, device, jobs)
+        want, m_cpu, _, cpu_s, _ = run_jobs(cpu_model, cpu_params, config, "cpu", jobs)
+        serial_equal = []
+        for b in range(4):
+            sj = [(p, dict(max_new_tokens=n_new, seed=7 + i + b, **BRANCH_SAMPLE), i)
+                  for i, p in enumerate(prompts)]
+            ser, _, _, _, _ = run_jobs(model, params, config, device, sj)
+            serial_equal.append(all(got[i][b][0] == ser[i][0][0] for i in range(len(prompts))))
+        rec = {**base, "part": "best_of_n", "n": 4, "prompt_lens": list(BRANCH_LENS),
+               "new_tokens": n_new, "tokens_equal_cpu_engine": _tokens_of(got) == _tokens_of(want),
+               "branch_b_equals_serial_seed_plus_b": serial_equal,
+               "max_score_gap_vs_cpu": _score_gap(got, want),
+               **{k: m[k] for k in ("branch_forks", "cow_copies", "pages_shared",
+                                    "peak_pages_in_use")},
+               "cpu_branch_forks": m_cpu["branch_forks"], "cpu_cow_copies": m_cpu["cow_copies"],
+               "wall_s": wall, "cpu_s": cpu_s}
+        need(rec, launches, rows)
+        recs.append(rec)
+        emit(rec)
+        if not rec["tokens_equal_cpu_engine"] or not all(serial_equal):
+            raise AssertionError(f"engine_exact_branch best_of_n {mode}: {rec}")
+        if m["branch_forks"] != 3 * len(prompts) or m["cow_copies"] != m_cpu["cow_copies"]:
+            raise AssertionError(f"engine_exact_branch best_of_n {mode} counters: {rec}")
+        # beam
+        jobs = [(p, dict(max_new_tokens=n_new, beam_width=4, n=2), i)
+                for i, p in enumerate(prompts)]
+        got, m, launches, wall, _ = run_jobs(model, params, config, device, jobs)
+        want, m_cpu, _, cpu_s, _ = run_jobs(cpu_model, cpu_params, config, "cpu", jobs)
+        counters = ("branch_forks", "beam_reorders", "cow_copies")
+        rec = {**base, "part": "beam", "beam_width": 4, "n": 2, "new_tokens": n_new,
+               "tokens_equal_cpu_engine": _tokens_of(got) == _tokens_of(want),
+               "max_score_gap_vs_cpu": _score_gap(got, want),
+               "ranked": all(v[0][1] >= v[-1][1] for v in got.values()),
+               **{k: m[k] for k in counters}, **{f"cpu_{k}": m_cpu[k] for k in counters},
+               "fused_steps": m["fused_steps"], "wall_s": wall, "cpu_s": cpu_s}
+        need(rec, launches, rows)
+        recs.append(rec)
+        emit(rec)
+        if (not rec["tokens_equal_cpu_engine"] or rec["max_score_gap_vs_cpu"] > 1e-4
+                or not rec["ranked"] or m["beam_reorders"] < 1
+                or any(m[k] != m_cpu[k] for k in counters)):
+            raise AssertionError(f"engine_exact_branch beam {mode}: {rec}")
+        # grammar
+        jobs = [(p, dict(max_new_tokens=n_new, temperature=0.9, seed=s, eos_id=eos, grammar=dfa),
+                 2 * i + s) for i, p in enumerate(prompts) for s in range(2)]
+        got, m, launches, wall, _ = run_jobs(model, params, config, device, jobs)
+        want, _, _, cpu_s, _ = run_jobs(cpu_model, cpu_params, config, "cpu", jobs)
+        fused, m4, _, _, _ = run_jobs(model, params, dataclasses.replace(config, multi_step=4),
+                                      device, jobs)
+        outs = [decode(v[0][0]) for v in got.values()]
+        parsed = []
+        for text in outs:
+            try:
+                parsed.append(len(json.loads(text)) == 3)
+            except ValueError:
+                parsed.append(False)
+        rec = {**base, "part": "grammar", "grammar": "fixed_json_array_dfa(3)",
+               "temperature": 0.9, "outputs": outs, "all_parse": all(parsed),
+               "tokens_equal_cpu_engine": _tokens_of(got) == _tokens_of(want),
+               "multi_step_4_equal_1": _tokens_of(fused) == _tokens_of(got),
+               "fused_steps_multi_step_4": m4["fused_steps"],
+               "max_score_gap_vs_cpu": _score_gap(got, want), "wall_s": wall, "cpu_s": cpu_s}
+        need(rec, launches, rows)
+        recs.append(rec)
+        emit(rec)
+        if not (rec["all_parse"] and rec["tokens_equal_cpu_engine"]
+                and rec["multi_step_4_equal_1"] and m4["fused_steps"] > 0):
+            raise AssertionError(f"engine_exact_branch grammar {mode}: {rec}")
+        # the host tier
+        tier_prompts = exact_requests(cfg.vocab)
+        tjobs = [(p, dict(max_new_tokens=16), i) for i, p in enumerate(tier_prompts)]
+        for kv in ("f32", "int4"):
+            kv_rows = (rows if kv == "f32" else
+                       QUANT_KV_PATH if mode == "chunked" else QUANT_KV_PATH[:1])
+            tconf = exact_config(58, kv, host_pool_pages=32, **extra)
+            checked = []
+            got, m, launches, wall, eng = run_jobs(
+                model, params, tconf, device, tjobs,
+                prepare=lambda e: checked.append(watch_tier(e.cache)))
+            big, m_big, _, _, _ = run_jobs(model, params, exact_config(400, kv, **extra),
+                                           device, tjobs)
+            # intN pages: a recompute re-quantizes decode-appended pages with
+            # whole-page scales, so a run that preempts differs from one that
+            # never does (tier or no tier); the gate there is the same tiered
+            # engine on the CPU
+            cpu_equal = cpu_tier = None
+            if kv != "f32":
+                cpu_got, m_cpu, _, _, _ = run_jobs(cpu_model, cpu_params, tconf, "cpu", tjobs)
+                cpu_equal = _tokens_of(got) == _tokens_of(cpu_got)
+                cpu_tier = {k: m_cpu[k] for k in ("preemptions", "swap_out_pages",
+                                                  "swap_in_pages", "prefetch_hits")}
+            promoted = checked[0]
+            tier_m = {k: m[k] for k in ("preemptions", "swap_out_pages", "swap_out_elided",
+                                        "swap_in_pages", "prefetch_hits", "evictions",
+                                        "host_pages_resident", "cow_copies")}
+            eng.cache.check_conservation()
+            # session retention: a finished request's pages stay on the host,
+            # and a follow-up sharing its whole context prefetches them
+            rconf = dataclasses.replace(tconf, retain_finished_s=600.0)
+            first, _, _, _, reng = run_jobs(model, params, rconf, device, tjobs[3:4])
+            follow = tier_prompts[3] + first[3][0][0] + tier_prompts[5][:9]
+            hits0 = reng.cache.tier.prefetch_hits
+            from repro_torch.serving import GenerationParams
+            from repro_torch.serving.engine import Request
+
+            reng.run([Request(100, follow, GenerationParams(max_new_tokens=4))])
+            follow_hits = reng.cache.tier.prefetch_hits - hits0
+            reng.cache.check_conservation()
+            rec = {**base, "part": "host_tier", "kv_dtype": kv, "pool_pages": 58,
+                   "host_pool_pages": 32, "requests": len(tjobs), "new_tokens": 16,
+                   "tokens_equal_tierless_engine": _tokens_of(got) == _tokens_of(big),
+                   "tierless_preemptions": m_big["preemptions"],
+                   "tokens_equal_cpu_tier_engine": cpu_equal, "cpu_tier_counters": cpu_tier,
+                   **tier_m,
+                   "promoted_pages_checked_byte_equal": len(promoted),
+                   "follow_up_prefetch_hits": follow_hits, "wall_s": wall}
+            need(rec, launches, kv_rows)
+            recs.append(rec)
+            emit(rec)
+            exact = (rec["tokens_equal_tierless_engine"] if kv == "f32" else
+                     cpu_equal and all(cpu_tier[k] == m[k] for k in cpu_tier))
+            if (not exact or m["preemptions"] < 1
+                    or m["swap_out_pages"] <= 0
+                    or not m["swap_in_pages"] == m["prefetch_hits"] > 0
+                    or len(promoted) < m["prefetch_hits"] or follow_hits <= 0):
+                raise AssertionError(f"engine_exact_branch host_tier {kv} {mode}: {rec}")
+    emit({"phase": "engine_exact_branch", "launches_all_runs": seen_rows})
+    if device == "cuda" and any(v <= 0 for v in seen_rows.values()):
+        raise AssertionError(f"engine_exact_branch: rows 1-4 did not all launch: {seen_rows}")
+    return recs
+
+
+SERVE_BRANCH_POOL = 56  # pages of 16: small enough that the serve_branch mix preempts
+
+
+def serve_branch_jobs(prompts, n_new, eos, dfa):
+    """The serve cell's 16 prompts as four kinds of four: best-of-n (n 4,
+    temperature 0.8), beam (width 4, n 2), a JSON grammar (temperature 0.9)
+    and plain greedy; rid i takes kind (i + i // 4) % 4, so the kinds
+    interleave in arrival order and each holds one of the four prompts that
+    share the 128-token system prefix."""
+    kinds = ("best_of_n", "beam", "grammar", "plain")
+    jobs = []
+    for i, p in enumerate(prompts):
+        kind = kinds[(i + i // 4) % 4]
+        g = {"best_of_n": dict(temperature=0.8, seed=i, n=4),
+             "beam": dict(beam_width=4, n=2),
+             "grammar": dict(temperature=0.9, seed=i, eos_id=eos, grammar=dfa),
+             "plain": {}}[kind]
+        jobs.append((p, dict(max_new_tokens=n_new, **g), i, kind))
+    return jobs
+
+
+def serve_branch_phase(workload, plain_serve=None, pool_pages=SERVE_BRANCH_POOL, smi=None):
+    """The serve cell (the workload's model, bf16 pages, chunked prefill 128,
+    prefix sharing) with a mixed batch: four best-of-n requests, four beam
+    groups, four grammar requests and four plain ones, in a pool of
+    ``pool_pages`` pages of 16 with a 256-page host tier. Prints tokens/s,
+    step ms p50, TTFT p95, peak pages beside the pages n full copies would
+    take, the fork / reorder / CoW counters and the swap and prefetch
+    counters, beside the plain serve runs' tokens/s (``plain_serve``).
+    Gates: every grammar output parses, each beam result is ranked, the swap
+    and prefetch counters are > 0, the allocator's conservation holds, rows
+    1 and 2 launched."""
+    w = workload
+    dfa, eos, decode = json_grammar(w.cfg.vocab)
+    jobs = serve_branch_jobs(w.prompts, w.n_new, eos, dfa)
+    config = dataclasses.replace(w.config, num_pages=pool_pages, host_pool_pages=256,
+                                 max_beam_width=4, grammar_states=dfa.n_states)
+    seqs, m, launches, wall, eng = run_jobs(w.model, w.params, config, w.device,
+                                            [j[:3] for j in jobs])
+    eng.cache.check_conservation()
+    kind_of = {rid: kind for _, _, rid, kind in jobs}
+    outs = [decode(seqs[rid][0][0]) for rid in seqs if kind_of[rid] == "grammar"]
+    parsed = []
+    for text in outs:
+        try:
+            parsed.append(len(json.loads(text)) == 3)
+        except ValueError:
+            parsed.append(False)
+    ranked = all(v[0][1] >= v[-1][1] and len(v) == 2
+                 for rid, v in seqs.items() if kind_of[rid] == "beam")
+    ps = config.page_size
+    full_copies = sum((g.get("beam_width") or g.get("n", 1)) * -(-(len(p) + w.n_new) // ps)
+                      for p, g, _, _ in jobs)
+    rec = {
+        "phase": "serve_branch", "model": w.cfg.name, "dtype": w.cfg.dtype,
+        "n_layers": w.cfg.n_layers, "kv_dtype": config.kv_dtype, "requests": len(jobs),
+        "mix": "4 best-of-n (n 4), 4 beam (width 4, n 2), 4 JSON grammar, 4 plain",
+        "prompt_tokens": sum(len(p) for p in w.prompts), "new_tokens": w.n_new,
+        "max_batch": config.max_batch, "pool_pages": pool_pages, "host_pool_pages": 256,
+        **{k: m[k] for k in ("tokens_per_s", "generated_tokens", "step_ms_p50", "step_ms_p95",
+                             "ttft_s_p95", "host_overhead_ms_p50", "decode_steps",
+                             "fused_steps", "wall_s", "peak_pages_in_use", "pages_shared",
+                             "branch_forks", "beam_reorders", "cow_copies", "preemptions",
+                             "swap_out_pages", "swap_out_elided", "swap_in_pages",
+                             "prefetch_hits", "evictions", "host_pages_resident")},
+        "full_copies_pages": full_copies,
+        "plain_serve_tokens_per_s": [r["tokens_per_s"] for r in plain_serve or []],
+        "grammar_outputs": outs, "grammar_all_parse": all(parsed), "beam_ranked": ranked,
+        "launches": {k: launches[k] for k in DENSE_PATH}, "nvidia_smi": smi,
+    }
+    emit(rec)
+    if not (all(parsed) and ranked):
+        raise AssertionError(f"serve_branch: a grammar output did not parse or a beam "
+                             f"result is not ranked: {rec}")
+    if m["failed"] or any(not v for v in seqs.values()):
+        raise AssertionError(f"serve_branch did not complete every request: {rec}")
+    if (m["swap_out_pages"] <= 0 or m["swap_in_pages"] <= 0 or m["prefetch_hits"] <= 0
+            or m["preemptions"] <= 0):
+        raise AssertionError(f"serve_branch never swapped and prefetched: {rec}")
+    if w.device == "cuda" and any(launches[k] <= 0 for k in DENSE_PATH):
+        raise AssertionError(f"serve_branch never launched {DENSE_PATH}: {rec}")
+    return rec
+
+
+# =====================================================================================
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -1984,6 +2425,9 @@ def main() -> int:
     engine_exact_spec_phase(n_layers=2)
     t_phase["engine_exact_spec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    engine_exact_branch_phase(n_layers=2)
+    t_phase["engine_exact_branch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for kv in ("int8", "int4"):
         engine_exact_quant_phase(kv, n_layers=2)
     engine_exact_quant_phase("int8", n_layers=24, conditioned=True, n_new=8)
@@ -2000,6 +2444,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_spec_phase(workload, serve_setup(kv_dtype="int8"), plain_tokens=serve["tokens"])
     t_phase["serve_spec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_branch_phase(workload, plain_serve=runs, smi=smi)
+    t_phase["serve_branch"] = time.perf_counter() - t0
     del workload
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

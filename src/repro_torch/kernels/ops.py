@@ -452,7 +452,7 @@ def _filter_topk_topp(x, temperature, top_k, top_p, *, vocab: int):
 
 
 def sample_tokens(logits, temperature, top_k, top_p, seed, pos, *, vocab: int,
-                  sampled: Optional[bool] = None) -> torch.Tensor:
+                  sampled: Optional[bool] = None, mask=None) -> torch.Tensor:
     """Batched token selection on the logits' device: greedy / temperature /
     top-k / top-p.
 
@@ -469,10 +469,19 @@ def sample_tokens(logits, temperature, top_k, top_p, seed, pos, *, vocab: int,
 
     ``sampled`` is the caller's host-side knowledge of whether any row has
     temperature > 0 (None: read it from the device, one sync); False skips
-    the sort/softmax work and costs one argmax."""
+    the sort/softmax work and costs one argmax.
+
+    ``mask`` (optional, (B, vocab) f32) is an ADDITIVE logit mask, the
+    constrained-decoding stage: added in f32 after the cast and before every
+    filter and both selection paths, so top-k / top-p act on the constrained
+    distribution and greedy picks the best allowed token. Disallowed tokens
+    carry ``serving.grammar.MASK_OFF``; an all-zero row is an exact no-op; the
+    pad columns stay -inf."""
     vp = logits.shape[1]
     col = torch.arange(vp, device=logits.device)[None, :]
     x = torch.where(col < vocab, logits.float(), torch.full_like(logits, -math.inf, dtype=torch.float32))
+    if mask is not None:
+        x = x + torch.nn.functional.pad(mask.float(), (0, vp - vocab))
     greedy = torch.argmax(x, dim=-1).to(torch.int32)
     if sampled is None:
         sampled = bool((temperature > 0).any())

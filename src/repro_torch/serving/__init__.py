@@ -1,3 +1,10 @@
+from .grammar import (
+    JSON_ARRAY_CHARS,
+    MASK_OFF,
+    TokenDFA,
+    fixed_json_array_dfa,
+    json_array_dfa,
+)
 from .params import (
     FINISH_EOS,
     FINISH_ERROR,
@@ -21,9 +28,14 @@ __all__ = [
     "FINISH_LENGTH",
     "GREEDY",
     "GenerationParams",
+    "JSON_ARRAY_CHARS",
+    "MASK_OFF",
     "RequestHandle",
     "SamplingParams",
     "Sequence",
+    "TokenDFA",
+    "fixed_json_array_dfa",
+    "json_array_dfa",
     "make_chunked_prefill_step",
     "make_paged_serve_multistep",
     "make_paged_serve_step",

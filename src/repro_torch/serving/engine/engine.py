@@ -41,9 +41,26 @@ pages as intN bytes with per-(page, head) scales (kvquant.PagedQuantSpec), and
 a model built with ``build_model(cfg, quantized=True)`` runs its MLP on int8
 weights; the allocator, the prefix index and CoW never look at the bytes.
 
-Not ported yet (refused by EngineConfig, naming the ROADMAP item): the host
-page tier, grammar-constrained decoding, beam search, autotuning and logits
-recording.
+Parallel generation: a request with ``n`` > 1 or ``beam_width`` admits as a
+BranchGroup. The primary prefills; at its first token (``_first_token``, the
+fork hook of both prefill regimes) each sibling's row forks the primary's
+pages and samples its own first token from the same logits row under its
+branch seed. A beam group instead stashes each branch's top-k row (the
+``logprobs_k`` pair, compiled at least ``max_beam_width + 1`` wide) and runs
+the joint selection on the host (``_beam_advance``): hypotheses that hop
+parents rebind whole rows (``cache.reorder_rows``), the chosen tokens become
+the next inputs (the slots are re-uploaded), and eos hypotheses move to the
+finished pool. Grammar-constrained decoding (``grammar_states``) keeps one
+stacked (1 + grammar_states, vocab) mask table and transition table on the
+device and each slot's state in a device vector the decode step advances;
+the host replays the same transitions on its copy. Neither composes with
+speculation (``_spec_plan``), and beam groups never fuse
+(``Scheduler.event_free_horizon``). The host KV tier (``host_pool_pages``)
+turns preemption into swap-out and re-admission into prefetch
+(cache.TierManager); ``retain_finished_s`` keeps finished sessions there.
+
+Not ported yet (refused by EngineConfig, naming the ROADMAP item):
+autotuning and logits recording.
 """
 from __future__ import annotations
 
@@ -57,7 +74,14 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.runtime.health import StragglerPolicy
-from repro_torch.serving.params import FINISH_ERROR, GenerationParams, RequestHandle
+from repro_torch.serving.params import (
+    FINISH_EOS,
+    FINISH_ERROR,
+    FINISH_LENGTH,
+    GenerationParams,
+    RequestHandle,
+)
+from repro_torch.serving.params import Sequence as SequenceResult
 from repro_torch.serving.sampling import pack_slot_params, stream_seed
 from repro_torch.serving.speculative import NGramProposer, make_paged_serve_spec_multistep
 from repro_torch.serving.step import (
@@ -70,15 +94,12 @@ from repro_torch.serving.step import (
 from repro_torch.serving.telemetry import EngineTrace, MetricsRegistry
 
 from .cache import PagedKVCache
-from .request import DECODING, Request, RequestQueue, RequestState
+from .request import DECODING, BranchGroup, Request, RequestQueue, RequestState
 from .scheduler import Scheduler, SchedulerConfig
 
 # EngineConfig fields whose features wait for a later slice: field -> (value
 # that means "off", the ROADMAP Queue 1 item that ports it)
 _NOT_PORTED = {
-    "host_pool_pages": (0, "item 2 (the host KV tier)"),
-    "grammar_states": (0, "item 2 (constrained decoding)"),
-    "max_beam_width": (0, "item 2 (beam search)"),
     "autotune": (False, "item 7 (perf tooling and autotuning)"),
     "record_logits": (False, "item 7 (perf tooling)"),
 }
@@ -119,10 +140,24 @@ class EngineConfig:
     logprobs_k: int = 0  # top-k logprob width of the decode step; > 0 lets
     # requests opt in (GenerationParams.logprobs <= this), the pair riding the
     # ids fetch
+    max_beam_width: int = 0  # widest beam_width a request may ask for; beam
+    # candidates come from the top-k logprob pair, so the pair's width is at
+    # least max_beam_width + 1 (eos is one id: at most one top entry of a row
+    # is eos, so beam_width non-eos continuations always exist)
+    grammar_states: int = 0  # grammar-table rows for constrained decoding (the
+    # sum of TokenDFA.n_states over every grammar registered with the engine);
+    # the tables have the fixed shape (1 + grammar_states, vocab), row 0 the
+    # unconstrained state
+    host_pool_pages: int = 0  # host-RAM page tier capacity (0 = no tier):
+    # preemption demotes complete pages there and re-admission promotes them
+    # back; requires prefix_sharing (the tier is a content-keyed index)
+    swap_budget_pages_per_step: int = 0  # per-step host<->device migration
+    # allowance, shared by demotions and promotions (0 = unlimited); overflow
+    # truncates a run's tail
+    retain_finished_s: float = 0.0  # on finish, demote a request's pages to
+    # the host tier and keep them this many seconds (a follow-up sharing the
+    # context prefetches instead of re-prefilling); 0 = don't retain
     # not ported yet: any value other than "off" raises (see _NOT_PORTED)
-    host_pool_pages: int = 0
-    grammar_states: int = 0
-    max_beam_width: int = 0
     autotune: bool = False
     record_logits: bool = False
 
@@ -184,10 +219,17 @@ class ServeEngine:
         self.model = model
         self.params = params
         self.config = config
+        if config.host_pool_pages and not config.prefix_sharing:
+            raise ValueError(
+                "host_pool_pages requires prefix_sharing: the host tier is a "
+                "content-keyed index over the same page-hash chains"
+            )
         self.cache = PagedKVCache(
             model, num_pages=config.num_pages, page_size=config.page_size,
             max_batch=config.max_batch, max_pages_per_seq=config.max_pages_per_seq,
             prefix_sharing=config.prefix_sharing, kv_dtype=config.kv_dtype,
+            host_pool_pages=config.host_pool_pages,
+            swap_budget_pages_per_step=config.swap_budget_pages_per_step,
         )
         self.scheduler = Scheduler(
             self.cache, SchedulerConfig(config.max_batch, config.watermark_pages)
@@ -209,13 +251,35 @@ class ServeEngine:
         self._last_step_time: Optional[float] = None  # fused-horizon arrival estimate
         self._straggler = StragglerPolicy(threshold=config.slow_step_threshold)
         self._vocab = model.cfg.vocab
-        self._lp_k = int(config.logprobs_k)
+        # beam search selects from the top-k pair, so its width covers
+        # max_beam_width + 1 even when no request asks for logprobs
+        self._lp_k = max(int(config.logprobs_k),
+                         config.max_beam_width + 1 if config.max_beam_width else 0)
+        # constrained decoding: one stacked mask row and transition row a
+        # GLOBAL grammar state, row 0 the unconstrained state (zero mask,
+        # self-loops). Registration rewrites the tables' content, never their
+        # shape. Each slot's state lives in a device vector the decode step
+        # advances; the host replays the same transitions on its own copy.
+        self._grammar_on = config.grammar_states > 0
+        if self._grammar_on:
+            n_rows = 1 + config.grammar_states
+            self._gmask_host = np.zeros((n_rows, self._vocab), np.float32)
+            self._gtrans_host = np.zeros((n_rows, self._vocab), np.int32)
+            self._gmask_dev = torch.from_numpy(self._gmask_host).to(self.device)
+            self._gtrans_dev = torch.from_numpy(self._gtrans_host).to(self.device)
+            self._gstate_dev = torch.zeros((config.max_batch,), dtype=torch.int32,
+                                           device=self.device)
+            self._grammars: Dict[int, int] = {}  # id(dfa) -> global row offset
+            self._grammar_refs: List[object] = []  # keeps id() unique while registered
+            self._grammar_used = 0
         kv_spec = self.cache.kv_spec
-        self._step = make_paged_serve_step(model, kv_spec, logprobs_k=self._lp_k)
+        self._step = make_paged_serve_step(model, kv_spec, logprobs_k=self._lp_k,
+                                           grammar=self._grammar_on)
         self._k = int(config.multi_step)
         if self._k > 1:
             self._multistep = make_paged_serve_multistep(model, self._k, kv_spec,
-                                                         logprobs_k=self._lp_k)
+                                                         logprobs_k=self._lp_k,
+                                                         grammar=self._grammar_on)
         # speculative decoding (serving/speculative.py): the window step is a
         # sibling of the multistep, plus the proposer's two per-slot device
         # arrays (hist, table), updated in place by each window; rows are
@@ -279,6 +343,34 @@ class ServeEngine:
         self._t0 = time.perf_counter()
 
     # -- submission -------------------------------------------------------------
+    def _register_grammar(self, dfa) -> int:
+        """Install a TokenDFA's mask and transition rows in the stacked grammar
+        tables; returns its GLOBAL row offset (its state 0). Idempotent for
+        one automaton instance; the tables keep their shape."""
+        off = self._grammars.get(id(dfa))
+        if off is not None:
+            return off
+        if dfa.vocab != self._vocab:
+            raise ValueError(
+                f"grammar compiled for vocab {dfa.vocab} but the model's is {self._vocab}"
+            )
+        if self._grammar_used + dfa.n_states > self.config.grammar_states:
+            raise ValueError(
+                f"grammar needs {dfa.n_states} states but only "
+                f"{self.config.grammar_states - self._grammar_used} of "
+                f"EngineConfig.grammar_states={self.config.grammar_states} "
+                f"remain — raise grammar_states"
+            )
+        off = 1 + self._grammar_used
+        self._grammar_used += dfa.n_states
+        self._grammars[id(dfa)] = off
+        self._grammar_refs.append(dfa)
+        self._gmask_host[off:off + dfa.n_states] = dfa.mask
+        self._gtrans_host[off:off + dfa.n_states] = dfa.next_state + off
+        self._gmask_dev.copy_(torch.from_numpy(self._gmask_host))
+        self._gtrans_dev.copy_(torch.from_numpy(self._gtrans_host))
+        return off
+
     def submit(self, request=None, params: Optional[GenerationParams] = None, *,
                rid: Optional[int] = None, arrival_time: float = 0.0) -> RequestHandle:
         """Enqueue one request and return its handle: ``submit(Request(...))``
@@ -306,6 +398,25 @@ class ServeEngine:
                 f"request {request.rid} asks for speculative decoding but the engine "
                 f"was built with spec_tokens=0 — set EngineConfig.spec_tokens"
             )
+        if p.beam_width > self.config.max_beam_width:
+            raise ValueError(
+                f"request {request.rid} asks for beam_width={p.beam_width} but the engine "
+                f"was built with max_beam_width={self.config.max_beam_width} — raise "
+                f"EngineConfig.max_beam_width"
+            )
+        if p.n_branches > self.config.max_batch:
+            raise ValueError(
+                f"request {request.rid} needs {p.n_branches} batch slots "
+                f"(admitted as a unit) > max_batch {self.config.max_batch}"
+            )
+        grammar_off = None
+        if p.grammar is not None:
+            if not self._grammar_on:
+                raise ValueError(
+                    f"request {request.rid} carries a grammar but the engine was built "
+                    f"with grammar_states=0 — set EngineConfig.grammar_states"
+                )
+            grammar_off = self._register_grammar(p.grammar)
         need = self.cache.pages_for(len(request.prompt) + p.max_new_tokens)
         if need > self.config.max_pages_per_seq:
             raise ValueError(
@@ -313,14 +424,25 @@ class ServeEngine:
                 f"(prompt {len(request.prompt)} + up to {p.max_new_tokens} new) "
                 f"> max_pages_per_seq {self.config.max_pages_per_seq}"
             )
-        floor = self.cache.pages_for(len(request.prompt) + 1)
+        # a group's floor adds one fork-headroom page a sibling
+        floor = self.cache.pages_for(len(request.prompt) + 1) + (p.n_branches - 1)
         if floor > self.config.num_pages - 1:
             raise ValueError(
                 f"request {request.rid} needs {floor} pages just to admit its "
-                f"{len(request.prompt)}-token prompt, but the pool only has "
-                f"{self.config.num_pages - 1} usable pages — raise num_pages"
+                f"{len(request.prompt)}-token prompt"
+                + (f" across {p.n_branches} branches" if p.n_branches > 1 else "")
+                + f", but the pool only has {self.config.num_pages - 1} usable "
+                f"pages — raise num_pages"
             )
-        self._pending.append(RequestState(request))
+        if p.n_branches > 1:
+            group = BranchGroup(request)
+            for st in group.branches:
+                st.grammar_state = grammar_off
+            self._pending.append(group.primary)  # the siblings ride the primary
+        else:
+            state = RequestState(request)
+            state.grammar_state = grammar_off
+            self._pending.append(state)
         return RequestHandle(self, request.rid)
 
     def submit_all(self, requests: Sequence[Request]) -> List[RequestHandle]:
@@ -329,7 +451,12 @@ class ServeEngine:
     # -- prefill path -----------------------------------------------------------
     def _admit_and_prefill(self, now: float) -> None:
         tr = self.trace
-        for slot, state in self.scheduler.admit(self.queue, now):
+        # a fresh sibling forks at its primary's first token, which clears
+        # its await_fork: the flag is read at admission, so a sibling admitted
+        # beside its primary is not prefilled as well
+        to_prefill = [(slot, st) for slot, st in self.scheduler.admit(self.queue, now)
+                      if not st.await_fork]
+        for slot, state in to_prefill:
             ctx = state.context
             padded = self.cache.pages_for(len(ctx)) * self.cache.page_size
             if tr is not None:
@@ -349,23 +476,48 @@ class ServeEngine:
     def _first_token(self, state: RequestState, logits_row: torch.Tensor) -> None:
         """Sample the token a completed prefill produced, on the device; only
         the id and its log-probability cross to the host. The sampled position
-        is len(context), as the decode path would use for the same token."""
-        sp = state.sampling
+        is len(context), as the decode path would use for the same token.
+
+        This is also the parallel-generation FORK HOOK of both prefill
+        regimes: when a sample-mode group's primary takes its first token,
+        each awaiting sibling's row forks the primary's pages
+        (cache.fork_slot) and samples its own first token from the same
+        logits row under its branch seed; a beam branch instead stashes its
+        row's top candidates, and the joint selection runs once every live
+        branch has reported (_beam_advance)."""
+        grp = state.group
+        if grp is not None and grp.mode == "beam":
+            vals, ids = _fetch(*top_logprobs(logits_row[None], self._vocab, self._lp_k))
+            grp.pending_rows[state.branch] = (vals[0], ids[0])
+            state.hold = True  # masked out of decode until the joint selection
+            if state.first_token_time is None:
+                state.first_token_time = time.perf_counter() - self._t0
+            started = [st for st in grp.branches if not st.await_fork and not st.done]
+            if all(st.branch in grp.pending_rows for st in started):
+                self._beam_advance(grp)
+            return
+        sp = state.sampling  # branch b draws from seed + b
         seed_bits = np.uint32(stream_seed(sp.seed, state.request.rid)).astype(np.int32)
         f = torch.tensor([sp.temperature, sp.top_p], dtype=torch.float32, device=self.device)
         i = torch.tensor([sp.top_k, int(seed_bits), len(state.context)], dtype=torch.int32,
                          device=self.device)
+        mask = None
+        if state.grammar_state is not None:
+            mask = self._gmask_dev[state.grammar_state][None]
         tok = ops.sample_tokens(
             logits_row[None], f[0:1], i[0:1], f[1:2], i[1:2], i[2:3], vocab=self._vocab,
-            sampled=sp.temperature > 0,
+            sampled=sp.temperature > 0, mask=mask,
         )
         lp = torch.log_softmax(logits_row[:self._vocab].float(), dim=-1)[tok.long()]
         n_lp = state.request.logprobs
         # the row's top-k pair rides the id's fetch
         extra = top_logprobs(logits_row[None], self._vocab, self._lp_k) if n_lp else ()
         got = _fetch(tok, lp, *extra)
-        state.generated.append(int(got[0][0]))
+        t = int(got[0][0])
+        state.generated.append(t)
         state.cum_logprob += float(got[1][0])
+        if state.grammar_state is not None:
+            state.grammar_state = int(self._gtrans_host[state.grammar_state, t])
         if n_lp:
             state.logprobs[len(state.generated) - 1] = _top_pairs(got[2][0], got[3][0], n_lp)
         self._slots_stale = True  # the slot's next decode input is host-known
@@ -375,6 +527,108 @@ class ServeEngine:
             self._spec_stale.add(state.slot)
         if state.first_token_time is None:
             state.first_token_time = time.perf_counter() - self._t0
+        if grp is not None and state.branch == 0:
+            # fork the awaiting siblings onto the primary's pages (incref, no
+            # copy: CoW privatizes on the first divergent write); each samples
+            # its own first token from the same row under its branch seed
+            n_resident = int(self.cache.lens[state.slot])
+            for sib in grp.branches[1:]:
+                if sib.await_fork and not sib.done:
+                    self.cache.fork_slot(state.slot, sib.slot, n_resident)
+                    sib.await_fork = False
+                    self._first_token(sib, logits_row)
+
+    # -- beam search (host-side selection, block-table reorder) -------------------
+    def _beam_advance(self, group: BranchGroup) -> None:
+        """One joint beam step over a group's stashed candidate rows.
+
+        The selection is on the host (the candidates rode the top-k fetch),
+        then only block-table surgery: a branch that continues itself keeps
+        its slot untouched, a hypothesis that hops parents rebinds its slot's
+        row to a snapshot of the parent's (cache.reorder_rows), and a
+        first-step sibling forks the primary (cache.fork_slot). Candidates
+        ending in eos move to the finished pool; the group completes at
+        beam_width finished hypotheses or the length cap."""
+        params = group.request.params
+        w = params.beam_width
+        eos = group.request.eos_id
+        live = [st for st in group.branches if not st.done]
+        started = [st for st in live if not st.await_fork]
+        by_branch = {st.branch: st for st in started}
+        cands = []
+        for st in started:
+            vals, ids = group.pending_rows[st.branch]
+            for v, t in zip(vals[:w + 1], ids[:w + 1]):
+                cands.append((st.cum_logprob + float(v), st.branch, int(t)))
+        group.pending_rows.clear()
+        # a total order: score descending, then branch, then token
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        cont = []
+        for score, b, t in cands:
+            if eos is not None and t == eos:
+                group.finished.append(SequenceResult(
+                    tokens=list(by_branch[b].generated) + [t], logprobs={},
+                    cumulative_logprob=score, finish_reason=FINISH_EOS,
+                ))
+                continue
+            if len(cont) < w:
+                cont.append((score, b, t))
+        if len(group.finished) >= w or not cont:
+            self._finish_beam(group, live, survivors=False)
+            return
+        # slot assignment, identity first: each parent's best continuation
+        # keeps the parent's own slot, so a step where every branch follows
+        # itself moves no row
+        base = {st.branch: list(st.generated) for st in started}
+        carriers = list(live)
+        assign, spill = [], []
+        for score, b, t in cont:
+            st = by_branch[b]
+            if st in carriers:
+                carriers.remove(st)
+                assign.append((st, st, t, score))
+            else:
+                spill.append((score, b, t))
+        for (score, b, t), carrier in zip(spill, carriers):
+            assign.append((carrier, by_branch[b], t, score))
+        now = time.perf_counter() - self._t0
+        forks = [(c, p) for c, p, _, _ in assign if c is not p and c.await_fork]
+        reorder = {c.slot: p.slot for c, p, _, _ in assign if c is not p and not c.await_fork}
+        for carrier, parent in forks:
+            self.cache.fork_slot(parent.slot, carrier.slot, int(self.cache.lens[parent.slot]))
+            carrier.await_fork = False
+        self.cache.reorder_rows(reorder)
+        for carrier, parent, t, score in assign:
+            carrier.generated = base[parent.branch] + [t]
+            carrier.cum_logprob = score
+            carrier.hold = False
+            if carrier.first_token_time is None:
+                carrier.first_token_time = now
+        # the rows' next inputs are the host's selection, not the device's sample
+        self._slots_stale = True
+        if self.trace is not None:
+            self.trace.instant("beam_step", group.primary.slot, rid=group.request.rid,
+                               moves=len(reorder), forks=len(forks),
+                               finished=len(group.finished))
+        if len(assign[0][0].generated) >= params.max_new_tokens:
+            self._finish_beam(group, live, survivors=True)
+
+    def _finish_beam(self, group: BranchGroup, live, *, survivors: bool) -> None:
+        """Retire a beam group: at the length cap the live hypotheses join the
+        finished pool as FINISH_LENGTH survivors; every live branch gets a
+        finish_reason so the group sweeps out as a unit (group.sequences()
+        ranks the finished pool)."""
+        if survivors:
+            for st in live:
+                if not st.await_fork and not st.hold:
+                    group.finished.append(SequenceResult(
+                        tokens=list(st.generated), logprobs={},
+                        cumulative_logprob=st.cum_logprob, finish_reason=FINISH_LENGTH,
+                    ))
+        for st in live:
+            if st.finish_reason is None:
+                st.finish_reason = FINISH_LENGTH
+            st.hold = False
 
     # -- chunked prefill path ----------------------------------------------------
     def _admit_chunked(self, now: float) -> None:
@@ -384,6 +638,8 @@ class ServeEngine:
         token the adopted pages don't cover (>= 1 token is always computed)."""
         ps = self.cache.page_size
         for slot, state in self.scheduler.admit(self.queue, now, publish=False):
+            if state.await_fork:
+                continue  # a fresh sibling forks at its primary's first token
             n_ctx = len(state.context)
             skip = 0
             if self.config.prefill_compute_skip and self.cache.prefix_sharing:
@@ -402,7 +658,8 @@ class ServeEngine:
         page-multiple bucket that holds it, zero-padded as a monolithic
         prefill pads, so chunk-written pages equal monolithic ones."""
         running = self.scheduler.running
-        # twin adopters wait until the donor's written frontier covers them
+        # chunk-cursor holders only (await_fork and beam-held slots have no
+        # chunk); twin adopters wait until the donor's frontier covers them
         prefilling = [s for s in sorted(running)
                       if running[s].chunk_cursor is not None and self.cache.frontier_ready(s)]
         if not prefilling:
@@ -488,6 +745,14 @@ class ServeEngine:
         self._slot_f32 = torch.from_numpy(f32p).to(self.device)
         self._slot_i32 = torch.from_numpy(np.vstack([active, i32p])).to(self.device)
         self._any_sampled = any(st.sampling.temperature > 0 for st in decoding.values())
+        if self._grammar_on:
+            # the slots' grammar states re-seed from the host mirror on the
+            # same trigger; otherwise the step's output flows back
+            gstate = np.zeros((b,), np.int32)
+            for slot, state in decoding.items():
+                if state.grammar_state is not None:
+                    gstate[slot] = state.grammar_state
+            self._gstate_dev = torch.from_numpy(gstate).to(self.device)
         self._slots_stale = False
         self._slot_sig = sig
 
@@ -517,9 +782,7 @@ class ServeEngine:
     def _spec_plan(self, now: float, decoding) -> int:
         """Windows to run speculatively in this dispatch (0 = plain decode).
         Speculation is batch-wide: every decoding slot must be eligible (no
-        per-request opt-out; grammar and branch groups, which the reference
-        also excludes here, are refused at GenerationParams until ROADMAP
-        Queue 1 item 2), the window's page budget (S * (K + 1) tokens a
+        per-request opt-out, no grammar, no branch group), the window's page budget (S * (K + 1) tokens a
         slot) must pre-reserve, the horizon must prove S windows event-free
         at tokens_per_step = K + 1, and no pending arrival may land inside
         the window. Any failure degrades to plain decode for this dispatch.
@@ -532,8 +795,10 @@ class ServeEngine:
         if self._spec_backoff_left:
             self._spec_backoff_left -= 1
             return 0
-        if any(st.request.params.speculative is False for st in decoding.values()):
-            return 0
+        for state in decoding.values():
+            p = state.request.params
+            if p.speculative is False or p.grammar is not None or state.group is not None:
+                return 0
         c = self._spec_k + 1
         s = self._spec_windows
         for slot in decoding:
@@ -685,25 +950,33 @@ class ServeEngine:
         if tr is not None:
             tr.begin(span, -1, k=k, batch=len(decoding))
         # the top-k pair is computed whenever logprobs_k > 0 but fetched only
-        # when a decoding request asked for it
-        want_lp = self._lp_k and any(st.request.logprobs for st in decoding.values())
+        # when a decoding request asked for it, or a beam group rides it (the
+        # pair is its candidate set)
+        want_lp = self._lp_k and any(
+            st.request.logprobs or (st.group is not None and st.group.mode == "beam")
+            for st in decoding.values())
+        g_args = ((self._gstate_dev, self._gmask_dev, self._gtrans_dev)
+                  if self._grammar_on else ())
+        lp_i = 6 if self._grammar_on else 5  # the top-k pair's output index
         t0 = time.perf_counter()
         if k > 1:
             out = self._multistep(
                 self.params, self.cache.pools, self._tokens_dev, tables, lens,
-                self._slot_f32, self._slot_i32, sampled=self._any_sampled,
+                self._slot_f32, self._slot_i32, *g_args, sampled=self._any_sampled,
             )
             toks, last, new_lens, _, lps = out[:5]
-            top = out[5] if want_lp else ()
+            top = out[lp_i] if want_lp else ()
             self._c_fused.inc(k)
         else:
             out = self._step(
                 self.params, self.cache.pools, self._tokens_dev, tables, lens,
-                self._slot_f32, self._slot_i32, sampled=self._any_sampled,
+                self._slot_f32, self._slot_i32, *g_args, sampled=self._any_sampled,
             )
             last, _, new_lens, _, lps = out[:5]
             toks, lps = last[None], lps[None]  # (1, B)
-            top = tuple(t[None] for t in out[5]) if want_lp else ()
+            top = tuple(t[None] for t in out[lp_i]) if want_lp else ()
+        if self._grammar_on:
+            self._gstate_dev = out[5]
         # the dispatch's only device-to-host copy
         got = _fetch(toks, lps, *top)
         ids, lp_arr = got[:2]  # (K, B)
@@ -712,17 +985,35 @@ class ServeEngine:
         self.cache.adopt_lens_device(new_lens)
         self._tokens_dev = last
         self._observe_dispatch(t_dev, k)
+        beam_groups = []
         for i in range(k):
             for slot, state in decoding.items():
                 if state.done:
                     continue  # finished mid-window (EOS): the overrun ids are discarded
-                state.generated.append(int(ids[i, slot]))
+                grp = state.group
+                if grp is not None and grp.mode == "beam":
+                    # the KV write happened, but the device's sample is not
+                    # the branch's next token: its top-k row is a candidate
+                    # row of the joint selection
+                    self.cache.bump_len(slot)
+                    grp.pending_rows[state.branch] = (lp_vals[i, slot], lp_ids[i, slot])
+                    if grp not in beam_groups:
+                        beam_groups.append(grp)
+                    continue
+                tok = int(ids[i, slot])
+                state.generated.append(tok)
                 state.cum_logprob += float(lp_arr[i, slot])
+                if state.grammar_state is not None:
+                    state.grammar_state = int(self._gtrans_host[state.grammar_state, tok])
                 self.cache.bump_len(slot)
                 n_lp = state.request.logprobs
                 if n_lp and lp_vals is not None:
                     state.logprobs[len(state.generated) - 1] = _top_pairs(
                         lp_vals[i, slot], lp_ids[i, slot], n_lp)
+        for grp in beam_groups:
+            started = [st for st in grp.branches if not st.await_fork and not st.done]
+            if all(st.branch in grp.pending_rows for st in started):
+                self._beam_advance(grp)
         if tr is not None:
             tr.end(span, -1)
         self._h_host.observe((time.perf_counter() - wall0 - t_dev) / k)
@@ -735,9 +1026,25 @@ class ServeEngine:
                 reason = state.finished_reason()
                 if self.trace is not None:
                     self.trace.instant("finish", slot, rid=state.request.rid, reason=reason,
-                                       generated=len(state.generated))
+                                       generated=len(state.generated), branch=state.branch)
+                # session retention: a cleanly finished request's complete
+                # pages go to the host tier with a deadline, so a follow-up
+                # sharing its context prefetches instead of re-prefilling
+                if (self.cache.tier is not None and self.config.retain_finished_s > 0
+                        and state.error is None):
+                    self.cache.demote_slot(slot, state.hash_chain(self.cache.page_size),
+                                           retain_s=self.config.retain_finished_s)
+                # freeing a branch decrefs, never frees, the pages its running
+                # siblings alias, so one branch's EOS does not disturb the rest
                 self.scheduler.finish(slot)
-                self.results[state.request.rid] = state
+                grp = state.group
+                if grp is None:
+                    self.results[state.request.rid] = state
+                elif grp.all_done and state.request.rid not in self.results:
+                    # the group completes as a unit: results carry the
+                    # primary, whose .sequences collects every branch
+                    grp.primary.finish_time = state.finish_time
+                    self.results[state.request.rid] = grp.primary
 
     # -- main loop ----------------------------------------------------------------
     def run(self, requests: Optional[Sequence[Request]] = None) -> Dict[int, RequestState]:
@@ -751,6 +1058,8 @@ class ServeEngine:
         self._t0 = time.perf_counter()
         while self._pending or self.queue or self.scheduler.running:
             now = time.perf_counter() - self._t0
+            if self.cache.tier is not None:
+                self.cache.tier.begin_step()
             # a twin whose donor died before writing its adopted pages holds
             # garbage there: back to the queue for a clean re-admit
             for slot in self.cache.take_broken():
@@ -762,7 +1071,15 @@ class ServeEngine:
                 self.queue.push(state)
             for state in self.scheduler.reject_impossible(self.queue):
                 state.finish_time = time.perf_counter() - self._t0
-                state.finish_reason = FINISH_ERROR
+                # a rejected request can never resume: drop its host residency
+                self.cache.release_host(state.hash_chain(self.cache.page_size))
+                if state.group is not None:
+                    for st in state.group.branches:
+                        if st.finish_reason is None:  # earlier finishes stay
+                            st.error = state.error
+                            st.finish_reason = FINISH_ERROR
+                else:
+                    state.finish_reason = FINISH_ERROR
                 self.results[state.request.rid] = state
             if chunked:
                 self._admit_chunked(now)
@@ -813,7 +1130,9 @@ class ServeEngine:
         span = wall - min(s.request.arrival_time for s in states)
         e2e = np.array([s.finish_time - s.request.arrival_time for s in states])
         ttft = np.array([s.first_token_time - s.request.arrival_time for s in states])
-        n_tok = sum(len(s.generated) for s in states)
+        # a group's primary stands for the whole group: count every branch
+        n_tok = sum(sum(len(b.generated) for b in s.group.branches) if s.group is not None
+                    else len(s.generated) for s in states)
         # speculative telemetry, absent when spec_tokens=0 (the plain snapshot
         # keeps its shape): accepted_tokens_per_step is the mean tokens
         # committed a slot-window (>= 1: the correction token always commits),

@@ -1,20 +1,31 @@
 """GenerationParams / Sequence / RequestHandle — the generation API.
 
-Port of ``repro.serving.params`` for single-branch generation, with top-k
-logprobs (``logprobs``, up to ``EngineConfig.logprobs_k``) and speculative
-decoding (``speculative``). The parallel-generation fields keep their names
-but are refused at construction until their slice is ported (ROADMAP Queue 1
-item 2): ``n > 1``, ``beam_width`` and ``grammar``.
+Port of ``repro.serving.params``: top-k logprobs (``logprobs``, up to
+``EngineConfig.logprobs_k``), speculative decoding (``speculative``), and the
+parallel-generation axes:
+
+  - ``n`` > 1: best-of-n sampling. The engine admits the n branches as a
+    group whose block-table rows fork the prompt's pages (``cache.fork_slot``;
+    copy-on-write privatizes a shared page on the first divergent write).
+    Branch b draws from the stream of seed + b, so it is token-exact with a
+    serial n=1 request at seed + b with the same rid.
+  - ``beam_width`` >= 2: beam search. Deterministic (temperature / top_k /
+    top_p stay at their defaults, validated here); each step rebinds whole
+    block-table rows (``cache.reorder_rows``), hypotheses ending in eos move
+    to the finished pool, and the best ``n`` come back.
+  - ``grammar``: constrained decoding (``serving.grammar.TokenDFA``), an
+    additive logit mask in the device sampler.
+
+Incompatible combinations fail at construction (``__post_init__``) or in the
+engine's ``submit``, never mid-step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from .grammar import TokenDFA
 from .sampling import SamplingParams
-
-_LATER = ("is not ported yet (ROADMAP Queue 1 item 2: best-of-n, beam search, "
-          "constrained decoding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +41,9 @@ class GenerationParams:
     seed: int = 0
     # top-k logprobs returned per generated token (<= EngineConfig.logprobs_k)
     logprobs: int = 0
-    n: int = 1
-    beam_width: int = 0
-    grammar: Optional[Any] = None
+    n: int = 1  # sequences to return (sampling: the branch count)
+    beam_width: int = 0  # 0 = off; >= 2 = beam search width
+    grammar: Optional[TokenDFA] = None  # constrained decoding automaton
     record_logits: Optional[bool] = None
     # speculative decoding: None follows EngineConfig.spec_tokens, True
     # requires a speculating engine (submit() checks), False opts this request
@@ -48,18 +59,62 @@ class GenerationParams:
         if self.n < 1:
             raise ValueError(f"n must be >= 1, got {self.n}")
         _ = self.sampling  # SamplingParams validates temperature/top_k/top_p
-        if self.n > 1:
-            raise NotImplementedError(f"n > 1 (best-of-n) {_LATER}")
+        if self.beam_width == 1:
+            raise ValueError("beam_width=1 is greedy decoding — use n=1, temperature=0")
         if self.beam_width:
-            raise NotImplementedError(f"beam_width (beam search) {_LATER}")
-        if self.grammar is not None:
-            raise NotImplementedError(f"grammar (constrained decoding) {_LATER}")
+            if self.beam_width < 0:
+                raise ValueError(f"beam_width must be >= 0, got {self.beam_width}")
+            if self.temperature != 0.0 or self.top_k != 0 or self.top_p != 1.0:
+                raise ValueError(
+                    "beam search is deterministic: temperature/top_k/top_p must stay at "
+                    "their defaults with beam_width > 0"
+                )
+            if self.n > self.beam_width:
+                raise ValueError(
+                    f"n={self.n} sequences from a beam of {self.beam_width} — "
+                    f"n must be <= beam_width"
+                )
+            if self.grammar is not None:
+                raise ValueError(
+                    "grammar-constrained beam search is not supported "
+                    "(beam candidates come from the unmasked top-k)"
+                )
+            if self.logprobs:
+                raise ValueError(
+                    "per-position logprobs are not recorded under beam search "
+                    "(hypothesis histories permute across steps); use the returned "
+                    "cumulative_logprob"
+                )
+        elif self.n > 1 and self.temperature == 0.0:
+            raise ValueError(
+                "n>1 with temperature=0 would generate n identical greedy branches — "
+                "set temperature > 0 or use beam_width"
+            )
+        if self.speculative:
+            if self.beam_width:
+                raise ValueError(
+                    "speculative decoding does not compose with beam search (survivor "
+                    "reorders break the event-free window); speculative=True cannot "
+                    "force it — beam requests opt out automatically under speculative=None"
+                )
+            if self.grammar is not None:
+                raise ValueError(
+                    "speculative decoding does not compose with grammar-constrained "
+                    "decoding (draft tokens would need the automaton advanced per "
+                    "candidate); grammar requests opt out automatically under "
+                    "speculative=None"
+                )
 
     @property
     def sampling(self) -> SamplingParams:
         return SamplingParams(
             temperature=self.temperature, top_k=self.top_k, top_p=self.top_p, seed=self.seed,
         )
+
+    @property
+    def n_branches(self) -> int:
+        """Batch slots a request of this shape occupies while running."""
+        return self.beam_width if self.beam_width else self.n
 
 
 FINISH_EOS = "eos"
@@ -71,8 +126,10 @@ FINISH_ERROR = "error"
 class Sequence:
     """One generated branch: tokens, the top-k logprobs per generated-token
     index (``[(token_id, logprob), ...]``, empty unless the request asked for
-    them), the cumulative log-probability of the chosen tokens, and why it
-    stopped ("eos" | "length" | "error" | None)."""
+    them), the cumulative log-probability of the chosen tokens under the
+    unmasked distribution (a grammar constrains the selection, not the score;
+    beam search ranks by it), and why it stopped ("eos" | "length" | "error" |
+    None)."""
 
     tokens: List[int]
     logprobs: Dict[int, List[Tuple[int, float]]]

@@ -12,6 +12,12 @@ runs K such steps in one host loop with no device-to-host transfer inside it:
 each sampled token feeds the next step's embedding on the device, and the K
 steps' outputs stack there for one fetch. The speculative sibling is
 ``serving.speculative.make_paged_serve_spec_multistep``.
+
+With ``grammar=True`` the fused steps carry the constrained-decoding stage:
+each slot's additive mask row is gathered by its automaton state
+(``gmask[gstate]``) and the state advances by the token just sampled
+(``gtrans[gstate, tok]``), both on the device, so the K-step loop keeps its
+one transfer a dispatch.
 """
 from __future__ import annotations
 
@@ -51,44 +57,60 @@ def top_logprobs(logits: torch.Tensor, vocab: int, k: int):
 
 
 def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
-                  context_lens, slot_f32, slot_i32, sampled):
+                  context_lens, slot_f32, slot_i32, sampled, grammar=None):
     """One fused decode iteration: append -> attend -> sample, on the device.
 
     slot_f32 (2, B): [temperature, top_p]; slot_i32 (3, B): [active, top_k,
     seed bits]. ``active`` is the phase bitmap (inactive rows write the null
     page); the sampled position is ``context_lens + 1``, the length of the
     context the new token extends, so K fused steps sample what K single
-    steps would. Returns (next_tokens (B,) int32, logits (B, Vp), new_lens
-    (B,), caches, chosen_lp (B,) f32): chosen_lp is log P(next_token |
-    prefix)."""
+    steps would. ``grammar`` (None or (gstate (B,) int32, gmask (S, vocab)
+    f32, gtrans (S, vocab) int32)): each slot's mask row is added to its
+    logits in the sampler and its state advances by the sampled token; row 0
+    of the tables is the unconstrained state (zero mask, self-loops).
+
+    Returns (next_tokens (B,) int32, logits (B, Vp), new_lens (B,), caches,
+    chosen_lp (B,) f32[, new_gstate (B,) int32 with grammar]): chosen_lp is
+    log P(next_token | prefix) under the UNMASKED distribution (a grammar
+    constrains the selection, not the score)."""
     active = slot_i32[0]
     logits, caches = model.decode_step_paged(
         params, caches, tokens, block_tables, context_lens, kv_spec=kv_spec, active=active,
     )
+    mask = None
+    if grammar is not None:
+        gstate, gmask, gtrans = grammar
+        mask = gmask[gstate.long()]  # (B, vocab) per-slot additive rows
     nxt = ops.sample_tokens(
         logits, slot_f32[0], slot_i32[1], slot_f32[1], slot_i32[2], context_lens + 1,
-        vocab=vocab, sampled=sampled,
+        vocab=vocab, sampled=sampled, mask=mask,
     )
     new_lens = context_lens + (active > 0).to(context_lens.dtype)
     lp = torch.log_softmax(logits[:, :vocab].float(), dim=-1)
     chosen_lp = lp.gather(1, nxt[:, None].long())[:, 0]
-    return nxt, logits, new_lens, caches, chosen_lp
+    if grammar is None:
+        return nxt, logits, new_lens, caches, chosen_lp
+    new_gstate = torch.where(active > 0, gtrans[gstate.long(), nxt.long()], gstate)
+    return nxt, logits, new_lens, caches, chosen_lp, new_gstate
 
 
-def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0):
+def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: bool = False):
     """The fused decode step over the engine's pools (``kv_spec``: their
     quantized element representation, None for dense pages)."""
     vocab = model.cfg.vocab
 
     def fused_serve_step(params, caches, tokens, block_tables, context_lens, slot_f32,
-                         slot_i32, sampled: Optional[bool] = None):
+                         slot_i32, *g, sampled: Optional[bool] = None):
         """One batched decode token per active slot, sampled on the device
         (_fused_decode). ``sampled`` is the host's knowledge of whether any
-        slot has temperature > 0 (None: one read of the device). Returns
-        (next_tokens (B,) int32, logits (B, Vp), new_lens (B,), caches,
-        chosen_lp (B,) f32[, (vals, ids) (B, logprobs_k) when logprobs_k])."""
+        slot has temperature > 0 (None: one read of the device). With
+        ``grammar`` the step takes three more arguments, gstate (B,), gmask
+        and gtrans (S, vocab). Returns (next_tokens (B,) int32, logits (B,
+        Vp), new_lens (B,), caches, chosen_lp (B,) f32[, new_gstate (B,) with
+        grammar][, (vals, ids) (B, logprobs_k) when logprobs_k])."""
         out = _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
-                            context_lens, slot_f32, slot_i32, sampled)
+                            context_lens, slot_f32, slot_i32, sampled,
+                            grammar=tuple(g) if grammar else None)
         if not logprobs_k:
             return out
         return out + (top_logprobs(out[1], vocab, logprobs_k),)
@@ -96,30 +118,38 @@ def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0):
     return fused_serve_step
 
 
-def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: int = 0):
+def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: int = 0,
+                               grammar: bool = False):
     """K fused decode iterations in one dispatch: a host loop of K
     _fused_decode calls with no device-to-host transfer inside it (the
     reference's ``lax.scan``). Legal only over an event-free horizon
     (Scheduler.event_free_horizon): no admission, no page append past owned
     capacity, no CoW, no max-token finish within K, so the loop never needs
-    the host. Each sampled token feeds the next iteration's embedding lookup
-    and the lengths advance on the device."""
+    the host. Each sampled token feeds the next iteration's embedding lookup,
+    and the lengths and (with ``grammar``) the per-slot automaton states
+    advance on the device, as the reference's scan carry does."""
     vocab = model.cfg.vocab
 
     def fused_multistep(params, caches, tokens, block_tables, context_lens, slot_f32,
-                        slot_i32, sampled: Optional[bool] = None):
+                        slot_i32, *g, sampled: Optional[bool] = None):
         """Returns (tokens (K, B) int32, last_tokens (B,), new_lens (B,),
-        caches, chosen_lps (K, B) f32[, (vals, ids) (K, B, logprobs_k) when
-        logprobs_k]), all on the device, for one fetch. ``sampled`` as in
-        the single step; None reads the device once, before the loop."""
+        caches, chosen_lps (K, B) f32[, gstate (B,) with grammar][, (vals,
+        ids) (K, B, logprobs_k) when logprobs_k]), all on the device, for one
+        fetch. ``sampled`` as in the single step; None reads the device once,
+        before the loop."""
         if sampled is None:
             sampled = bool((slot_f32[0] > 0).any())
+        gstate = g[0] if grammar else None
         toks, lps, vals, ids = [], [], [], []
         for _ in range(k_steps):
-            tokens, logits, context_lens, caches, lp = _fused_decode(
+            out = _fused_decode(
                 model, kv_spec, vocab, params, caches, tokens, block_tables, context_lens,
                 slot_f32, slot_i32, sampled,
+                grammar=(gstate, g[1], g[2]) if grammar else None,
             )
+            tokens, logits, context_lens, caches, lp = out[:5]
+            if grammar:
+                gstate = out[5]
             toks.append(tokens)
             lps.append(lp)
             if logprobs_k:
@@ -127,6 +157,8 @@ def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: in
                 vals.append(v)
                 ids.append(i)
         out = (torch.stack(toks), tokens, context_lens, caches, torch.stack(lps))
+        if grammar:
+            out = out + (gstate,)
         if logprobs_k:
             out = out + ((torch.stack(vals), torch.stack(ids)),)
         return out

@@ -22,7 +22,13 @@ the grid's reach; the chunk kernels at the speculative verify's shape (B 8,
 C 2 and 5, cursors mid-page and page-aligned), the fused K-step and the
 speculative S-window dispatches under set_sync_debug_mode("error") (no
 device-to-host transfer inside), and the speculative and fused engines on
-the card against the plain engine on the CPU.
+the card against the plain engine on the CPU; the paged decode over block
+tables as best-of-n forks and beam reorders leave them (rows aliasing one
+row's pages, rows repeating other rows' tables), a grammar K-step window and
+a sampled step over forked rows under the sync debug mode, int4 pages
+demoted to the host tier and promoted back byte for byte, and the best-of-n,
+beam, grammar and tiered engines on the card against the same engines on
+the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -1970,3 +1976,223 @@ def test_spec_and_fused_engines_on_cuda_match_the_plain_engine_on_cpu(kv_dtype):
             assert eng.metrics()["spec_windows"] > 0 and counts[chunk] > 0
         else:
             assert eng.metrics()["fused_steps"] > 0
+
+
+# ---------------------------------------------------------------------------------
+# parallel generation, constrained decoding and the host tier on the card
+# ---------------------------------------------------------------------------------
+def _aliased_tables(max_pages, ps, num_pages, seed=0):
+    """Block tables as best-of-n forks and beam reorders leave them, B 8: row
+    0 owns its pages (a partial last page); rows 1-3 are forks of row 0 (a
+    leading run of its pages, then one private last page each, different
+    lengths); rows 4-7 take rows 0-3's tables and lengths in a permuted
+    order (beam reorders rebind whole rows)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(np.arange(1, num_pages))
+    n0 = max_pages - 2
+    tables = np.zeros((8, max_pages), np.int32)
+    lens = np.zeros((8,), np.int32)
+    tables[0, :n0] = pool[:n0]
+    lens[0] = (n0 - 1) * ps + 5
+    for r, m in zip((1, 2, 3), (n0 - 1, n0 // 2, 1)):
+        tables[r, :m] = pool[:m]
+        tables[r, m] = pool[n0 + r]
+        lens[r] = m * ps + 1 + 3 * r
+    perm = [2, 0, 3, 1]
+    tables[4:], lens[4:] = tables[perm], lens[perm]
+    return torch.from_numpy(tables).cuda(), torch.from_numpy(lens).cuda()
+
+
+@pytest.mark.parametrize("kv", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("max_pages,ps,d", [(32, 16, 64), (128, 16, 64), (12, 4, 16)])
+def test_decode_over_aliased_and_permuted_tables_matches_plain(max_pages, ps, d, dtype, kv):
+    """The split-K paged decode where rows share pages (forks) and repeat
+    other rows' tables (beam reorders): each row equals the plain version,
+    and rows that read the same table with the same query are bit-equal."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    num_pages = 8 * max_pages + 1
+    bt, lens = _aliased_tables(max_pages, ps, num_pages)
+    kp = torch.randn(num_pages, 2, ps, d, generator=g, device="cuda").to(dtype)
+    vp = torch.randn(num_pages, 2, ps, d, generator=g, device="cuda").to(dtype)
+    q = torch.randn(8, 14, 1, d, generator=g, device="cuda").to(dtype)
+    q[4:] = q[[2, 0, 3, 1]]  # a reordered row reads its parent's query too
+    if kv == "dense":
+        got = pa.paged_flash_decode(q, kp, vp, bt, lens)
+        torch.cuda.synchronize()
+        want = pa.paged_decode_attention_torch(q, kp, vp, bt, lens)
+    else:
+        bits = int(kv[3:])
+        args = (q, *_quantize_pool(kp, bits), *_quantize_pool(vp, bits), bt, lens)
+        got = pa.paged_flash_decode_quant(*args, bits=bits)
+        torch.cuda.synchronize()
+        want = pa.paged_decode_attention_quant_torch(*args, bits=bits)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+    assert torch.equal(got[4:], got[[2, 0, 3, 1]])
+
+
+def _grammar_tables(vocab, device):
+    from repro_torch.serving.grammar import JSON_ARRAY_CHARS, fixed_json_array_dfa
+
+    charmap = {ch: i for i, ch in enumerate(JSON_ARRAY_CHARS)}
+    dfa = fixed_json_array_dfa(charmap, len(JSON_ARRAY_CHARS), vocab, n_items=3)
+    n = dfa.n_states
+    gmask = np.zeros((1 + n, vocab), np.float32)
+    gtrans = np.zeros((1 + n, vocab), np.int32)
+    gmask[1:] = dfa.mask
+    gtrans[1:] = dfa.next_state + 1
+    return dfa, torch.from_numpy(gmask).to(device), torch.from_numpy(gtrans).to(device)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int4"])
+def test_grammar_multistep_window_makes_no_host_sync(kv_dtype):
+    """K = 4 fused steps with the grammar stage (three rows constrained, one
+    unconstrained): no device-to-host transfer inside the window; the tokens
+    equal K single steps', and every constrained token is allowed by the
+    state it left."""
+    from repro_torch.serving.step import make_paged_serve_multistep, make_paged_serve_step
+
+    cfg, model, params, spec, caches, bt, lens, toks, f32, i32 = _smoke_serving_state(kv_dtype)
+    dfa, gmask, gtrans = _grammar_tables(cfg.vocab, "cuda")
+    multi = make_paged_serve_multistep(model, 4, spec, logprobs_k=2, grammar=True)
+    single = make_paged_serve_step(model, spec, grammar=True)
+    gstate0 = torch.tensor([1, 0, 3, 2], dtype=torch.int32, device="cuda")
+    for sampled in (False, True):
+        fresh, other = _tree(torch.clone, caches), _tree(torch.clone, caches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = multi(params, fresh, toks, bt, lens, f32, i32, gstate0, gmask, gtrans,
+                        sampled=sampled)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t, l, gs = toks, lens, gstate0
+        for k in range(4):
+            nxt, _, l, _, _, gs = single(params, other, t, bt, l, f32, i32, gs, gmask, gtrans,
+                                         sampled=sampled)
+            assert torch.equal(nxt, out[0][k]), (sampled, k)
+            t = nxt
+        assert torch.equal(gs, out[5])
+        walk = out[0].cpu().numpy()
+        active = i32[0].cpu().numpy()
+        for b in range(4):
+            s = int(gstate0[b]) - 1
+            if s < 0 or not active[b]:
+                continue
+            for tok in walk[:, b]:
+                assert dfa.allows(s, int(tok)), (b, s, tok)
+                s = dfa.step(s, int(tok))
+
+
+def test_best_of_n_dispatch_over_forked_rows_makes_no_host_sync():
+    """A sampled decode step where rows 1-3 fork row 0 (its pages, then a
+    private last page), each on its branch seed: no device-to-host transfer,
+    and each row's token equals the same step over private copies of the
+    shared pages (the kernel reads aliased rows as it reads unique ones)."""
+    from repro_torch.serving.step import make_paged_serve_step
+
+    cfg, model, params, spec, caches, bt, lens, toks, f32, i32 = _smoke_serving_state("f32")
+    for leaf in _tree(lambda t: t, caches)[0].values():
+        leaf.normal_(generator=torch.Generator(device="cuda").manual_seed(3))
+    fork = bt.clone()
+    fork[1:, :2] = bt[0, :2]  # two shared full pages, then each row's own
+    blen = torch.full_like(lens, 10)
+    toks = torch.full_like(toks, 7)
+    f32 = torch.tensor([[0.8] * 4, [1.0] * 4], device="cuda")
+    i32 = torch.tensor([[1] * 4, [8] * 4, [11, 12, 13, 14]], dtype=torch.int32, device="cuda")
+    step = make_paged_serve_step(model, spec, logprobs_k=3)
+    aliased = _tree(torch.clone, caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(params, aliased, toks, fork, blen, f32, i32, sampled=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    private = _tree(torch.clone, caches)
+    for leaf in private[0].values():
+        for r in range(1, 4):
+            leaf[:, bt[r, :2].long()] = leaf[:, bt[0, :2].long()]
+    want = step(params, private, toks, bt, blen, f32, i32, sampled=True)
+    assert torch.equal(out[0], want[0])
+    assert torch.equal(out[4], want[4])
+
+
+def test_int4_pages_demote_and_promote_on_the_card_byte_equal():
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.engine import PagedKVCache
+    from repro_torch.serving.engine.kvquant import pool_leaves
+    from repro_torch.serving.engine.request import page_hash_chain
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    model = build_model(cfg, device="cuda")
+    cache = PagedKVCache(model, num_pages=16, page_size=4, max_batch=2, max_pages_per_seq=6,
+                         kv_dtype="int4", host_pool_pages=8)
+    tokens = list(range(40, 52))
+    chain = page_hash_chain(tokens, 4)
+    pages = cache.allocate(0, 4, tokens=tokens, chain=chain)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for leaf in pool_leaves(cache.pools):
+        leaf[:, pages] = torch.randint(0, 100, leaf[:, pages].shape, generator=g,
+                                       device="cuda").to(leaf.dtype)
+    snap = [leaf[:, pages[:3]].clone() for leaf in pool_leaves(cache.pools)]
+    cache.set_len(0, 12)
+    assert cache.demote_slot(0, chain) == 3
+    cache.free_slot(0)
+    for leaf in pool_leaves(cache.pools):
+        leaf[:, pages[:3]] = 0
+    new = cache.allocate(1, 4, tokens=tokens, chain=chain)
+    assert cache.tier.prefetch_hits == 3
+    assert all(t.device.type == "cpu" for t in cache.tier._leaves)
+    for leaf, want in zip(pool_leaves(cache.pools), snap):
+        assert torch.equal(leaf[:, new[:3]], want)
+    cache.free_slot(1)
+    cache.check_conservation()
+
+
+def test_branch_grammar_and_tier_engines_on_cuda_match_the_cpu_engine():
+    """Best-of-n, beam, a grammar and a tight pool with a host tier over
+    int4 pages, on the card: the same tokens, scores and counters as the
+    same engines on the CPU."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import GenerationParams
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    params_gpu = _tree(lambda t: t.cuda(), params_cpu)
+    dfa, _, _ = _grammar_tables(cfg.vocab, "cpu")
+    rng = np.random.default_rng(6)
+    p = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (7, 8, 6, 9)]
+    eos = len("[],0123456789")
+    cases = {
+        "best_of_n": (dict(), [(p[0], dict(max_new_tokens=8, temperature=0.8, top_k=8, seed=3,
+                                          n=4))]),
+        "beam": (dict(max_beam_width=4), [(p[1], dict(max_new_tokens=6, beam_width=4, n=2))]),
+        "grammar": (dict(grammar_states=dfa.n_states, multi_step=4),
+                    [(q, dict(max_new_tokens=12, temperature=0.9, seed=i, eos_id=eos,
+                              grammar=dfa)) for i, q in enumerate(p)]),
+        "tier": (dict(num_pages=9, max_batch=3, max_pages_per_seq=6, host_pool_pages=32,
+                      kv_dtype="int4"), [(q, dict(max_new_tokens=10)) for q in p[:3]]),
+    }
+    keys = ("branch_forks", "beam_reorders", "cow_copies", "preemptions", "swap_out_pages",
+            "swap_in_pages", "prefetch_hits")
+    for name, (extra, jobs) in cases.items():
+        conf = EngineConfig(**{**dict(num_pages=64, page_size=4, max_batch=8,
+                                      max_pages_per_seq=8), **extra})
+        seqs, metrics = [], []
+        for model, params, dev in ((cpu, params_cpu, "cpu"), (gpu, params_gpu, "cuda")):
+            eng = ServeEngine(model, params, conf, device=dev)
+            hs = [eng.submit(q, GenerationParams(**g), rid=i) for i, (q, g) in enumerate(jobs)]
+            eng.run()
+            seqs.append([[(s.tokens, s.cumulative_logprob) for s in h.sequences] for h in hs])
+            metrics.append(eng.metrics())
+        for a, b in zip(*seqs):
+            assert [t for t, _ in a] == [t for t, _ in b], name
+            np.testing.assert_allclose([c for _, c in a], [c for _, c in b], atol=1e-4, rtol=0)
+        for k in keys:
+            assert metrics[0].get(k) == metrics[1].get(k), (name, k)
