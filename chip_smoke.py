@@ -29,7 +29,10 @@ lines; any failure raises and exits non-zero:
                 ptxas lines.
   kernels       each kernel against its plain PyTorch version at the serving
                 path's shapes (Hq 14, Hkv 2, D 64, page 16, B 8, and the serve
-                phase's one-row 128-token chunk; the quantized attention over
+                phase's one-row 128-token chunk; rows 1-4 also at D 128 at
+                qwen2.5-3b's heads (Hq 16 / Hkv 2) and granite-8b's (Hq 32 /
+                Hkv 8) in bf16 over bf16 and int8 pages: the decode, the
+                one-row 128-token chunk and the verify C 5; the quantized attention over
                 int8 and int4 pools; quant_matmul at the MLP's decode and
                 chunk shapes, int8 and int4 weights), in f32
                 (tolerance 2e-5) and bf16 (within one bf16 ulp of the plain
@@ -127,9 +130,21 @@ lines; any failure raises and exits non-zero:
                 the engine on the card (kernels) must equal the same engine
                 with the same weights on the CPU (plain versions), in both
                 prefill modes, at 2 layers (reference init) and, for int8 KV,
-                at 24 layers (rescaled; 8 new tokens a request, as the CPU
-                engine takes about a minute a mode at that depth). All three
+                at 6 layers (rescaled; 8 new tokens a request; 24 until
+                engine_exact_record, autotune and serve_models were added, cut
+                to keep the script's time: the CPU engine took about a minute
+                a mode at 24). All three
                 quantized kernels launch.
+  engine_exact_record
+                record_logits on qwen2-0.5b at full width, 2 layers, f32,
+                reference init, the six engine_exact requests: in both
+                prefill regimes the card's tokens equal the CPU engine's,
+                each recorded row's argmax is its token and the rows agree
+                with the CPU's within 1e-2 absolute; then
+                aligned_max_logit_err of int8 and int4 pages against f32
+                pages on the card, in the reference's (0, 0.75) / (0, 2.0),
+                or within 1.1x the CPU engine's own error where the CPU
+                already passes the bound (both printed).
   serve         the same model in bf16, chunked prefill, prefix sharing,
                 max_batch 8, 16 requests, three runs on fresh engines:
                 tokens/s, step and chunk times, TTFT, then a serve_summary
@@ -152,6 +167,27 @@ lines; any failure raises and exits non-zero:
                 read just after; the three quantized kernels must have
                 launched, and the int8 pool must be >= 1.9x smaller than the
                 bf16 one. The kernels line reports the int8 run's counts.
+  autotune      kernels/autotune.py at the serve workload's shape (bf16,
+                batch 8, its max_len), the tuning table in a fresh temporary
+                directory: a cold resolve sweeps page sizes 8 / 16 / 32 (the
+                decode at block_pages 1: the CUDA decode ignores the knob)
+                and chunk widths of 1, 2, 4 pages at the winner (every
+                candidate's us printed, the winner, its source, the sweep's
+                seconds; the decode and chunk kernels launch); a warm resolve
+                returns source "cached" and launches no kernel; then one
+                serve run with page_size and chunk_tokens deferred to the
+                tuner, whose metrics carry the tuned_* keys of the cold
+                winner, its tokens/s beside plain serve's (not gated).
+  serve_models  llama3.2-1b (16 layers, D 64, group 4), qwen2.5-3b (36, D
+                128, group 8, untied head) and granite-8b (36, D 128, group
+                4, untied head) at full size in bf16, random weights made on
+                the card: each after a check at full width, 2 layers, f32 (3
+                requests, 8 new tokens, chunked prefill, card tokens equal to
+                the CPU engine's), one run of the serve workload with 8
+                requests of 64-512 prompt tokens, 16 new each: every request
+                completes, both paged kernels launch; tokens/s, step p50,
+                TTFT p95, pool bytes and peak memory printed; each model is
+                freed before the next.
   paper         the paper-suite kernels behind the mdspan layout dispatch
                 (sum3d, stencil3d, tinymatsum static and dynamic, matvec
                 right and left), each against its plain version at the
@@ -355,13 +391,115 @@ def sdpa(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def paged_pools(g, dtype, num, hkv, ps, d, b, max_pages, bits=(8, 4)):
+    """Random K/V page pools of ``dtype`` and a permuted (b, max_pages) block
+    table, the same values as intN pages (the engine's encoding) for each of
+    ``bits``, and the densified caches (dequantized for intN) the SDPA
+    yardstick reads: a namespace (rnd, kp, vp, bt, kd, vd, quant = {bits: (kq,
+    ks, vq, vs, kd, vd, packed head dim)})."""
+    from repro_torch.serving.engine import KV_DTYPES
+
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    kp, vp = rnd(num, hkv, ps, d), rnd(num, hkv, ps, d)
+    perm = torch.randperm(num - 1, generator=g, device="cuda") + 1
+    bt = perm.reshape(b, max_pages).to(torch.int32).contiguous()
+    quant = {}
+    for nbits in bits:
+        spec = KV_DTYPES[f"int{nbits}"]
+        kq, vq = spec.encode_pages(kp), spec.encode_pages(vp)
+        quant[nbits] = (kq["q"], kq["scale"], vq["q"], vq["scale"],
+                        densify(spec.decode_pages(kq["q"], kq["scale"]).to(dtype), bt),
+                        densify(spec.decode_pages(vq["q"], vq["scale"]).to(dtype), bt),
+                        spec.packed_dim(d))
+    return SimpleNamespace(rnd=rnd, kp=kp, vp=vp, bt=bt, kd=densify(kp, bt), vd=densify(vp, bt),
+                           quant=quant)
+
+
+def decode_rows(p, q, lens, dtype, bw, case):
+    """Rows 1 and 3: the paged decode of ``q`` (B, Hq, 1, D) over the pools of
+    ``p`` at ``lens``, dense then each intN encoding, against the plain
+    versions with SDPA over the densified caches beside them ->
+    {"dense" or bits: record}."""
+    from repro_torch.kernels import paged_attention as pa
+
+    b, hq, _, d = q.shape
+    hkv, ps = p.kp.shape[1], p.kp.shape[2]
+    esz = q.element_size()
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(p.bt.shape[1] * ps, device="cuda")[None, :] < cl[:, None])[:, None, None]
+    tokens = sum(lens)
+    live_pages = sum(-(-n // ps) for n in lens)
+    small = 2 * q.numel() * esz + p.bt.numel() * 4 + b * 4  # q, out, tables, lengths
+    recs = {"dense": check_and_time(
+        "paged_decode", dtype,
+        lambda: pa.paged_flash_decode(q, p.kp, p.vp, p.bt, cl),
+        lambda: pa.paged_decode_attention_torch(q, p.kp, p.vp, p.bt, cl),
+        lambda: sdpa(q, p.kd, p.vd, mask),
+        small + 2 * tokens * hkv * d * esz, 4 * tokens * hq * d, bw, case, device_time=True,
+    )}
+    for bits, (kq, ks, vq, vs, kdq, vdq, dq) in p.quant.items():
+        recs[bits] = check_and_time(
+            "paged_decode_quant", dtype,
+            lambda: pa.paged_flash_decode_quant(q, kq, ks, vq, vs, p.bt, cl, bits=bits),
+            lambda: pa.paged_decode_attention_quant_torch(q, kq, ks, vq, vs, p.bt, cl,
+                                                          bits=bits),
+            lambda: sdpa(q, kdq, vdq, mask),
+            small + 2 * tokens * hkv * dq + 2 * live_pages * hkv * 4,
+            4 * tokens * hq * d, bw, {**case, "bits": bits}, device_time=True,
+        )
+    return recs
+
+
+def chunk_rows(p, hq, c, cursors, dtype, bw, case, bits=()):
+    """Rows 2 and 4: a C-token chunk a row (B = len(cursors), Hq ``hq``) over
+    the pools of ``p`` past ``cursors``, dense then each of ``bits``, against
+    the plain versions with SDPA over the densified past and the present
+    beside them -> {"dense" or bits: record}."""
+    from repro_torch.kernels import paged_attention as pa
+
+    hkv, ps, d = p.kp.shape[1], p.kp.shape[2], p.kp.shape[3]
+    esz = p.kp.element_size()
+    nb = len(cursors)
+    btc = p.bt[:nb].contiguous()
+    qc, ck, cv = p.rnd(nb, hq, c, d), p.rnd(nb, hkv, c, d), p.rnd(nb, hkv, c, d)
+    cur = torch.tensor(cursors, dtype=torch.int32, device="cuda")
+    s = p.bt.shape[1] * ps
+    past = torch.arange(s, device="cuda")[None, None, :] < cur[:, None, None]
+    tq = torch.arange(c, device="cuda")
+    present = (tq[None, :] <= tq[:, None])[None].expand(nb, c, c)
+    cmask = torch.cat([past.expand(nb, c, s), present], dim=-1)[:, None]
+    keys = sum(x * c + c * (c + 1) // 2 for x in cursors)
+    small = (2 * qc.numel() + ck.numel() + cv.numel()) * esz + btc.numel() * 4 + nb * 4
+    case = {**case, "B": nb, "C": c, "cursors": cursors}
+    kcat, vcat = torch.cat([p.kd[:nb], ck], dim=2), torch.cat([p.vd[:nb], cv], dim=2)
+    recs = {"dense": check_and_time(
+        "paged_prefill_chunk", dtype,
+        lambda: pa.paged_flash_prefill_chunk(qc, ck, cv, p.kp, p.vp, btc, cur),
+        lambda: pa.paged_prefill_chunk_torch(qc, ck, cv, p.kp, p.vp, btc, cur),
+        lambda: sdpa(qc, kcat, vcat, cmask),
+        small + 2 * sum(cursors) * hkv * d * esz, 4 * keys * hq * d, bw, case, device_time=True,
+    )}
+    past_pages = sum(-(-x // ps) for x in cursors)
+    for nbits in bits:
+        kq, ks, vq, vs, kdq, vdq, dq = p.quant[nbits]
+        kk, vv = torch.cat([kdq[:nb], ck], dim=2), torch.cat([vdq[:nb], cv], dim=2)
+        recs[nbits] = check_and_time(
+            "paged_prefill_chunk_quant", dtype,
+            lambda: pa.paged_flash_prefill_chunk_quant(qc, ck, cv, kq, ks, vq, vs, btc, cur,
+                                                       bits=nbits),
+            lambda: pa.paged_prefill_chunk_quant_torch(qc, ck, cv, kq, ks, vq, vs, btc, cur,
+                                                       bits=nbits),
+            lambda: sdpa(qc, kk, vv, cmask),
+            small + 2 * sum(cursors) * hkv * dq + 2 * past_pages * hkv * 4,
+            4 * keys * hq * d, bw, {**case, "bits": nbits}, device_time=True,
+        )
+    return recs
+
+
 def kernel_phase(bw):
     """Every kernel against its plain version at the serving shapes; returns
     kernel name -> the record the kernels line reports (bf16 at the serve
     phase's shapes; int8 pools and weights for the quantized kernels)."""
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.serving.engine import KV_DTYPES
-
     g = torch.Generator(device="cuda").manual_seed(0)
     B, HQ, HKV, D, PS, MAXP = 8, 14, 2, 64, 16, 128
     NUM = B * MAXP + 1
@@ -376,110 +514,57 @@ def kernel_phase(bw):
     # the speculative verify window: C = K + 1 (serve_spec's K 4 gives 5) at
     # cursors mid-page and on page boundaries, over dense and intN pools
     chunk_cases += tuple((c, VERIFY_CURSORS) for c in VERIFY_C)
+    base = {"Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS}
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         esz = torch.tensor([], dtype=dtype).element_size()
-        rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
-        kp, vp = rnd(NUM, HKV, PS, D), rnd(NUM, HKV, PS, D)
-        perm = torch.randperm(NUM - 1, generator=g, device="cuda") + 1
-        bt = perm.reshape(B, MAXP).to(torch.int32).contiguous()
-        # the same values as int8 and int4 pages (the engine's encoding), and
-        # their dequantized densified caches for the library yardstick
-        quant = {}
-        for bits in (8, 4):
-            spec = KV_DTYPES[f"int{bits}"]
-            kq, vq = spec.encode_pages(kp), spec.encode_pages(vp)
-            quant[bits] = (kq["q"], kq["scale"], vq["q"], vq["scale"],
-                           densify(spec.decode_pages(kq["q"], kq["scale"]).to(dtype), bt),
-                           densify(spec.decode_pages(vq["q"], vq["scale"]).to(dtype), bt),
-                           spec.packed_dim(D))
-        kd, vd = densify(kp, bt), densify(vp, bt)
-        # decode
-        q = rnd(B, HQ, 1, D)
-        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        live = torch.arange(MAXP * PS, device="cuda")[None, :] < cl[:, None]
-        mask = live[:, None, None, :]
-        tokens = sum(lens)
-        live_pages = sum(-(-n // PS) for n in lens)
-        small = 2 * q.numel() * esz + bt.numel() * 4 + B * 4  # q, out, tables, lengths
-        case = {"B": B, "Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS, "lens": lens}
-        rec = check_and_time(
-            "paged_decode", dtype,
-            lambda: pa.paged_flash_decode(q, kp, vp, bt, cl),
-            lambda: pa.paged_decode_attention_torch(q, kp, vp, bt, cl),
-            lambda: sdpa(q, kd, vd, mask),
-            small + 2 * tokens * HKV * D * esz, 4 * tokens * HQ * D, bw, case, device_time=True,
-        )
+        name = str(dtype).split(".")[1]
+        p = paged_pools(g, dtype, NUM, HKV, PS, D, B, MAXP)
+        q = p.rnd(B, HQ, 1, D)
+        recs = decode_rows(p, q, lens, dtype, bw, {"B": B, **base, "lens": lens})
         if dtype == torch.bfloat16:
-            main["paged_decode"] = rec
-        for bits, (kq, ks, vq, vs, kdq, vdq, dq) in quant.items():
-            rec = check_and_time(
-                "paged_decode_quant", dtype,
-                lambda: pa.paged_flash_decode_quant(q, kq, ks, vq, vs, bt, cl, bits=bits),
-                lambda: pa.paged_decode_attention_quant_torch(q, kq, ks, vq, vs, bt, cl,
-                                                              bits=bits),
-                lambda: sdpa(q, kdq, vdq, mask),
-                small + 2 * tokens * HKV * dq + 2 * live_pages * HKV * 4,
-                4 * tokens * HQ * D, bw, {**case, "bits": bits}, device_time=True,
-            )
-            if dtype == torch.bfloat16 and bits == 8:
-                main["paged_decode_quant"] = rec
-        split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw)
-        main.update(aliased_decode_checks(q, kp, vp, quant[8], dtype, esz, bw))
+            main["paged_decode"], main["paged_decode_quant"] = recs["dense"], recs[8]
+        split_decode_checks(q, p.kp, p.vp, p.bt, p.quant, dtype, esz, bw)
+        main.update(aliased_decode_checks(q, p.kp, p.vp, p.quant[8], dtype, esz, bw))
         for c, cursors in chunk_cases:
-            nb = len(cursors)
-            btc = bt[:nb].contiguous()
-            qc, ck, cv = rnd(nb, HQ, c, D), rnd(nb, HKV, c, D), rnd(nb, HKV, c, D)
-            cur = torch.tensor(cursors, dtype=torch.int32, device="cuda")
-            s = MAXP * PS
-            past = torch.arange(s, device="cuda")[None, None, :] < cur[:, None, None]
-            tq = torch.arange(c, device="cuda")
-            present = (tq[None, :] <= tq[:, None])[None].expand(nb, c, c)
-            cmask = torch.cat([past.expand(nb, c, s), present], dim=-1)[:, None]
-            keys = sum(cur_b * c + c * (c + 1) // 2 for cur_b in cursors)
-            small = ((2 * qc.numel() + ck.numel() + cv.numel()) * esz + btc.numel() * 4
-                     + nb * 4)
             verify = cursors is VERIFY_CURSORS
-            case = {"B": nb, "Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS, "C": c,
-                    "cursors": cursors, **({"verify": True} if verify else {})}
-            kcat, vcat = torch.cat([kd[:nb], ck], dim=2), torch.cat([vd[:nb], cv], dim=2)
-            rec = check_and_time(
-                "paged_prefill_chunk", dtype,
-                lambda: pa.paged_flash_prefill_chunk(qc, ck, cv, kp, vp, btc, cur),
-                lambda: pa.paged_prefill_chunk_torch(qc, ck, cv, kp, vp, btc, cur),
-                lambda: sdpa(qc, kcat, vcat, cmask),
-                small + 2 * sum(cursors) * HKV * D * esz, 4 * keys * HQ * D, bw, case,
-                device_time=True,
-            )
+            bits = tuple(p.quant) if c in quant_chunk_cases or verify else ()
+            recs = chunk_rows(p, HQ, c, cursors, dtype, bw,
+                              {**base, **({"verify": True} if verify else {})}, bits)
             if dtype == torch.bfloat16 and c == 128:
-                main["paged_prefill_chunk"] = rec
+                main["paged_prefill_chunk"] = recs["dense"]
+                main["paged_prefill_chunk_quant"] = recs[8]
             if verify:
-                main[f"verify_paged_prefill_chunk_{rec['dtype']}_C{c}"] = rec
-            if c not in quant_chunk_cases and not verify:
-                continue
-            past_pages = sum(-(-n // PS) for n in cursors)
-            for bits, (kq, ks, vq, vs, kdq, vdq, dq) in quant.items():
-                kk = torch.cat([kdq[:nb], ck], dim=2)
-                vv = torch.cat([vdq[:nb], cv], dim=2)
-                rec = check_and_time(
-                    "paged_prefill_chunk_quant", dtype,
-                    lambda: pa.paged_flash_prefill_chunk_quant(qc, ck, cv, kq, ks, vq, vs, btc,
-                                                               cur, bits=bits),
-                    lambda: pa.paged_prefill_chunk_quant_torch(qc, ck, cv, kq, ks, vq, vs, btc,
-                                                               cur, bits=bits),
-                    lambda: sdpa(qc, kk, vv, cmask),
-                    small + 2 * sum(cursors) * HKV * dq + 2 * past_pages * HKV * 4,
-                    4 * keys * HQ * D, bw, {**case, "bits": bits}, device_time=True,
-                )
-                if dtype == torch.bfloat16 and c == 128 and bits == 8:
-                    main["paged_prefill_chunk_quant"] = rec
-                if verify:
-                    main[f"verify_paged_prefill_chunk_quant{bits}_{rec['dtype']}_C{c}"] = rec
+                main[f"verify_paged_prefill_chunk_{name}_C{c}"] = recs["dense"]
+                for nbits in bits:
+                    main[f"verify_paged_prefill_chunk_quant{nbits}_{name}_C{c}"] = recs[nbits]
+    d128_checks(bw, g)
     main["quant_matmul"] = quant_matmul_checks(bw, g)
     main.update(dense_cache_checks(bw, g))
     main.update(hybrid_checks(bw, g))
     torch.cuda.synchronize()
     return main
+
+
+D128_HEADS = {"qwen2.5-3b": (16, 2), "granite-8b": (32, 8)}  # config -> (Hq, Hkv), D 128
+
+
+def d128_checks(bw, g):
+    """Rows 1-4 at head dim 128 and the dense configs' groups (qwen2.5-3b: Hq
+    16 / Hkv 2, group 8; granite-8b: Hq 32 / Hkv 8, group 4), bf16, B 8, page
+    16, 128 pages a row (the serve rows' lengths), over bf16 and int8 pages:
+    the decode, a 128-token chunk (one row at cursor 256, the serve shape) and
+    the verify window C 5 (B 8 at VERIFY_CURSORS), each against its plain
+    version at the bf16 tolerance, with bound ms and SDPA's time beside it."""
+    dtype = torch.bfloat16
+    B, D, PS, MAXP = 8, 128, 16, 128
+    lens = [0, 1, 16, 100, 517, 1024, 1500, 2048]
+    for arch, (HQ, HKV) in D128_HEADS.items():
+        p = paged_pools(g, dtype, B * MAXP + 1, HKV, PS, D, B, MAXP, bits=(8,))
+        base = {"config": arch, "Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS}
+        decode_rows(p, p.rnd(B, HQ, 1, D), lens, dtype, bw, {"B": B, **base, "lens": lens})
+        for c, cursors in ((128, [256]), (5, VERIFY_CURSORS)):
+            chunk_rows(p, HQ, c, cursors, dtype, bw, base, bits=(8,))
 
 
 def split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw):
@@ -1685,11 +1770,11 @@ def serve_requests(vocab, n=16, seed=1):
 
 
 def serve_setup(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, quantized=False,
-                kv_dtype="f32"):
+                kv_dtype="f32", n_requests=16):
     """The serve workload: the model at its config dtype (bfloat16) with
-    seeded random weights (int8 MLP weights if ``quantized``), the 16 prompts
-    and the engine config (``kv_dtype`` pages), after a warm-up run on an
-    engine of its own (allocator, cuBLAS handles)."""
+    seeded random weights (int8 MLP weights if ``quantized``), the
+    ``n_requests`` prompts and the engine config (``kv_dtype`` pages), after a
+    warm-up run on an engine of its own (allocator, cuBLAS handles)."""
     from repro_torch.models import build_model, get_config
     from repro_torch.serving import GenerationParams
     from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
@@ -1697,7 +1782,7 @@ def serve_setup(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, qua
     cfg = get_config(cfg_name, smoke=smoke)
     model = build_model(cfg, quantized=quantized, device=device)
     params = model.init_params(torch.Generator(device=device).manual_seed(1))
-    prompts = serve_requests(cfg.vocab)
+    prompts = serve_requests(cfg.vocab, n=n_requests)
     config = EngineConfig.sized_for(max(len(p) for p in prompts) + n_new, page_size=16,
                                     max_batch=8, chunked_prefill=True, chunk_tokens=128,
                                     kv_dtype=kv_dtype)
@@ -1705,23 +1790,25 @@ def serve_setup(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, qua
                         weights="int8" if quantized else cfg.dtype, model=model, params=params)
     w.requests = lambda ps=prompts: [Request(i, p, GenerationParams(max_new_tokens=n_new))
                                      for i, p in enumerate(ps)]
-    w.engine = lambda **kw: ServeEngine(model, params, dataclasses.replace(config, **kw),
-                                        device=device)
+    w.engine = lambda base=config, **kw: ServeEngine(model, params,
+                                                     dataclasses.replace(base, **kw),
+                                                     device=device)
     w.engine().run(w.requests(prompts[:2]))
     return w
 
 
 def serve_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, workload=None,
-                phase="serve", need=DENSE_PATH, engine_kw=None):
-    """One serving run of the workload on a fresh engine (``engine_kw``:
-    EngineConfig fields over the workload's), launch counts zeroed just before
-    and read just after; every kernel in ``need`` must launch. The record
-    carries the chunk widths the attention kernels launched at."""
+                phase="serve", need=DENSE_PATH, engine_kw=None, config=None):
+    """One serving run of the workload on a fresh engine (``config`` in place
+    of the workload's EngineConfig, ``engine_kw``: fields over it), launch
+    counts zeroed just before and read just after; every kernel in ``need``
+    must launch. The record carries the chunk widths the attention kernels
+    launched at, and the autotuner's decision where it made one."""
     from repro_torch import kernels
 
     w = workload or serve_setup(cfg_name, smoke, device, n_new)
     cfg, prompts, n_new = w.cfg, w.prompts, w.n_new
-    eng = w.engine(**(engine_kw or {}))
+    eng = w.engine(config or w.config, **(engine_kw or {}))
     config = eng.config
     reqs = w.requests()
     kernels.reset_launch_counts()
@@ -1740,6 +1827,7 @@ def serve_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, wor
                              "peak_pages_in_use", "pages_shared", "prefill_tokens_skipped",
                              "preemptions")},
         **{k: m[k] for k in SPEC_KEYS if k in m},
+        **{k: v for k, v in m.items() if k.startswith("tuned_")},
         "launches": {k: launches[k] for k in need},
         "chunk_widths": dict(sorted(widths.items())),
     }
@@ -2298,6 +2386,255 @@ def serve_branch_phase(workload, plain_serve=None, pool_pages=SERVE_BRANCH_POOL,
 
 
 # =====================================================================================
+# phases: engine_exact_record, autotune and serve_models
+# =====================================================================================
+# recorded f32 rows, card (kernels) vs CPU (plain versions), absolute: each f32
+# attention kernel agrees with its plain version within 2e-5 an output, which
+# two layers and the 896-wide tied head amplify (1.5e-3 measured at 2 layers,
+# PERF.md §6); a misaligned or stale row differs by O(1)
+RECORD_ATOL = 1e-2
+RECORD_BOUNDS = {"int8": 0.75, "int4": 2.0}  # the reference's (tests/test_serving_engine.py:314)
+
+
+def _record_run(model, params, prompts, n_new, config, device):
+    """One recording engine run: (engine, results, launches)."""
+    from repro_torch import kernels
+    from repro_torch.serving import GenerationParams
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, params, config, device=device)
+    reqs = [Request(i, p, GenerationParams(max_new_tokens=n_new)) for i, p in enumerate(prompts)]
+    kernels.reset_launch_counts()
+    res = eng.run(reqs)
+    return eng, res, kernels.launch_counts()
+
+
+def engine_exact_record_phase(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_layers=2,
+                              n_new=16, pool_pages=58):
+    """record_logits at full width, ``n_layers`` deep, f32, reference init, the
+    six engine_exact requests in a pool that preempts: in both prefill
+    regimes the card's greedy tokens equal the CPU engine's, each recorded
+    row's argmax is its token, and the rows agree with the CPU's within
+    RECORD_ATOL. Then aligned_max_logit_err of int8 and int4 pages against f32
+    pages (chunked prefill) on the card, in (0, bound) with the reference's
+    bounds, or in (0, 1.1 x the CPU engine's own error) where the CPU already
+    passes the bound; both printed."""
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import aligned_max_logit_err
+
+    cfg, model, params = exact_model(cfg_name, smoke, device, n_layers, False)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = _to_cpu(params)
+    prompts = exact_requests(cfg.vocab)
+    runs = {}
+    for mode, extra in EXACT_MODES:
+        config = exact_config(pool_pages, record_logits=True, **extra)
+        eng, res, launches = _record_run(model, params, prompts, n_new, config, device)
+        eng_c, res_c, _ = _record_run(cpu_model, cpu_params, prompts, n_new, config, "cpu")
+        got = [res[i].generated for i in range(len(prompts))]
+        want = [res_c[i].generated for i in range(len(prompts))]
+        rows = [(rid, n) for rid in range(len(prompts)) for n in range(n_new)]
+        recorded = all(sorted(eng.logits_of[rid]) == list(range(n_new))
+                       for rid in range(len(prompts)))
+        argmax_ok = recorded and all(
+            int(np.argmax(eng.logits_of[rid][n])) == got[rid][n] for rid, n in rows)
+        err = (max(float(np.max(np.abs(eng.logits_of[rid][n] - eng_c.logits_of[rid][n])))
+                   for rid, n in rows) if recorded and got == want else None)
+        m = eng.metrics()
+        rec = {"phase": "engine_exact_record", "mode": mode, "model": cfg.name,
+               "dtype": "float32", "n_layers": cfg.n_layers, "init": "reference",
+               "requests": len(prompts), "new_tokens": n_new,
+               "tokens_equal_cpu_engine": got == want, "rows_recorded": recorded,
+               "argmax_equals_token": argmax_ok, "max_abs_row_err_vs_cpu": err,
+               "row_tolerance": f"abs <= {RECORD_ATOL}",
+               "max_abs_logit_cpu": max(float(np.max(np.abs(r))) for v in eng_c.logits_of.values()
+                                        for r in v.values()),
+               "preemptions": m["preemptions"],
+               "fused_steps": m["fused_steps"],
+               "launches": {k: launches[k] for k in DENSE_PATH + ("flash_attention",)}}
+        emit(rec)
+        need = DENSE_PATH if mode == "chunked" else ("paged_decode", "flash_attention")
+        if not (got == want and argmax_ok and err is not None and err <= RECORD_ATOL):
+            raise AssertionError(f"engine_exact_record {mode}: {rec}")
+        if m["preemptions"] < 1:
+            raise AssertionError(f"engine_exact_record {mode} never preempted")
+        if device == "cuda" and any(launches[k] <= 0 for k in need):
+            raise AssertionError(f"engine_exact_record {mode} never launched {need}")
+        runs[mode] = (eng, res, eng_c, res_c)
+    eng_f, res_f, eng_fc, res_fc = runs["chunked"]
+    chunked = dict(EXACT_MODES)["chunked"]
+    for kv, bound in RECORD_BOUNDS.items():
+        config = exact_config(pool_pages, kv, record_logits=True, **chunked)
+        eng, res, launches = _record_run(model, params, prompts, n_new, config, device)
+        eng_c, res_c, _ = _record_run(cpu_model, cpu_params, prompts, n_new, config, "cpu")
+        err = aligned_max_logit_err(eng_f, eng, res_f, res)
+        err_cpu = aligned_max_logit_err(eng_fc, eng_c, res_fc, res_c)
+        gate = bound if err_cpu < bound else 1.1 * err_cpu
+        rec = {"phase": "engine_exact_record", "mode": "chunked", "kv_dtype": kv,
+               "model": cfg.name, "n_layers": cfg.n_layers, "aligned_max_logit_err": err,
+               "aligned_max_logit_err_cpu": err_cpu, "reference_bound": bound, "gate": gate,
+               "launches": {k: launches[k] for k in QUANT_KV_PATH}}
+        emit(rec)
+        if not 0 < err < gate:
+            raise AssertionError(f"engine_exact_record {kv}: error outside (0, {gate}): {rec}")
+        if device == "cuda" and any(launches[k] <= 0 for k in QUANT_KV_PATH):
+            raise AssertionError(f"engine_exact_record {kv} never launched {QUANT_KV_PATH}")
+    return runs
+
+
+def autotune_phase(workload, plain_serve=None, smi=None):
+    """The autotuner at the serve workload's shape (bf16, batch 8, its
+    max_len), a tuning table in a fresh temporary directory: a cold resolve
+    sweeps (every candidate's time printed: us a decode step per page size,
+    us a token per chunk width, the winner, its source and the sweep's
+    seconds; the decode and chunk kernels launch); a warm resolve reads the
+    table (source "cached") and launches no kernel; then one serve run with
+    the page size and chunk width deferred to the tuner (page_size=0,
+    chunk_tokens=0), whose metrics carry the tuned_* keys, its tokens/s beside
+    plain serve's (printed, not gated)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.engine import EngineConfig
+
+    w = workload
+    max_len, kv = w.config.sized_max_len, w.config.kv_dtype
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_autotune_"))
+    path = tmp / "autotune_cache.json"
+    saved = autotune._time_decode, autotune.DEFAULT_CACHE_PATH
+    timed = []
+    try:
+        autotune._time_decode = lambda fn, args, reps=autotune._SWEEP_REPS: (
+            timed.append(saved[0](fn, args, reps)) or timed[-1])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cold = autotune.resolve(w.cfg, kv_dtype=kv, batch=8, seq_len=max_len, cache_path=path,
+                                device=w.device)
+        sweep_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        autotune._time_decode = saved[0]
+        bps = (1,) if w.device == "cuda" else autotune.BLOCK_PAGES_CANDIDATES
+        points = [(ps, bp) for ps in autotune.PAGE_SIZE_CANDIDATES for bp in bps
+                  if bp <= -(-max_len // ps)]
+        widths = [m * cold.page_size for m in autotune.CHUNK_PAGE_MULTIPLIERS]
+        rec = {"phase": "autotune", "step": "cold", "model": w.cfg.name, "dtype": w.cfg.dtype,
+               "kv_dtype": kv, "batch": 8, "seq_len": max_len, "nvidia_smi": smi,
+               "decode_us_per_step": {f"page_size {ps}, block_pages {bp}": t * 1e6
+                                      for (ps, bp), t in zip(points, timed)},
+               "chunk_us_per_token": {f"C {c}": t * 1e6 / c
+                                      for c, t in zip(widths, timed[len(points):])},
+               "winner": cold.as_dict(), "source": cold.source, "sweep_s": sweep_s,
+               "launches": {k: launches[k] for k in DENSE_PATH}}
+        emit(rec)
+        if cold.source != "swept" or len(timed) != len(points) + len(widths):
+            raise AssertionError(f"autotune: the cold resolve did not sweep: {rec}")
+        if w.device == "cuda" and (cold.block_pages != 1
+                                   or any(launches[k] <= 0 for k in DENSE_PATH)):
+            raise AssertionError(f"autotune: the cold sweep did not time the kernels: {rec}")
+        kernels.reset_launch_counts()
+        warm = autotune.resolve(w.cfg, kv_dtype=kv, batch=8, seq_len=max_len, cache_path=path,
+                                device=w.device)
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        emit({"phase": "autotune", "step": "warm", "point": warm.as_dict(),
+              "kernel_launches": launched})
+        if warm != dataclasses.replace(cold, source="cached") or launched:
+            raise AssertionError(f"autotune: the warm resolve swept or launched: {launched}")
+        autotune.DEFAULT_CACHE_PATH = path
+        config = EngineConfig.sized_for(max_len, page_size=0, max_batch=8, autotune=True,
+                                        chunked_prefill=True, chunk_tokens=0)
+        rec = serve_phase(workload=w, phase="autotune_serve", config=config)
+        emit({"phase": "autotune_serve_vs_plain", "tokens_per_s": rec["tokens_per_s"],
+              "plain_serve_tokens_per_s": [r["tokens_per_s"] for r in plain_serve or []],
+              "nvidia_smi": smi})
+        tuned = {"tuned_page_size": cold.page_size, "tuned_block_pages": cold.block_pages,
+                 "tuned_chunk_tokens": cold.chunk_tokens, "tuned_source": "cached"}
+        if any(rec.get(k) != v for k, v in tuned.items()):
+            raise AssertionError(f"autotune_serve did not run the tuned shapes: {rec}")
+    finally:
+        autotune._time_decode, autotune.DEFAULT_CACHE_PATH = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    return cold, rec
+
+
+SERVE_MODELS = ("llama3.2-1b", "qwen2.5-3b", "granite-8b")
+
+
+def model_exact_check(cfg_name, smoke=False, device="cuda", n_new=8):
+    """A dense config at full width, 2 layers, f32, reference init: three
+    requests (two sharing a 256-token prefix, and a 31-token one) through the
+    chunked-prefill engine on the card and on the CPU, greedy token-exact;
+    the chunk and decode kernels must launch."""
+    from repro_torch.models import build_model
+
+    cfg, model, params = exact_model(cfg_name, smoke, device, 2, False)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = _to_cpu(params)
+    prompts = [exact_requests(cfg.vocab)[i] for i in (0, 1, 5)]
+    config = exact_config(64, **dict(EXACT_MODES)["chunked"])
+    got, m, launches, wall = run_engine(model, params, prompts, n_new, config, device)
+    t0 = time.perf_counter()
+    want, _, _, _ = run_engine(cpu_model, cpu_params, prompts, n_new, config, "cpu")
+    rec = {"phase": "serve_models_exact", "model": cfg.name, "dtype": "float32",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "Hq": cfg.n_heads,
+           "Hkv": cfg.n_kv_heads, "head_dim": cfg.head_dim, "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
+           "tokens_equal_cpu_engine": got == want, "pages_shared": m["pages_shared"],
+           "launches": {k: launches[k] for k in DENSE_PATH}, "wall_s": wall,
+           "cpu_s": time.perf_counter() - t0}
+    emit(rec)
+    if got != want:
+        raise AssertionError(f"serve_models: {cfg.name} tokens differ from the CPU engine's")
+    if device == "cuda" and any(launches[k] <= 0 for k in DENSE_PATH):
+        raise AssertionError(f"serve_models: {cfg.name} never launched {DENSE_PATH}")
+    return rec
+
+
+def serve_models_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=None):
+    """llama3.2-1b, qwen2.5-3b and granite-8b at full size in bf16, random
+    weights made on the card: each after its 2-layer exactness check, one run
+    of the serve workload (page 16, max_batch 8, chunked prefill 128, prefix
+    sharing, ``n_requests`` prompts of 64-512 tokens, ``n_new`` new each),
+    every request complete and both paged kernels launched; tokens/s, step
+    p50, TTFT p95, the pool's bytes and the peak memory printed. Each model is
+    freed before the next."""
+    import gc
+
+    out = {}
+    for name in SERVE_MODELS:
+        model_exact_check(name, smoke, device)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        w = serve_setup(name, smoke, device, n_new, n_requests=n_requests)
+        rec = serve_phase(workload=w, phase="serve_models")
+        emit({"phase": "serve_models_summary", "model": w.cfg.name, "n_layers": w.cfg.n_layers,
+              "d_model": w.cfg.d_model, "Hq": w.cfg.n_heads, "Hkv": w.cfg.n_kv_heads,
+              "head_dim": w.cfg.head_dim, "vocab": w.cfg.vocab,
+              "params": sum(t.numel() for t in _leaves(w.params)),
+              **{k: rec[k] for k in ("tokens_per_s", "step_ms_p50", "ttft_s_p95",
+                                     "kv_pool_bytes", "launches")},
+              "peak_memory_bytes": (torch.cuda.max_memory_allocated() if device == "cuda"
+                                    else None), "nvidia_smi": smi})
+        out[name] = rec
+        del w, rec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+# =====================================================================================
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -2428,9 +2765,12 @@ def main() -> int:
     engine_exact_branch_phase(n_layers=2)
     t_phase["engine_exact_branch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    engine_exact_record_phase(n_layers=2)
+    t_phase["engine_exact_record"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for kv in ("int8", "int4"):
         engine_exact_quant_phase(kv, n_layers=2)
-    engine_exact_quant_phase("int8", n_layers=24, conditioned=True, n_new=8)
+    engine_exact_quant_phase("int8", n_layers=6, conditioned=True, n_new=8)
     t_phase["engine_exact_quant"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     workload = serve_setup()
@@ -2447,11 +2787,18 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_branch_phase(workload, plain_serve=runs, smi=smi)
     t_phase["serve_branch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    autotune_phase(workload, plain_serve=runs, smi=smi)
+    t_phase["autotune"] = time.perf_counter() - t0
     del workload
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serve_quant = serve_quant_phase(serve["kv_pool_bytes"])
     t_phase["serve_quant"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_models_phase(smi=smi)
+    t_phase["serve_models"] = time.perf_counter() - t0
     launches = {**serve["launches"], **serve_quant["int8"]["launches"],
                 **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches}
     kernels = []

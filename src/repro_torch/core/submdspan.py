@@ -42,7 +42,7 @@ port in tests/test_torch_core.py):
 
 A speculative verify window is the same pos-range slice at width K+1, and
 rolling back rejected tokens shrinks the view's length without touching the
-pool (the reference's serving/speculative.py; not ported yet).
+pool (serving/speculative.py).
 """
 from __future__ import annotations
 

@@ -247,7 +247,7 @@ def _quant_append(buf: Dict[str, torch.Tensor], tok: torch.Tensor, page: torch.T
 
 
 def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: torch.Tensor,
-                                context_lens: torch.Tensor, kv_spec=None):
+                                context_lens: torch.Tensor, kv_spec=None, block_pages=None):
     """One-token decode against one layer's page pool.
 
     x: (B, 1, D); cache k/v: (num_pages, Hkv, ps, Dh), or with ``kv_spec``
@@ -255,7 +255,9 @@ def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
     context_lens (B,) int32 tokens already cached. The new token's K/V is
     written IN PLACE at position context_lens[b] (page block_tables[b, len //
     ps], slot len % ps), quantized at scatter time over a quantized pool,
-    then attention covers positions < len + 1."""
+    then attention covers positions < len + 1. ``block_pages`` is the tuned
+    decode block-shape knob, forwarded verbatim to
+    ops.paged_decode_attention{,_quant} (None = unblocked)."""
     b = x.shape[0]
     ps = _page_size(cache, kv_spec)
     q, k, v = _project_qkv(cfg, p, x)
@@ -271,13 +273,14 @@ def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
         ck, cv = cache["k"], cache["v"]
         out = ops.paged_decode_attention_quant(
             q.contiguous(), ck["q"], ck["scale"], cv["q"], cv["scale"], block_tables, pos + 1,
-            bits=kv_spec.bits,
+            bits=kv_spec.bits, block_pages=block_pages,
         )
     else:
         cache["k"][page, :, slot, :] = k[:, :, 0, :].to(cache["k"].dtype)
         cache["v"][page, :, slot, :] = v[:, :, 0, :].to(cache["v"].dtype)
         out = ops.paged_decode_attention(
             q.contiguous(), cache["k"], cache["v"], block_tables, pos + 1,
+            block_pages=block_pages,
         )
     return _out_proj(p, out, x.dtype), cache
 

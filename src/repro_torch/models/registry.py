@@ -26,7 +26,8 @@ ARCH_FAMILIES = {
     "llama-3.2-vision-90b": "vlm",
     "recurrentgemma-2b": "hybrid",
 }
-PORTED = ("qwen2-0.5b", "mamba2-780m", "recurrentgemma-2b")
+PORTED = ("qwen2-0.5b", "llama3.2-1b", "qwen2.5-3b", "granite-8b", "mamba2-780m",
+          "recurrentgemma-2b")
 ARCH_IDS = list(PORTED)
 
 
@@ -41,7 +42,7 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
             raise KeyError(f"unknown architecture {arch_id!r}")
         raise NotImplementedError(
             f"{arch_id} ({family}) is not ported yet: it waits for ROADMAP Queue 1 "
-            f"item 4, the other model families and configs"
+            f"item 4, the MoE, encoder-decoder and vision families"
         )
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.smoke_config() if smoke else mod.config()

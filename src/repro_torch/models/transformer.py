@@ -91,10 +91,12 @@ class DenseBlock:
         return self._mlp(cfg, p, x + y), cache
 
     @classmethod
-    def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None):
+    def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None,
+                     block_pages=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         y, _ = attn.self_attention_decode_paged(
             cfg, p["attn"], h, cache, block_tables, context_lens, kv_spec=kv_spec,
+            block_pages=block_pages,
         )
         return cls._mlp(cfg, p, x + y)
 
@@ -390,7 +392,8 @@ class Model:
     def decode_step_paged(self, params, caches, tokens: torch.Tensor,
                           block_tables: torch.Tensor, context_lens: torch.Tensor, *,
                           kv_spec=None, write_tables=None, n_new=None,
-                          last_index=None, active=None, spec_verify: bool = False):
+                          last_index=None, active=None, spec_verify: bool = False,
+                          block_pages=None):
         """The mixed serving step; the page pools in ``caches`` are updated in
         place and returned.
 
@@ -412,6 +415,9 @@ class Model:
         per layer (DenseBlock.verify_paged), context_lens the resident length
         (any alignment), ``active`` honored as in decode, and the lm_head
         applied to all C rows: it returns logits (B, C, Vp).
+
+        ``block_pages`` (decode only) is the tuned decode block-shape knob,
+        forwarded to the paged decode attention (None = unblocked).
 
         Returns (logits (B, Vp), caches)."""
         self._paged_only_dense()
@@ -436,6 +442,7 @@ class Model:
             else:
                 x = DenseBlock.decode_paged(
                     cfg, p, x, cache, block_tables, context_lens, kv_spec=kv_spec,
+                    block_pages=block_pages,
                 )
         if spec_verify:
             # row j of the window decides draft j + 1 (the last row the bonus)

@@ -18,7 +18,7 @@ from repro_torch.serving.sampling import GREEDY, SamplingParams
 from repro_torch.serving.telemetry import EngineTrace, MetricsRegistry, validate_chrome_trace
 
 from .cache import PagedKVCache
-from .engine import EngineConfig, ServeEngine
+from .engine import EngineConfig, ServeEngine, aligned_max_logit_err
 from .kvquant import KV_DTYPES, PagedQuantSpec
 from .request import DECODING, PREFILLING, QUEUED, Request, RequestQueue, RequestState
 from .scheduler import Scheduler, SchedulerConfig
@@ -47,5 +47,6 @@ __all__ = [
     "SchedulerConfig",
     "Sequence",
     "ServeEngine",
+    "aligned_max_logit_err",
     "validate_chrome_trace",
 ]

@@ -59,8 +59,12 @@ speculation (``_spec_plan``), and beam groups never fuse
 turns preemption into swap-out and re-admission into prefetch
 (cache.TierManager); ``retain_finished_s`` keeps finished sessions there.
 
-Not ported yet (refused by EngineConfig, naming the ROADMAP item):
-autotuning and logits recording.
+Perf tooling: ``record_logits`` keeps each generated token's logits row on
+the host (``logits_of``; the row rides the step's one packed fetch, and
+recording forces K = 1), the audit ``aligned_max_logit_err`` compares two
+recording engines; ``autotune`` fills the block-shape fields left at their
+auto sentinels from kernels/autotune.py's tuning table before the pool is
+sized, and never overrides a pinned field.
 """
 from __future__ import annotations
 
@@ -97,14 +101,6 @@ from .cache import PagedKVCache
 from .request import DECODING, BranchGroup, Request, RequestQueue, RequestState
 from .scheduler import Scheduler, SchedulerConfig
 
-# EngineConfig fields whose features wait for a later slice: field -> (value
-# that means "off", the ROADMAP Queue 1 item that ports it)
-_NOT_PORTED = {
-    "autotune": (False, "item 7 (perf tooling and autotuning)"),
-    "record_logits": (False, "item 7 (perf tooling)"),
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     num_pages: int = 64
@@ -114,7 +110,7 @@ class EngineConfig:
     watermark_pages: int = 1
     prefix_sharing: bool = True
     chunked_prefill: bool = False
-    chunk_tokens: int = 0  # max tokens per prefill chunk (page multiple; 0 = 2 pages)
+    chunk_tokens: int = 0  # max tokens per prefill chunk (page multiple; 0 = 2 pages, or tuned)
     step_token_quota: int = 0  # per-step token budget (0 = max_batch + chunk_tokens)
     prefill_compute_skip: bool = True  # chunked + sharing: skip adopted pages' compute
     trace: bool = False  # record lifecycle events (serving.telemetry.EngineTrace)
@@ -157,9 +153,20 @@ class EngineConfig:
     retain_finished_s: float = 0.0  # on finish, demote a request's pages to
     # the host tier and keep them this many seconds (a follow-up sharing the
     # context prefetches instead of re-prefilling); 0 = don't retain
-    # not ported yet: any value other than "off" raises (see _NOT_PORTED)
-    autotune: bool = False
-    record_logits: bool = False
+    record_logits: bool = False  # keep each generated token's logits row on the
+    # host (ServeEngine.logits_of) for accuracy audits (aligned_max_logit_err).
+    # A slow path: the (B, vocab) rows ride every step's fetch, and it forces
+    # multi_step to 1
+    autotune: bool = False  # fill the block-shape fields left at their auto
+    # sentinels (page_size=0 via sized_for, decode_block_pages=0,
+    # chunk_tokens=0) from kernels/autotune.py's tuning table, sweeping once on
+    # a miss; pinned fields are never overridden. The decision shows in
+    # metrics() (tuned_*) and as a `tuning_selected` trace instant
+    decode_block_pages: int = 0  # pages per decode compute block (0 = auto:
+    # tuned with autotune, unblocked otherwise); ignored by the CUDA decode
+    sized_max_len: int = 0  # the max_len sized_for() was called with (0 when
+    # the pool was sized by hand): autotune re-derives the pool from it when
+    # page_size is deferred to the tuner
 
     def __post_init__(self):
         if self.spec_tokens and self.record_logits:
@@ -173,22 +180,56 @@ class EngineConfig:
                 f"spec_tokens {self.spec_tokens} must be >= 0, multi_step "
                 f"{self.multi_step} >= 1 and logprobs_k {self.logprobs_k} >= 0"
             )
-        for name, (off, item) in _NOT_PORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not ported yet: "
-                    f"ROADMAP Queue 1 {item}"
-                )
 
     @classmethod
     def sized_for(cls, max_len: int, *, page_size: int, max_batch: int, **kw) -> "EngineConfig":
         """Pool sized so max_batch sequences of ``max_len`` tokens run with no
-        contention (+1 decode-headroom page each, + the null page)."""
+        contention (+1 decode-headroom page each, + the null page).
+        ``page_size=0`` defers the page size to the autotuner (requires
+        autotune=True): the pool is then sized at engine init from
+        ``sized_max_len``, after the tuning table was consulted."""
+        if page_size == 0:
+            if not kw.get("autotune"):
+                raise ValueError("page_size=0 requires autotune=True")
+            return cls(num_pages=0, page_size=0, max_batch=max_batch, max_pages_per_seq=0,
+                       sized_max_len=max_len, **kw)
         pages_per_seq = -(-max_len // page_size) + 1
         return cls(
             num_pages=max_batch * pages_per_seq + 1, page_size=page_size,
-            max_batch=max_batch, max_pages_per_seq=pages_per_seq, **kw,
+            max_batch=max_batch, max_pages_per_seq=pages_per_seq, sized_max_len=max_len, **kw,
         )
+
+
+def aligned_max_logit_err(eng_ref, eng, results_ref, results) -> float:
+    """Max |logit difference| between two record_logits engines over the steps
+    where both saw the same context: per request, every step up to and
+    including the first divergent generated token."""
+    errs = [0.0]
+    for rid, s_ref in results_ref.items():
+        a, b = s_ref.generated, results[rid].generated
+        n_cmp = min(len(a), len(b))
+        div = next((i for i in range(n_cmp) if a[i] != b[i]), n_cmp - 1)
+        for n in range(div + 1):
+            errs.append(float(np.max(np.abs(eng_ref.logits_of[rid][n] - eng.logits_of[rid][n]))))
+    return max(errs)
+
+
+def _apply_tuning(config: EngineConfig, tuned) -> EngineConfig:
+    """Fill every auto-sentinel block-shape field of ``config`` from a
+    TunedPoint; pinned fields win. page_size=0 (sized_for deferral)
+    re-derives the pool extents from sized_max_len at the tuned page size."""
+    kw = {}
+    if config.page_size == 0:
+        if not config.sized_max_len:
+            raise ValueError("page_size=0 needs EngineConfig.sized_for (sized_max_len unset)")
+        ps = tuned.page_size
+        pps = -(-config.sized_max_len // ps) + 1
+        kw.update(page_size=ps, max_pages_per_seq=pps, num_pages=config.max_batch * pps + 1)
+    if config.decode_block_pages == 0:
+        kw["decode_block_pages"] = tuned.block_pages
+    if config.chunked_prefill and config.chunk_tokens == 0:
+        kw["chunk_tokens"] = tuned.chunk_tokens
+    return dataclasses.replace(config, **kw) if kw else config
 
 
 def _fetch(*parts: torch.Tensor) -> List[np.ndarray]:
@@ -218,6 +259,18 @@ class ServeEngine:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
         self.model = model
         self.params = params
+        # autotune resolves the block shapes before the pool is sized: a
+        # deferred page_size materializes here; a table hit is a file read
+        self.tuned = None
+        if config.autotune:
+            from repro_torch.kernels import autotune
+
+            self.tuned = autotune.resolve(
+                model.cfg, kv_dtype=config.kv_dtype, batch=config.max_batch,
+                seq_len=config.sized_max_len, page_size=config.page_size or None,
+                device=self.device,
+            )
+            config = _apply_tuning(config, self.tuned)
         self.config = config
         if config.host_pool_pages and not config.prefix_sharing:
             raise ValueError(
@@ -239,6 +292,10 @@ class ServeEngine:
         self.trace = EngineTrace(config.trace_capacity) if config.trace else None
         self.cache.trace = self.trace
         self.scheduler.trace = self.trace
+        if self.trace is not None and self.tuned is not None:
+            self.trace.instant("tuning_selected", page_size=config.page_size,
+                               block_pages=config.decode_block_pages,
+                               chunk_tokens=config.chunk_tokens, source=self.tuned.source)
         self.registry = MetricsRegistry()
         self._h_step = self.registry.histogram("step_time_s")
         self._h_host = self.registry.histogram("host_overhead_s")
@@ -273,13 +330,16 @@ class ServeEngine:
             self._grammar_refs: List[object] = []  # keeps id() unique while registered
             self._grammar_used = 0
         kv_spec = self.cache.kv_spec
+        block_pages = config.decode_block_pages or None
         self._step = make_paged_serve_step(model, kv_spec, logprobs_k=self._lp_k,
-                                           grammar=self._grammar_on)
-        self._k = int(config.multi_step)
+                                           grammar=self._grammar_on, block_pages=block_pages)
+        # recording needs every step's rows on the host, so it forces K = 1
+        self._k = 1 if config.record_logits else int(config.multi_step)
         if self._k > 1:
             self._multistep = make_paged_serve_multistep(model, self._k, kv_spec,
                                                          logprobs_k=self._lp_k,
-                                                         grammar=self._grammar_on)
+                                                         grammar=self._grammar_on,
+                                                         block_pages=block_pages)
         # speculative decoding (serving/speculative.py): the window step is a
         # sibling of the multistep, plus the proposer's two per-slot device
         # arrays (hist, table), updated in place by each window; rows are
@@ -340,6 +400,9 @@ class ServeEngine:
             self._chunk_step = make_chunked_prefill_step(model, self.cache.kv_spec)
         self.results: Dict[int, RequestState] = {}
         self._next_rid = 0
+        # rid -> {n: the logits row that produced generated[n]} (record_logits),
+        # keyed by token index: a recompute overwrites, engines align
+        self.logits_of: Dict[int, Dict[int, np.ndarray]] = {}
         self._t0 = time.perf_counter()
 
     # -- submission -------------------------------------------------------------
@@ -391,8 +454,11 @@ class ServeEngine:
                 f"request {request.rid} asks for {p.logprobs} logprobs but the engine "
                 f"computes logprobs_k={self._lp_k} — raise EngineConfig.logprobs_k"
             )
-        if p.record_logits:
-            raise ValueError(f"request {request.rid} asks for record_logits; not ported yet")
+        if p.record_logits and not self.config.record_logits:
+            raise ValueError(
+                f"request {request.rid} asks for record_logits but the engine was built "
+                f"with record_logits=False"
+            )
         if p.speculative and not self._spec_k:
             raise ValueError(
                 f"request {request.rid} asks for speculative decoding but the engine "
@@ -408,6 +474,11 @@ class ServeEngine:
             raise ValueError(
                 f"request {request.rid} needs {p.n_branches} batch slots "
                 f"(admitted as a unit) > max_batch {self.config.max_batch}"
+            )
+        if p.n_branches > 1 and self.config.record_logits:
+            raise ValueError(
+                "record_logits keys rows by rid — unsupported for parallel generation "
+                "(n > 1 / beam_width > 0)"
             )
         grammar_off = None
         if p.grammar is not None:
@@ -510,9 +581,10 @@ class ServeEngine:
         )
         lp = torch.log_softmax(logits_row[:self._vocab].float(), dim=-1)[tok.long()]
         n_lp = state.request.logprobs
-        # the row's top-k pair rides the id's fetch
+        # the row's top-k pair, and the row itself when recording, ride the id's fetch
         extra = top_logprobs(logits_row[None], self._vocab, self._lp_k) if n_lp else ()
-        got = _fetch(tok, lp, *extra)
+        record = self._records(state)
+        got = _fetch(tok, lp, *extra, *((logits_row[:self._vocab],) if record else ()))
         t = int(got[0][0])
         state.generated.append(t)
         state.cum_logprob += float(got[1][0])
@@ -520,6 +592,9 @@ class ServeEngine:
             state.grammar_state = int(self._gtrans_host[state.grammar_state, t])
         if n_lp:
             state.logprobs[len(state.generated) - 1] = _top_pairs(got[2][0], got[3][0], n_lp)
+        if record:
+            self.logits_of.setdefault(state.request.rid, {})[len(state.generated) - 1] = (
+                got[-1].copy())
         self._slots_stale = True  # the slot's next decode input is host-known
         if self._spec_k:
             # the proposer's rows for this slot are rebuilt from the new
@@ -537,6 +612,9 @@ class ServeEngine:
                     self.cache.fork_slot(state.slot, sib.slot, n_resident)
                     sib.await_fork = False
                     self._first_token(sib, logits_row)
+
+    def _records(self, state: RequestState) -> bool:
+        return self.config.record_logits and state.request.params.record_logits is not False
 
     # -- beam search (host-side selection, block-table reorder) -------------------
     def _beam_advance(self, group: BranchGroup) -> None:
@@ -977,10 +1055,14 @@ class ServeEngine:
             top = tuple(t[None] for t in out[lp_i]) if want_lp else ()
         if self._grammar_on:
             self._gstate_dev = out[5]
+        # recording (K = 1) adds the (B, vocab) logits rows to the fetch
+        record = any(self._records(st) for st in decoding.values())
+        rows = (out[1][:, :self._vocab],) if record else ()
         # the dispatch's only device-to-host copy
-        got = _fetch(toks, lps, *top)
+        got = _fetch(toks, lps, *top, *rows)
         ids, lp_arr = got[:2]  # (K, B)
-        lp_vals, lp_ids = got[2:] if want_lp else (None, None)  # (K, B, k)
+        lp_vals, lp_ids = got[2:4] if want_lp else (None, None)  # (K, B, k)
+        logits_rows = got[-1] if record else None  # (B, vocab)
         t_dev = time.perf_counter() - t0
         self.cache.adopt_lens_device(new_lens)
         self._tokens_dev = last
@@ -1010,6 +1092,9 @@ class ServeEngine:
                 if n_lp and lp_vals is not None:
                     state.logprobs[len(state.generated) - 1] = _top_pairs(
                         lp_vals[i, slot], lp_ids[i, slot], n_lp)
+                if logits_rows is not None and self._records(state):
+                    self.logits_of.setdefault(state.request.rid, {})[
+                        len(state.generated) - 1] = logits_rows[slot].copy()
         for grp in beam_groups:
             started = [st for st in grp.branches if not st.await_fork and not st.done]
             if all(st.branch in grp.pending_rows for st in started):
@@ -1111,6 +1196,7 @@ class ServeEngine:
         """Drop finished-request records and timing state (a warm-up run on the
         same engine, then a measured one)."""
         self.results = {}
+        self.logits_of = {}
         self.registry.reset()
         if self.trace is not None:
             self.trace.clear()
@@ -1122,10 +1208,22 @@ class ServeEngine:
     def metrics(self) -> Dict[str, float]:
         """Flat snapshot over the registry, the per-request records and the
         allocator stats (histogram percentiles within one log bucket, ~7.5%)."""
+        # the autotuner's decision rides every snapshot, empty ones included;
+        # without autotune the snapshot keeps its shape
+        tuning: Dict[str, object] = {}
+        if self.tuned is not None:
+            tuning = {
+                "tuned_page_size": self.config.page_size,
+                "tuned_block_pages": self.config.decode_block_pages,
+                "tuned_chunk_tokens": self.config.chunk_tokens,
+                "tuned_source": self.tuned.source,
+            }
         failed = [s for s in self.results.values() if s.error is not None]
         states = [s for s in self.results.values() if s.error is None]
         if not states:
-            return {"failed": len(failed)} if failed else {}
+            out = {"failed": len(failed)} if failed else {}
+            out.update(tuning)
+            return out
         wall = max(s.finish_time for s in states)
         span = wall - min(s.request.arrival_time for s in states)
         e2e = np.array([s.finish_time - s.request.arrival_time for s in states])
@@ -1173,4 +1271,5 @@ class ServeEngine:
             "prefill_tokens_skipped": self._c_pf_skipped.value,
             **spec,
             **self.cache.stats(),
+            **tuning,
         }

@@ -44,6 +44,9 @@ class GenerationParams:
     n: int = 1  # sequences to return (sampling: the branch count)
     beam_width: int = 0  # 0 = off; >= 2 = beam search width
     grammar: Optional[TokenDFA] = None  # constrained decoding automaton
+    # per-request logits recording: None follows EngineConfig.record_logits,
+    # False opts this request out, True requires a recording engine (submit()
+    # checks)
     record_logits: Optional[bool] = None
     # speculative decoding: None follows EngineConfig.spec_tokens, True
     # requires a speculating engine (submit() checks), False opts this request

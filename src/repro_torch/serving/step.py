@@ -57,7 +57,7 @@ def top_logprobs(logits: torch.Tensor, vocab: int, k: int):
 
 
 def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
-                  context_lens, slot_f32, slot_i32, sampled, grammar=None):
+                  context_lens, slot_f32, slot_i32, sampled, grammar=None, block_pages=None):
     """One fused decode iteration: append -> attend -> sample, on the device.
 
     slot_f32 (2, B): [temperature, top_p]; slot_i32 (3, B): [active, top_k,
@@ -68,6 +68,8 @@ def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
     f32, gtrans (S, vocab) int32)): each slot's mask row is added to its
     logits in the sampler and its state advances by the sampled token; row 0
     of the tables is the unconstrained state (zero mask, self-loops).
+    ``block_pages`` is the tuned decode block-shape knob, forwarded to the
+    paged decode (None = unblocked).
 
     Returns (next_tokens (B,) int32, logits (B, Vp), new_lens (B,), caches,
     chosen_lp (B,) f32[, new_gstate (B,) int32 with grammar]): chosen_lp is
@@ -76,6 +78,7 @@ def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
     active = slot_i32[0]
     logits, caches = model.decode_step_paged(
         params, caches, tokens, block_tables, context_lens, kv_spec=kv_spec, active=active,
+        block_pages=block_pages,
     )
     mask = None
     if grammar is not None:
@@ -94,7 +97,8 @@ def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
     return nxt, logits, new_lens, caches, chosen_lp, new_gstate
 
 
-def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: bool = False):
+def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: bool = False,
+                          block_pages: Optional[int] = None):
     """The fused decode step over the engine's pools (``kv_spec``: their
     quantized element representation, None for dense pages)."""
     vocab = model.cfg.vocab
@@ -110,7 +114,7 @@ def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: boo
         grammar][, (vals, ids) (B, logprobs_k) when logprobs_k])."""
         out = _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
                             context_lens, slot_f32, slot_i32, sampled,
-                            grammar=tuple(g) if grammar else None)
+                            grammar=tuple(g) if grammar else None, block_pages=block_pages)
         if not logprobs_k:
             return out
         return out + (top_logprobs(out[1], vocab, logprobs_k),)
@@ -119,7 +123,7 @@ def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: boo
 
 
 def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: int = 0,
-                               grammar: bool = False):
+                               grammar: bool = False, block_pages: Optional[int] = None):
     """K fused decode iterations in one dispatch: a host loop of K
     _fused_decode calls with no device-to-host transfer inside it (the
     reference's ``lax.scan``). Legal only over an event-free horizon
@@ -145,7 +149,7 @@ def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: in
             out = _fused_decode(
                 model, kv_spec, vocab, params, caches, tokens, block_tables, context_lens,
                 slot_f32, slot_i32, sampled,
-                grammar=(gstate, g[1], g[2]) if grammar else None,
+                grammar=(gstate, g[1], g[2]) if grammar else None, block_pages=block_pages,
             )
             tokens, logits, context_lens, caches, lp = out[:5]
             if grammar:

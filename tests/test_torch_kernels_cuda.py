@@ -28,7 +28,10 @@ row's pages, rows repeating other rows' tables), a grammar K-step window and
 a sampled step over forked rows under the sync debug mode, int4 pages
 demoted to the host tier and promoted back byte for byte, and the best-of-n,
 beam, grammar and tiered engines on the card against the same engines on
-the CPU.
+the CPU; the paged decode and chunk kernels at head dim 128 and the dense
+configs' groups 4 and 8, page sizes 8 and 32, over dense, int8 and int4
+pages, and the autotuner's cold sweep (block_pages 1 only on the card) and
+warm resolve (no launch).
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -2196,3 +2199,100 @@ def test_branch_grammar_and_tier_engines_on_cuda_match_the_cpu_engine():
             np.testing.assert_allclose([c for _, c in a], [c for _, c in b], atol=1e-4, rtol=0)
         for k in keys:
             assert metrics[0].get(k) == metrics[1].get(k), (name, k)
+
+
+# ---------------------------------------------------------------------------------
+# head dim 128 at the dense configs' groups (qwen2.5-3b: Hq 16 / Hkv 2, group 8;
+# granite-8b: Hq 32 / Hkv 8, group 4) and the autotuner's page sizes 8 and 32
+# ---------------------------------------------------------------------------------
+_D128_LENS = (0, 1, 9, 100, 517, 1024, 1500, 2048)
+_D128_CURSORS = (37, 130, 255, 16, 0, 8, 512, 1000)
+# (batch, page_size, lens, hq, hkv, d)
+D128_DECODE_CASES = [
+    (8, 8, _D128_LENS, 16, 2, 128), (8, 32, _D128_LENS, 16, 2, 128),
+    (8, 8, _D128_LENS, 32, 8, 128), (8, 32, _D128_LENS, 32, 8, 128),
+]
+# (batch, hq, hkv, d, ps, C, max_pages, cursors): a 128-token chunk and the
+# verify window C 5
+D128_CHUNK_CASES = [
+    (2, 16, 2, 128, 8, 128, 160, (0, 1024)), (2, 32, 8, 128, 32, 128, 40, (0, 1024)),
+    (8, 16, 2, 128, 32, 5, 40, _D128_CURSORS), (8, 32, 8, 128, 8, 5, 160, _D128_CURSORS),
+]
+
+
+def _pools(args, pool_idx, pools):
+    """The inputs with the K/V pools at ``pool_idx`` dense, or int8 / int4
+    encoded (-> (args, bits or None))."""
+    if pools == "dense":
+        return args, None
+    bits = int(pools[3:])
+    i = pool_idx
+    return (*args[:i], *_quantize_pool(args[i], bits), *_quantize_pool(args[i + 1], bits),
+            *args[i + 2:]), bits
+
+
+def _check(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("case", D128_DECODE_CASES, ids=_ids(D128_DECODE_CASES))
+@pytest.mark.parametrize("pools", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d128_decode_matches_plain(case, pools, dtype):
+    args, bits = _pools(_decode_inputs(*case, dtype=dtype), 1, pools)
+    if bits is None:
+        got, want = pa.paged_flash_decode(*args), pa.paged_decode_attention_torch(*args)
+    else:
+        got = pa.paged_flash_decode_quant(*args, bits=bits)
+        want = pa.paged_decode_attention_quant_torch(*args, bits=bits)
+    torch.cuda.synchronize()
+    _check(got, want, dtype)
+    assert torch.count_nonzero(got[0]) == 0  # the length-0 row
+
+
+@pytest.mark.parametrize("case", D128_CHUNK_CASES, ids=_ids(D128_CHUNK_CASES))
+@pytest.mark.parametrize("pools", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d128_chunk_matches_plain(case, pools, dtype):
+    args, bits = _pools(_chunk_inputs(*case, dtype=dtype), 3, pools)
+    if bits is None:
+        got = pa.paged_flash_prefill_chunk(*args)
+        want = pa.paged_prefill_chunk_torch(*args)
+    else:
+        got = pa.paged_flash_prefill_chunk_quant(*args, bits=bits)
+        want = pa.paged_prefill_chunk_quant_torch(*args, bits=bits)
+    torch.cuda.synchronize()
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("arch,kv_dtype", [("qwen2.5-3b", "f32"), ("granite-8b", "int8")])
+def test_autotune_cold_sweep_then_warm_resolve(tmp_path, arch, kv_dtype):
+    """A cold resolve on the card sweeps page sizes 8 / 16 / 32 at block_pages
+    1 only (the CUDA decode ignores the knob) and chunk widths at the winner,
+    launching the decode and chunk kernels; a warm one reads the table and
+    launches nothing."""
+    from repro_torch.kernels import autotune
+    from repro_torch.models import get_config
+
+    cfg = get_config(arch)
+    path = tmp_path / "tune.json"
+    decode = "paged_decode" if kv_dtype == "f32" else "paged_decode_quant"
+    chunk = "paged_prefill_chunk" if kv_dtype == "f32" else "paged_prefill_chunk_quant"
+    kernels.reset_launch_counts()
+    cold = autotune.resolve(cfg, kv_dtype=kv_dtype, batch=8, seq_len=544, cache_path=path,
+                            device="cuda")
+    launched = kernels.launch_counts()
+    per = autotune._SWEEP_WARMUP + autotune._SWEEP_REPS
+    assert launched[decode] == len(autotune.PAGE_SIZE_CANDIDATES) * per
+    assert launched[chunk] == len(autotune.CHUNK_PAGE_MULTIPLIERS) * per
+    assert cold.source == "swept" and cold.block_pages == 1 and cold.us_per_step > 0
+    assert cold.page_size in autotune.PAGE_SIZE_CANDIDATES
+    assert cold.chunk_tokens % cold.page_size == 0
+    kernels.reset_launch_counts()
+    warm = autotune.resolve(cfg, kv_dtype=kv_dtype, batch=8, seq_len=544, cache_path=path,
+                            device="cuda")
+    assert not any(kernels.launch_counts().values())
+    assert warm == dataclasses.replace(cold, source="cached")

@@ -288,13 +288,10 @@ def test_trace_exports_valid_chrome_json(setup):
     ("record_logits", True),
 ])
 def test_unported_engine_options_raise(field, value):
-    """autotune and record_logits wait for ROADMAP Queue 1 item 7; the host
-    tier, constrained decoding and beam search are ported and accepted."""
-    if field in ("autotune", "record_logits"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EngineConfig(**{field: value})
-    else:
-        assert getattr(EngineConfig(**{field: value}), field) == value
+    """Every engine option of the reference is ported now: the host tier,
+    constrained decoding, beam search, autotuning and logits recording are
+    accepted, and a config holds the value it was given."""
+    assert getattr(EngineConfig(**{field: value}), field) == value
 
 
 @pytest.mark.parametrize("kw", [dict(n=2, temperature=1.0), dict(beam_width=2),
