@@ -32,7 +32,12 @@ lines; any failure raises and exits non-zero:
                 phase's one-row 128-token chunk; rows 1-4 also at D 128 at
                 qwen2.5-3b's heads (Hq 16 / Hkv 2) and granite-8b's (Hq 32 /
                 Hkv 8) in bf16 over bf16 and int8 pages: the decode, the
-                one-row 128-token chunk and the verify C 5; the quantized attention over
+                one-row 128-token chunk and the verify C 5; rows 1-4, 6 and 7
+                at head dim 112 and kimi-k2's heads (Hq 64 / Hkv 8): the
+                decode over bf16, int8 and int4 pages, the one-row 128-token
+                chunk and the verify C 5 over the same three, flash_attention
+                causal at (2, 64 / 8, 512, 112) and flash_decode over a
+                512-slot cache; the quantized attention over
                 int8 and int4 pools; quant_matmul at the MLP's decode and
                 chunk shapes, int8 and int4 weights), in f32
                 (tolerance 2e-5) and bf16 (within one bf16 ulp of the plain
@@ -188,6 +193,26 @@ lines; any failure raises and exits non-zero:
                 completes, both paged kernels launch; tokens/s, step p50,
                 TTFT p95, pool bytes and peak memory printed; each model is
                 freed before the next.
+  engine_exact_moe
+                dbrx-132b and kimi-k2 at 2 layers, f32, reference init, at a
+                reduced width that keeps each config's expert count, top-k,
+                capacity factor, norm, head dim and GQA group (dbrx: 16
+                experts top-4, layernorm, D 128, group 6, d_model 1536, d_ff
+                1536; kimi: 384 top-8, rmsnorm, D 112, group 8, d_model 768,
+                d_ff 384): three requests through the engine on the card and
+                on the CPU, monolithic and chunked prefill over f32 pages and
+                dbrx chunked over int8 pages, greedy tokens equal; the paged
+                decode and chunk kernels (rows 3-4 over int8 pages) launch.
+  serve_moe     dbrx-132b at full width, 8 of its 40 layers (~55 GB of bf16
+                weights), and kimi-k2 at full width, 1 of its 61 layers (~39
+                GB; a second would not fit with the init's f32 draw of one
+                384-expert leaf), random weights made on the card, the
+                serve_models workload (8 requests, 16 new tokens): every
+                request completes, both paged kernels launch (D 112 for
+                kimi); tokens/s, step p50, TTFT p95, pool bytes and peak
+                memory printed beside the card; each model freed before the
+                next. A d112_kernels line then gives the D 112 rows' numbers
+                beside their launches in kimi's run.
   paper         the paper-suite kernels behind the mdspan layout dispatch
                 (sum3d, stencil3d, tinymatsum static and dynamic, matvec
                 right and left), each against its plain version at the
@@ -539,6 +564,7 @@ def kernel_phase(bw):
                 for nbits in bits:
                     main[f"verify_paged_prefill_chunk_quant{nbits}_{name}_C{c}"] = recs[nbits]
     d128_checks(bw, g)
+    main.update({f"d112:{k}": rec for k, rec in d112_checks(bw, g).items()})
     main["quant_matmul"] = quant_matmul_checks(bw, g)
     main.update(dense_cache_checks(bw, g))
     main.update(hybrid_checks(bw, g))
@@ -565,6 +591,57 @@ def d128_checks(bw, g):
         decode_rows(p, p.rnd(B, HQ, 1, D), lens, dtype, bw, {"B": B, **base, "lens": lens})
         for c, cursors in ((128, [256]), (5, VERIFY_CURSORS)):
             chunk_rows(p, HQ, c, cursors, dtype, bw, base, bits=(8,))
+
+
+D112_HEADS = (64, 8)  # kimi-k2-1t-a32b: Hq, Hkv (group 8), head dim 112
+
+
+def d112_checks(bw, g):
+    """Rows 1-4, 6 and 7 at head dim 112 and kimi-k2's heads (Hq 64, Hkv 8),
+    bf16: the paged decode (B 8, page 16, 128 pages a row, the serve rows'
+    lengths) over bf16, int8 and int4 pages, the chunk at C 128 (one row at
+    cursor 256) and the verify C 5 (B 8 at VERIFY_CURSORS) over the same
+    three, flash_attention causal at (2, 64 / 8, 512, 112) and flash_decode
+    over a 512-slot cache (B 8) at positions 0, 383 and 511, each against its
+    plain version at the bf16 tolerance, with device ms, the bound and SDPA's
+    device ms beside it. Returns {row name: record} for PERF.md's D 112
+    entries (int4 ones under "<name>_int4")."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = torch.bfloat16
+    B, D, PS, MAXP, (HQ, HKV) = 8, 112, 16, 128, D112_HEADS
+    lens = [0, 1, 16, 100, 517, 1024, 1500, 2048]
+    p = paged_pools(g, dtype, B * MAXP + 1, HKV, PS, D, B, MAXP)
+    base = {"config": "kimi-k2-1t-a32b", "Hq": HQ, "Hkv": HKV, "D": D, "page_size": PS}
+    recs = decode_rows(p, p.rnd(B, HQ, 1, D), lens, dtype, bw, {"B": B, **base, "lens": lens})
+    out = {"paged_decode": recs["dense"], "paged_decode_quant": recs[8],
+           "paged_decode_quant_int4": recs[4]}
+    recs = chunk_rows(p, HQ, 128, [256], dtype, bw, base, bits=(8, 4))
+    out.update({"paged_prefill_chunk": recs["dense"], "paged_prefill_chunk_quant": recs[8],
+                "paged_prefill_chunk_quant_int4": recs[4]})
+    chunk_rows(p, HQ, 5, VERIFY_CURSORS, dtype, bw, {**base, "verify": True}, bits=(8, 4))
+    q, k, v = p.rnd(2, HQ, 512, D), p.rnd(2, HKV, 512, D), p.rnd(2, HKV, 512, D)
+    out["flash_attention"] = check_and_time(
+        "flash_attention", dtype, lambda: fa.flash_attention(q, k, v),
+        lambda: fa.attention_torch(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * 2 * HQ * D * _causal_keys(512, 512, 0),
+        bw, {**base, "B": 2, "Tq": 512, "Tk": 512, "causal": True}, device_time=True)
+    S = 512
+    q, kc, vc = p.rnd(B, HQ, 1, D), p.rnd(B, HKV, S, D), p.rnd(B, HKV, S, D)
+    for pos in (0, 383, S - 1):
+        pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        live = torch.arange(S, device="cuda") <= pos
+        rec = check_and_time(
+            "flash_decode", dtype, lambda: fa.flash_decode(q, kc, vc, pos_t),
+            lambda: fa.decode_attention_torch(q, kc, vc, pos),
+            lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=live[None, None, None],
+                                                   enable_gqa=True),
+            2 * q.numel() * 2 + 4 + 2 * B * HKV * (pos + 1) * D * 2, 4 * B * HQ * D * (pos + 1),
+            bw, {**base, "B": B, "S": S, "pos": pos}, device_time=True)
+    out["flash_decode"] = rec
+    return out
 
 
 def split_decode_checks(q, kp, vp, bt, quant, dtype, esz, bw):
@@ -1770,16 +1847,19 @@ def serve_requests(vocab, n=16, seed=1):
 
 
 def serve_setup(cfg_name="qwen2-0.5b", smoke=False, device="cuda", n_new=32, quantized=False,
-                kv_dtype="f32", n_requests=16):
+                kv_dtype="f32", n_requests=16, n_layers=None):
     """The serve workload: the model at its config dtype (bfloat16) with
-    seeded random weights (int8 MLP weights if ``quantized``), the
-    ``n_requests`` prompts and the engine config (``kv_dtype`` pages), after a
-    warm-up run on an engine of its own (allocator, cuBLAS handles)."""
+    seeded random weights (int8 MLP weights if ``quantized``), ``n_layers``
+    deep if given, the ``n_requests`` prompts and the engine config
+    (``kv_dtype`` pages), after a warm-up run on an engine of its own
+    (allocator, cuBLAS handles)."""
     from repro_torch.models import build_model, get_config
     from repro_torch.serving import GenerationParams
     from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
 
     cfg = get_config(cfg_name, smoke=smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg, quantized=quantized, device=device)
     params = model.init_params(torch.Generator(device=device).manual_seed(1))
     prompts = serve_requests(cfg.vocab, n=n_requests)
@@ -2626,6 +2706,108 @@ def serve_models_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=N
     return out
 
 
+MOE_MODELS = ("dbrx-132b", "kimi-k2-1t-a32b")
+# engine_exact_moe's reduced width: each config's expert count, top-k, capacity
+# factor, norm, head dim and GQA group kept (dbrx: 16 experts top-4,
+# layernorm, D 128, group 6; kimi: 384 top-8, rmsnorm, D 112, group 8),
+# d_model, the head counts and d_ff cut so that a CPU engine run takes seconds
+MOE_EXACT_WIDTH = {
+    "dbrx-132b": dict(d_model=1536, n_heads=12, n_kv_heads=2, d_head=128, d_ff=1536),
+    "kimi-k2-1t-a32b": dict(d_model=768, n_heads=16, n_kv_heads=2, d_head=112, d_ff=384),
+}
+SERVE_MOE_LAYERS = {"dbrx-132b": 8, "kimi-k2-1t-a32b": 1}  # of 40 and 61: what fits 80 GB
+
+
+def engine_exact_moe_phase(smoke=False, device="cuda", n_new=8):
+    """dbrx-132b and kimi-k2 at 2 layers, f32, reference init, at
+    MOE_EXACT_WIDTH (smoke: the smoke configs): three requests (two sharing a
+    256-token prefix, a 31-token one) through the engine on the card and on
+    the CPU with monolithic and with chunked prefill over f32 pages, and
+    dbrx once more chunked over int8 pages; greedy tokens equal. The paged
+    decode launches in every run, the chunk kernel in the chunked ones
+    (rows 3-4 over int8 pages), flash_attention in the monolithic ones."""
+    from repro_torch.models import build_model, get_config
+
+    out = {}
+    for name in MOE_MODELS:
+        cfg = dataclasses.replace(get_config(name, smoke=smoke), dtype="float32")
+        if not smoke:
+            cfg = dataclasses.replace(cfg, n_layers=2, **MOE_EXACT_WIDTH[name])
+        model = build_model(cfg, device=device)
+        params = model.init_params(torch.Generator(device=device).manual_seed(0))
+        cpu_model, cpu_params = build_model(cfg, device="cpu"), _to_cpu(params)
+        prompts = [exact_requests(cfg.vocab)[i] for i in (0, 1, 5)]
+        runs = [(mode, extra, "f32") for mode, extra in EXACT_MODES]
+        if name == "dbrx-132b":
+            runs.append(("chunked", dict(EXACT_MODES)["chunked"], "int8"))
+        for mode, extra, kv in runs:
+            config = exact_config(64, kv_dtype=kv, **extra)
+            got, m, launches, wall = run_engine(model, params, prompts, n_new, config, device)
+            t0 = time.perf_counter()
+            want, _, _, _ = run_engine(cpu_model, cpu_params, prompts, n_new, config, "cpu")
+            rows = DENSE_PATH if kv == "f32" else QUANT_KV_PATH
+            need = rows if mode == "chunked" else (rows[0], "flash_attention")
+            rec = {"phase": "engine_exact_moe", "model": cfg.name, "mode": mode, "kv_dtype": kv,
+                   "dtype": "float32", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "Hq": cfg.n_heads, "Hkv": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                   "d_ff": cfg.d_ff, "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                   "capacity_factor": cfg.capacity_factor, "norm": cfg.norm,
+                   "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+                   "new_tokens": n_new, "tokens_equal_cpu_engine": got == want,
+                   "pages_shared": m["pages_shared"],
+                   "launches": {k: launches[k] for k in rows + ("flash_attention",)},
+                   "wall_s": wall, "cpu_s": time.perf_counter() - t0}
+            emit(rec)
+            if got != want:
+                raise AssertionError(f"engine_exact_moe: {cfg.name} {mode} {kv}: tokens differ "
+                                     f"from the CPU engine's")
+            if device == "cuda" and any(launches[k] <= 0 for k in need):
+                raise AssertionError(f"engine_exact_moe: {cfg.name} {mode} {kv} never "
+                                     f"launched {need}")
+            out[(name, mode, kv)] = rec
+        del model, params, cpu_model, cpu_params
+    return out
+
+
+def serve_moe_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=None):
+    """dbrx-132b (8 of 40 layers) and kimi-k2 (1 of 61) at full width in
+    bf16, random weights made on the card (smoke: the smoke configs at their
+    depth): one run each of the serve workload as serve_models runs it; every
+    request completes and both paged kernels launch (at D 112 for kimi);
+    tokens/s, step p50, TTFT p95, the pool's bytes and the peak memory
+    printed beside the card. Each model is freed before the next."""
+    import gc
+
+    from repro_torch.models import get_config
+
+    out = {}
+    for name, layers in SERVE_MOE_LAYERS.items():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        w = serve_setup(name, smoke, device, n_new, n_requests=n_requests,
+                        n_layers=None if smoke else layers)
+        rec = serve_phase(workload=w, phase="serve_moe")
+        full = get_config(name, smoke=smoke).n_layers
+        emit({"phase": "serve_moe_summary", "model": w.cfg.name, "n_layers": w.cfg.n_layers,
+              "cut": f"{w.cfg.n_layers} of {full} layers at full width",
+              "d_model": w.cfg.d_model, "Hq": w.cfg.n_heads, "Hkv": w.cfg.n_kv_heads,
+              "head_dim": w.cfg.head_dim, "n_experts": w.cfg.n_experts, "top_k": w.cfg.top_k,
+              "d_ff": w.cfg.d_ff, "norm": w.cfg.norm, "vocab": w.cfg.vocab,
+              "params": sum(t.numel() for t in _leaves(w.params)),
+              **{k: rec[k] for k in ("tokens_per_s", "step_ms_p50", "ttft_s_p95",
+                                     "kv_pool_bytes", "launches")},
+              "peak_memory_bytes": (torch.cuda.max_memory_allocated() if device == "cuda"
+                                    else None), "nvidia_smi": smi})
+        out[name] = rec
+        del w, rec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2799,8 +2981,23 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_models_phase(smi=smi)
     t_phase["serve_models"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine_exact_moe_phase()
+    t_phase["engine_exact_moe"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_moe = serve_moe_phase(smi=smi)
+    t_phase["serve_moe"] = time.perf_counter() - t0
     launches = {**serve["launches"], **serve_quant["int8"]["launches"],
                 **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches}
+    # the D 112 rows: kernel numbers from the kernels phase, launches from
+    # kimi-k2's serve_moe run (the dense-cache rows 6-7 do not run there)
+    kimi = serve_moe["kimi-k2-1t-a32b"]["launches"]
+    emit({"phase": "d112_kernels", "config": "kimi-k2-1t-a32b", "nvidia_smi": smi, "rows": [
+        {"name": name, "launches_serve_moe": kimi.get(name.replace("_int4", "")),
+         **{k: rec.get(k) for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_device_ms")}}
+        for name, rec in ((k[5:], r) for k, r in main_recs.items() if k.startswith("d112:"))]})
     kernels = []
     for name, (replaces, source) in PORTED.items():
         rec = main_recs[name]

@@ -32,8 +32,12 @@
 // with no live key at all comes out as exact zeros.
 //
 // Inside a split nothing goes through shared memory until the end:
-//   lanes   a lane group of CH = D / 8 lanes holds one key (a whole warp at
-//           D 256); each lane loads 8 features of its K and V rows
+//   lanes   a lane group of LG lanes holds one key: LG is CH = D / 8 rounded
+//           up to a power of two (a whole warp at D 256; 16 at D 112, whose
+//           14 feature lanes leave lanes 14 and 15 of each group idle: they
+//           load nothing and hold zeros, so the group's shuffle sums are
+//           unchanged and the pools keep their (…, ps, 112) rows); each of
+//           the CH feature lanes loads 8 features of its K and V rows
 //           (Pool::load: 16 bytes of bf16, 32 of f32, 8 of int8, 4 of int4)
 //           and holds the same 8 features of q for up to kDecodeRows query
 //           rows of the group, and of their accumulators, in registers; a
@@ -60,6 +64,11 @@ namespace {
 constexpr int kDecodeThreads = 128;
 constexpr int kDecodeRows = 8;    // query rows of a group a decode block holds (in registers)
 constexpr int kDecodeUnroll = 2;  // keys a decode lane group loads before its arithmetic
+
+// the least power of two >= n (n >= 1)
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
 
 // A pool (or cache) of dense rows in T.
 template <typename T, int D>
@@ -273,9 +282,10 @@ template <typename T, int D, typename Pool, typename Keys>
 __global__ void __launch_bounds__(kDecodeThreads)
 split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __restrict__ ws,
                     int hkv, int group, int keys_per_split, float scale) {
-  constexpr int F = Pool::F, CH = Pool::CH, TPW = 32 / CH;  // lanes a key, keys a warp load
+  constexpr int F = Pool::F, CH = Pool::CH;  // features a lane, lanes holding a row's features
+  constexpr int LG = pow2_ceil(CH), TPW = 32 / LG;  // a key's lane group, keys a warp loads
   constexpr int GR = kDecodeRows, U = kDecodeUnroll, NW = kDecodeThreads / 32;
-  static_assert(F == 8 && CH >= 1 && CH <= 32 && (CH & (CH - 1)) == 0, "a row is 1..32 lanes");
+  static_assert(F == 8 && CH >= 1 && LG <= 32, "a row is 1..32 lanes");
   const int split = blockIdx.x, b = blockIdx.z;
   // the group's rows spread evenly over its ceil(G / GR) blocks (G 10: 5 and
   // 5, not 8 and 2); a block skips the arithmetic of the rows it does not hold
@@ -284,7 +294,8 @@ split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __rest
   const int gn = min(rpb, group - g0);  // query rows this block holds, 1..GR
   const int splits = gridDim.x, rows = gridDim.z * hkv * group;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = lane / CH, sub = lane - grp * CH;
+  const int grp = lane / LG, sub = lane - grp * LG;
+  const bool feat = sub < CH;  // the lane holds features (lanes CH..LG-1 of a group idle)
   const size_t row_g0 = (static_cast<size_t>(b) * hkv + h) * group + g0;  // q / ws row of row 0
   float* ws_m = ws;
   float* ws_l = ws + static_cast<size_t>(rows) * splits;
@@ -308,7 +319,7 @@ split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __rest
   for (int g = 0; g < GR; ++g) {
 #pragma unroll
     for (int i = 0; i < F; ++i) {
-      qr[g][i] = g < gn ? to_f32(q[(row_g0 + g) * D + Pool::feature(sub, i)]) : 0.f;
+      qr[g][i] = g < gn && feat ? to_f32(q[(row_g0 + g) * D + Pool::feature(sub, i)]) : 0.f;
       acc[g][i] = 0.f;
     }
     m[g] = kNegInf;
@@ -321,7 +332,7 @@ split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __rest
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u * TPW + grp;  // the lane groups of a load take consecutive keys
       live[u] = t < j_hi;
-      if (live[u]) {
+      if (live[u] && feat) {
         const long long r = seq.row(t);
         pool.load(false, r, seq.page_size, sub, kx[u]);
         pool.load(true, r, seq.page_size, sub, vx[u]);
@@ -341,12 +352,12 @@ split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __rest
 #pragma unroll
         for (int i = 0; i < F; ++i) dot = fmaf(qr[g][i], kx[u][i], dot);
 #pragma unroll
-        for (int o = CH / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        for (int o = LG / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
         s[u] = live[u] ? dot * scale : kNegInf;
         mx = fmaxf(mx, s[u]);
       }
 #pragma unroll
-      for (int o = 16; o >= CH; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      for (int o = 16; o >= LG; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m[g], mx);
       const float alpha = expf(m[g] - m_new);
       m[g] = m_new;
@@ -368,7 +379,7 @@ split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __rest
   for (int g = 0; g < GR; ++g) {
     if (g >= gn) break;
 #pragma unroll
-    for (int o = 16; o >= CH; o >>= 1) {
+    for (int o = 16; o >= LG; o >>= 1) {
       l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
 #pragma unroll
       for (int i = 0; i < F; ++i) acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], o);

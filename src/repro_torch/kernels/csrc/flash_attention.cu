@@ -30,7 +30,7 @@
 // kernel's `run` predicate); inside a tile every (row, key) pair is masked by
 // liveness, never by the exponent alone, and a row with no live key outputs 0.
 //
-// bf16 prefill, flash_mma_kernel<D> (every D in 16..256): 64 rows a block,
+// bf16 prefill, flash_mma_kernel<D> (D 16, 32, 64, 112, 128, 256): 64 rows a block,
 // 16 rows a warp. The products run on the tensor cores
 // (mma.sync.aligned.m16n8k16, bf16 operands, f32 accumulation): S = Q . K^T
 // and O += P . V. The Q tile is loaded once into shared memory; K/V tiles of
@@ -346,6 +346,8 @@ cudaError_t launch_decode(const void* q, const void* k_cache, const void* v_cach
                                : FN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
     case 64: return dtype == 0 ? FN<float, 64>(__VA_ARGS__)                          \
                                : FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
+    case 112: return dtype == 0 ? FN<float, 112>(__VA_ARGS__)                        \
+                                : FN<__nv_bfloat16, 112>(__VA_ARGS__);               \
     case 128: return dtype == 0 ? FN<float, 128>(__VA_ARGS__)                        \
                                 : FN<__nv_bfloat16, 128>(__VA_ARGS__);               \
     case 256: return dtype == 0 ? FN<float, 256>(__VA_ARGS__)                        \
@@ -380,6 +382,8 @@ int repro_flash_attention(int dtype, const void* q, const void* k, const void* v
                                        tq, tk, causal, has_window, window, scale, st);
         case 64: return launch_mma<64>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
                                        tq, tk, causal, has_window, window, scale, st);
+        case 112: return launch_mma<112>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                         tq, tk, causal, has_window, window, scale, st);
         case 128: return launch_mma<128>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
                                          tq, tk, causal, has_window, window, scale, st);
         case 256: return launch_mma<256>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
@@ -394,6 +398,8 @@ int repro_flash_attention(int dtype, const void* q, const void* k, const void* v
                                         tk, causal, has_window, window, scale, st);
       case 64: return launch<float, 64>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
                                         tk, causal, has_window, window, scale, st);
+      case 112: return launch<float, 112>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
+                                          tq, tk, causal, has_window, window, scale, st);
       case 128: return launch<float, 128>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
                                           tq, tk, causal, has_window, window, scale, st);
       case 256: return launch<float, 256>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,

@@ -45,8 +45,8 @@
 // pages_per_split whole pages (16 splits of 8 pages at the serve shape, 256
 // blocks) become runs of pages_per_split * page_size keys.
 //
-// Chunked prefill in bf16 (paged_chunk_mma_kernel<D, Pool>, every D in
-// 16..256) runs on the tensor cores, as flash_attention.cu's bf16 prefill: 64
+// Chunked prefill in bf16 (paged_chunk_mma_kernel<D, Pool>, every D of the
+// dispatch: 16, 32, 64, 112, 128, 256) runs on the tensor cores, as flash_attention.cu's bf16 prefill: 64
 // query rows a block (t-major: row = t * G + g), 16 a warp, S = Q . K^T and O
 // += P . V on mma.sync m16n8k16 (bf16 in, f32 accumulation), the online
 // softmax's row max and sum in registers, P split as P_hi + P_lo (one bf16
@@ -54,8 +54,10 @@
 // the past first, logical positions below min(cursor, max_pages * page_size),
 // a tile spanning as many pages as it holds (each key's row looked up alone,
 // table entries clamped), then the present, causal. Tiles are double-buffered
-// by 16-byte cp.async (8-byte for int4 rows of 8 bytes); a pointer off 16
-// bytes stages with plain loads instead. An intN past tile lands as raw bytes
+// by 16-byte cp.async (8-byte pieces for intN rows that are no multiple of
+// 16 bytes: int4 at D 16, 8 bytes, and at D 112, 56 bytes); a pointer off 16
+// bytes stages with plain loads instead. D 112 (kimi-k2) is 7 k-steps of 16
+// and 14 output column groups of 8: no step assumes a power of two. An intN past tile lands as raw bytes
 // and is written as bf16 integers; each key column's (page, head) scale
 // multiplies its column of S (K) and, before the hi/lo split, of P (V), while
 // the row sum l takes the unscaled P: the pool policy supplies both, one body
@@ -606,6 +608,8 @@ inline bool chunk_splits_ok(int dtype, int batch, int hq, int chunk, int splits,
                                : FN<__nv_bfloat16, 32>(__VA_ARGS__);         \
     case 64: return dtype == 0 ? FN<float, 64>(__VA_ARGS__)                  \
                                : FN<__nv_bfloat16, 64>(__VA_ARGS__);         \
+    case 112: return dtype == 0 ? FN<float, 112>(__VA_ARGS__)                \
+                                : FN<__nv_bfloat16, 112>(__VA_ARGS__);       \
     case 128: return dtype == 0 ? FN<float, 128>(__VA_ARGS__)                \
                                 : FN<__nv_bfloat16, 128>(__VA_ARGS__);       \
     case 256: return dtype == 0 ? FN<float, 256>(__VA_ARGS__)                \
@@ -624,11 +628,11 @@ inline int aligned16(const void* q, const void* ck, const void* cv, const void* 
 }
 
 // What paged_attention.py's GEOMETRY assumes of the bf16 chunk body, in its
-// order: query rows a block, keys a tile at head dims 16, 32, 64, 128 and
+// order: query rows a block, keys a tile at head dims 16, 32, 64, 112, 128 and
 // 256, and the most runs a launch takes.
-constexpr int kGeometry[] = {kCmmaRows,      cmma_keys<16>(),  cmma_keys<32>(),
-                             cmma_keys<64>(), cmma_keys<128>(), cmma_keys<256>(),
-                             kMaxChunkSplits};
+constexpr int kGeometry[] = {kCmmaRows,       cmma_keys<16>(),  cmma_keys<32>(),
+                             cmma_keys<64>(),  cmma_keys<112>(), cmma_keys<128>(),
+                             cmma_keys<256>(), kMaxChunkSplits};
 
 }  // namespace
 

@@ -37,11 +37,7 @@ import torch
 
 from . import _build
 from . import paged_attention as _paged
-from .paged_attention import _DTYPE_CODE, NEG_INF, _check
-
-# head dims the flash kernels are instantiated for (the paged kernels take
-# fewer: no paged path serves D 256)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+from .paged_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF, _check
 
 
 # ---------------------------------------------------------------------------------

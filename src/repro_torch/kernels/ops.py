@@ -304,6 +304,19 @@ def stencil3d(x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
 # on-device token sampling
 # ---------------------------------------------------------------------------------
 _M32 = 0xFFFFFFFF
+
+
+def top_k_lower_id_first(x: torch.Tensor, k: int):
+    """(values, ids int64) of the k largest f32 entries of each row, ordered
+    by (-value, id) as ``jax.lax.top_k`` orders ties (the lower id first),
+    which torch.topk does not promise: the key is the value's
+    order-preserving int32 bits above the inverted id, and an int64 topk
+    over it."""
+    bits = (x.float() + 0.0).view(torch.int32).long()  # -0.0 -> +0.0
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)  # float order as ints
+    ids = torch.arange(x.shape[-1], device=x.device, dtype=torch.int64)
+    top = torch.topk(ordered * (1 << 32) + (_M32 - ids), k, dim=-1).indices
+    return x.gather(-1, top), top
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 

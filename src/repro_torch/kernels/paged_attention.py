@@ -61,9 +61,10 @@ NEG_INF = -1e30
 # (query rows a block, keys a tile at each head dim, the most runs a launch
 # takes); the library is checked against it when it loads
 GEOMETRY = {"chunk_rows": 64, "chunk_keys_d16": 64, "chunk_keys_d32": 64, "chunk_keys_d64": 64,
-            "chunk_keys_d128": 64, "chunk_keys_d256": 32, "chunk_max_splits": 64}
+            "chunk_keys_d112": 64, "chunk_keys_d128": 64, "chunk_keys_d256": 32,
+            "chunk_max_splits": 64}
 MAX_CHUNK_SPLITS = GEOMETRY["chunk_max_splits"]
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -7,7 +7,10 @@ k, d), in_proj (d, d_in_proj), ...) and one dict per layer, so the bridge
 only splits the layer dim and copies
 dtype-for-dtype to the device. Quantized weights ({"q", "scale"} leaves of a
 ``build_model(cfg, quantized=True)`` model) come through the same way: int8
-stays int8, f32 scales stay f32, and both split on the layer dim. This
+stays int8, f32 scales stay f32, and both split on the layer dim. The MoE
+family's leaves are no different: the layernorm {"scale", "bias"} dicts
+(final_norm included), the f32 router (D, E) and the 3-D experts (E, D, F) /
+(E, F, D), dense or {"q", "scale"} blocked along the last dim. This
 module imports neither JAX nor repro.
 """
 from __future__ import annotations
@@ -42,7 +45,7 @@ def _map(tree, fn):
 def from_jax_params(np_tree, cfg, device=None):
     """Port parameters from a numpy copy of the reference's parameter pytree
     for ``cfg`` (a ported family: every entry of ``block_program(cfg)``, dense,
-    ssm, rec, or rg_group with its nested {"rec0", "rec1", "attn"} stacks,
+    moe, ssm, rec, or rg_group with its nested {"rec0", "rec1", "attn"} stacks,
     each split on its own leading layer dim): {"embed", "blocks": [[layer
     dict] * count per program entry], "final_norm"} on ``device`` (CUDA
     unless the caller names one)."""
@@ -58,5 +61,5 @@ def from_jax_params(np_tree, cfg, device=None):
     return {
         "embed": _map(np_tree["embed"], lambda a: _tensor(a, device)),
         "blocks": blocks,
-        "final_norm": _tensor(np_tree["final_norm"], device),
+        "final_norm": _map(np_tree["final_norm"], lambda a: _tensor(a, device)),
     }

@@ -2,9 +2,10 @@
 
 Field names and defaults follow ``repro.models.config.ModelConfig`` so a
 config converts field by field. The port runs the "dense" family (GQA
-decoder), the "ssm" family (Mamba-2 SSD) and the "hybrid" family
+decoder), the "moe" family (GQA attention and top-k token-choice experts:
+dbrx, kimi-k2), the "ssm" family (Mamba-2 SSD) and the "hybrid" family
 (recurrentgemma: RG-LRU blocks and local attention); the registry refuses the
-others until their slice is ported.
+others (encdec, vlm) until their slice is ported.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "ssm" | "hybrid" run in this port (the reference has more)
+    family: str  # "dense" | "moe" | "ssm" | "hybrid" run in this port (the reference has more)
     n_layers: int
     d_model: int
     vocab: int
@@ -35,7 +36,11 @@ class ModelConfig:
     # mlp
     d_ff: int = 0
     mlp_act: str = "swiglu"
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # ssm (mamba2 SSD)
     ssm_state: int = 0
     ssm_expand: int = 2

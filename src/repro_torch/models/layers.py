@@ -1,7 +1,7 @@
-"""Dense layers of the port: parameter specs and their init, rmsnorm, RoPE,
-the gated MLP (SwiGLU, GeGLU), embedding and the tied LM head.
+"""Dense layers of the port: parameter specs and their init, rmsnorm and
+layernorm, RoPE, the gated MLP (SwiGLU, GeGLU), embedding and the LM head.
 
-Port of what the dense, SSM and hybrid blocks use of ``repro.models.layers``; weights keep the
+Port of what the dense, MoE, SSM and hybrid blocks use of ``repro.models.layers``; weights keep the
 reference's layouts (a dense linear is (d_in, d_out), applied as x @ w; a
 quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
 through ``kernels.ops.matmul``), so a bridged parameter tree is a
@@ -73,12 +73,15 @@ def rmsnorm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), torch.float32, "ones")
 
 
-def norm_specs(cfg) -> ParamSpec:
-    """The block norm's parameters: an rmsnorm scale (layernorm is not
-    ported: no ported config uses it)."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: only rmsnorm is ported")
-    return rmsnorm_spec(cfg.d_model)
+def layernorm_specs(d: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((d,), torch.float32, "ones"),
+            "bias": ParamSpec((d,), torch.float32, "zeros")}
+
+
+def norm_specs(cfg):
+    """The block norm's parameters: {"scale", "bias"} for layernorm, an
+    rmsnorm scale otherwise (the reference's dispatch)."""
+    return layernorm_specs(cfg.d_model) if cfg.norm == "layernorm" else rmsnorm_spec(cfg.d_model)
 
 
 def fit_quant(quant: Optional[QuantizedAccessor], d_in: int) -> Optional[QuantizedAccessor]:
@@ -142,10 +145,17 @@ def apply_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> to
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
-def apply_norm(cfg, x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: only rmsnorm is ported")
-    return apply_rmsnorm(x, p)
+def apply_layernorm(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * scale + bias, mean and variance in f32,
+    cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, p) -> torch.Tensor:
+    return apply_layernorm(x, p) if cfg.norm == "layernorm" else apply_rmsnorm(x, p)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:

@@ -26,8 +26,8 @@ ARCH_FAMILIES = {
     "llama-3.2-vision-90b": "vlm",
     "recurrentgemma-2b": "hybrid",
 }
-PORTED = ("qwen2-0.5b", "llama3.2-1b", "qwen2.5-3b", "granite-8b", "mamba2-780m",
-          "recurrentgemma-2b")
+PORTED = ("qwen2-0.5b", "llama3.2-1b", "qwen2.5-3b", "granite-8b", "dbrx-132b",
+          "kimi-k2-1t-a32b", "mamba2-780m", "recurrentgemma-2b")
 ARCH_IDS = list(PORTED)
 
 
@@ -42,7 +42,8 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
             raise KeyError(f"unknown architecture {arch_id!r}")
         raise NotImplementedError(
             f"{arch_id} ({family}) is not ported yet: it waits for ROADMAP Queue 1 "
-            f"item 4, the MoE, encoder-decoder and vision families"
+            f"item 4, the encoder-decoder and vision families (whisper, "
+            f"llama-3.2-vision)"
         )
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.smoke_config() if smoke else mod.config()
@@ -51,6 +52,7 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
 def build_model(cfg: ModelConfig, *, quantized: bool = False, device=None) -> Model:
     """The model for ``cfg`` on ``device`` (CUDA unless the caller names one);
     ``quantized`` stores the MLP weights as int8 with one scale per (row,
-    128-block), as the reference's serving weights."""
+    128-block), and the MoE experts' along their last dim, as the
+    reference's serving weights."""
     quant = QuantizedAccessor(cfg.param_dtype, bits=8, block=128) if quantized else None
     return Model(cfg, quant=quant, device=device)

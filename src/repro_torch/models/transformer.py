@@ -1,7 +1,7 @@
-"""The decoder stack of the port: the dense, SSM and hybrid block kinds and
-Model.
+"""The decoder stack of the port: the dense, MoE, SSM and hybrid block kinds
+and Model.
 
-Port of the dense, Mamba-2 and recurrentgemma part of
+Port of the dense, MoE, Mamba-2 and recurrentgemma part of
 ``repro.models.transformer``. An architecture is a program of (block kind,
 count) entries (``block_program``).
 Parameters are plain nested dicts of tensors with the reference's leaf names
@@ -13,8 +13,8 @@ the SSM cache {"state": (L, B, H, P, N), "conv": (L, B, K - 1, conv_dim)},
 the RG-LRU cache {"h": (L, B, W), "conv": (L, B, K - 1, W)}, a group's
 nested {"rec0", "rec1", "attn"} of those, the page pools (L, num_pages, Hkv,
 ps, Dh) (or their {"q", "scale"} quantized form); per-layer views of them are
-updated in place. ``Model(cfg, quant=...)`` stores the MLP weights through a
-QuantizedAccessor (int8 serving weights).
+updated in place. ``Model(cfg, quant=...)`` stores the MLP (and expert) weights
+through a QuantizedAccessor (int8 serving weights).
 
 ``attn_impl`` on forward / prefill / decode_step picks the kernels of the
 dense-cache path (flash_attention, flash_decode, ssd_scan, rglru_scan:
@@ -30,6 +30,7 @@ import torch
 from repro_torch.kernels.common import resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import rglru as rg_mod
 from . import ssm as ssm_mod
 from .layers import (
@@ -72,10 +73,15 @@ class DenseBlock:
     def _mlp(cfg, p, x):
         return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]))
 
+    @classmethod
+    def _mlp_aux(cls, cfg, p, x):
+        return cls._mlp(cfg, p, x), 0.0
+
     def train(self, cfg, p, x, impl="auto"):
+        """-> (x, aux): aux the layer's router loss (0 without experts)."""
         h = apply_norm(cfg, x, p["ln_attn"])
         x = x + attn.self_attention(cfg, p["attn"], h, window=self._window(cfg), impl=impl)
-        return self._mlp(cfg, p, x)
+        return self._mlp_aux(cfg, p, x)
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto"):
         h = apply_norm(cfg, x, p["ln_attn"])
@@ -119,6 +125,30 @@ class DenseBlock:
         return cls._mlp(cfg, p, x + y)
 
 
+class MoEBlock(DenseBlock):
+    """DenseBlock with the MoE in the MLP's place (keys ``ln_moe`` / ``moe``):
+    every path of DenseBlock, paged ones included, runs with it; only
+    ``train`` keeps the router's aux loss, the serving paths drop it."""
+
+    @staticmethod
+    def specs(cfg, quant=None):
+        return {
+            "ln_attn": norm_specs(cfg),
+            "attn": attn.attn_specs(cfg),
+            "ln_moe": norm_specs(cfg),
+            "moe": moe_mod.moe_specs(cfg, quant=quant),
+        }
+
+    @staticmethod
+    def _mlp_aux(cfg, p, x):
+        y, aux = moe_mod.apply_moe(cfg, p["moe"], apply_norm(cfg, x, p["ln_moe"]))
+        return x + y, aux
+
+    @classmethod
+    def _mlp(cls, cfg, p, x):
+        return cls._mlp_aux(cfg, p, x)[0]
+
+
 class SSMBlock:
     """Pre-norm Mamba-2 mixer (no MLP); decode updates one layer's state and
     conv rows in place."""
@@ -133,7 +163,7 @@ class SSMBlock:
 
     @staticmethod
     def train(cfg, p, x, impl="auto"):
-        return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), impl=impl)
+        return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), impl=impl), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto"):
@@ -169,7 +199,7 @@ class RecBlock:
     @staticmethod
     def train(cfg, p, x, impl="auto"):
         x = x + rg_mod.apply_rglru(cfg, p["rec"], apply_norm(cfg, x, p["ln_rec"]), impl=impl)
-        return DenseBlock._mlp(cfg, p, x)
+        return DenseBlock._mlp(cfg, p, x), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto"):
@@ -198,8 +228,8 @@ class RGGroup:
 
     def train(self, cfg, p, x, impl="auto"):
         for name, blk in self.PARTS:
-            x = blk.train(cfg, p[name], x, impl=impl)
-        return x
+            x, _ = blk.train(cfg, p[name], x, impl=impl)
+        return x, 0.0
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto"):
         caches = {}
@@ -215,6 +245,7 @@ class RGGroup:
 
 KINDS = {
     "dense": DenseBlock(),
+    "moe": MoEBlock(),
     "local_attn": DenseBlock(use_window=True),
     "ssm": SSMBlock(),
     "rec": RecBlock(),
@@ -229,6 +260,8 @@ def block_program(cfg):
     the remainder as rec blocks."""
     if cfg.family == "dense":
         return [("dense", cfg.n_layers)]
+    if cfg.family == "moe":
+        return [("moe", cfg.n_layers)]
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -238,7 +271,8 @@ def block_program(cfg):
             prog.append(("rec", rem))
         return prog
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4: other families)"
+        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4: the "
+        f"encoder-decoder and vision families)"
     )
 
 
@@ -258,8 +292,8 @@ def _stack(layers: List[Dict]) -> Dict:
 
 
 class Model:
-    """A dense (GQA), SSM (Mamba-2) or hybrid (recurrentgemma) decoder on one
-    device. ``device`` defaults to CUDA and raises without a GPU; pass
+    """A dense (GQA), MoE, SSM (Mamba-2) or hybrid (recurrentgemma) decoder on
+    one device. ``device`` defaults to CUDA and raises without a GPU; pass
     ``device="cpu"`` to run the plain versions. ``quant`` (core.QuantizedAccessor) stores the MLP
     weights quantized, as the reference's serving-weight accessor."""
 
@@ -309,7 +343,7 @@ class Model:
 
     def _paged_only_dense(self) -> None:
         for kind, _ in block_program(self.cfg):
-            if kind != "dense":
+            if kind not in ("dense", "moe"):
                 raise NotImplementedError(
                     f"paged KV caching supports dense-attention blocks; got {kind!r}"
                 )
@@ -338,12 +372,15 @@ class Model:
 
     # ---- full-sequence forward -------------------------------------------------------
     def forward(self, params, tokens: torch.Tensor, *, attn_impl: str = "auto"):
-        """tokens (B, T) -> (logits (B, T, Vp), aux); aux is 0 for these blocks."""
+        """tokens (B, T) -> (logits (B, T, Vp), aux): aux the f32 sum of the MoE
+        layers' aux losses in layer order (0 for the other blocks)."""
         x = self._embed(params, tokens)
+        aux = torch.zeros((), device=x.device)
         for blk, layers in self._program(params):
             for p in layers:
-                x = blk.train(self.cfg, p, x, impl=attn_impl)
-        return self._head(params, x), torch.zeros((), device=x.device)
+                x, a = blk.train(self.cfg, p, x, impl=attn_impl)
+                aux = aux + a
+        return self._head(params, x), aux
 
     # ---- serving ---------------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor, *, max_len: Optional[int] = None,
@@ -416,6 +453,10 @@ class Model:
         (any alignment), ``active`` honored as in decode, and the lm_head
         applied to all C rows: it returns logits (B, C, Vp).
 
+        Every layer runs the program entry's block (DenseBlock or MoEBlock):
+        an MoE layer routes every row of the step, padding and inactive rows
+        included, as the reference does.
+
         ``block_pages`` (decode only) is the tuned decode block-shape knob,
         forwarded to the paged decode attention (None = unblocked).
 
@@ -429,18 +470,19 @@ class Model:
             context_lens = torch.where(on, context_lens, torch.zeros_like(context_lens))
         x = self._embed(params, tokens if tokens.dim() == 2 else tokens[:, None])
         pool = caches[0]
+        blk = KINDS[block_program(cfg)[0][0]]
         for l, p in enumerate(params["blocks"][0]):
             cache = _layer(pool, l)
             if spec_verify:
-                x = DenseBlock.verify_paged(cfg, p, x, cache, block_tables, context_lens,
-                                            kv_spec=kv_spec)
+                x = blk.verify_paged(cfg, p, x, cache, block_tables, context_lens,
+                                     kv_spec=kv_spec)
             elif chunk:
-                x = DenseBlock.prefill_chunk_paged(
+                x = blk.prefill_chunk_paged(
                     cfg, p, x, cache, block_tables, write_tables, context_lens, n_new,
                     kv_spec=kv_spec,
                 )
             else:
-                x = DenseBlock.decode_paged(
+                x = blk.decode_paged(
                     cfg, p, x, cache, block_tables, context_lens, kv_spec=kv_spec,
                     block_pages=block_pages,
                 )

@@ -43,17 +43,10 @@ def make_serve_step(model, attn_impl: str = "auto"):
 def top_logprobs(logits: torch.Tensor, vocab: int, k: int):
     """(vals (B, k) f32, ids (B, k) int32): the top-k log-probabilities of
     each row's next-token distribution (pad columns excluded), computed on
-    the device from the logits the sampler reads. Ordered by (-value, id),
-    as ``jax.lax.top_k`` orders ties (the lower id first), which torch.topk
-    does not promise: the key is the value's order-preserving int32 bits
-    above the inverted id, and an int64 topk over it."""
-    lp = torch.log_softmax(logits[:, :vocab].float(), dim=-1) + 0.0  # -0.0 -> +0.0
-    bits = lp.view(torch.int32).long()
-    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)  # float order as ints
-    ids = torch.arange(vocab, device=lp.device, dtype=torch.int64)
-    key = ordered * (1 << 32) + (0xFFFFFFFF - ids)
-    top = torch.topk(key, k, dim=-1).indices
-    return lp.gather(1, top), top.to(torch.int32)
+    the device from the logits the sampler reads, ordered by (-value, id) as
+    ``jax.lax.top_k`` orders ties (``ops.top_k_lower_id_first``)."""
+    vals, top = ops.top_k_lower_id_first(torch.log_softmax(logits[:, :vocab].float(), dim=-1), k)
+    return vals, top.to(torch.int32)
 
 
 def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,

@@ -31,7 +31,10 @@ beam, grammar and tiered engines on the card against the same engines on
 the CPU; the paged decode and chunk kernels at head dim 128 and the dense
 configs' groups 4 and 8, page sizes 8 and 32, over dense, int8 and int4
 pages, and the autotuner's cold sweep (block_pages 1 only on the card) and
-warm resolve (no launch).
+warm resolve (no launch); and head dim 112 (kimi-k2: Hq 64, Hkv 8): the
+paged decode and chunk (C 128, the verify C 5) over dense, int8 and int4
+pages (56-byte int4 rows), the chunk body over pools off 16 bytes, and
+flash_attention / flash_decode, f32 and bf16.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -986,7 +989,7 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
 SPLIT_DENSE_S = [1, 37, 288, 2048, 2600]
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("group", [1, 7, 10, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_decode_split_matches_plain_on_and_off_split_edges(d, group, dtype):
@@ -2296,3 +2299,70 @@ def test_autotune_cold_sweep_then_warm_resolve(tmp_path, arch, kv_dtype):
                             device="cuda")
     assert not any(kernels.launch_counts().values())
     assert warm == dataclasses.replace(cold, source="cached")
+
+
+# ---------------------------------------------------------------------------------
+# head dim 112 (kimi-k2: Hq 64, Hkv 8, group 8): the split-K decode's 14
+# feature lanes in a 16-lane group, the tensor-core tile's 7 k-steps and 14
+# column groups, int4 rows of 56 bytes
+# ---------------------------------------------------------------------------------
+D112_DECODE_CASES = [
+    (8, 16, _D128_LENS, 64, 8, 112), (8, 8, _D128_LENS, 64, 8, 112),
+    (3, 16, (0, 33, 700), 16, 2, 112),
+]
+D112_CHUNK_CASES = [
+    (1, 64, 8, 112, 16, 128, 160, (256,)), (2, 64, 8, 112, 16, 128, 40, (0, 300)),
+    (8, 64, 8, 112, 16, 5, 160, _D128_CURSORS), (2, 16, 2, 112, 16, 37, 8, (0, 90)),
+]
+
+
+@pytest.mark.parametrize("case", D112_DECODE_CASES, ids=_ids(D112_DECODE_CASES))
+@pytest.mark.parametrize("pools", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d112_decode_matches_plain(case, pools, dtype):
+    test_d128_decode_matches_plain(case, pools, dtype)
+
+
+@pytest.mark.parametrize("case", D112_CHUNK_CASES, ids=_ids(D112_CHUNK_CASES))
+@pytest.mark.parametrize("pools", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d112_chunk_matches_plain_and_repeats(case, pools, dtype):
+    kern, plain, args, kw = _chunk_mma_operands(case, pools, dtype)
+    n = kern.launches
+    got = kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1
+    _assert_kernel_close(got, plain(*args, **kw), dtype)
+    torch.testing.assert_close(kern(*args, **kw), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pool", ["dense", "int8", "int4"])
+def test_d112_chunk_takes_misaligned_pools(pool):
+    case = D112_CHUNK_CASES[0]
+    kern, plain, args, kw = _chunk_mma_operands(case, pool, torch.bfloat16, offset=1)
+    assert args[3].data_ptr() % 16 != 0
+    got = kern(*args, **kw)
+    _assert_kernel_close(got, plain(*args, **kw), torch.bfloat16)
+    kern2, _, args2, _ = _chunk_mma_operands(case, pool, torch.bfloat16)
+    torch.testing.assert_close(kern2(*args2, **kw), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mask", FLASH_MASKS, ids=["causal", "window24", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d112_flash_attention_matches_plain(mask, dtype):
+    for case in ((2, 64, 8, 512, 512, 112), (1, 16, 2, 45, 45, 112)):
+        test_flash_attention_kernel_matches_plain(case, mask, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d112_flash_decode_matches_plain(dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = _rand((8, 64, 1, 112), dtype, 51)
+    kc, vc = _rand((8, 8, 512, 112), dtype, 52), _rand((8, 8, 512, 112), dtype, 53)
+    for pos in (0, 31, 32, 300, 511):
+        for window in (None, 24):
+            got = fa.flash_decode(q, kc, vc, torch.tensor([pos], dtype=torch.int32,
+                                                          device="cuda"), window=window)
+            _assert_kernel_close(got, fa.decode_attention_torch(q, kc, vc, pos, window=window),
+                                 dtype)
