@@ -37,7 +37,13 @@ lines; any failure raises and exits non-zero:
                 decode over bf16, int8 and int4 pages, the one-row 128-token
                 chunk and the verify C 5 over the same three, flash_attention
                 causal at (2, 64 / 8, 512, 112) and flash_decode over a
-                512-slot cache; the quantized attention over
+                512-slot cache; rows 6 and 7 at the cross-attention path's
+                shapes: flash_attention non-causal at whisper's encoder (1,
+                20 / 20, 1500, 64) and cross prefill (4, 20 / 20, 64 vs 1500,
+                64) and the vision model's (2, 64 / 8, 128 vs 6404, 128), key
+                tails of 28 and 4 past the 64-key tiles, and flash_decode at
+                pos Tc - 1 over (4, 20, 1500, 64) and (2, 8, 6404, 128)
+                caches, with device ms beside SDPA's; the quantized attention over
                 int8 and int4 pools; quant_matmul at the MLP's decode and
                 chunk shapes, int8 and int4 weights), in f32
                 (tolerance 2e-5) and bf16 (within one bf16 ulp of the plain
@@ -101,6 +107,31 @@ lines; any failure raises and exits non-zero:
                 launches per kernel, counts zeroed just before and read just
                 after (the kernels line reports their sum over the cells);
                 every kernel of a cell must have launched.
+  generate_cross
+                the cross-attention families on the dense cache,
+                make_prefill(max_len)(..., batch_inputs=) then
+                make_serve_step greedily: whisper-large-v3 (B 4, 1500
+                seeded frames, prompts of 64, 32 new tokens) and
+                llama-3.2-vision-90b (B 2, 6404 seeded image embeddings,
+                prompts of 128, 16 new), every vision gate set to 1.0 (the
+                reference's init sets it to 0, where tanh(0) erases the cross
+                layer). f32 tokens of the kernels against attn_impl="torch"
+                on the card: whisper at 2 + 2 layers (gated), 32 + 32 on the
+                reference's init (printed, not gated: chaotic at depth) and
+                32 + 32 rescaled (condition_attention, which reaches the
+                encoder's and the cross layers' projections; gated); a
+                generate_cross_sensitivity line (the plain path on the card
+                against the CPU at 2 + 2 on the reference's init: cuBLAS and
+                the CPU's sums drift apart there), then whisper at 2 + 2
+                rescaled with int8 MLP weights against the same model on
+                the CPU (quant_matmul launched; gated), vision at 5 layers
+                (one group; gated). Then bf16 timed runs: whisper at full size, vision
+                at full width, 10 of 100 layers (2 groups): encode ms,
+                prefill ms, step ms p50, tokens/s, peak memory, launches and
+                the decode step's bytes floor (decoder weights and caches at
+                3.35e12 B/s, derived); each model freed before the next. A
+                cross_kernels line then gives rows 6 and 7 at these shapes
+                beside their launches in these runs.
   engine_exact  qwen2-0.5b at full width in f32, random weights from a
                 seeded generator: six requests through ServeEngine with
                 monolithic (its prefill launches flash_attention) and with
@@ -565,6 +596,7 @@ def kernel_phase(bw):
                     main[f"verify_paged_prefill_chunk_quant{nbits}_{name}_C{c}"] = recs[nbits]
     d128_checks(bw, g)
     main.update({f"d112:{k}": rec for k, rec in d112_checks(bw, g).items()})
+    main.update({f"cross:{k}": rec for k, rec in cross_checks(bw, g).items()})
     main["quant_matmul"] = quant_matmul_checks(bw, g)
     main.update(dense_cache_checks(bw, g))
     main.update(hybrid_checks(bw, g))
@@ -641,6 +673,68 @@ def d112_checks(bw, g):
             2 * q.numel() * 2 + 4 + 2 * B * HKV * (pos + 1) * D * 2, 4 * B * HQ * D * (pos + 1),
             bw, {**base, "B": B, "S": S, "pos": pos}, device_time=True)
     out["flash_decode"] = rec
+    return out
+
+
+# (name, B, Hq, Hkv, Tq, Tk, D): whisper-large-v3's encoder self-attention
+# and its decoder's cross prefill (64-token prompts over 1500 frames), and
+# llama-3.2-vision's cross prefill (128-token prompts over 6404 image
+# tokens); Tk 1500 and 6404 end in a tile of 28 and 4 keys (64-key tiles)
+CROSS_ATTENTION_CASES = (("whisper_encoder", 1, 20, 20, 1500, 1500, 64),
+                         ("whisper_cross", 4, 20, 20, 64, 1500, 64),
+                         ("vision_cross", 2, 64, 8, 128, 6404, 128))
+# (name, B, Hq, Hkv, Tc, D): the cross decode, flash_decode at pos Tc - 1
+CROSS_DECODE_CASES = (("whisper_cross_decode", 4, 20, 20, 1500, 64),
+                      ("vision_cross_decode", 2, 64, 8, 6404, 128))
+# (name, M, K, N): whisper's int8 MLP, w_up and w_down, at one decode step (B
+# 4) and over the encoder's 4 x 1500 frames
+CROSS_QMM_CASES = (("whisper_w_up_decode", 4, 1280, 5120),
+                   ("whisper_w_down_decode", 4, 5120, 1280),
+                   ("whisper_w_up_encoder", 6000, 1280, 5120),
+                   ("whisper_w_down_encoder", 6000, 5120, 1280))
+
+
+def cross_checks(bw, g):
+    """Rows 5-7 at the cross-attention path's shapes (CROSS_ATTENTION_CASES,
+    CROSS_DECODE_CASES, CROSS_QMM_CASES), f32 and bf16: flash_attention
+    non-causal at Tq != Tk over key tails, flash_decode at pos Tc - 1 (every
+    slot live) and quant_matmul at whisper's int8 MLP, each against its
+    plain version (the kernels' tolerances), with device ms, the bound and
+    the library call's device ms beside it (SDPA non-causal with no mask,
+    torch.matmul). Returns {case name: the bf16 record}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        esz = torch.tensor([], dtype=dtype).element_size()
+        rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dtype)
+        for name, b, hq, hkv, tq, tk, d in CROSS_ATTENTION_CASES:
+            q, k, v = rnd(b, hq, tq, d), rnd(b, hkv, tk, d), rnd(b, hkv, tk, d)
+            rec = check_and_time(
+                "flash_attention", dtype, lambda: fa.flash_attention(q, k, v, causal=False),
+                lambda: fa.attention_torch(q, k, v, causal=False),
+                lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+                (2 * q.numel() + k.numel() + v.numel()) * esz, 4 * b * hq * tq * tk * d, bw,
+                {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "Tq": tq, "Tk": tk, "D": d,
+                 "causal": False, "tail_keys": tk % 64}, device_time=True)
+            if dtype == torch.bfloat16:
+                out[name] = rec
+        for name, b, hq, hkv, tc, d in CROSS_DECODE_CASES:
+            q, kc, vc = rnd(b, hq, 1, d), rnd(b, hkv, tc, d), rnd(b, hkv, tc, d)
+            rec = check_and_time(
+                "flash_decode", dtype, lambda: fa.flash_decode(q, kc, vc, tc - 1),
+                lambda: fa.attention_torch(q, kc, vc, causal=False),
+                lambda: F.scaled_dot_product_attention(q, kc, vc, enable_gqa=True),
+                2 * q.numel() * esz + (kc.numel() + vc.numel()) * esz, 4 * b * hq * tc * d, bw,
+                {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": tc, "D": d, "pos": tc - 1},
+                device_time=True)
+            if dtype == torch.bfloat16:
+                out[name] = rec
+        for name, m, k, n in CROSS_QMM_CASES:
+            rec = quant_matmul_record(g, bw, m, k, n, 8, dtype, {"case": name})
+            if dtype == torch.bfloat16:
+                out[name] = rec
     return out
 
 
@@ -1044,6 +1138,35 @@ def hybrid_checks(bw, g):
     return main
 
 
+def quant_matmul_record(g, bw, m, k, n, bits, dtype, case=None):
+    """quant_matmul on seeded (M, K) x and (N, K) weights quantized in
+    128-blocks against its plain version, with the schedule and K split the
+    wrapper launched and device ms beside torch.matmul's on the dequantized
+    weight (check_and_time's record)."""
+    from repro_torch.core import QuantizedAccessor, dequantize_array, quantize_array
+    from repro_torch.kernels import quant_matmul as qmm
+
+    w = torch.randn(n, k, generator=g, device="cuda") / math.sqrt(k)
+    acc = QuantizedAccessor(torch.float32, bits=bits, block=128)
+    bufs = quantize_array(w, acc)
+    qw, sw = bufs["q"], bufs["scale"]
+    esz = torch.tensor([], dtype=dtype).element_size()
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    wdt = dequantize_array(bufs, acc).to(dtype).t()
+    qmm.quant_matmul(x, qw, sw, bits=bits)
+    plan = qmm.quant_matmul.last_plan  # the plan the wrapper launched
+    return check_and_time(
+        "quant_matmul", dtype,
+        lambda: qmm.quant_matmul(x, qw, sw, bits=bits),
+        lambda: qmm.quant_matmul_torch(x, qw, sw, bits=bits),
+        lambda: torch.matmul(x, wdt),
+        (m * k + m * n) * esz + qw.numel() + sw.numel() * 4, 2 * m * n * k, bw,
+        {**(case or {}), "M": m, "K": k, "N": n, "bits": bits, "qblock": 128,
+         "schedule": plan.schedule, "splits": plan.splits, "k_per_split": plan.k_per_split},
+        device_time=True,
+    )
+
+
 def quant_matmul_checks(bw, g):
     """quant_matmul at the MLP's serve shapes: M = 8 decode rows and one
     128-token chunk, (K, N) = (896, 4864) for w_gate/w_up and (4864, 896) for
@@ -1052,34 +1175,11 @@ def quant_matmul_checks(bw, g):
     returns the bf16 int8 record of the decode w_gate/w_up shape, and prints
     the bf16 records of w_down at M 8 and of both shapes at M 128 on one
     line."""
-    from repro_torch.core import QuantizedAccessor, dequantize_array, quantize_array
-    from repro_torch.kernels import quant_matmul as qmm
-
     out, shown = None, []
     for m, k, n in ((8, 896, 4864), (8, 4864, 896), (128, 896, 4864), (128, 4864, 896)):
-        w = torch.randn(n, k, generator=g, device="cuda") / math.sqrt(k)
         for bits in (8, 4):
-            acc = QuantizedAccessor(torch.float32, bits=bits, block=128)
-            bufs = quantize_array(w, acc)
-            qw, sw = bufs["q"], bufs["scale"]
             for dtype in (torch.float32, torch.bfloat16):
-                esz = torch.tensor([], dtype=dtype).element_size()
-                x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
-                wd = dequantize_array(bufs, acc).to(dtype)
-                wdt = wd.t()
-                qmm.quant_matmul(x, qw, sw, bits=bits)
-                plan = qmm.quant_matmul.last_plan  # the plan the wrapper launched
-                rec = check_and_time(
-                    "quant_matmul", dtype,
-                    lambda: qmm.quant_matmul(x, qw, sw, bits=bits),
-                    lambda: qmm.quant_matmul_torch(x, qw, sw, bits=bits),
-                    lambda: torch.matmul(x, wdt),
-                    (m * k + m * n) * esz + qw.numel() + sw.numel() * 4, 2 * m * n * k, bw,
-                    {"M": m, "K": k, "N": n, "bits": bits, "qblock": 128,
-                     "schedule": plan.schedule, "splits": plan.splits,
-                     "k_per_split": plan.k_per_split},
-                    device_time=True,
-                )
+                rec = quant_matmul_record(g, bw, m, k, n, bits, dtype)
                 if (m, k, bits, dtype) == (8, 896, 8, torch.bfloat16):
                     out = rec
                 if dtype == torch.bfloat16 and (m == 128 or k == 4864):
@@ -1449,11 +1549,13 @@ GEN_CELLS = {  # arch -> batch, prompt lengths (the first also for the bf16 timi
 }
 
 
-def generate(model, params, prompts, n_new, attn_impl):
+def generate(model, params, prompts, n_new, attn_impl, batch_inputs=None):
     """Greedy serving on the dense cache as a user drives it:
-    make_prefill(max_len) then make_serve_step, one token per row per step.
-    Returns (tokens (B, n_new) as lists, the prefill's and the last step's
-    logits, prefill seconds, per-step seconds)."""
+    make_prefill(max_len) then make_serve_step, one token per row per step;
+    ``batch_inputs`` (whisper's frames, the vision model's image embeddings)
+    goes to the prefill, which encodes it and caches its K/V. Returns
+    (tokens (B, n_new) as lists, the prefill's and the last step's logits,
+    prefill seconds, per-step seconds)."""
     from repro_torch.serving import make_prefill, make_serve_step
 
     vocab, s = model.cfg.vocab, prompts.shape[1]
@@ -1462,7 +1564,7 @@ def generate(model, params, prompts, n_new, attn_impl):
     sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, caches = prefill(params, prompts)
+    logits, caches = prefill(params, prompts, batch_inputs=batch_inputs)
     nxt = torch.argmax(logits[:, -1, :vocab], dim=-1).to(torch.int32)
     sync()
     prefill_s = time.perf_counter() - t0
@@ -1605,6 +1707,249 @@ def generate_phase(smoke=False, device="cuda"):
 
 
 # =====================================================================================
+# phase: generate_cross (whisper-large-v3 and llama-3.2-vision on the dense cache)
+# =====================================================================================
+CROSS_NEED = ("flash_attention", "flash_decode")
+CROSS_CELLS = {  # arch -> batch, prompt length, new tokens, the timed run's depth (None: full)
+    "whisper-large-v3": dict(batch=4, prompt=64, new=32, timed_layers=None),
+    "llama-3.2-vision-90b": dict(batch=2, prompt=128, new=16, timed_layers=10),
+}
+VISION_GATE = 1.0  # the reference's init sets the gate to 0: tanh(0) erases the cross layer
+
+
+def cross_model(arch, dtype, n_layers=None, smoke=False, device="cuda", conditioned=False,
+                quantized=False):
+    """The model at full width (``n_layers`` deep unless smoke: whisper's
+    encoder and decoder both, the vision model's layers), random weights from
+    a seeded generator, rescaled by condition_attention if asked, every
+    vision group's gate set to VISION_GATE."""
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype=dtype)
+    if n_layers and not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers, **(
+            {"n_enc_layers": n_layers} if cfg.family == "encdec" else {}))
+    model = build_model(cfg, quantized=quantized, device=device)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    if conditioned:
+        condition_attention(cfg, params)
+    for p in params["blocks"][0]:
+        if "gate" in p:
+            p["gate"].fill_(VISION_GATE)
+    return cfg, model, params
+
+
+def cross_inputs(cfg, cell, device, seed=5):
+    """Seeded prompts (batch, prompt) of the cell and the stub frontend's
+    input in the param dtype: whisper's frames (B, enc_seq, D) or the vision
+    model's image embeddings (B, n_img_tokens, D)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = cell["batch"]
+    prompts = torch.randint(0, cfg.vocab, (batch, cell["prompt"]), generator=g, device=device)
+    n_ctx = cfg.enc_seq if cfg.family == "encdec" else cfg.n_img_tokens
+    key = "frames" if cfg.family == "encdec" else "image_embeds"
+    ctx = torch.randn(batch, n_ctx, cfg.d_model, generator=g, device=device).to(cfg.param_dtype)
+    return prompts, {key: ctx}
+
+
+def cross_exact(arch, n_layers, gate, conditioned=False, quantized=False, smoke=False,
+                device="cuda"):
+    """f32 greedy tokens of make_prefill(batch_inputs=) + make_serve_step on
+    the kernels against the same path with the plain versions: on the same
+    device with attn_impl="torch", or, with ``quantized`` (int8 MLP weights,
+    whose quant_matmul the attention switch does not reach), the same model
+    and weights on the CPU. ``gate``: the tokens must be equal (off where the
+    reference's init is chaotic at that depth: printed all the same).
+    Returns the record, its launches counted over the kernel run."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+
+    cell = CROSS_CELLS[arch]
+    cfg, model, params = cross_model(arch, "float32", n_layers, smoke, device, conditioned,
+                                     quantized)
+    prompts, inputs = cross_inputs(cfg, cell, model.device)
+    need = CROSS_NEED + (("quant_matmul",) if quantized else ())
+    kernels.reset_launch_counts()
+    got, (pk, lk), _, _ = generate(model, params, prompts, cell["new"], "auto", inputs)
+    launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    if quantized:
+        cpu = build_model(cfg, quantized=True, device="cpu")
+        want, (pp, lp), _, _ = generate(cpu, _to_cpu(params), prompts.cpu(), cell["new"],
+                                        "auto", _to_cpu(inputs))
+        pp, lp = pp.to(pk.device), lp.to(lk.device)
+        plain = "the CPU (plain versions)"
+    else:
+        want, (pp, lp), _, _ = generate(model, params, prompts, cell["new"], "torch", inputs)
+        plain = 'attn_impl="torch" on the card'
+    plain_launches = sum(kernels.launch_counts()[k] for k in CROSS_NEED)
+    diff = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+            for g, w in zip(got, want)]
+    rec = {"phase": "generate_cross_exact", "model": cfg.name, "dtype": "float32",
+           "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "init": "conditioned" if conditioned else "reference",
+           "mlp_weights": "int8" if quantized else "float32",
+           "gate": VISION_GATE if cfg.family == "vlm" else None, "against": plain,
+           "batch": cell["batch"], "prompt_len": cell["prompt"], "new_tokens": cell["new"],
+           "tokens_equal_plain": got == want, "first_differing_step": diff,
+           "prefill_logits_max_abs_diff": float((pk - pp).abs().max()),
+           "last_step_logits_max_abs_diff": float((lk - lp).abs().max()),
+           "gated": gate, "launches": {k: launches[k] for k in need},
+           "plain_path_launches": plain_launches}
+    emit(rec)
+    if gate and got != want:
+        raise AssertionError(f"generate_cross {cfg.name} at {cfg.n_layers} layers: kernel "
+                             f"tokens differ from the plain path's: {diff}")
+    if plain_launches:
+        raise AssertionError(f"the plain path launched a kernel: {kernels.launch_counts()}")
+    if device == "cuda":
+        for k in need:
+            if launches[k] <= 0:
+                raise AssertionError(f"generate_cross {cfg.name} never launched {k}")
+    del model, params
+    return rec
+
+
+def cross_sensitivity(arch="whisper-large-v3", n_layers=2, smoke=False, device="cuda"):
+    """How far two plain computations of the same f32 model drift apart with
+    no kernel of this repo in either: the dense-cache path with
+    attn_impl="torch" on the card (cuBLAS) and on the CPU, ``n_layers``
+    deep on the reference's init, the first cell's inputs. Printed, not
+    gated: it says whether a card-vs-CPU check can be token-exact there."""
+    from repro_torch.models import build_model
+
+    cell = CROSS_CELLS[arch]
+    cfg, model, params = cross_model(arch, "float32", n_layers, smoke, device)
+    prompts, inputs = cross_inputs(cfg, cell, model.device)
+    got, (pk, _), _, _ = generate(model, params, prompts, cell["new"], "torch", inputs)
+    cpu = build_model(cfg, device="cpu")
+    want, (pp, _), _, _ = generate(cpu, _to_cpu(params), prompts.cpu(), cell["new"], "torch",
+                                   _to_cpu(inputs))
+    rec = {"phase": "generate_cross_sensitivity", "model": cfg.name, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "init": "reference",
+           "compared": 'attn_impl="torch" on the card against the CPU',
+           "prefill_logits_max_abs_diff": float((pk.cpu() - pp).abs().max()),
+           "tokens_equal": got == want,
+           "first_differing_step": [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                                         None) for g, w in zip(got, want)]}
+    emit(rec)
+    del model, params, cpu
+    return rec
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def cross_timed(arch, smoke=False, device="cuda", smi=None):
+    """The cell in bf16 on the kernels at CROSS_CELLS' depth: a warm-up run,
+    then one run with launch counts zeroed just before and read just after:
+    encode ms (Model.encode_ctx alone, once before), prefill ms (the encode
+    included), step ms p50, tokens/s, peak memory, launches, and the decode
+    step's bytes floor at the data sheet's HBM3 rate: the decoder's weights
+    (every layer, the final norm, the LM head) and the caches it reads
+    (self caches at their capacity and the cross K/V), derived, not traced."""
+    from repro_torch import kernels
+
+    cell = CROSS_CELLS[arch]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = cross_model(arch, "bfloat16", cell["timed_layers"], smoke, device)
+    prompts, inputs = cross_inputs(cfg, cell, model.device, seed=6)
+    generate(model, params, prompts, 4, "auto", inputs)  # warm-up: allocator, cuBLAS handles
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    model.encode_ctx(params, inputs)
+    sync()
+    encode_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    toks, (first, last), prefill_s, steps = generate(model, params, prompts, cell["new"], "auto",
+                                                     inputs)
+    launches = kernels.launch_counts()
+    caches = model.init_cache(cell["batch"], cell["prompt"] + cell["new"])
+    head = params["embed"]["embedding" if cfg.tie_embeddings else "lm_head"]
+    floor_bytes = (_nbytes(params["blocks"]) + _nbytes(params["final_norm"]) + _nbytes(head)
+                   + _nbytes(caches))
+    del caches
+    wall = prefill_s + sum(steps)
+    from repro_torch.models import get_config
+    rec = {"phase": "generate_cross", "model": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "cut": (None if cfg.n_layers == get_config(arch, smoke=smoke).n_layers else
+                   f"{cfg.n_layers} of {get_config(arch, smoke=smoke).n_layers} layers at full "
+                   f"width"),
+           "d_model": cfg.d_model, "Hq": cfg.n_heads, "Hkv": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "context_tokens": cfg.enc_seq or cfg.n_img_tokens,
+           "gate": VISION_GATE if cfg.family == "vlm" else None,
+           "params": sum(t.numel() for t in _leaves(params)), "batch": cell["batch"],
+           "prompt_len": cell["prompt"], "new_tokens": cell["new"],
+           "encode_ms": encode_s * 1e3, "prefill_ms": prefill_s * 1e3,
+           "step_ms_p50": statistics.median(steps) * 1e3, "step_ms_max": max(steps) * 1e3,
+           "tokens_per_s": cell["batch"] * cell["new"] / wall, "wall_s": wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+           "decode_floor_bytes": floor_bytes,
+           "decode_floor_ms": floor_bytes / NOMINAL_BW * 1e3,
+           "launches": {k: launches[k] for k in CROSS_NEED},
+           "launches_per_step": {k: launches[k] / cell["new"] for k in CROSS_NEED},
+           "nvidia_smi": smi}
+    emit(rec)
+    finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(last).all())
+    if not finite or not all(0 <= tok < cfg.vocab for row in toks for tok in row):
+        raise AssertionError(f"generate_cross {cfg.name}: non-finite logits or a token outside "
+                             "the vocabulary")
+    if device == "cuda":
+        for k in CROSS_NEED:
+            if launches[k] <= 0:
+                raise AssertionError(f"generate_cross {cfg.name} never launched {k}")
+    del model, params
+    return rec
+
+
+def generate_cross_phase(smoke=False, device="cuda", smi=None):
+    """whisper-large-v3 (full size: 32 + 32 layers) and llama-3.2-vision-90b
+    (full width, 10 of 100 layers), every vision run's gate at VISION_GATE:
+    f32 token equality with the plain path (whisper at 2 + 2 layers on the
+    reference's init, at 32 + 32 on it (printed, not gated: chaotic at depth)
+    and at 32 + 32 rescaled; after a line of how far the plain path drifts
+    between the card and the CPU at 2 + 2 on the reference's init, whisper
+    at 2 + 2 rescaled with int8 MLP weights against the CPU, quant_matmul
+    launched; vision at 5 layers, one group), then the bf16 timed runs, each
+    model freed before the next. Returns (kernel ->
+    launches summed over every run on the card, the timed runs' records)."""
+    import gc
+
+    runs = [("whisper-large-v3", 2, True, False, False),
+            ("whisper-large-v3", 32, False, False, False),
+            ("whisper-large-v3", 32, True, True, False),
+            ("whisper-large-v3", 2, True, True, True),
+            ("llama-3.2-vision-90b", 5, True, False, False)]
+    launches, timed = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def free():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    for arch, layers, gate, conditioned, quantized in runs:
+        if quantized:
+            cross_sensitivity(arch, layers, smoke, device)
+            free()
+        add(cross_exact(arch, layers, gate, conditioned, quantized, smoke, device)["launches"])
+        free()
+    for arch in CROSS_CELLS:
+        timed[arch] = cross_timed(arch, smoke, device, smi)
+        add(timed[arch]["launches"])
+        free()
+    return launches, timed
+
+
+# =====================================================================================
 # phases: engine_exact and serve
 # =====================================================================================
 def oracle_greedy(model, params, prompt, n, vocab):
@@ -1635,7 +1980,9 @@ def exact_requests(vocab, seed=0):
 
 def _attention_params(tree):
     """Every attention parameter dict ({"wq", "wk", "wv", "wo", ...}) in a
-    parameter tree (a dense layer's p["attn"], a group's p["attn"]["attn"])."""
+    parameter tree (a dense layer's p["attn"], a group's p["attn"]["attn"],
+    a decoder layer's p["self"] and p["cross"], a vision group's
+    p["self"][i]["attn"] and p["cross"], whisper's encoder layers)."""
     if isinstance(tree, dict):
         if "wq" in tree:
             yield tree
@@ -1658,9 +2005,10 @@ def condition_attention(cfg, params):
     greedy token. With the fan-in the layer really has (d_model for wq/wk/wv,
     Hq * head_dim for wo) the model stays well-conditioned, so tokens can be
     compared at full depth. The RG-LRU and MLP weights already have their
-    true fan-in and stay as drawn."""
+    true fan-in and stay as drawn. Every attention of the tree is rescaled:
+    whisper's encoder and cross layers and the vision groups' too."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    for a in _attention_params(params["blocks"]):
+    for a in _attention_params(params):
         a["wq"].mul_(math.sqrt(hq / d))
         a["wk"].mul_(math.sqrt(hkv / d))
         a["wv"].mul_(math.sqrt(hkv / d))
@@ -2933,6 +3281,17 @@ def main() -> int:
     t0 = time.perf_counter()
     gen_launches = generate_phase()
     t_phase["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cross_launches, _ = generate_cross_phase(smi=smi)
+    for k in CROSS_NEED:
+        gen_launches[k] += cross_launches[k]
+    emit({"phase": "cross_kernels", "nvidia_smi": smi, "rows": [
+        {"name": name, "kernel": rec["kernel"], "dtype": rec["dtype"],
+         "kernel_launches_generate_cross": cross_launches[rec["kernel"]],
+         **{k: rec.get(k) for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_device_ms")}}
+        for name, rec in ((k[6:], r) for k, r in main_recs.items() if k.startswith("cross:"))]})
+    t_phase["generate_cross"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     prompt = exact_requests(151936)[0]
     for layers, conditioned in ((2, False), (24, False), (24, True)):

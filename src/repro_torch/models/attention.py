@@ -1,9 +1,11 @@
 """GQA self-attention of the port: monolithic prefill, one-token decode
 against a dense (B, Hkv, S, Dh) cache or a windowed ring buffer, and the
-paged serving paths (one-token decode, one prefill chunk).
+paged serving paths (one-token decode, one prefill chunk); cross-attention
+over a context (whisper's encoder output, llama-3.2-vision's image
+embeddings) with its K/V cached for decode.
 
-Port of ``repro.models.attention`` without cross-attention and the sharded
-decode (their slices are not ported yet). A dense cache is written IN PLACE
+Port of ``repro.models.attention`` without the sharded decode (its slice is
+not ported yet). A dense cache is written IN PLACE
 at slot ``pos``, a ring buffer at slot ``pos % S``. Page pools are
 (num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
 (serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
@@ -39,6 +41,12 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
         s["bk"] = ParamSpec((hkv, dh), torch.float32, "zeros")
         s["bv"] = ParamSpec((hkv, dh), torch.float32, "zeros")
     return s
+
+
+def cross_attn_specs(cfg) -> Dict[str, ParamSpec]:
+    """The same projection geometry as self-attention; k / v project the
+    context."""
+    return attn_specs(cfg)
 
 
 def cache_specs(cfg, batch: int, seq: int) -> Dict[str, ParamSpec]:
@@ -409,3 +417,44 @@ def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor, cache,
             q, k, v, cache["k"], cache["v"], block_tables, cursors
         )
     return _out_proj(p, out, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------------
+# cross-attention paths (whisper decoder, vlm image layers)
+# ---------------------------------------------------------------------------------
+def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *, return_kv: bool = False,
+                    impl: str = "auto"):
+    """x (B, T, D) queries against ctx (B, Tc, D) keys / values: no RoPE on
+    either, non-causal ops.attention (flash_attention on CUDA). A ctx in
+    another dtype than x is cast to x's (the reference's einsum would
+    promote instead). With ``return_kv`` also (k, v) (B, Hkv, Tc, Dh) for the
+    decode cache."""
+    ctx = ctx.to(x.dtype)
+    q = _proj(x, p["wq"])
+    k, v = _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)[None, :, None, :]
+        k = k + p["bk"].to(x.dtype)[None, :, None, :]
+        v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    k, v = k.contiguous(), v.contiguous()
+    out = ops.attention(q.contiguous(), k, v, causal=False, impl=impl)
+    y = _out_proj(p, out, x.dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def cross_attention_decode(cfg, p, x: torch.Tensor, kv, impl: str = "auto"):
+    """One query row a sequence, x (B, 1, D), against the cached context K/V
+    (B, Hkv, Tc, Dh), cast to x's dtype. The reference runs non-causal
+    attention at Tq = 1; every slot of the cache is live, so that is the
+    dense decode at position Tc - 1, and ops.decode_attention runs it on
+    flash_decode's split-K body (flash_attention would give each head one
+    64-row block with one live row, walking all Tc keys in series)."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)[None, :, None, :]
+    k, v = kv
+    out = ops.decode_attention(q.contiguous(), k.to(x.dtype), v.to(x.dtype), k.shape[2] - 1,
+                               impl=impl)
+    return _out_proj(p, out, x.dtype)

@@ -1,11 +1,13 @@
 """ModelConfig — the configuration of the port's model families.
 
 Field names and defaults follow ``repro.models.config.ModelConfig`` so a
-config converts field by field. The port runs the "dense" family (GQA
-decoder), the "moe" family (GQA attention and top-k token-choice experts:
-dbrx, kimi-k2), the "ssm" family (Mamba-2 SSD) and the "hybrid" family
-(recurrentgemma: RG-LRU blocks and local attention); the registry refuses the
-others (encdec, vlm) until their slice is ported.
+config converts field by field. The port runs all six of the reference's
+families: "dense" (GQA decoder), "moe" (GQA attention and top-k token-choice
+experts: dbrx, kimi-k2), "ssm" (Mamba-2 SSD), "hybrid" (recurrentgemma:
+RG-LRU blocks and local attention), "encdec" (whisper: an encoder over
+precomputed frames, a decoder with cross-attention) and "vlm"
+(llama-3.2-vision: gated cross-attention layers over precomputed image
+embeddings).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "moe" | "ssm" | "hybrid" run in this port (the reference has more)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -51,6 +53,12 @@ class ModelConfig:
     # hybrid (recurrentgemma): repeating block pattern, e.g. ("rec", "rec", "local_attn")
     pattern: Tuple[str, ...] = ()
     lru_width: int = 0
+    # encoder-decoder (whisper): n_layers == decoder layers
+    n_enc_layers: int = 0
+    enc_seq: int = 0  # precomputed frame embeddings fed by the stub frontend
+    # vlm (llama-3.2-vision): every `cross_every`-th layer is cross-attention
+    cross_every: int = 0
+    n_img_tokens: int = 0
     # numerics / embedding
     dtype: str = "bfloat16"
     vocab_pad_to: int = 256

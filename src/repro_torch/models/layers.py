@@ -1,12 +1,12 @@
 """Dense layers of the port: parameter specs and their init, rmsnorm and
-layernorm, RoPE, the gated MLP (SwiGLU, GeGLU), embedding and the LM head.
+layernorm, RoPE, the gated MLP (SwiGLU, GeGLU) and the plain gelu MLP with
+biases, embedding and the LM head.
 
-Port of what the dense, MoE, SSM and hybrid blocks use of ``repro.models.layers``; weights keep the
+Port of what the model families use of ``repro.models.layers``; weights keep the
 reference's layouts (a dense linear is (d_in, d_out), applied as x @ w; a
 quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
 through ``kernels.ops.matmul``), so a bridged parameter tree is a
-dtype/device copy. Sharding and the other norms/activations wait for their
-slices.
+dtype/device copy. Sharding waits for its slice.
 """
 from __future__ import annotations
 
@@ -110,14 +110,21 @@ GATED_ACTS = ("swiglu", "geglu")
 
 
 def mlp_specs(cfg, quant: Optional[QuantizedAccessor] = None) -> Dict[str, ParamSpec]:
-    """The gated MLP's weights; SwiGLU and GeGLU share the leaf names."""
-    if cfg.mlp_act not in GATED_ACTS:
-        raise NotImplementedError(f"mlp_act {cfg.mlp_act!r}: only {GATED_ACTS} are ported")
+    """The MLP's weights: the gated MLP's (SwiGLU and GeGLU share the leaf
+    names), or for any other ``mlp_act`` (whisper's "gelu") the plain MLP's
+    w_up / w_down with f32 biases b_up / b_down, as in the reference."""
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    if cfg.mlp_act in GATED_ACTS:
+        return {
+            "w_gate": linear_spec(d, f, dtype=dt, quant=quant),
+            "w_up": linear_spec(d, f, dtype=dt, quant=quant),
+            "w_down": linear_spec(f, d, dtype=dt, quant=quant),
+        }
     return {
-        "w_gate": linear_spec(d, f, dtype=dt, quant=quant),
         "w_up": linear_spec(d, f, dtype=dt, quant=quant),
+        "b_up": ParamSpec((f,), torch.float32, "zeros"),
         "w_down": linear_spec(f, d, dtype=dt, quant=quant),
+        "b_down": ParamSpec((d,), torch.float32, "zeros"),
     }
 
 
@@ -182,8 +189,14 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """act(x @ w_gate) * (x @ w_up) @ w_down, the activation in f32 (silu for
-    swiglu, tanh-approximated gelu for geglu)."""
+    """Gated (swiglu, geglu): act(x @ w_gate) * (x @ w_up) @ w_down, the
+    activation in f32 (silu, or tanh-approximated gelu). Otherwise the plain
+    MLP: gelu_tanh(x @ w_up + b_up) @ w_down + b_down, the gelu in f32 and
+    each bias cast to x's dtype."""
+    if cfg.mlp_act not in GATED_ACTS:
+        h = apply_linear(x, p["w_up"]) + p["b_up"].to(x.dtype)
+        h = gelu_tanh(h.float()).to(x.dtype)
+        return apply_linear(h, p["w_down"]) + p["b_down"].to(x.dtype)
     act = F.silu if cfg.mlp_act == "swiglu" else gelu_tanh
     g = apply_linear(x, p["w_gate"])
     u = apply_linear(x, p["w_up"])

@@ -1,19 +1,18 @@
-"""Architecture registry of the port: config lookup and model construction.
-
-Only the architectures whose slice is ported resolve; every other id of the
-reference's registry raises NotImplementedError naming the ROADMAP queue item
-it waits for.
+"""Architecture registry of the port: config lookup, model construction and
+parameter counting, for the reference's ten architecture ids.
 """
 from __future__ import annotations
 
 import importlib
+import math
 
 from repro_torch.core.accessors import QuantizedAccessor
 
 from .config import ModelConfig
+from .layers import ParamSpec
 from .transformer import Model
 
-# arch id -> family, as in the reference's configs
+# arch id -> family, as in the reference's configs, in the reference's order
 ARCH_FAMILIES = {
     "mamba2-780m": "ssm",
     "whisper-large-v3": "encdec",
@@ -26,9 +25,8 @@ ARCH_FAMILIES = {
     "llama-3.2-vision-90b": "vlm",
     "recurrentgemma-2b": "hybrid",
 }
-PORTED = ("qwen2-0.5b", "llama3.2-1b", "qwen2.5-3b", "granite-8b", "dbrx-132b",
-          "kimi-k2-1t-a32b", "mamba2-780m", "recurrentgemma-2b")
-ARCH_IDS = list(PORTED)
+ARCH_IDS = list(ARCH_FAMILIES)
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")  # the leaves of a "moe" dict with an expert dim
 
 
 def _module_name(arch_id: str) -> str:
@@ -36,15 +34,8 @@ def _module_name(arch_id: str) -> str:
 
 
 def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
-    if arch_id not in PORTED:
-        family = ARCH_FAMILIES.get(arch_id)
-        if family is None:
-            raise KeyError(f"unknown architecture {arch_id!r}")
-        raise NotImplementedError(
-            f"{arch_id} ({family}) is not ported yet: it waits for ROADMAP Queue 1 "
-            f"item 4, the encoder-decoder and vision families (whisper, "
-            f"llama-3.2-vision)"
-        )
+    if arch_id not in ARCH_FAMILIES:
+        raise KeyError(f"unknown architecture {arch_id!r}")
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.smoke_config() if smoke else mod.config()
 
@@ -56,3 +47,29 @@ def build_model(cfg: ModelConfig, *, quantized: bool = False, device=None) -> Mo
     reference's serving weights."""
     quant = QuantizedAccessor(cfg.param_dtype, bits=8, block=128) if quantized else None
     return Model(cfg, quant=quant, device=device)
+
+
+def _spec_leaves(tree, expert=False):
+    """(ParamSpec, whether it has an expert dim) for every leaf of a spec tree."""
+    if isinstance(tree, ParamSpec):
+        yield tree, expert
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _spec_leaves(v, expert or (k in EXPERT_LEAVES and "router" in tree))
+    else:
+        for v in tree:
+            yield from _spec_leaves(v, expert)
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact count from the spec tree (the reference's); with ``active_only``
+    the expert weights count at the routed fraction top_k / E (integer
+    division of their total, as the reference)."""
+    total = expert_total = 0
+    for spec, expert in _spec_leaves(Model(cfg, device="cpu").param_specs()):
+        n = math.prod(spec.shape)
+        if expert and active_only and cfg.n_experts:
+            expert_total += n
+        else:
+            total += n
+    return total + expert_total * cfg.top_k // max(cfg.n_experts, 1)

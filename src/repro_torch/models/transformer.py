@@ -1,20 +1,29 @@
-"""The decoder stack of the port: the dense, MoE, SSM and hybrid block kinds
-and Model.
+"""The model stack of the port: the dense, MoE, SSM, hybrid, encoder,
+cross-attention decoder and vision block kinds, and Model.
 
-Port of the dense, MoE, Mamba-2 and recurrentgemma part of
-``repro.models.transformer``. An architecture is a program of (block kind,
-count) entries (``block_program``).
+Port of ``repro.models.transformer``. An architecture is a program of (block
+kind, count) entries (``block_program``).
 Parameters are plain nested dicts of tensors with the reference's leaf names
 and weight layouts; where the reference stacks a leading layer dim and scans,
 the port keeps one dict per layer (``params["blocks"][i][l]`` for program
-entry i) and loops. Caches keep the stacked form: the dense decode cache
+entry i; whisper's encoder in ``params["encoder"]["blocks"][0][l]``; a vision
+group's four self-attention layers as a list, ``p["self"][i]``) and loops.
+Caches keep the stacked form: the dense decode cache
 {"k", "v": (L, B, Hkv, S, Dh)} (S the window for a local-attention ring),
 the SSM cache {"state": (L, B, H, P, N), "conv": (L, B, K - 1, conv_dim)},
 the RG-LRU cache {"h": (L, B, W), "conv": (L, B, K - 1, W)}, a group's
-nested {"rec0", "rec1", "attn"} of those, the page pools (L, num_pages, Hkv,
+nested {"rec0", "rec1", "attn"} of those, a cross-attention layer's {"self":
+dense cache, "cross": the context's K/V}, a vision group's {"self": {"k",
+"v": (G, 4, B, Hkv, S, Dh)}, "cross"}, the page pools (L, num_pages, Hkv,
 ps, Dh) (or their {"q", "scale"} quantized form); per-layer views of them are
 updated in place. ``Model(cfg, quant=...)`` stores the MLP (and expert) weights
 through a QuantizedAccessor (int8 serving weights).
+
+The encoder-decoder and vision families take their context (precomputed
+frames or image embeddings: the frontends are stubs, as in the reference)
+through ``prefill(batch_inputs=...)`` or ``ctx=``; the cross K/V live in the
+decode caches, so ``decode_step`` takes no context. They run on the dense
+cache only: the paged entry points refuse them, as the reference's do.
 
 ``attn_impl`` on forward / prefill / decode_step picks the kernels of the
 dense-cache path (flash_attention, flash_decode, ssd_scan, rglru_scan:
@@ -23,6 +32,7 @@ versions.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -34,6 +44,7 @@ from . import moe as moe_mod
 from . import rglru as rg_mod
 from . import ssm as ssm_mod
 from .layers import (
+    ParamSpec,
     apply_embed,
     apply_lm_head,
     apply_mlp,
@@ -47,11 +58,15 @@ from .layers import (
 
 class DenseBlock:
     """Pre-norm self-attention (+ a local window for ``use_window``, the
-    hybrid family's local_attn kind) + gated MLP; decode and the paged paths
-    write one layer's cache or page pool in place."""
+    hybrid family's local_attn kind; non-causal for ``causal=False``, the
+    whisper encoder's enc kind) + MLP; decode and the paged paths write one
+    layer's cache or page pool in place. Every kind's train / prefill take
+    ``ctx`` (the cross-attention context) and ignore it unless they attend
+    to it."""
 
-    def __init__(self, use_window: bool = False):
+    def __init__(self, use_window: bool = False, causal: bool = True):
         self.use_window = use_window
+        self.causal = causal
 
     def _window(self, cfg):
         return cfg.window if self.use_window else None
@@ -77,16 +92,18 @@ class DenseBlock:
     def _mlp_aux(cls, cfg, p, x):
         return cls._mlp(cfg, p, x), 0.0
 
-    def train(self, cfg, p, x, impl="auto"):
+    def train(self, cfg, p, x, impl="auto", ctx=None):
         """-> (x, aux): aux the layer's router loss (0 without experts)."""
         h = apply_norm(cfg, x, p["ln_attn"])
-        x = x + attn.self_attention(cfg, p["attn"], h, window=self._window(cfg), impl=impl)
+        x = x + attn.self_attention(cfg, p["attn"], h, causal=self.causal,
+                                    window=self._window(cfg), impl=impl)
         return self._mlp_aux(cfg, p, x)
 
-    def prefill(self, cfg, p, x, max_len=None, impl="auto"):
+    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         w = self._window(cfg)
-        y, (k, v) = attn.self_attention(cfg, p["attn"], h, window=w, return_kv=True, impl=impl)
+        y, (k, v) = attn.self_attention(cfg, p["attn"], h, causal=self.causal, window=w,
+                                        return_kv=True, impl=impl)
         x = self._mlp(cfg, p, x + y)
         return x, attn.pack_kv_cache(cfg, k, v, max_len=max_len, window=w)
 
@@ -162,11 +179,11 @@ class SSMBlock:
         return ssm_mod.ssm_cache_specs(cfg, batch)
 
     @staticmethod
-    def train(cfg, p, x, impl="auto"):
+    def train(cfg, p, x, impl="auto", ctx=None):
         return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), impl=impl), 0.0
 
     @staticmethod
-    def prefill(cfg, p, x, max_len=None, impl="auto"):
+    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
         h = apply_norm(cfg, x, p["ln"])
         y, cache = ssm_mod.apply_ssm(cfg, p["ssm"], h, return_state=True, impl=impl)
         return x + y, cache
@@ -197,12 +214,12 @@ class RecBlock:
         return rg_mod.rglru_cache_specs(cfg, batch)
 
     @staticmethod
-    def train(cfg, p, x, impl="auto"):
+    def train(cfg, p, x, impl="auto", ctx=None):
         x = x + rg_mod.apply_rglru(cfg, p["rec"], apply_norm(cfg, x, p["ln_rec"]), impl=impl)
         return DenseBlock._mlp(cfg, p, x), 0.0
 
     @staticmethod
-    def prefill(cfg, p, x, max_len=None, impl="auto"):
+    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
         h = apply_norm(cfg, x, p["ln_rec"])
         y, cache = rg_mod.apply_rglru(cfg, p["rec"], h, return_state=True, impl=impl)
         return DenseBlock._mlp(cfg, p, x + y), cache
@@ -226,12 +243,12 @@ class RGGroup:
     def cache_specs(self, cfg, batch: int, seq: int):
         return {name: blk.cache_specs(cfg, batch, seq) for name, blk in self.PARTS}
 
-    def train(self, cfg, p, x, impl="auto"):
+    def train(self, cfg, p, x, impl="auto", ctx=None):
         for name, blk in self.PARTS:
             x, _ = blk.train(cfg, p[name], x, impl=impl)
         return x, 0.0
 
-    def prefill(self, cfg, p, x, max_len=None, impl="auto"):
+    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
         caches = {}
         for name, blk in self.PARTS:
             x, caches[name] = blk.prefill(cfg, p[name], x, max_len=max_len, impl=impl)
@@ -243,21 +260,144 @@ class RGGroup:
         return x, cache
 
 
+def _cross_cache(cfg, k, v):
+    """A cross-attention layer's cache: the context's K/V in the param dtype."""
+    return {"k": k.to(cfg.param_dtype), "v": v.to(cfg.param_dtype)}
+
+
+class DecBlock:
+    """Whisper's decoder layer: pre-norm causal self-attention,
+    cross-attention over the encoder's output, then the MLP. Its cache is
+    {"self": the dense decode cache, "cross": the context's K/V (B, Hkv,
+    enc_seq, Dh)}, the cross half written once, at prefill."""
+
+    @staticmethod
+    def specs(cfg, quant=None):
+        return {
+            "ln_self": norm_specs(cfg),
+            "self": attn.attn_specs(cfg),
+            "ln_cross": norm_specs(cfg),
+            "cross": attn.cross_attn_specs(cfg),
+            "ln_mlp": norm_specs(cfg),
+            "mlp": mlp_specs(cfg, quant=quant),
+        }
+
+    @staticmethod
+    def cache_specs(cfg, batch: int, seq: int):
+        return {"self": attn.cache_specs(cfg, batch, seq),
+                "cross": attn.cache_specs(cfg, batch, cfg.enc_seq)}
+
+    @staticmethod
+    def train(cfg, p, x, impl="auto", ctx=None):
+        x = x + attn.self_attention(cfg, p["self"], apply_norm(cfg, x, p["ln_self"]), impl=impl)
+        h = apply_norm(cfg, x, p["ln_cross"])
+        x = x + attn.cross_attention(cfg, p["cross"], h, ctx, impl=impl)
+        return DenseBlock._mlp(cfg, p, x), 0.0
+
+    @staticmethod
+    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
+        h = apply_norm(cfg, x, p["ln_self"])
+        y, (k, v) = attn.self_attention(cfg, p["self"], h, return_kv=True, impl=impl)
+        x = x + y
+        h = apply_norm(cfg, x, p["ln_cross"])
+        y, (ck, cv) = attn.cross_attention(cfg, p["cross"], h, ctx, return_kv=True, impl=impl)
+        return DenseBlock._mlp(cfg, p, x + y), {
+            "self": attn.pack_kv_cache(cfg, k, v, max_len=max_len),
+            "cross": _cross_cache(cfg, ck, cv)}
+
+    @staticmethod
+    def decode(cfg, p, x, cache, pos, impl="auto"):
+        h = apply_norm(cfg, x, p["ln_self"])
+        y, _ = attn.self_attention_decode(cfg, p["self"], h, cache["self"], pos, impl=impl)
+        x = x + y
+        h = apply_norm(cfg, x, p["ln_cross"])
+        kv = (cache["cross"]["k"], cache["cross"]["v"])
+        x = x + attn.cross_attention_decode(cfg, p["cross"], h, kv, impl=impl)
+        return DenseBlock._mlp(cfg, p, x), cache
+
+
+def _stack_specs(specs, n: int):
+    """A (nested) dict of ParamSpecs with a leading dim ``n`` on each."""
+    if isinstance(specs, dict):
+        return {k: _stack_specs(v, n) for k, v in specs.items()}
+    return dataclasses.replace(specs, shape=(n,) + specs.shape)
+
+
+class VisGroup:
+    """llama-3.2-vision's unit: N_SELF dense self-attention layers, then a
+    gated cross-attention layer over the image embeddings and the MLP. The
+    gate, tanh of a learned f32 scalar cast to x's dtype, scales the
+    cross-attention output only. The params keep the self layers as a list
+    (``p["self"][i]``); the cache stacks them: {"self": {"k", "v": (N_SELF,
+    B, Hkv, S, Dh)}, "cross": {"k", "v": (B, Hkv, n_img_tokens, Dh)}}. The
+    gate starts at 0 (the reference's init), where tanh(0) erases the cross
+    layer: a check of the cross path must set it."""
+
+    N_SELF = 4
+    DENSE = DenseBlock()
+
+    def specs(self, cfg, quant=None):
+        return {
+            "self": [self.DENSE.specs(cfg, quant) for _ in range(self.N_SELF)],
+            "ln_cross": norm_specs(cfg),
+            "cross": attn.cross_attn_specs(cfg),
+            "gate": ParamSpec((), torch.float32, "zeros"),
+            "ln_mlp": norm_specs(cfg),
+            "mlp": mlp_specs(cfg, quant=quant),
+        }
+
+    def cache_specs(self, cfg, batch: int, seq: int):
+        return {"self": _stack_specs(self.DENSE.cache_specs(cfg, batch, seq), self.N_SELF),
+                "cross": attn.cache_specs(cfg, batch, cfg.n_img_tokens)}
+
+    @staticmethod
+    def _gated(cfg, p, x, y):
+        return DenseBlock._mlp(cfg, p, x + torch.tanh(p["gate"]).to(x.dtype) * y)
+
+    def train(self, cfg, p, x, impl="auto", ctx=None):
+        for pl in p["self"]:
+            x, _ = self.DENSE.train(cfg, pl, x, impl=impl)
+        h = apply_norm(cfg, x, p["ln_cross"])
+        return self._gated(cfg, p, x, attn.cross_attention(cfg, p["cross"], h, ctx, impl=impl)), 0.0
+
+    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
+        caches = []
+        for pl in p["self"]:
+            x, c = self.DENSE.prefill(cfg, pl, x, max_len=max_len, impl=impl)
+            caches.append(c)
+        h = apply_norm(cfg, x, p["ln_cross"])
+        y, (ck, cv) = attn.cross_attention(cfg, p["cross"], h, ctx, return_kv=True, impl=impl)
+        return self._gated(cfg, p, x, y), {"self": _stack(caches),
+                                          "cross": _cross_cache(cfg, ck, cv)}
+
+    def decode(self, cfg, p, x, cache, pos, impl="auto"):
+        for i, pl in enumerate(p["self"]):
+            x, _ = self.DENSE.decode(cfg, pl, x, _layer(cache["self"], i), pos, impl=impl)
+        h = apply_norm(cfg, x, p["ln_cross"])
+        kv = (cache["cross"]["k"], cache["cross"]["v"])
+        return self._gated(cfg, p, x, attn.cross_attention_decode(cfg, p["cross"], h, kv,
+                                                                  impl=impl)), cache
+
+
 KINDS = {
     "dense": DenseBlock(),
     "moe": MoEBlock(),
     "local_attn": DenseBlock(use_window=True),
+    "enc": DenseBlock(causal=False),
     "ssm": SSMBlock(),
     "rec": RecBlock(),
     "rg_group": RGGroup(),
+    "dec": DecBlock(),
+    "vis_group": VisGroup(),
 }
 
 
 def block_program(cfg):
-    """The architecture as (block kind, count) entries, as in the reference
-    (only the ported families resolve). The hybrid family is n_layers //
-    len(pattern) groups (kept when that is 0, as the reference keeps it) and
-    the remainder as rec blocks."""
+    """The architecture as (block kind, count) entries, as in the reference.
+    The hybrid family is n_layers // len(pattern) groups (kept when that is
+    0, as the reference keeps it) and the remainder as rec blocks; the vlm
+    family n_layers // 5 vision groups (n_layers must divide); encdec
+    n_layers decoder layers (the encoder is not a program entry)."""
     if cfg.family == "dense":
         return [("dense", cfg.n_layers)]
     if cfg.family == "moe":
@@ -270,10 +410,21 @@ def block_program(cfg):
         if rem:
             prog.append(("rec", rem))
         return prog
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 4: the "
-        f"encoder-decoder and vision families)"
-    )
+    if cfg.family == "vlm":
+        assert cfg.n_layers % (VisGroup.N_SELF + 1) == 0, cfg.n_layers
+        return [("vis_group", cfg.n_layers // (VisGroup.N_SELF + 1))]
+    if cfg.family == "encdec":
+        return [("dec", cfg.n_layers)]
+    raise ValueError(cfg.family)
+
+
+def _sinusoidal(t: int, d: int, device=None) -> torch.Tensor:
+    """(t, d) f32 position table: [sin | cos] halves (not interleaved) of
+    pos / 10000^(2i / d), as the reference's."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _layer(tree, l: int):
@@ -292,13 +443,14 @@ def _stack(layers: List[Dict]) -> Dict:
 
 
 class Model:
-    """A dense (GQA), MoE, SSM (Mamba-2) or hybrid (recurrentgemma) decoder on
-    one device. ``device`` defaults to CUDA and raises without a GPU; pass
+    """A dense (GQA), MoE, SSM (Mamba-2), hybrid (recurrentgemma),
+    encoder-decoder (whisper) or vision (llama-3.2-vision) model on one
+    device. ``device`` defaults to CUDA and raises without a GPU; pass
     ``device="cpu"`` to run the plain versions. ``quant`` (core.QuantizedAccessor) stores the MLP
     weights quantized, as the reference's serving-weight accessor."""
 
     def __init__(self, cfg, quant=None, device=None):
-        block_program(cfg)  # refuses the families that are not ported
+        block_program(cfg)  # refuses an unknown family
         self.cfg = cfg
         self.quant = quant
         self.device = resolve_device(device)
@@ -310,13 +462,24 @@ class Model:
 
     # ---- specs / init --------------------------------------------------------------
     def param_specs(self):
+        """{"embed", "blocks": [[layer specs] * count per program entry],
+        "final_norm"}, and for encdec "encoder": {"blocks": [[enc layer specs]
+        * n_enc_layers], "final_norm"}, as the reference's tree."""
         cfg = self.cfg
-        return {
+        specs = {
             "embed": embed_specs(cfg),
             "blocks": [[KINDS[kind].specs(cfg, self.quant) for _ in range(n)]
                        for kind, n in block_program(cfg)],
             "final_norm": norm_specs(cfg),
         }
+        if cfg.family == "encdec":
+            enc_cfg = dataclasses.replace(cfg, mlp_act="gelu")
+            specs["encoder"] = {
+                "blocks": [[KINDS["enc"].specs(enc_cfg, self.quant)
+                            for _ in range(cfg.n_enc_layers)]],
+                "final_norm": norm_specs(cfg),
+            }
+        return specs
 
     def init_params(self, generator: torch.Generator, device=None):
         """Random parameters from ``generator`` (which must live on the target
@@ -370,32 +533,59 @@ class Model:
         x = apply_norm(self.cfg, x, params["final_norm"])
         return apply_lm_head(self.cfg, params["embed"], x)
 
+    # ---- context (stub frontends) ----------------------------------------------------
+    def encode_ctx(self, params, batch: Dict[str, torch.Tensor], *, attn_impl: str = "auto"):
+        """The cross-attention context: for whisper the encoder over
+        ``batch["frames"]`` (B, enc_seq, D) precomputed frame embeddings, plus
+        the f32 sinusoidal table cast to their dtype, through n_enc_layers
+        non-causal layers (RoPE at positions 0..T-1 on top, as the
+        reference's self-attention applies it) and the final norm; for vlm
+        ``batch["image_embeds"]`` as given; None otherwise."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            frames = batch["frames"]
+            x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
+                                     frames.device).to(frames.dtype)[None]
+            enc_cfg = dataclasses.replace(cfg, mlp_act="gelu")
+            for p in params["encoder"]["blocks"][0]:
+                x, _ = KINDS["enc"].train(enc_cfg, p, x, impl=attn_impl)
+            return apply_norm(cfg, x, params["encoder"]["final_norm"])
+        if cfg.family == "vlm":
+            return batch["image_embeds"]
+        return None
+
     # ---- full-sequence forward -------------------------------------------------------
-    def forward(self, params, tokens: torch.Tensor, *, attn_impl: str = "auto"):
+    def forward(self, params, tokens: torch.Tensor, *, ctx=None, attn_impl: str = "auto"):
         """tokens (B, T) -> (logits (B, T, Vp), aux): aux the f32 sum of the MoE
-        layers' aux losses in layer order (0 for the other blocks)."""
+        layers' aux losses in layer order (0 for the other blocks). ``ctx``:
+        the cross-attention context (``encode_ctx``) for encdec / vlm."""
         x = self._embed(params, tokens)
         aux = torch.zeros((), device=x.device)
         for blk, layers in self._program(params):
             for p in layers:
-                x, a = blk.train(self.cfg, p, x, impl=attn_impl)
+                x, a = blk.train(self.cfg, p, x, impl=attn_impl, ctx=ctx)
                 aux = aux + a
         return self._head(params, x), aux
 
     # ---- serving ---------------------------------------------------------------------
-    def prefill(self, params, tokens: torch.Tensor, *, max_len: Optional[int] = None,
-                last_index=None, attn_impl: str = "auto"):
+    def prefill(self, params, tokens: torch.Tensor, *, ctx=None, batch_inputs=None,
+                max_len: Optional[int] = None, last_index=None, attn_impl: str = "auto"):
         """tokens (B, S) -> (logits (B, 1, Vp), caches). The logits are read at
         ``last_index`` (default: the last column) — the engine right-pads
         prompts to whole pages; leave it None for the SSM family, whose final
         state padding would pollute. caches: one dict per program entry,
-        {"k", "v": (L, B, Hkv, max_len, Dh)} (dense) or {"state", "conv"} (ssm)."""
+        {"k", "v": (L, B, Hkv, max_len, Dh)} (dense) or {"state", "conv"} (ssm),
+        {"self", "cross"} (dec, vis_group). ``ctx`` is the cross-attention
+        context; without it, ``batch_inputs`` ({"frames"} or
+        {"image_embeds"}) goes through ``encode_ctx`` first."""
+        if ctx is None and batch_inputs is not None:
+            ctx = self.encode_ctx(params, batch_inputs, attn_impl=attn_impl)
         x = self._embed(params, tokens)
         caches = []
         for blk, layers in self._program(params):
             per_layer = []
             for p in layers:
-                x, c = blk.prefill(self.cfg, p, x, max_len=max_len, impl=attn_impl)
+                x, c = blk.prefill(self.cfg, p, x, max_len=max_len, impl=attn_impl, ctx=ctx)
                 per_layer.append(c)
             # an entry of no layers (the hybrid family's zero-count group)
             # keeps its empty (0, ...) cache, as the reference's scan does

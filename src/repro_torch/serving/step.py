@@ -179,10 +179,12 @@ def make_chunked_prefill_step(model, kv_spec=None):
 
 def make_prefill(model, max_len: Optional[int] = None, attn_impl: str = "auto"):
     """Monolithic prefill; with ``max_len`` the dense caches are padded to it
-    (the capacity ``make_serve_step`` decodes into)."""
+    (the capacity ``make_serve_step`` decodes into). ``batch_inputs`` carries
+    the encoder-decoder / vision context ({"frames"} or {"image_embeds"},
+    through ``Model.encode_ctx``), whose K/V the caches then hold."""
 
-    def prefill(params, tokens, last_index=None):
-        return model.prefill(params, tokens, max_len=max_len, last_index=last_index,
-                             attn_impl=attn_impl)
+    def prefill(params, tokens, batch_inputs=None, last_index=None):
+        return model.prefill(params, tokens, batch_inputs=batch_inputs, max_len=max_len,
+                             last_index=last_index, attn_impl=attn_impl)
 
     return prefill

@@ -34,7 +34,11 @@ pages, and the autotuner's cold sweep (block_pages 1 only on the card) and
 warm resolve (no launch); and head dim 112 (kimi-k2: Hq 64, Hkv 8): the
 paged decode and chunk (C 128, the verify C 5) over dense, int8 and int4
 pages (56-byte int4 rows), the chunk body over pools off 16 bytes, and
-flash_attention / flash_decode, f32 and bf16.
+flash_attention / flash_decode, f32 and bf16; and the cross-attention
+shapes (whisper-large-v3's 1500 frames, llama-3.2-vision's 6404 image
+tokens): flash_attention non-causal at Tq != Tk over key tails, flash_decode
+at pos Tc - 1, and whisper-smoke / vision-smoke served on the card against
+the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: the
 kernels have no CPU mode (the plain versions they are held against are what
@@ -2366,3 +2370,119 @@ def test_d112_flash_decode_matches_plain(dtype):
                                                           device="cuda"), window=window)
             _assert_kernel_close(got, fa.decode_attention_torch(q, kc, vc, pos, window=window),
                                  dtype)
+
+
+# ---------------------------------------------------------------------------------
+# cross-attention (whisper-large-v3: 20 / 20 heads of 64 over 1500 frames;
+# llama-3.2-vision: 64 / 8 heads of 128 over 6404 image tokens): flash_attention
+# non-causal at Tq != Tk, the key tails 1500 % 64 = 28 and 6404 % 64 = 4 and
+# smaller ones, and the cross decode, flash_decode at pos Tc - 1 (every slot
+# live, so non-causal attention at Tq 1); whisper-smoke and vision-smoke
+# served on the card against the CPU
+# ---------------------------------------------------------------------------------
+CROSS_FLASH_CASES = [(1, 20, 20, 1500, 1500, 64), (4, 20, 20, 64, 1500, 64),
+                     (2, 64, 8, 128, 6404, 128), (1, 4, 1, 5, 131, 64), (2, 8, 2, 1, 77, 128),
+                     (1, 4, 4, 70, 12, 64)]
+CROSS_DECODE_CASES = [(4, 20, 20, 1500, 64), (2, 64, 8, 6404, 128), (1, 4, 1, 131, 64),
+                      (3, 8, 8, 12, 64)]
+
+
+@pytest.mark.parametrize("case", CROSS_FLASH_CASES, ids=_ids(CROSS_FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cross_flash_attention_matches_plain(case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, tq, tk, d = case
+    q, k, v = _rand((b, hq, tq, d), dtype, 61), _rand((b, hkv, tk, d), dtype, 62), \
+        _rand((b, hkv, tk, d), dtype, 63)
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1
+    _assert_kernel_close(got, fa.attention_torch(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("case", CROSS_DECODE_CASES, ids=_ids(CROSS_DECODE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cross_decode_matches_plain(case, dtype):
+    """ops.decode_attention at pos Tc - 1 launches flash_decode and equals
+    both plain forms: the decode at Tc - 1 and non-causal attention."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, tc, d = case
+    q = _rand((b, hq, 1, d), dtype, 64)
+    kc, vc = _rand((b, hkv, tc, d), dtype, 65), _rand((b, hkv, tc, d), dtype, 66)
+    n = fa.flash_decode.launches
+    got = ops.decode_attention(q, kc, vc, tc - 1)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.launches == n + 1
+    _assert_kernel_close(got, fa.decode_attention_torch(q, kc, vc, tc - 1), dtype)
+    _assert_kernel_close(got, fa.attention_torch(q, kc, vc, causal=False), dtype)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b"])
+def test_cross_serve_on_cuda_matches_cpu(arch):
+    """make_prefill(batch_inputs=) + make_serve_step on the smoke config in
+    f32, the same weights (every vision gate at 0.7: at the init's 0 the cross
+    layer is erased; the attention projections rescaled to their fan-in: at
+    the reference's init whisper-smoke's logits drift 8.5e-4 between card and
+    CPU) and inputs on the card and on the CPU: logits within 1e-4 a step, 8
+    greedy tokens equal, flash_attention and flash_decode launched on the
+    card."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import make_prefill, make_serve_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+        params = _tree_to(params, device)
+        for p in params["blocks"][0]:
+            if "gate" in p:
+                p["gate"].fill_(0.7)
+        _condition_attention(cfg, params)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9))).to(device)
+        n_ctx = cfg.enc_seq if cfg.family == "encdec" else cfg.n_img_tokens
+        key = "frames" if cfg.family == "encdec" else "image_embeds"
+        ctx = torch.from_numpy(rng.standard_normal((2, n_ctx, cfg.d_model), np.float32))
+        kernels.reset_launch_counts()
+        logits, caches = make_prefill(model, max_len=17)(params, toks,
+                                                         batch_inputs={key: ctx.to(device)})
+        step = make_serve_step(model)
+        rows, nxt = [logits[:, -1]], torch.argmax(logits[:, -1, :cfg.vocab], -1)
+        seq = [nxt.tolist()]
+        for i in range(7):
+            logits, caches = step(params, caches, nxt.to(torch.int32), 9 + i)
+            nxt = torch.argmax(logits[:, :cfg.vocab], -1)
+            rows.append(logits)
+            seq.append(nxt.tolist())
+        out[device] = (torch.stack(rows).cpu(), seq, kernels.launch_counts())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2]["flash_attention"] > 0 and out["cuda"][2]["flash_decode"] > 0
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _condition_attention(cfg, params):
+    """Every attention projection of a parameter tree rescaled in place to
+    std 1/sqrt(its fan-in), as chip_smoke.py's condition_attention."""
+    if isinstance(params, list):
+        for v in params:
+            _condition_attention(cfg, v)
+    elif isinstance(params, dict):
+        if "wq" in params:
+            d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+            for name, sq in (("wq", hq / d), ("wk", hkv / d), ("wv", hkv / d), ("wo", 1 / hq)):
+                params[name].mul_(math.sqrt(sq))
+        else:
+            for v in params.values():
+                _condition_attention(cfg, v)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
+from repro.models import ARCH_IDS as jax_arch_ids
 from repro.models import build_model as jax_build, get_config as jax_get_config
 from repro_torch.models import ModelConfig, build_model, from_jax_params, get_config
 from repro_torch.models.layers import apply_rope
@@ -173,8 +174,83 @@ def test_decode_step_paged_chunk_matches(models):
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b"])
 def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+    """The cross-attention families resolve and serve on the dense cache,
+    but their paged path is not ported, as in the reference (whose
+    paged_cache_specs refuses the dec and vis_group kinds): init_paged_cache,
+    decode_step_paged and ServeEngine raise NotImplementedError."""
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    kind = {"encdec": "dec", "vlm": "vis_group"}[cfg.family]
+    match = f"paged KV caching supports dense-attention blocks; got '{kind}'"
+    with pytest.raises(NotImplementedError, match=match):
+        model.init_paged_cache(8, 4)
+    with pytest.raises(NotImplementedError, match=match):
+        model.decode_step_paged(params, [], torch.zeros(1, dtype=torch.int32),
+                                torch.zeros((1, 2), dtype=torch.int32),
+                                torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match=match):
+        ServeEngine(model, params, EngineConfig(num_pages=8, page_size=4), device="cpu")
+    with pytest.raises(NotImplementedError):
+        jax_build(dataclasses.replace(jax_get_config(arch, smoke=True))).paged_cache_specs(8, 4)
+
+
+def _reference_shapes(arch):
+    """The reference's parameter spec tree at full size as {path: (shape,
+    dtype)} (specs only: nothing is allocated)."""
+    from repro.core.distributed import is_spec
+
+    specs = jax_build(jax_get_config(arch)).param_specs()
+    flat = jax.tree_util.tree_flatten_with_path(specs, is_leaf=is_spec)[0]
+    return {jax.tree_util.keystr(p): (s.shape, jnp.dtype(s.dtype).name) for p, s in flat}
+
+
+def _port_shapes(model):
+    """The port's spec tree as the reference's stacked tree: each program
+    entry's per-layer specs with a leading layer dim, a vision group's list of
+    self layers as a second one, whisper's encoder likewise."""
+    from repro_torch.models.layers import ParamSpec
+
+    out = {}
+
+    def walk(tree, path, lead):
+        if isinstance(tree, ParamSpec):
+            out[path] = (lead + tree.shape, str(tree.dtype).split(".")[1])
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                if isinstance(v, list):  # a vision group's self layers
+                    walk(v[0], f"{path}['{k}']", lead + (len(v),))
+                else:
+                    walk(v, f"{path}['{k}']", lead)
+
+    specs = model.param_specs()
+    for name in ("embed", "final_norm"):
+        walk(specs[name], f"['{name}']", ())
+    for i, layers in enumerate(specs["blocks"]):
+        walk(layers[0], f"['blocks'][{i}]", (len(layers),))
+    if "encoder" in specs:
+        walk(specs["encoder"]["blocks"][0][0], "['encoder']['blocks'][0]",
+             (len(specs["encoder"]["blocks"][0]),))
+        walk(specs["encoder"]["final_norm"], "['encoder']['final_norm']", ())
+    return out
+
+
+@pytest.mark.parametrize("arch", jax_arch_ids)
+def test_param_specs_and_count_match_reference(arch):
+    """At full size, for every architecture id: the port's parameter specs
+    leaf by leaf (shape and dtype, as the reference stacks them) and
+    count_params, total and active, equal the reference's."""
+    from repro.models.registry import count_params as jax_count_params
+    from repro_torch.models import ARCH_IDS, count_params
+
+    assert ARCH_IDS == jax_arch_ids
+    cfg = get_config(arch)
+    assert _port_shapes(build_model(cfg, device="cpu")) == _reference_shapes(arch)
+    for active in (False, True):
+        assert count_params(cfg, active_only=active) == \
+            jax_count_params(jax_get_config(arch), active_only=active), active
 
 
 def test_unknown_architecture_raises():
