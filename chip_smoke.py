@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""End-to-end proof that the PyTorch/CUDA port (src/repro_torch) serves on one
-NVIDIA GPU, on its own hand-written kernels.
+"""End-to-end proof that the PyTorch/CUDA port (src/repro_torch) serves and
+trains on one NVIDIA GPU, on its own hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -269,8 +269,50 @@ lines; any failure raises and exits non-zero:
                 the integer view), stencil 1e-4, tinymatsum bit-equal (the
                 same f32 additions and roundings), matvec 1e-5 * sum_j |A_ij v_j| per row (sums of
                 up to 16384 terms).
-  kernels line  {"kernels": [...]} with the numbers of each of the 15
-                kernels that replace the reference's 15 Pallas functions.
+  train_exact   one training step on the kernels (attn_impl="auto":
+                flash_attention forward with its lse, flash_attention_bwd
+                backward) against the plain path (attn_impl="torch":
+                flash_vjp.flash_attention_torch) on the card, f32, TF32 off,
+                the same init_params with the attention projections
+                rescaled (condition_attention): llama3.2-1b's width at 2
+                layers (B 2 x 512) and whisper-large-v3's at 2 + 2 layers
+                (448 decoder positions against 1500 frames): loss within
+                1e-5, every gradient leaf within 1e-3 of its max-abs; for
+                llama AdamW's m and v after 1 and 3 steps at lr 0 (f32 and
+                int8 moments) and three steps at lr 1e-3 (see
+                train_exact_phase for the rules). Both kernels launch.
+  train         TrainerLoop at llama3.2-1b's full width (16 layers, d_model
+                2048, 32 / 8 heads of 64, vocab 128256), bf16, remat on, f32
+                moments, B 4 x 2048, 8 steps, checkpoints into a temporary
+                directory with only the final save: step ms p50 (steps
+                2-7), tokens/s, peak memory, each step's loss (finite), the
+                launches a step of both attention kernels (zeroed just
+                before, read just after), the final save's bytes and
+                seconds, then the save restored and every leaf checked bit
+                for bit against the state in memory.
+  train_loop    the smoke config's loop on the card: it learns over 12
+                steps, a second run resumes from its checkpoint, and a run
+                with simulate_failure(at_step=5) restores its latest
+                checkpoint and finishes at step 10.
+  kernels line  {"kernels": [...]} with the numbers of each of the 16
+                kernels: the 15 that replace the reference's 15 Pallas
+                functions, and flash_attention_bwd, which replaces its
+                hand-written custom_vjp backward (kernels/flash_vjp.py:94),
+                its launches from the train phase. The kernels phase holds
+                it against the plain backward (flash_bwd_torch) at
+                llama3.2-1b's (4, 32 / 8, 2048, 64) causal, (2, 16 / 2,
+                1024, 128) causal, a 64-key window at D 64, whisper's cross
+                shape (4, 20 / 20, 448 vs 1500, 64) non-causal and D 256 at
+                (1, 8 / 1, 512, 256), f32 (max |err| <= 1e-4 of each
+                gradient's max-abs: its sums over Tq run in another order)
+                and bf16 (within one bf16 ulp of the plain value plus that
+                bound), two runs bit-equal, with device ms beside the
+                device ms of torch.autograd.grad through
+                scaled_dot_product_attention (timed only) and the bound
+                (2.5 x the forward's flops over the live pairs, or the bytes
+                of q, k, v, out, dO, lse, dq, dk, dv at 3.35e12 B/s); a
+                train_kernels line repeats its bf16 rows beside the train
+                phase's launches.
 
 Then the card's name and power limit as nvidia-smi prints them, and as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -317,6 +359,10 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     "ssd_scan": ("src/repro/kernels/ssd_scan.py:85", "src/repro_torch/kernels/csrc/ssd_scan.cu"),
     "rglru_scan": ("src/repro/kernels/rglru_scan.py:50",
                    "src/repro_torch/kernels/csrc/rglru_scan.cu"),
+    # no pallas_call: the reference's hand-written custom_vjp backward, which
+    # its training path runs (kernels/flash_vjp.py::_bwd)
+    "flash_attention_bwd": ("src/repro/kernels/flash_vjp.py:94",
+                            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
 }
 DENSE_PATH = ("paged_decode", "paged_prefill_chunk")
 GENERATE_PATH = ("flash_attention", "flash_decode", "ssd_scan", "rglru_scan")
@@ -1838,7 +1884,9 @@ def cross_sensitivity(arch="whisper-large-v3", n_layers=2, smoke=False, device="
 
 
 def _nbytes(tree):
-    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+    from repro_torch.core.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def cross_timed(arch, smoke=False, device="cuda", smi=None):
@@ -1850,6 +1898,7 @@ def cross_timed(arch, smoke=False, device="cuda", smi=None):
     (every layer, the final norm, the LM head) and the caches it reads
     (self caches at their capacity and the cross K/V), derived, not traced."""
     from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves
 
     cell = CROSS_CELLS[arch]
     if device == "cuda":
@@ -1883,7 +1932,7 @@ def cross_timed(arch, smoke=False, device="cuda", smi=None):
            "d_model": cfg.d_model, "Hq": cfg.n_heads, "Hkv": cfg.n_kv_heads,
            "head_dim": cfg.head_dim, "context_tokens": cfg.enc_seq or cfg.n_img_tokens,
            "gate": VISION_GATE if cfg.family == "vlm" else None,
-           "params": sum(t.numel() for t in _leaves(params)), "batch": cell["batch"],
+           "params": sum(t.numel() for t in tree_leaves(params)), "batch": cell["batch"],
            "prompt_len": cell["prompt"], "new_tokens": cell["new"],
            "encode_ms": encode_s * 1e3, "prefill_ms": prefill_s * 1e3,
            "step_ms_p50": statistics.median(steps) * 1e3, "step_ms_max": max(steps) * 1e3,
@@ -3029,6 +3078,8 @@ def serve_models_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=N
     freed before the next."""
     import gc
 
+    from repro_torch.core.tree import tree_leaves
+
     out = {}
     for name in SERVE_MODELS:
         model_exact_check(name, smoke, device)
@@ -3041,7 +3092,7 @@ def serve_models_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=N
         emit({"phase": "serve_models_summary", "model": w.cfg.name, "n_layers": w.cfg.n_layers,
               "d_model": w.cfg.d_model, "Hq": w.cfg.n_heads, "Hkv": w.cfg.n_kv_heads,
               "head_dim": w.cfg.head_dim, "vocab": w.cfg.vocab,
-              "params": sum(t.numel() for t in _leaves(w.params)),
+              "params": sum(t.numel() for t in tree_leaves(w.params)),
               **{k: rec[k] for k in ("tokens_per_s", "step_ms_p50", "ttft_s_p95",
                                      "kv_pool_bytes", "launches")},
               "peak_memory_bytes": (torch.cuda.max_memory_allocated() if device == "cuda"
@@ -3126,6 +3177,7 @@ def serve_moe_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=None
     printed beside the card. Each model is freed before the next."""
     import gc
 
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.models import get_config
 
     out = {}
@@ -3143,7 +3195,7 @@ def serve_moe_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=None
               "d_model": w.cfg.d_model, "Hq": w.cfg.n_heads, "Hkv": w.cfg.n_kv_heads,
               "head_dim": w.cfg.head_dim, "n_experts": w.cfg.n_experts, "top_k": w.cfg.top_k,
               "d_ff": w.cfg.d_ff, "norm": w.cfg.norm, "vocab": w.cfg.vocab,
-              "params": sum(t.numel() for t in _leaves(w.params)),
+              "params": sum(t.numel() for t in tree_leaves(w.params)),
               **{k: rec[k] for k in ("tokens_per_s", "step_ms_p50", "ttft_s_p95",
                                      "kv_pool_bytes", "launches")},
               "peak_memory_bytes": (torch.cuda.max_memory_allocated() if device == "cuda"
@@ -3156,12 +3208,503 @@ def serve_moe_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=None
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+# =====================================================================================
+# the training slice: flash_attention_bwd, train_exact, train, train_loop
+# =====================================================================================
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+# (name, B, Hq, Hkv, Tq, Tk, D, causal, window): llama3.2-1b's training shape,
+# a D 128 group of 8, a 64-key window, whisper's cross shape (448 decoder
+# positions against 1500 frames: a 28-key tail), D 256's 32-row tiles
+BWD_CASES = (("llama3.2-1b", 4, 32, 8, 2048, 2048, 64, True, None),
+             ("d128", 2, 16, 2, 1024, 1024, 128, True, None),
+             ("window64", 2, 32, 8, 1024, 1024, 64, True, 64),
+             ("whisper_cross", 4, 20, 20, 448, 1500, 64, False, None),
+             ("d256", 1, 8, 1, 512, 512, 256, True, None))
+BWD_RTOL = 1e-4  # of each gradient's max-abs: the sums over Tq (and the group) run in another order
+
+
+def _grad_excess(got, want, dtype):
+    """(max |got - want| / max |want|, the tolerance rule's worst excess <= 0
+    when it holds): f32 max |got - want| <= 1e-4 max |want|; bf16 each
+    element within one bf16 ulp of want plus that f32 bound."""
+    w = want.float()
+    scale = float(w.abs().max())
+    d = (got.float() - w).abs()
+    if dtype == torch.float32:
+        return float(d.max()) / max(scale, 1e-30), float(d.max()) - BWD_RTOL * scale
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    return float(d.max()) / max(scale, 1e-30), float((d - ulp - BWD_RTOL * scale).max())
+
+
+def bwd_checks(bw, g):
+    """flash_attention_bwd against the plain backward (flash_bwd_torch) on the
+    forward kernel's out and lse, at BWD_CASES, f32 and bf16; event ms,
+    device ms, plain ms, the bound (2.5 x the forward's flops over this
+    run's live pairs at the dtype's peak; the bytes of q, k, v, out, dO, lse,
+    dq, dk, dv at the data sheet's rate; the larger), and as the yardstick
+    the device ms of torch.autograd.grad through
+    F.scaled_dot_product_attention (its graph built once, the backward alone
+    timed; a band mask for the window). Returns {case: the bf16 record}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_vjp as fv
+
+    out = {}
+    for name, b, hq, hkv, tq, tk, d, causal, window in BWD_CASES:
+        off = tk - tq if causal else 0
+        live = _causal_keys(tq, tk, off, window) if causal else tq * tk
+        for dtype in (torch.float32, torch.bfloat16):
+            esz = torch.tensor([], dtype=dtype).element_size()
+            rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dtype)  # noqa: E731
+            q, k, v, do = rnd(b, hq, tq, d), rnd(b, hkv, tk, d), rnd(b, hkv, tk, d), \
+                rnd(b, hq, tq, d)
+            lse = torch.empty((b, hq, tq), dtype=torch.float32, device="cuda")
+            o = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off, lse=lse)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            kernel = lambda: fv.flash_attention_bwd(q, k, v, o, do, lse, **kw)  # noqa: E731
+            plain = lambda: fv.flash_bwd_torch(q, k, v, o, do, lse, **kw)  # noqa: E731
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            errs = {gname: _grad_excess(a, w, dtype)
+                    for gname, a, w in zip(("dq", "dk", "dv"), got, want)}
+            abs_err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+            ok = all(x <= 0 for _, x in errs.values())
+            again = kernel()
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            del got, want, again
+            qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            mask = None
+            if window is not None:
+                qp = torch.arange(tq, device="cuda")[:, None] + off
+                kp = torch.arange(tk, device="cuda")[None, :]
+                mask = (kp <= qp) & (kp > qp - window)
+            lib_out = F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None and tq == tk,
+                enable_gqa=hq != hkv)
+            library = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,  # noqa: E731
+                                                  retain_graph=True)
+            nbytes = (2 * q.numel() + k.numel() + v.numel() + o.numel() + do.numel() +
+                      k.numel() + v.numel()) * esz + lse.numel() * 4
+            flops = 2.5 * 4 * b * hq * live * d
+            t_bytes, t_ops = nbytes / NOMINAL_BW, flops / PEAK_FLOPS[dtype]
+            rec = {
+                "phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
+                "dtype": str(dtype).split(".")[1], "B": b, "Hq": hq, "Hkv": hkv, "Tq": tq,
+                "Tk": tk, "D": d, "causal": causal, "window": window, "tail_keys": tk % 64,
+                "rel_err": {k_: e[0] for k_, e in errs.items()}, "max_abs_err": abs_err,
+                "tolerance": (f"max|err| <= {BWD_RTOL} x each gradient's max-abs"
+                              + ("" if dtype == torch.float32 else
+                                 ", plus one bf16 ulp of the plain value, elementwise")),
+                "ok": ok, "bit_equal_rerun": same,
+                "ms": time_ms(kernel, reps=10), "device_ms": device_ms_per_call(kernel, n=10),
+                "plain_ms": time_ms(plain, reps=3, warmup=1),
+                "library_ms": time_ms(library, reps=10),
+                "library_device_ms": device_ms_per_call(library, n=10),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops, "live_pairs": live,
+                "blocks": fv.grid_blocks(b, hq, hkv, tq, tk, d),
+            }
+            emit(rec)
+            if not ok or not same:
+                raise AssertionError(f"flash_attention_bwd {name} {dtype}: {rec}")
+            if dtype == torch.bfloat16:
+                out[name] = rec
+            del lib_out, qs, ks, vs, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_EXACT = {"llama3.2-1b": dict(n_layers=2, batch=2, seq=512),
+               "whisper-large-v3": dict(n_layers=2, n_enc_layers=2, batch=2, seq=448)}
+TRAIN_EXACT_RTOL = 1e-3  # of each gradient leaf's max-abs, kernels vs the plain path (f32)
+
+
+def _train_batch(cfg, batch, seq, device, seed=0):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    out = {"tokens": torch.from_numpy(SyntheticLM(DataConfig(
+        batch=batch, seq=seq, vocab=cfg.vocab, seed=seed)).batch_at(0)["tokens"]).to(device)}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        out["frames"] = torch.randn(batch, cfg.enc_seq, cfg.d_model, generator=gen,
+                                    device=device).to(cfg.param_dtype)
+    return out
+
+
+def _tree_rel(a_tree, b_tree, where=None):
+    """The largest max |a - b| / max |b| over the leaves of two trees (f32
+    views of {"q", "scale"} leaves compared as they are); with ``where`` (a
+    dict) also the path of that leaf in it."""
+    from repro_torch.core.tree import tree_leaves, tree_leaves_with_path
+
+    worst = 0.0
+    for (path, a), b in zip(tree_leaves_with_path(a_tree), tree_leaves(b_tree)):
+        a, b = a.float(), b.float()
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel >= worst:
+            worst = rel
+            if where is not None:
+                where["worst_leaf"] = "/".join(map(str, path))
+    return worst
+
+
+def _moment_flips(a_tree, b_tree, log_domain):
+    """Two runs' int8 moments decoded as AdamW decodes them (v from the log
+    domain) -> (the largest |a - b| less 1e-3 of the leaf's max-abs, in
+    quantization steps of the larger scale, a step of v taken at its value;
+    the share of elements apart by more than half a step plus that slack;
+    the f32 leaves' largest relative difference; the worst element's
+    values). For v the slack also takes 4 f32 ulps of the log domain at v ~
+    0, about 7.6e-18: log(v + 1e-12) is f32 near -27.6, so both packages'
+    encodings resolve v no finer there, and the leaves whose gradients are
+    all ~1e-8 live there."""
+    from repro_torch.core.accessors import QuantizedAccessor
+    from repro_torch.core.distributed import dequantize_array
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim.adamw import _V_FLOOR, _V_SHIFT
+
+    worst, flips, total, rel, where = 0.0, 0, 0, 0.0, None
+    is_q = lambda x: isinstance(x, dict) and "q" in x  # noqa: E731
+    for a, b in zip(tree_leaves(a_tree, is_q), tree_leaves(b_tree, is_q)):
+        if not is_q(a):
+            rel = max(rel, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            continue
+        block = a["q"].shape[-1] // a["scale"].shape[-1]
+        acc = QuantizedAccessor(torch.float32, bits=8, block=block)
+        la, lb = dequantize_array(a, acc), dequantize_array(b, acc)
+        step = torch.maximum(a["scale"], b["scale"]).repeat_interleave(block, dim=-1)
+        if log_domain:  # v = exp(val - shift) - floor: a step is a relative change
+            da = torch.clamp(torch.exp(la - _V_SHIFT) - _V_FLOOR, min=0.0)
+            db = torch.clamp(torch.exp(lb - _V_SHIFT) - _V_FLOOR, min=0.0)
+            step = (torch.maximum(da, db) + _V_FLOOR) * torch.expm1(step)
+        else:
+            da, db = la, lb
+        slack = TRAIN_EXACT_RTOL * float(db.abs().max())
+        if log_domain:  # 4 f32 ulps of log(v + floor) ~ -27.6 (2^-19 each), as v
+            slack += 4 * _V_FLOOR * 2.0 ** -19
+        apart = ((da - db).abs() - slack).clamp(min=0.0) / step
+        if float(apart.max()) > worst:
+            i = int(apart.argmax())
+            where = {k: float(t.reshape(-1)[i]) for k, t in (
+                ("a", da), ("b", db), ("qa", a["q"]), ("qb", b["q"]), ("step", step))}
+            where.update(slack=slack, shape=list(a["q"].shape))
+        worst = max(worst, float(apart.max()))
+        flips += int((apart > 0.5).sum())
+        total += apart.numel()
+    return worst, flips / max(total, 1), rel, where
+
+
+def train_exact_phase(device="cuda", smoke=False):
+    """One train step (and three, for the moments) of the kernels
+    (attn_impl="auto": flash_attention forward, flash_attention_bwd
+    backward) against the plain path (attn_impl="torch": flash_attention_torch)
+    on the card, the same init_params, in f32 with TF32 off: llama3.2-1b's
+    width at 2 layers (B 2 x 512) and whisper-large-v3's at 2 + 2 layers
+    (B 2, 448 decoder positions against 1500 frames: the non-causal Tq != Tk
+    backward inside a model), the attention projections rescaled to their
+    fan-in (``condition_attention``, as the CPU tests' weights: on the
+    reference's init attention is near-argmax, and the backward through it
+    parts the two paths' f32 roundings by 2.4% on a whisper leaf at 2 + 2
+    layers; ``_reference_init_witness`` measures that regime beside the
+    plain path against itself). Loss within 1e-5, every gradient leaf within
+    1e-3 of its max-abs, grad_norm within 1e-4; for llama, m and v after 1
+    and 3 steps at lr 0 (``_train_exact_moments``) within 1e-3 of their
+    max-abs (f32 moments) or, decoded (v from its log domain), within k
+    quantization steps plus 1e-3 of the leaf's max-abs after k steps, at most
+    0.1% of elements more than half a step apart (int8 moments: a rounding
+    near a half step may go either way and carries on; a gradient all but 0,
+    where the two paths' f32 sums cancel, differs by more than a step of
+    its own tiny v), and three steps at lr 1e-3 within 1e-4 (losses) and
+    1e-3 (m and v)."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import TrainProfile, loss_and_grads
+
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for arch, spec in TRAIN_EXACT.items():
+        shape = {k: v for k, v in spec.items() if k not in ("batch", "seq")}
+        cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32",
+                                  **({} if smoke else shape))
+        seq = min(spec["seq"], 32) if smoke else spec["seq"]
+        model = build_model(cfg, device=device)
+        params = condition_attention(
+            cfg, model.init_params(torch.Generator(device=device).manual_seed(0)))
+        batch = _train_batch(cfg, spec["batch"], seq, device)
+        res = {}
+        for impl in ("auto", "torch"):
+            kernels.reset_launch_counts()
+            res[impl] = loss_and_grads(model, params, batch, TrainProfile(), impl)
+            if impl == "auto":
+                counts = kernels.launch_counts()
+                for k in launches:
+                    launches[k] += counts[k]
+        (la, ga), (lt, gt) = res["auto"], res["torch"]
+        where = {}
+        grad_rel = _tree_rel(ga, gt, where)
+        loss_rel = abs(float(la) - float(lt)) / abs(float(lt))
+        rec = {"phase": "train_exact", "arch": arch, "layers": cfg.n_layers,
+               "enc_layers": cfg.n_enc_layers if cfg.family == "encdec" else None,
+               "batch": spec["batch"], "seq": seq, "loss_kernels": float(la),
+               "loss_plain": float(lt), "loss_rel": loss_rel, "grad_max_rel": grad_rel,
+               "grad_worst_leaf": where.get("worst_leaf"),
+               "tolerance": f"loss 1e-5, each gradient leaf {TRAIN_EXACT_RTOL} of its max-abs"}
+        del res, ga, gt
+        if arch == "llama3.2-1b":
+            rec.update(_train_exact_moments(model, params, cfg, spec["batch"], seq, device))
+        else:
+            rec["reference_init"] = _reference_init_witness(model, cfg, batch, device)
+        emit(rec)
+        if loss_rel > 1e-5 or grad_rel > TRAIN_EXACT_RTOL:
+            raise AssertionError(f"train_exact {arch}: kernels and plain path disagree: {rec}")
+        del model, params, batch
+        torch.cuda.empty_cache()
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"train_exact: a kernel of the path did not launch: {launches}")
+    return launches
+
+
+WITNESS_RATIO = 10.0  # "of the same order": kernels-vs-plain within 10x plain-vs-plain
+
+
+def _plain_grads_at_block_k(model, params, batch, block_k):
+    """loss_and_grads on the plain path with attention's key blocks of
+    ``block_k`` (the forward's and the backward's; 512 otherwise):
+    ``ops.attention`` is pointed at it for this one call."""
+    from repro_torch.kernels import flash_vjp, ops
+    from repro_torch.train import TrainProfile, loss_and_grads
+
+    def blocked(*args, **kw):
+        return flash_vjp.flash_attention_torch(*args, **dict(kw, block_k=block_k))
+
+    ops.flash_attention_torch = blocked
+    try:
+        return loss_and_grads(model, params, batch, TrainProfile(), "torch")[1]
+    finally:
+        ops.flash_attention_torch = flash_vjp.flash_attention_torch
+
+
+def _reference_init_witness(model, cfg, batch, device):
+    """The gradients at the reference's init (no condition_attention), where
+    attention is near-argmax: the kernels against the plain path on the
+    card, beside the plain path against itself, once with attention's key
+    blocks of 64 in place of 512 (only attention's f32 summation order
+    differs, as between the kernels and the plain path) and once on the CPU
+    (every product's order differs). Each as the largest relative difference
+    over the leaves and its leaf, and each gap on the kernels' worst leaf.
+    If the kernels' gap is f32 rounding amplified by the regime, the plain
+    path parts from itself by as much; a fault in the backward would leave
+    the kernels far apart from both. Fails when the kernels' gap passes
+    WITNESS_RATIO x the plain path's at block 64."""
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainProfile, loss_and_grads
+
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    grads = {impl: loss_and_grads(model, params, batch, TrainProfile(), impl)[1]
+             for impl in ("auto", "torch")}
+    grads["block_64"] = _plain_grads_at_block_k(model, params, batch, 64)
+    on_cpu = lambda tree: tree_map(lambda t: t.to("cpu"), tree)  # noqa: E731
+    grads["cpu"] = loss_and_grads(build_model(cfg, device="cpu"), on_cpu(params),
+                                  on_cpu(batch), TrainProfile(), "torch")[1]
+    del params
+
+    def gaps(a, b):  # {leaf path: max |a - b| / max |b|}
+        return {"/".join(map(str, path)): float((x.float().cpu() - y.float().cpu()).abs().max())
+                / max(float(y.float().abs().max()), 1e-30)
+                for (path, x), (_, y) in zip(tree_leaves_with_path(a),
+                                             tree_leaves_with_path(b))}
+
+    kern = gaps(grads["auto"], grads["torch"])
+    block = gaps(grads["block_64"], grads["torch"])
+    cpu = gaps(grads["cpu"], grads["torch"])
+    del grads
+    kl, bl, cl = (max(g, key=g.get) for g in (kern, block, cpu))
+    out = {"kernels_vs_plain": kern[kl], "kernels_worst_leaf": kl,
+           "plain_block64_vs_plain": block[bl], "block64_worst_leaf": bl,
+           "block64_on_kernels_worst_leaf": block[kl],
+           "plain_cpu_vs_plain": cpu[cl], "cpu_worst_leaf": cl,
+           "cpu_on_kernels_worst_leaf": cpu[kl],
+           "gate": f"kernels_vs_plain <= {WITNESS_RATIO} x plain_block64_vs_plain"}
+    if kern[kl] > WITNESS_RATIO * block[bl]:
+        emit({"phase": "train_exact", "failed": "reference_init_witness", **out})
+        raise AssertionError(f"train_exact: at the reference's init the kernels part from the "
+                             f"plain path by more than it parts from itself: {out}")
+    return out
+
+
+def _three_steps(model, params, cfg, batch, seq, device, opt, impl):
+    """Three train steps from ``params`` on SyntheticLM batches 0-2: [(m, v,
+    grad_norm, loss)] after steps 1 and 3."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainProfile, make_train_step
+
+    step, _, specs = make_train_step(model, opt, TrainProfile(), attn_impl=impl)
+    p, s, out = params, adamw_init(specs, device), []
+    for i in range(3):
+        p, s, m = step(p, s, _train_batch(cfg, batch, seq, device, seed=i))
+        out.append((s["m"], s["v"], float(m["grad_norm"]), float(m["loss"])))
+    return [out[0], out[2]]
+
+
+def _train_exact_moments(model, params, cfg, batch, seq, device):
+    """AdamW's m and v after 1 and 3 steps, kernels against the plain path,
+    f32 and int8 moments, at lr 0: both paths then take every gradient at the
+    same params. Then three steps at lr 1e-3, f32 moments: losses within
+    1e-4 at each step, m and v after 3 within 1e-3 of their max-abs. (At lr
+    > 0 Adam's first update is lr * sign(g); where g is all but 0, the two
+    paths' roundings may pick opposite signs and the params part. On the
+    conditioned weights they stay within 2e-5; on the reference's init the
+    losses parted by 0.18% after three steps.)"""
+    from repro_torch.optim import AdamWConfig, constant
+
+    out = {}
+    for int8 in (False, True):
+        opt = AdamWConfig(lr=constant(0.0), int8_state=int8)
+        runs = {impl: _three_steps(model, params, cfg, batch, seq, device, opt, impl)
+                for impl in ("auto", "torch")}
+        for k_steps, sa, st in zip((1, 3), runs["auto"], runs["torch"]):
+            gn_rel = abs(sa[2] - st[2]) / st[2]
+            key = f"{'int8' if int8 else 'f32'}_moments_after_{k_steps}"
+            if int8:
+                mw, mf, mr, m_at = _moment_flips(sa[0], st[0], log_domain=False)
+                vw, vf, vr, v_at = _moment_flips(sa[1], st[1], log_domain=True)
+                ok = (max(mw, vw) <= k_steps * 1.001 and max(mf, vf) <= 1e-3
+                      and max(mr, vr) <= TRAIN_EXACT_RTOL)
+                out[key] = {"m_steps_apart": mw, "v_steps_apart": vw, "m_share_apart": mf,
+                            "v_share_apart": vf, "f32_leaves_rel": max(mr, vr),
+                            "worst_m": m_at, "worst_v": v_at}
+            else:
+                mr, vr = _tree_rel(sa[0], st[0]), _tree_rel(sa[1], st[1])
+                ok = max(mr, vr) <= TRAIN_EXACT_RTOL
+                out[key] = {"m_rel": mr, "v_rel": vr}
+            out[key].update(grad_norm_rel=gn_rel, ok=ok and gn_rel <= 1e-4)
+            if not out[key]["ok"]:
+                emit({"phase": "train_exact", "failed": key, **out})
+                raise AssertionError(f"train_exact {key}: {out[key]}")
+        del runs
+    opt = AdamWConfig(lr=constant(1e-3))
+    runs = {impl: _three_steps(model, params, cfg, batch, seq, device, opt, impl)
+            for impl in ("auto", "torch")}
+    losses = {impl: [r[3] for r in runs[impl]] for impl in runs}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["auto"], losses["torch"]))
+    out["lr_1e-3"] = {"losses_after_1_and_3": losses, "loss_rel": loss_rel,
+                      "m_rel_after_3": _tree_rel(runs["auto"][1][0], runs["torch"][1][0]),
+                      "v_rel_after_3": _tree_rel(runs["auto"][1][1], runs["torch"][1][1])}
+    lr_run = out["lr_1e-3"]
+    if loss_rel > 1e-4 or max(lr_run["m_rel_after_3"], lr_run["v_rel_after_3"]) > \
+            TRAIN_EXACT_RTOL:
+        emit({"phase": "train_exact", "failed": "lr_1e-3", **out})
+        raise AssertionError(f"train_exact lr 1e-3: the runs part: {lr_run}")
+    return out
+
+
+TRAIN_CELL = dict(arch="llama3.2-1b", steps=8, batch=4, seq=2048)
+
+
+def train_phase(smi, device="cuda", smoke=False):
+    """TrainerLoop at llama3.2-1b's full width (16 layers, d_model 2048,
+    32 / 8 heads of 64, vocab 128256; hf:meta-llama/Llama-3.2-1B), bf16
+    params, remat on, f32 moments, B 4 x 2048, 8 steps on SyntheticLM
+    batches; the checkpoint directory a TemporaryDirectory and ckpt_every
+    past the last step, so only the final save runs. Prints the step time
+    p50 over steps 2-7, tokens/s, peak memory, each step's loss (all finite),
+    the launches a step of flash_attention and flash_attention_bwd (counts
+    zeroed just before the loop, read just after), the final save's bytes and
+    seconds; then restores the save and checks every leaf bit for bit
+    against the state in memory. Returns the launch counts of the run."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.runtime import RunConfig, TrainerLoop
+
+    torch.cuda.empty_cache()
+    cell = dict(TRAIN_CELL, **(dict(batch=2, seq=32) if smoke else {}))
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        run = RunConfig(arch=cell["arch"], smoke=smoke, steps=cell["steps"], batch=cell["batch"],
+                        seq=cell["seq"], peak_lr=3e-4, warmup=2, ckpt_dir=ckpt_dir,
+                        ckpt_every=10 * cell["steps"], log_every=1, remat=True, device=device)
+        loop = TrainerLoop(run)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = loop.run_loop()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        times = [h["time_s"] for h in hist[2:]]
+        p50 = statistics.median(times)
+        restored = loop.restore(out["final_step"])
+        same = all(torch.equal(a.view(-1).view(torch.uint8) if a.dim() else a,
+                               b.view(-1).view(torch.uint8) if b.dim() else b)
+                   for a, b in zip(tree_leaves(restored),
+                                   tree_leaves((loop.params, loop.opt_state))))
+        n_leaves = len(tree_leaves(restored))
+        del restored
+    n = len(hist)
+    rec = {"phase": "train", "nvidia_smi": smi, "arch": cell["arch"],
+           "source": "hf:meta-llama/Llama-3.2-1B", "layers": loop.cfg.n_layers,
+           "d_model": loop.cfg.d_model, "heads": [loop.cfg.n_heads, loop.cfg.n_kv_heads],
+           "vocab": loop.cfg.vocab, "dtype": loop.cfg.dtype, "remat": True,
+           "moments": "f32", "batch": cell["batch"], "seq": cell["seq"], "steps": n,
+           "step_ms_p50_steps_2_7": p50 * 1e3, "step_ms": [h["time_s"] * 1e3 for h in hist],
+           "tokens_per_s": cell["batch"] * cell["seq"] / p50,
+           "peak_memory_bytes": peak, "losses": losses,
+           "launches_per_step": {k: counts[k] / n for k in ("flash_attention",
+                                                            "flash_attention_bwd")},
+           "final_save": loop.last_save, "restored_leaves": n_leaves,
+           "restored_bit_equal": same}
+    emit(rec)
+    if not all(math.isfinite(x) for x in losses) or n != cell["steps"]:
+        raise AssertionError(f"train: {n} steps, losses {losses}")
+    if not same:
+        raise AssertionError("train: the restored checkpoint differs from the state in memory")
+    if device == "cuda" and not (counts["flash_attention"] and counts["flash_attention_bwd"]):
+        raise AssertionError(f"train: a kernel of the path did not launch: {counts}")
+    del loop
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_loop_phase(device="cuda"):
+    """The smoke config's trainer loop on the card, with the reference's
+    runtime assertions: it learns (the mean of the last 3 of 12 losses below
+    the first 3's) and its last checkpoint is step 12; a second run resumes
+    from it; a run with simulate_failure(at_step=5) restores its latest
+    checkpoint and finishes at final_step 10."""
+    import tempfile
+
+    from repro_torch.runtime import RunConfig, TrainerLoop, simulate_failure
+
+    kw = dict(arch="llama3.2-1b", smoke=True, batch=4, log_every=100, device=device)
+    with tempfile.TemporaryDirectory() as d:
+        loop = TrainerLoop(RunConfig(steps=12, seq=32, peak_lr=3e-3, warmup=2, ckpt_dir=d,
+                                     ckpt_every=5, **kw))
+        hist = loop.run_loop()["history"]
+        first = statistics.mean(h["loss"] for h in hist[:3])
+        last = statistics.mean(h["loss"] for h in hist[-3:])
+        latest = loop.ckpt.latest()
+        resumed = TrainerLoop(RunConfig(steps=14, seq=32, ckpt_dir=d, ckpt_every=5, **kw))
+        steps_resumed = [h["step"] for h in resumed.run_loop()["history"]]
+    with tempfile.TemporaryDirectory() as d:
+        failing = TrainerLoop(RunConfig(steps=10, seq=16, ckpt_dir=d, ckpt_every=2, **kw),
+                              failure_hook=simulate_failure(at_step=5).maybe_fail)
+        out = failing.run_loop()
+    rec = {"phase": "train_loop", "arch": "llama3.2-smoke", "first3_loss": first,
+           "last3_loss": last, "learns": last < first, "latest": latest,
+           "resumed_steps": steps_resumed, "restarts": failing.restarts,
+           "final_step": out["final_step"], "steps_after_failure": [h["step"] for h in
+                                                                   out["history"]]}
+    emit(rec)
+    if not (last < first and latest == 12 and steps_resumed and steps_resumed[0] >= 12
+            and failing.restarts == 1 and out["final_step"] == 10
+            and any(h["step"] == 9 for h in out["history"])):
+        raise AssertionError(f"train_loop: {rec}")
 
 
 # =====================================================================================
@@ -3184,7 +3727,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
     new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite",
-                                       "quant_matmul", "ssd_scan", "rglru_scan")
+                                       "quant_matmul", "ssd_scan", "rglru_scan",
+                                       "flash_attention_bwd")
                   for fn, rec in ptxas[name].items()
                   if any(k in fn for k in ("flash_mma_kernel", "split_decode_kernel",
                                            "combine_splits_kernel", "matvec_kernel",
@@ -3196,7 +3740,8 @@ def main() -> int:
                                            "tinymatsum_static_kernel<__nv_bfloat16, (int)3",
                                            "tinymatsum_dynamic_kernel", "cb_kernel",
                                            "ssd_kernel", "rglru_kernel",
-                                           "stencil3d_kernel", "sum3d_kernel"))}
+                                           "stencil3d_kernel", "sum3d_kernel",
+                                           "dkdv_kernel", "dq_kernel", "delta_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -3273,6 +3818,8 @@ def main() -> int:
     t_phase = {}
     t0 = time.perf_counter()
     main_recs = kernel_phase(bw)
+    bwd = bwd_checks(bw, torch.Generator(device="cuda").manual_seed(29))
+    main_recs["flash_attention_bwd"] = bwd["llama3.2-1b"]  # the train phase's shape, bf16
     t_phase["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     paper_recs, paper_launches = paper_phase(bw)
@@ -3347,8 +3894,24 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_moe = serve_moe_phase(smi=smi)
     t_phase["serve_moe"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_exact_phase()
+    t_phase["train_exact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_counts = train_phase(smi)
+    t_phase["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_loop_phase()
+    t_phase["train_loop"] = time.perf_counter() - t0
+    emit({"phase": "train_kernels", "nvidia_smi": smi, "rows": [
+        {"case": name, "dtype": rec["dtype"], "launches_train": train_counts[rec["kernel"]],
+         **{k: rec.get(k) for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_device_ms")}}
+        for name, rec in bwd.items()]})
     launches = {**serve["launches"], **serve_quant["int8"]["launches"],
-                **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches}
+                **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches,
+                "flash_attention_bwd": train_counts["flash_attention_bwd"]}
     # the D 112 rows: kernel numbers from the kernels phase, launches from
     # kimi-k2's serve_moe run (the dense-cache rows 6-7 do not run there)
     kimi = serve_moe["kimi-k2-1t-a32b"]["launches"]

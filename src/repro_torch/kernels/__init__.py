@@ -10,6 +10,7 @@ from typing import Dict
 
 from . import (
     flash_attention,
+    flash_vjp,
     matvec,
     ops,
     paged_attention,
@@ -24,6 +25,7 @@ from . import (
 KERNEL_WRAPPERS = {
     **paged_attention.KERNEL_WRAPPERS,
     **flash_attention.KERNEL_WRAPPERS,
+    **flash_vjp.KERNEL_WRAPPERS,
     **ssd_scan.KERNEL_WRAPPERS,
     **rglru_scan.KERNEL_WRAPPERS,
     **quant_matmul.KERNEL_WRAPPERS,

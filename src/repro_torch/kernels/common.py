@@ -37,3 +37,17 @@ def pad_to(x: torch.Tensor, shape) -> torch.Tensor:
     for p in reversed(pads):  # F.pad lists the last dim first
         flat += [0, p]
     return torch.nn.functional.pad(x, flat)
+
+
+# -- the kernels without a backward -------------------------------------------------
+def no_grad_through(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward that the kernel ``name``
+    does not have: grad mode on and an input that requires grad. A kernel's
+    output is filled outside autograd (it has no grad_fn), so without this
+    the gradient of everything before it would be lost without a word."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward on CUDA: call it under torch.no_grad() or on "
+            "tensors that do not require grad"
+        )

@@ -30,7 +30,10 @@
 // kernel's `run` predicate); inside a tile every (row, key) pair is masked by
 // liveness, never by the exponent alone, and a row with no live key outputs 0.
 //
-// bf16 prefill, flash_mma_kernel<D> (D 16, 32, 64, 112, 128, 256): 64 rows a block,
+// Each prefill body has two instantiations: kLse = true also writes each row's
+// lse (training's forward); serving runs kLse = false, without that epilogue.
+//
+// bf16 prefill, flash_mma_kernel<D, kLse> (D 16, 32, 64, 112, 128, 256): 64 rows a block,
 // 16 rows a warp. The products run on the tensor cores
 // (mma.sync.aligned.m16n8k16, bf16 operands, f32 accumulation): S = Q . K^T
 // and O += P . V. The Q tile is loaded once into shared memory; K/V tiles of
@@ -48,7 +51,7 @@
 // 16-row slab, each computes the same S (bit for bit, so their row max and sum
 // agree without an exchange) and owns 128 of the 256 output columns.
 //
-// f32 prefill runs flash_kernel<float, D>: f32 CUDA-core products through
+// f32 prefill runs flash_kernel<float, D, kLse>: f32 CUDA-core products through
 // common.cuh's flash_tile, K/V staged as f32 through shared memory (64 keys a
 // tile, 32 for D 128 and 256; at D 256 a 64-row block stages 205,696 bytes,
 // so one block runs per SM). f32 stays off the tensor cores on purpose: it is
@@ -104,11 +107,12 @@ struct BandLive {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kPrefillThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, const int* __restrict__ q_off_ptr, int q_off_val, int hkv,
-             int group, int tq, int tk, int causal, int has_window, int window, float scale) {
+             T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ q_off_ptr,
+             int q_off_val, int hkv, int group, int tq, int tk, int causal, int has_window,
+             int window, float scale) {
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   constexpr int NT = kv_tile<D>(), R = kPrefillRows;
   const int G = group;
@@ -161,28 +165,46 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     out[((static_cast<size_t>(b) * hq + h * G + g) * tq + t) * D + d] =
         from_f32<T>(acc_s[i] / (l == 0.f ? 1.f : l));
   }
+  if constexpr (kLse) {  // natural-log units of the scaled scores; -1e30 with no live key
+    for (int r = threadIdx.x; r < rows_valid; r += blockDim.x) {
+      const int gr = row0 + r, t = gr / G, g = gr - t * G;
+      const float l = l_s[r];
+      lse[(static_cast<size_t>(b) * hq + h * G + g) * tq + t] =
+          l == 0.f ? kNegInf : m_s[r] + logf(l);
+    }
+  }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
-                   int tk, int causal, int has_window, int window, float scale,
-                   cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, float* lse,
+                      const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
+                      int tk, int causal, int has_window, int window, float scale,
+                      cudaStream_t stream) {
   const int G = hq / hkv;
   constexpr int NT = kv_tile<D>();
   constexpr size_t R = kPrefillRows;
   const size_t smem = sizeof(float) *
       (R * D * 2 + static_cast<size_t>(NT) * (2 * D + 1) + R * NT + 3 * R);
-  auto kern = flash_kernel<T, D>;
+  auto kern = flash_kernel<T, D, kLse>;
   static size_t opted[kMaxDevices] = {};
   cudaError_t e = set_smem(kern, smem, opted);
   if (e != cudaSuccess) return e;
   const int tiles = (tq * G + kPrefillRows - 1) / kPrefillRows;
   kern<<<dim3(tiles, hkv, batch), kPrefillThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<const int*>(q_off_ptr), q_off, hkv, G, tq, tk, causal,
-      has_window, window, scale);
+      static_cast<T*>(out), lse, static_cast<const int*>(q_off_ptr), q_off, hkv, G, tq, tk,
+      causal, has_window, window, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
+                   int tk, int causal, int has_window, int window, float scale,
+                   cudaStream_t stream) {
+  auto body = lse != nullptr ? launch_as<T, D, true> : launch_as<T, D, false>;
+  return body(q, k, v, out, lse, q_off_ptr, q_off, batch, hq, hkv, tq, tk, causal, has_window,
+              window, scale, stream);
 }
 
 
@@ -201,10 +223,10 @@ template <int D> __host__ __device__ constexpr size_t mma_smem() {
   return sizeof(bf16) * (D + kPad) * (kMmaRows + 4 * mma_keys<D>());  // Q + 2 stages of K, V
 }
 
-template <int D>
+template <int D, bool kLse>  // kLse as in flash_kernel
 __global__ void __launch_bounds__(MmaThreads<D>::value)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
                  const int* __restrict__ q_off_ptr, int q_off_val, int hkv, int group, int tq,
                  int tk, int causal, int has_window, int window, float scale) {
   constexpr int NK = mma_keys<D>(), CS = mma_col_split<D>(), NTHR = MmaThreads<D>::value;
@@ -297,6 +319,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r >= rows_valid) continue;
     const int gr = row0 + r, t = gr / G, g = gr - t * G;
     const float l = l_r[i] == 0.f ? 1.f : l_r[i];
+    // the lse in natural-log units (m_r is in log2 units of the scaled scores);
+    // the quad's lanes and a slab's column warps hold the same m and l
+    if (kLse && (lane & 3) == 0 && col0 == 0) {
+      lse[(static_cast<size_t>(b) * hq + h * G + g) * tq + t] =
+          l_r[i] == 0.f ? kNegInf : (m_r[i] + log2f(l_r[i])) * 0.6931471805599453f;
+    }
     bf16* dst = out + ((static_cast<size_t>(b) * hq + h * G + g) * tq + t) * D + col0 +
                 (lane & 3) * 2;
 #pragma unroll
@@ -307,23 +335,33 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
-                       int tk, int causal, int has_window, int window, float scale,
-                       cudaStream_t stream) {
+template <int D, bool kLse>
+cudaError_t launch_mma_as(const void* q, const void* k, const void* v, void* out, float* lse,
+                          const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
+                          int tk, int causal, int has_window, int window, float scale,
+                          cudaStream_t stream) {
   const int G = hq / hkv;
   constexpr size_t smem = mma_smem<D>();
-  auto kern = flash_mma_kernel<D>;
+  auto kern = flash_mma_kernel<D, kLse>;
   static size_t opted[kMaxDevices] = {};
   cudaError_t e = set_smem(kern, smem, opted);
   if (e != cudaSuccess) return e;
   const int tiles = (tq * G + kMmaRows - 1) / kMmaRows;
   kern<<<dim3(tiles, hkv, batch), MmaThreads<D>::value, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<const int*>(q_off_ptr), q_off, hkv, G, tq, tk,
+      static_cast<bf16*>(out), lse, static_cast<const int*>(q_off_ptr), q_off, hkv, G, tq, tk,
       causal, has_window, window, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       const void* q_off_ptr, int q_off, int batch, int hq, int hkv, int tq,
+                       int tk, int causal, int has_window, int window, float scale,
+                       cudaStream_t stream) {
+  auto body = lse != nullptr ? launch_mma_as<D, true> : launch_mma_as<D, false>;
+  return body(q, k, v, out, lse, q_off_ptr, q_off, batch, hq, hkv, tq, tk, causal, has_window,
+              window, scale, stream);
 }
 
 // One-token decode over the dense cache: the split body, then the combine.
@@ -359,14 +397,17 @@ cudaError_t launch_decode(const void* q, const void* k_cache, const void* v_cach
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). q_offset_ptr
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). lse, when not
+// null, receives each query row's (B, Hq, Tq) f32 log-sum-exp of the scaled
+// scores (-1e30 for a row with no live key): the backward's input; serving
+// passes null. q_offset_ptr
 // points at one int32 on the device, or is null and q_offset is used. A
 // window applies when has_window is set. Each returns the cudaError_t of the
 // launch (0 on success); nothing here synchronizes.
 int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out,
-                          const void* q_offset_ptr, int q_offset, int batch, int hq, int hkv,
-                          int tq, int tk, int head_dim, int causal, int has_window, int window,
-                          float scale, void* stream) {
+                          float* lse, const void* q_offset_ptr, int q_offset, int batch, int hq,
+                          int hkv, int tq, int tk, int head_dim, int causal, int has_window,
+                          int window, float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || batch <= 0 || hkv <= 0 || hq % hkv != 0 || tq <= 0 ||
       tk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -376,34 +417,34 @@ int repro_flash_attention(int dtype, const void* q, const void* k, const void* v
   auto run = [&]() -> cudaError_t {
     if (dtype == 1) {  // bf16: the tensor-core body
       switch (head_dim) {
-        case 16: return launch_mma<16>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                       tq, tk, causal, has_window, window, scale, st);
-        case 32: return launch_mma<32>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                       tq, tk, causal, has_window, window, scale, st);
-        case 64: return launch_mma<64>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                       tq, tk, causal, has_window, window, scale, st);
-        case 112: return launch_mma<112>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                         tq, tk, causal, has_window, window, scale, st);
-        case 128: return launch_mma<128>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                         tq, tk, causal, has_window, window, scale, st);
-        case 256: return launch_mma<256>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                         tq, tk, causal, has_window, window, scale, st);
+        case 16: return launch_mma<16>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                       hkv, tq, tk, causal, has_window, window, scale, st);
+        case 32: return launch_mma<32>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                       hkv, tq, tk, causal, has_window, window, scale, st);
+        case 64: return launch_mma<64>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                       hkv, tq, tk, causal, has_window, window, scale, st);
+        case 112: return launch_mma<112>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                         hkv, tq, tk, causal, has_window, window, scale, st);
+        case 128: return launch_mma<128>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                         hkv, tq, tk, causal, has_window, window, scale, st);
+        case 256: return launch_mma<256>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                         hkv, tq, tk, causal, has_window, window, scale, st);
         default: return cudaErrorInvalidValue;
       }
     }
     switch (head_dim) {  // f32: flash_kernel's CUDA-core products
-      case 16: return launch<float, 16>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
-                                        tk, causal, has_window, window, scale, st);
-      case 32: return launch<float, 32>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
-                                        tk, causal, has_window, window, scale, st);
-      case 64: return launch<float, 64>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv, tq,
-                                        tk, causal, has_window, window, scale, st);
-      case 112: return launch<float, 112>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                          tq, tk, causal, has_window, window, scale, st);
-      case 128: return launch<float, 128>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                          tq, tk, causal, has_window, window, scale, st);
-      case 256: return launch<float, 256>(q, k, v, out, q_offset_ptr, q_offset, batch, hq, hkv,
-                                          tq, tk, causal, has_window, window, scale, st);
+      case 16: return launch<float, 16>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                        hkv, tq, tk, causal, has_window, window, scale, st);
+      case 32: return launch<float, 32>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                        hkv, tq, tk, causal, has_window, window, scale, st);
+      case 64: return launch<float, 64>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                        hkv, tq, tk, causal, has_window, window, scale, st);
+      case 112: return launch<float, 112>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                          hkv, tq, tk, causal, has_window, window, scale, st);
+      case 128: return launch<float, 128>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                          hkv, tq, tk, causal, has_window, window, scale, st);
+      case 256: return launch<float, 256>(q, k, v, out, lse, q_offset_ptr, q_offset, batch, hq,
+                                          hkv, tq, tk, causal, has_window, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   };

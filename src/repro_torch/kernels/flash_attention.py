@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .common import no_grad_through
 from . import paged_attention as _paged
 from .paged_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF, _check
 
@@ -44,12 +45,15 @@ from .paged_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF, _check
 # plain PyTorch versions
 # ---------------------------------------------------------------------------------
 def attention_torch(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    q_offset=0, scale: Optional[float] = None,
-                    block_k: int = 512) -> torch.Tensor:
+                    q_offset=0, scale: Optional[float] = None, block_k: int = 512,
+                    return_lse: bool = False):
     """Blocked online-softmax GQA attention, the reference's ``attention_jnp``:
     f32 sums, memory O(Tq * block_k). Dead scores are zeroed through ``*
     live``, never through exp() alone, so a fully masked row outputs 0 (the
-    reference's twin gives it the mean of V: exp(NEG_INF - NEG_INF) == 1)."""
+    reference's twin gives it the mean of V: exp(NEG_INF - NEG_INF) == 1).
+    ``return_lse`` also returns the f32 (B, Hq, Tq) log-sum-exp of the scaled
+    scores (NEG_INF on a row with no live key), the reference's ``_fwd_impl``'s
+    second output."""
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     group = hq // hkv
@@ -76,7 +80,11 @@ def attention_torch(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
         m = m_new
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / l_safe).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l_safe))[..., 0]
+    return out
 
 
 def decode_attention_torch(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
@@ -110,8 +118,8 @@ def decode_partials_torch(q, k_cache, v_cache, pos, *, keys_per_split: int,
 # ---------------------------------------------------------------------------------
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = _build.Binding("flash_attention", {
-    "repro_flash_attention": [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
-                              _f, _p],
+    "repro_flash_attention": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                              _i, _f, _p],
     "repro_flash_decode": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                            _f, _p],
 })
@@ -156,16 +164,25 @@ def _window(window):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    q_offset=0, scale: Optional[float] = None) -> torch.Tensor:
+                    q_offset=0, scale: Optional[float] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GQA flash attention, 64 query rows a block (kernel: flash_mma_kernel
     on the tensor cores for bfloat16, flash_kernel's f32 CUDA-core products
     for float32). On CUDA: q, k, v contiguous, one of float32/bfloat16, D in
     HEAD_DIMS, bfloat16 ones on 16-byte boundaries (the kernel copies 16
-    bytes at a time); Tq and Tk free (Tq != Tk allowed). Output in q's dtype."""
+    bytes at a time); Tq and Tk free (Tq != Tk allowed). Output in q's dtype.
+    ``lse``, a contiguous f32 (B, Hq, Tq) tensor on q's device, receives each
+    row's log-sum-exp (the backward's input; serving passes none). A gradient
+    goes through ``flash_vjp.FlashAttentionFn``, never through this wrapper."""
     if q.device.type == "cpu":
         return attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                scale=scale)
+    no_grad_through("flash_attention", q, k, v)
     _check_qkv(q, k, v)
+    if lse is not None:
+        _check("lse", lse, ndim=3, dtype=torch.float32, device=q.device)
+        if tuple(lse.shape) != tuple(q.shape[:3]):
+            raise ValueError(f"lse {tuple(lse.shape)} must be {tuple(q.shape[:3])}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
@@ -179,6 +196,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     _LIB.launch(
         "repro_flash_attention", "flash_attention",
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         off_t.data_ptr() if off_t is not None else None, off, b, hq, hkv, tq, tk, d,
         int(bool(causal)), has_w, w, scale, device=q.device,
     )
@@ -200,6 +218,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
     per split. Output in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale)
+    no_grad_through("flash_decode", q, k_cache, v_cache)
     _check_qkv(q, k_cache, v_cache)
     b, hq, tq, d = q.shape
     _, hkv, s_len, _ = k_cache.shape

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ._paper_suite import check_operands, launch
+from .common import no_grad_through
 from .paged_attention import sm_count
 
 LEFT_MIN_COLS = 256  # columns a left block takes at least (32 a warp)
@@ -81,6 +82,7 @@ def matvec_right(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check_shapes("matvec_right", a, x, a.shape[1] if a.dim() == 2 else -1)
     if a.device.type == "cpu":
         return matvec_torch(a, x)
+    no_grad_through("matvec_right", a, x)
     y = _launch(a, x, a.shape[0], 0, "matvec_right")
     matvec_right.launches += 1
     return y
@@ -91,6 +93,7 @@ def matvec_left(at: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check_shapes("matvec_left", at, x, at.shape[0] if at.dim() == 2 else -1)
     if at.device.type == "cpu":
         return matvec_torch(at.t(), x)
+    no_grad_through("matvec_left", at, x)
     y = _launch(at, x, at.shape[1], 1, "matvec_left")
     matvec_left.launches += 1
     return y

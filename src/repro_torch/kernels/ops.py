@@ -32,6 +32,7 @@ from .flash_attention import (
     flash_attention,
     flash_decode,
 )
+from .flash_vjp import FlashAttentionFn, flash_attention_torch
 from .matvec import matvec_left, matvec_right, matvec_torch
 from .paged_attention import (
     paged_decode_attention_quant_torch,
@@ -101,7 +102,18 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     i at absolute position i + q_offset (an int or a 0-d tensor), optional
     causal mask and local window, f32 sums, fully masked rows output 0. The
     kernel is flash_attention (contiguous operands); the plain version is the
-    reference's blocked ``attention_jnp`` (``block_k`` keys a block)."""
+    reference's blocked ``attention_jnp`` (``block_k`` keys a block).
+
+    With grad mode on and any of q, k, v requiring grad, the result is
+    differentiable, as the reference's ``flash_attention_jnp``: on CUDA
+    through ``flash_vjp.FlashAttentionFn`` (flash_attention forward,
+    flash_attention_bwd backward), with ``impl="torch"`` or on the CPU
+    through the plain ``flash_vjp.flash_attention_torch``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if _want_kernel(impl, q):
+            return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, scale)
+        return flash_attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                     scale=scale, block_k=block_k)
     if _want_kernel(impl, q):
         return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                scale=scale)

@@ -55,6 +55,7 @@ from repro_torch.core.distributed import (  # noqa: F401  (re-exported: the refe
 )
 
 from . import _build
+from .common import no_grad_through
 
 NEG_INF = -1e30
 # csrc/paged_attention.cu's kGeometry for the bf16 chunk body, in its order
@@ -555,6 +556,7 @@ def paged_flash_decode(
         return paged_decode_attention_torch(
             q, k_pool, v_pool, block_tables, context_lens, scale=scale
         )
+    no_grad_through("paged_decode", q, k_pool, v_pool)
     _check_attention_operands(q, k_pool, v_pool, block_tables, context_lens, "context_lens")
     b, hq, tq, d = q.shape
     num_pages, hkv, ps, _ = k_pool.shape
@@ -603,6 +605,7 @@ def paged_flash_prefill_chunk(
         return paged_prefill_chunk_torch(
             q, chunk_k, chunk_v, k_pool, v_pool, block_tables, cursors, scale=scale
         )
+    no_grad_through("paged_prefill_chunk", q, chunk_k, chunk_v, k_pool, v_pool)
     _check_attention_operands(q, k_pool, v_pool, block_tables, cursors, "cursors")
     b, hq, c, d = q.shape
     num_pages, hkv, ps, _ = k_pool.shape
@@ -655,6 +658,7 @@ def paged_flash_decode_quant(q, k_q, k_scale, v_q, v_scale, block_tables, contex
         return paged_decode_attention_quant_torch(
             q, k_q, k_scale, v_q, v_scale, block_tables, context_lens, bits=bits, scale=scale,
         )
+    no_grad_through("paged_decode_quant", q, k_scale, v_scale)
     _check_attention_operands(q, k_q, v_q, block_tables, context_lens, "context_lens", bits)
     _check_scales(k_q, k_scale, v_scale, bits)
     b, hq, tq, d = q.shape
@@ -693,6 +697,7 @@ def paged_flash_prefill_chunk_quant(q, chunk_k, chunk_v, k_q, k_scale, v_q, v_sc
             q, chunk_k, chunk_v, k_q, k_scale, v_q, v_scale, block_tables, cursors,
             bits=bits, scale=scale,
         )
+    no_grad_through("paged_prefill_chunk_quant", q, chunk_k, chunk_v, k_scale, v_scale)
     _check_attention_operands(q, k_q, v_q, block_tables, cursors, "cursors", bits)
     _check_scales(k_q, k_scale, v_scale, bits)
     b, hq, c, d = q.shape

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.distributed import unpack_int4_adjacent
 
 from . import _build
+from .common import no_grad_through
 from .paged_attention import sm_count
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -143,6 +144,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     ``quant_matmul.last_plan``."""
     if x.device.type == "cpu":
         return quant_matmul_torch(x, q, scale, bits=bits)
+    no_grad_through("quant_matmul", x, scale)
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     for name, t, dtype in (("x", x, None), ("q", q, torch.int8), ("scale", scale, torch.float32)):

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .common import no_grad_through
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/rglru_scan.cu's kGeometry, in its order; the library is checked against
@@ -106,6 +107,7 @@ def rglru_scan(a, b, *, initial_state: Optional[torch.Tensor] = None,
     state float32 (B, W) and contiguous; any T."""
     if a.device.type == "cpu":
         return rglru_torch(a, b, initial_state, return_final_state)
+    no_grad_through("rglru_scan", a, b, initial_state)
     if a.device.type != "cuda":
         raise ValueError(f"a must be a CUDA tensor, got {a.device}")
     if a.dim() != 3 or a.dtype not in _DTYPE_CODE:

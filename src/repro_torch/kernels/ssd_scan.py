@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .common import no_grad_through
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 256  # n_state the kernel's shared-memory tiles hold at most
@@ -141,6 +142,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state: Optional[torch.T
     if x.device.type == "cpu":
         return ssd_torch(x, dt, A, B, C, chunk=chunk, initial_state=initial_state,
                          return_final_state=return_final_state)
+    no_grad_through("ssd_scan", x, dt, A, B, C, initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPE_CODE:

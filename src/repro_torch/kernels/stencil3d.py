@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from ._paper_suite import DTYPE_CODE, GEOMETRY, check_operands, launch, stencil3d_blocks_per_sm
+from .common import no_grad_through
 from .paged_attention import sm_count
 
 TILE_J, TILE_K = GEOMETRY["stencil_tile_j"], GEOMETRY["stencil_tile_k"]
@@ -109,6 +110,7 @@ def stencil3d(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stencil3d takes a rank-3 tensor, got shape {tuple(x.shape)}")
     if x.device.type == "cpu":
         return stencil3d_torch(x)
+    no_grad_through("stencil3d", x)
     code = check_operands("stencil3d", x)
     i, j, k = x.shape
     check_reach((i, j, k))

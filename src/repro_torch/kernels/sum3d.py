@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ._paper_suite import DTYPE_CODE, GEOMETRY, check_operands, launch, sum3d_blocks_per_sm
+from .common import no_grad_through
 from .paged_attention import sm_count
 
 THREADS = GEOMETRY["sum3d_threads"]
@@ -64,6 +65,7 @@ def sum3d(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sum3d takes a rank-3 tensor, got shape {tuple(x.shape)}")
     if x.device.type == "cpu":
         return sum3d_torch(x)
+    no_grad_through("sum3d", x)
     code = check_operands("sum3d", x)
     grid = grid_for(x)
     partials = torch.empty(grid, dtype=torch.float32, device=x.device)

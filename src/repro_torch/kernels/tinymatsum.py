@@ -38,6 +38,7 @@ from typing import Callable, Optional
 import torch
 
 from ._paper_suite import DTYPE_CODE, GEOMETRY, check_operands, launch, tinymatsum_blocks_per_sm
+from .common import no_grad_through
 from .paged_attention import sm_count
 
 MAX_STATIC_EXTENT = GEOMETRY["tiny_max_extent"]  # the static kernel's instantiated J, K
@@ -137,6 +138,7 @@ def tinymatsum_static(o: torch.Tensor, s: torch.Tensor, *,
     ``plan`` (default: plan_tinymatsum's) sets the kernel's spans."""
     if o.device.type == "cpu":
         return tinymatsum_torch(o, s)
+    no_grad_through("tinymatsum_static", o, s)
     _, j, k = o.shape
     if not (1 <= j <= MAX_STATIC_EXTENT and 1 <= k <= MAX_STATIC_EXTENT):
         raise ValueError(f"tinymatsum_static is instantiated for J, K in 1..{MAX_STATIC_EXTENT}, "
@@ -155,6 +157,7 @@ def tinymatsum_dynamic(o: torch.Tensor, s: torch.Tensor, *, jmax: int = 8, kmax:
         raise ValueError(f"extents ({j}, {k}) exceed the envelope ({jmax}, {kmax})")
     if o.device.type == "cpu":
         return tinymatsum_torch(o, s)
+    no_grad_through("tinymatsum_dynamic", o, s)
     out = _launch(o, s, False, "tinymatsum_dynamic", plan)
     tinymatsum_dynamic.launches += 1
     return out

@@ -3,7 +3,7 @@ qwen2.5-3b, granite-8b), the MoE decoders (dbrx-132b, kimi-k2-1t-a32b),
 Mamba-2 (mamba2-780m), the RG-LRU / local-attention hybrid
 (recurrentgemma-2b), the encoder-decoder (whisper-large-v3) and the vision
 model with gated cross-attention layers (llama-3.2-vision-90b)."""
-from .bridge import from_jax_params
+from .bridge import from_jax_params, reference_shapes, to_jax_layout, to_reference_layout
 from .config import ModelConfig
 from .registry import ARCH_IDS, build_model, count_params, get_config
 from .transformer import (
@@ -26,4 +26,7 @@ __all__ = [
     "count_params",
     "from_jax_params",
     "get_config",
+    "reference_shapes",
+    "to_jax_layout",
+    "to_reference_layout",
 ]

@@ -216,3 +216,22 @@ def apply_lm_head(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Ten
         mask = torch.arange(vp, device=logits.device) < cfg.vocab
         logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over valid positions, the reference's: logits (..., V) in f32
+    (the padded vocab columns already -1e9 from ``apply_lm_head``), a
+    log-sum-exp shifted by the row max, the label's logit picked out (here by
+    ``torch.gather``: the reference's masked reduction over the vocab axis
+    computes the same value, and only pays off with a sharded vocab), and
+    with ``mask`` the sum of nll * mask over max(sum(mask), 1)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

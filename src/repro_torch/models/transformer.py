@@ -33,9 +33,15 @@ versions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels.common import resolve_device
 
@@ -49,6 +55,7 @@ from .layers import (
     apply_lm_head,
     apply_mlp,
     apply_norm,
+    cross_entropy,
     embed_specs,
     init_tree,
     mlp_specs,
@@ -418,6 +425,29 @@ def block_program(cfg):
     raise ValueError(cfg.family)
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" remat policy: keep every matmul's output, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(remat: bool, policy: Optional[str]):
+    """How ``forward`` runs one layer: directly, or under a non-reentrant
+    ``torch.utils.checkpoint`` that keeps nothing (policy None / "nothing")
+    or the matmul outputs ("dots")."""
+    if policy not in (None, "nothing", "dots"):
+        raise ValueError(f"remat_policy must be None, 'nothing' or 'dots', got {policy!r}")
+    if not remat or not torch.is_grad_enabled():
+        return lambda fn, *args, **kw: fn(*args, **kw)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return lambda fn, *args, **fkw: checkpoint(fn, *args, use_reentrant=False, **kw, **fkw)
+
+
 def _sinusoidal(t: int, d: int, device=None) -> torch.Tensor:
     """(t, d) f32 position table: [sin | cos] halves (not interleaved) of
     pos / 10000^(2i / d), as the reference's."""
@@ -555,17 +585,53 @@ class Model:
         return None
 
     # ---- full-sequence forward -------------------------------------------------------
-    def forward(self, params, tokens: torch.Tensor, *, ctx=None, attn_impl: str = "auto"):
+    def forward(self, params, tokens: torch.Tensor, *, ctx=None, attn_impl: str = "auto",
+                remat: bool = False, remat_policy: Optional[str] = None):
         """tokens (B, T) -> (logits (B, T, Vp), aux): aux the f32 sum of the MoE
         layers' aux losses in layer order (0 for the other blocks). ``ctx``:
-        the cross-attention context (``encode_ctx``) for encdec / vlm."""
+        the cross-attention context (``encode_ctx``) for encdec / vlm.
+
+        ``remat`` recomputes each layer in the backward instead of keeping its
+        activations (the reference's per-layer ``jax.checkpoint``:
+        ``torch.utils.checkpoint`` without reentry); ``remat_policy`` "dots"
+        keeps the outputs of the layer's matmuls (``aten.mm`` / ``aten.bmm``)
+        and recomputes the rest, None or "nothing" keeps nothing. Without
+        grad mode it changes nothing."""
         x = self._embed(params, tokens)
         aux = torch.zeros((), device=x.device)
+        run = _remat(remat, remat_policy)
         for blk, layers in self._program(params):
             for p in layers:
-                x, a = blk.train(self.cfg, p, x, impl=attn_impl, ctx=ctx)
+                x, a = run(blk.train, self.cfg, p, x, impl=attn_impl, ctx=ctx)
                 aux = aux + a
         return self._head(params, x), aux
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = True,
+                remat_policy: Optional[str] = None, aux_weight: float = 0.01,
+                attn_impl: str = "auto"):
+        """The training loss, as the reference's: next-token CE of
+        ``forward(tokens[:, :-1])`` against ``tokens[:, 1:]`` (``batch["mask"]``
+        weighting positions when given), the context encoded first for encdec
+        / vlm (``batch["frames"]`` / ``batch["image_embeds"]``), plus
+        ``aux_weight`` times the MoE aux loss. -> (loss, {"ce", "aux"}).
+
+        On the card the ssm and hybrid families raise NotImplementedError:
+        ssd_scan and rglru_scan have no backward on CUDA yet (ROADMAP item 5),
+        and their plain versions are not a training path there. On the CPU
+        every family trains through the plain versions, as the reference
+        trains through its jnp twins."""
+        tokens = batch["tokens"]
+        if tokens.device.type == "cuda" and self.cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"training the {self.cfg.family} family on CUDA needs a backward for "
+                "ssd_scan / rglru_scan, which the port does not have yet (ROADMAP item 5)"
+            )
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        ctx = self.encode_ctx(params, batch, attn_impl=attn_impl)
+        logits, aux = self.forward(params, inp, ctx=ctx, attn_impl=attn_impl, remat=remat,
+                                   remat_policy=remat_policy)
+        loss = cross_entropy(logits, labels, batch.get("mask"))
+        return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
     # ---- serving ---------------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor, *, ctx=None, batch_inputs=None,

@@ -54,7 +54,9 @@ def test_package_mirrors_reference_names():
                 "core/accessors.py", "core/distributed.py", "models/attention.py",
                 "models/transformer.py", "models/registry.py", "serving/step.py",
                 "serving/engine/engine.py", "serving/engine/cache.py",
-                "serving/engine/kvquant.py", "runtime/health.py"):
+                "serving/engine/kvquant.py", "runtime/health.py", "runtime/loop.py",
+                "kernels/flash_vjp.py", "optim/adamw.py", "optim/schedules.py",
+                "train/step.py", "data/pipeline.py", "checkpoint/store.py"):
         assert (root / rel).exists(), rel
         assert (SRC / "repro" / rel).exists(), rel
 

@@ -2486,3 +2486,161 @@ def _condition_attention(cfg, params):
         else:
             for v in params.values():
                 _condition_attention(cfg, v)
+
+
+# ---------------------------------------------------------------------------------
+# the flash-attention backward (kernels/flash_vjp.py, csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------------
+# (b, hq, hkv, tq, tk, d, causal, window, q_offset): GQA groups 1-4, key tails
+# past the 64-key tile (and the 32-key tile at D 256), the causal start tile
+# at q_offset > 0, windows, Tq != Tk, every head dim
+BWD_CASES = [(2, 4, 2, 37, 37, 16, True, None, 0), (1, 6, 2, 70, 70, 32, True, None, 0),
+             (2, 8, 2, 130, 130, 64, True, None, 0), (1, 4, 1, 96, 96, 64, True, 24, 0),
+             (2, 4, 4, 20, 150, 64, False, None, 0), (1, 4, 2, 40, 100, 64, True, None, 60),
+             (1, 4, 2, 33, 90, 64, True, 16, 57), (1, 8, 8, 65, 65, 112, True, None, 0),
+             (2, 4, 2, 129, 129, 128, True, None, 0), (1, 4, 1, 70, 70, 256, True, None, 0),
+             (1, 2, 2, 20, 75, 256, False, None, 0)]
+BWD_RTOL = 1e-4  # of each gradient's max-abs: sums over Tq (and the group) in another order
+
+
+def _bwd_inputs(case, dtype, seed=0):
+    b, hq, hkv, tq, tk, d = case[:6]
+    return (_rand((b, hq, tq, d), dtype, seed), _rand((b, hkv, tk, d), dtype, seed + 1),
+            _rand((b, hkv, tk, d), dtype, seed + 2), _rand((b, hq, tq, d), dtype, seed + 3))
+
+
+def _assert_grad_close(got, want, dtype, what=""):
+    """f32: max |got - want| <= 1e-4 * max |want|; bf16: elementwise within one
+    bf16 ulp of want plus that f32 bound."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    w = want.float()
+    tol = BWD_RTOL * float(w.abs().max())
+    d = (got.float() - w).abs()
+    if dtype == torch.float32:
+        assert float(d.max()) <= tol, (what, float(d.max()), tol)
+    else:
+        _, e = torch.frexp(w)
+        ulp = torch.ldexp(torch.ones_like(w), e - 8)
+        assert float((d - ulp - tol).max()) <= 0, (what, float(d.max()), tol)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=_ids(BWD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_matches_plain(case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_vjp as fv
+
+    causal, window, off = case[6:]
+    q, k, v, g = _bwd_inputs(case, dtype)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off, lse=lse)
+    out_p, lse_p = fa.attention_torch(q, k, v, causal=causal, window=window, q_offset=off,
+                                      return_lse=True)
+    torch.testing.assert_close(lse, lse_p, rtol=2e-5, atol=2e-5)
+    n = fv.flash_attention_bwd.launches
+    got = fv.flash_attention_bwd(q, k, v, out, g, lse, causal=causal, window=window,
+                                 q_offset=torch.tensor(off, device="cuda"))
+    torch.cuda.synchronize()
+    assert fv.flash_attention_bwd.launches == n + 1
+    want = fv.flash_bwd_torch(q, k, v, out, g, lse, causal=causal, window=window, q_offset=off)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        _assert_grad_close(a, b_, dtype, name)
+    again = fv.flash_attention_bwd(q, k, v, out, g, lse, causal=causal, window=window,
+                                   q_offset=off)
+    for a, b_ in zip(got, again):  # no atomics: the same bits from run to run
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_lse_output_leaves_out_bit_equal(dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _bwd_inputs((2, 8, 2, 100, 160, 64), dtype, seed=4)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+    for kw in (dict(causal=True, q_offset=60), dict(causal=False), dict(window=24)):
+        plain = fa.flash_attention(q, k, v, **kw)
+        with_lse = fa.flash_attention(q, k, v, lse=lse, **kw)
+        assert torch.equal(plain, with_lse), kw
+        _, want = fa.attention_torch(q, k, v, return_lse=True, **kw)
+        torch.testing.assert_close(lse, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bwd_fully_masked_rows_are_zero():
+    from repro_torch.kernels import flash_vjp as fv
+
+    q, k, v, g = _bwd_inputs((1, 4, 2, 9, 14, 32), torch.float32, seed=6)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = fv.FlashAttentionFn.apply(q, k, v, True, None, -3, None)  # rows 0-2 see no key
+    out.backward(g)
+    assert torch.count_nonzero(out[:, :, :3]) == 0
+    for t in (q.grad, k.grad, v.grad):
+        assert torch.isfinite(t).all()
+    assert torch.count_nonzero(q.grad[:, :, :3]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ops_attention_gradients_on_the_kernels_match_the_plain_path(dtype):
+    grads = {}
+    for impl in ("auto", "torch"):
+        q, k, v, g = _bwd_inputs((2, 8, 2, 80, 80, 64), dtype, seed=8)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        ops.attention(q, k, v, causal=True, window=32, impl=impl).backward(g)
+        grads[impl] = (q.grad, k.grad, v.grad)
+    for name, a, b_ in zip(("dq", "dk", "dv"), grads["auto"], grads["torch"]):
+        _assert_grad_close(a, b_, dtype, name)
+
+
+def test_kernels_without_a_backward_refuse_a_gradient():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as trg
+    from repro_torch.kernels import ssd_scan as tss
+
+    x = _rand((2, 4, 16, 32), torch.float32, 1).requires_grad_()
+    k = _rand((2, 2, 16, 32), torch.float32, 2)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        fa.flash_attention(x, k, k)
+    with pytest.raises(RuntimeError, match="flash_decode"):
+        fa.flash_decode(x[:, :, :1], k, k, 5)
+    pool = _rand((5, 2, 8, 32), torch.float32, 3).requires_grad_()
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([9, 12], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="paged_decode"):
+        pa.paged_flash_decode(x[:, :, :1].detach(), pool, pool, bt, lens)
+    with pytest.raises(RuntimeError, match="quant_matmul"):
+        qmm.quant_matmul(_rand((4, 64), torch.float32, 4).requires_grad_(),
+                         torch.zeros((32, 64), dtype=torch.int8, device="cuda"),
+                         torch.ones((32, 1), device="cuda"), bits=8)
+    a = torch.rand((2, 16, 64), device="cuda").requires_grad_()
+    with pytest.raises(RuntimeError, match="rglru_scan"):
+        trg.rglru_scan(a, a)
+    with pytest.raises(RuntimeError, match="sum3d"):
+        tsum.sum3d(_rand((8, 8, 8), torch.float32, 5).requires_grad_())
+    xs = _rand((1, 64, 4, 16), torch.float32, 6).requires_grad_()
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        tss.ssd_scan(xs, torch.rand((1, 64, 4), device="cuda"), -torch.rand(4, device="cuda"),
+                     _rand((1, 64, 1, 16), torch.float32, 7),
+                     _rand((1, 64, 1, 16), torch.float32, 8))
+    with torch.no_grad():  # serving: no grad mode, the kernels run
+        fa.flash_attention(x, k, k)
+
+
+def test_loss_fn_refuses_the_scan_families_on_the_card():
+    from repro_torch.models import build_model, get_config
+
+    for arch in ("mamba2-780m", "recurrentgemma-2b"):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        model = build_model(cfg, device="cuda")
+        params = model.init_params(torch.Generator("cuda").manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab, (2, 17), device="cuda")
+        with pytest.raises(NotImplementedError, match="item 5"):
+            model.loss_fn(params, {"tokens": tokens})
+
+
+def test_trainer_loop_raises_the_scan_families_refusal_without_restart(tmp_path):
+    from repro_torch.runtime import RunConfig, TrainerLoop
+
+    loop = TrainerLoop(RunConfig(arch="mamba2-780m", smoke=True, steps=2, batch=2, seq=8,
+                                 ckpt_dir=str(tmp_path), device="cuda"))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        loop.run_loop()
+    assert loop.restarts == 0

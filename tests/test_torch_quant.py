@@ -258,7 +258,7 @@ def test_launch_counts_cover_every_kernel():
         "paged_decode", "paged_prefill_chunk", "paged_decode_quant",
         "paged_prefill_chunk_quant", "quant_matmul", "sum3d", "stencil3d",
         "tinymatsum_static", "tinymatsum_dynamic", "matvec_right", "matvec_left",
-        "flash_attention", "flash_decode", "ssd_scan", "rglru_scan",
+        "flash_attention", "flash_decode", "ssd_scan", "rglru_scan", "flash_attention_bwd",
     }
 
 
