@@ -302,17 +302,19 @@ lines; any failure raises and exits non-zero:
                 it against the plain backward (flash_bwd_torch) at
                 llama3.2-1b's (4, 32 / 8, 2048, 64) causal, (2, 16 / 2,
                 1024, 128) causal, a 64-key window at D 64, whisper's cross
-                shape (4, 20 / 20, 448 vs 1500, 64) non-causal and D 256 at
-                (1, 8 / 1, 512, 256), f32 (max |err| <= 1e-4 of each
+                shape (4, 20 / 20, 448 vs 1500, 64) non-causal, D 256 at
+                (1, 8 / 1, 512, 256) and a ragged (1, 12 / 4, 777, 128)
+                causal with q_offset a tensor, f32 (max |err| <= 1e-4 of each
                 gradient's max-abs: its sums over Tq run in another order)
                 and bf16 (within one bf16 ulp of the plain value plus that
                 bound), two runs bit-equal, with device ms beside the
                 device ms of torch.autograd.grad through
                 scaled_dot_product_attention (timed only) and the bound
                 (2.5 x the forward's flops over the live pairs, or the bytes
-                of q, k, v, out, dO, lse, dq, dk, dv at 3.35e12 B/s); a
-                train_kernels line repeats its bf16 rows beside the train
-                phase's launches.
+                of q, k, v, out, dO, lse, dq, dk, dv at 3.35e12 B/s), the
+                plan's splits, tiles and grids and the SHA-256 of (dq, dk,
+                dv); a train_kernels line repeats its bf16 rows beside the
+                train phase's launches.
 
 Then the card's name and power limit as nvidia-smi prints them, and as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3220,6 +3222,9 @@ BWD_CASES = (("llama3.2-1b", 4, 32, 8, 2048, 2048, 64, True, None),
              ("window64", 2, 32, 8, 1024, 1024, 64, True, 64),
              ("whisper_cross", 4, 20, 20, 448, 1500, 64, False, None),
              ("d256", 1, 8, 1, 512, 512, 256, True, None))
+# a ragged Tq (777: a 9-row tail past the 64-row tiles, a 9-key tail past the
+# 64-key tiles), q_offset passed as a tensor, at D 128's 32-row walk tiles
+BWD_RAGGED = (("ragged_d128", 1, 12, 4, 777, 777, 128, True, None),)
 BWD_RTOL = 1e-4  # of each gradient's max-abs: the sums over Tq (and the group) run in another order
 
 
@@ -3239,20 +3244,26 @@ def _grad_excess(got, want, dtype):
 
 def bwd_checks(bw, g):
     """flash_attention_bwd against the plain backward (flash_bwd_torch) on the
-    forward kernel's out and lse, at BWD_CASES, f32 and bf16; event ms,
-    device ms, plain ms, the bound (2.5 x the forward's flops over this
-    run's live pairs at the dtype's peak; the bytes of q, k, v, out, dO, lse,
-    dq, dk, dv at the data sheet's rate; the larger), and as the yardstick
-    the device ms of torch.autograd.grad through
-    F.scaled_dot_product_attention (its graph built once, the backward alone
-    timed; a band mask for the window). Returns {case: the bf16 record}."""
+    forward kernel's out and lse, at BWD_CASES and BWD_RAGGED (q_offset a
+    tensor), f32 and bf16; event ms, device ms, plain ms, the bound (2.5 x
+    the forward's flops over this run's live pairs at the dtype's peak; the
+    bytes of q, k, v, out, dO, lse, dq, dk, dv at the data sheet's rate; the
+    larger), and as the yardstick the device ms of torch.autograd.grad
+    through F.scaled_dot_product_attention (its graph built once, the
+    backward alone timed; a band mask for the window). Each record carries
+    the plan's splits, the tiles, the grids and the resident dK/dV blocks an
+    SM; the f32 llama3.2-1b record the SHA-256 of (dq, dk, dv), to hold
+    against the parent's. Returns {case: the bf16 record}."""
+    import hashlib
+
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_vjp as fv
 
     out = {}
-    for name, b, hq, hkv, tq, tk, d, causal, window in BWD_CASES:
+    for name, b, hq, hkv, tq, tk, d, causal, window in BWD_CASES + BWD_RAGGED:
         off = tk - tq if causal else 0
+        ragged = name in {c[0] for c in BWD_RAGGED}
         live = _causal_keys(tq, tk, off, window) if causal else tq * tk
         for dtype in (torch.float32, torch.bfloat16):
             esz = torch.tensor([], dtype=dtype).element_size()
@@ -3262,10 +3273,15 @@ def bwd_checks(bw, g):
             lse = torch.empty((b, hq, tq), dtype=torch.float32, device="cuda")
             o = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off, lse=lse)
             kw = dict(causal=causal, window=window, q_offset=off)
-            kernel = lambda: fv.flash_attention_bwd(q, k, v, o, do, lse, **kw)  # noqa: E731
+            kw_kernel = dict(kw, q_offset=torch.tensor(off, dtype=torch.int32, device="cuda")
+                             if ragged else off)
+            kernel = lambda: fv.flash_attention_bwd(q, k, v, o, do, lse, **kw_kernel)  # noqa: E731
             plain = lambda: fv.flash_bwd_torch(q, k, v, o, do, lse, **kw)  # noqa: E731
+            plan = fv.plan_for(q, k)
             got = kernel()
             torch.cuda.synchronize()
+            digest = hashlib.sha256(b"".join(
+                t.contiguous().view(torch.uint8).cpu().numpy().tobytes() for t in got)).hexdigest()
             want = plain()
             errs = {gname: _grad_excess(a, w, dtype)
                     for gname, a, w in zip(("dq", "dk", "dv"), got, want)}
@@ -3305,7 +3321,11 @@ def bwd_checks(bw, g):
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops, "live_pairs": live,
-                "blocks": fv.grid_blocks(b, hq, hkv, tq, tk, d),
+                "splits": plan.splits, "kv_grid": plan.kv_grid, "dq_grid": plan.dq_grid,
+                "blocks": fv.grid_blocks(b, hq, hkv, tq, tk, d, dtype, plan.splits),
+                "tiles": fv.tiles(d, dtype)._asdict(), "resident_dkdv_blocks_per_sm":
+                fv.blocks_per_sm(d, q.device) if dtype == torch.bfloat16 else None,
+                "q_offset_tensor": ragged, "out_sha256": digest,
             }
             emit(rec)
             if not ok or not same:

@@ -139,7 +139,16 @@ def test_bwd_wrapper_on_cpu_is_the_plain_backward():
 
 
 def test_tiles_and_grid():
-    assert tiles(64) == (64, 64) and tiles(128) == (64, 64) and tiles(256) == (32, 32)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # f32: the CUDA-core tiles, (keys, rows, rows, keys)
+    assert tiles(64, f32) == (64, 64, 64, 64) and tiles(128, f32) == (64, 64, 64, 64)
+    assert tiles(256, f32) == (32, 32, 32, 32)
+    # bf16: 64 keys a dK/dV block, walked in tiles of 64 query rows (32 above D 64);
+    # 64 rows a dQ block, walked in tiles of 64 keys (32 at D 256)
+    assert tiles(64, bf16) == (64, 64, 64, 64) and tiles(112, bf16) == (64, 32, 64, 64)
+    assert tiles(128, bf16) == (64, 32, 64, 64) and tiles(256, bf16) == (64, 32, 64, 32)
     # llama3.2-1b's training shape: 32 key tiles a kv head, 32 query tiles a q head
-    assert grid_blocks(4, 32, 8, 2048, 2048, 64) == (32 * 8 * 4, 32 * 32 * 4)
-    assert grid_blocks(1, 8, 1, 512, 512, 256) == (16, 16 * 8)
+    for dt in (f32, bf16):
+        assert grid_blocks(4, 32, 8, 2048, 2048, 64, dt) == (32 * 8 * 4, 32 * 32 * 4)
+    assert grid_blocks(1, 8, 1, 512, 512, 256, f32) == (16, 16 * 8)
+    assert grid_blocks(1, 8, 1, 512, 512, 256, bf16, splits=16) == (8 * 16, 8 * 8)

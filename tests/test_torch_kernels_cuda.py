@@ -2499,7 +2499,7 @@ BWD_CASES = [(2, 4, 2, 37, 37, 16, True, None, 0), (1, 6, 2, 70, 70, 32, True, N
              (2, 4, 4, 20, 150, 64, False, None, 0), (1, 4, 2, 40, 100, 64, True, None, 60),
              (1, 4, 2, 33, 90, 64, True, 16, 57), (1, 8, 8, 65, 65, 112, True, None, 0),
              (2, 4, 2, 129, 129, 128, True, None, 0), (1, 4, 1, 70, 70, 256, True, None, 0),
-             (1, 2, 2, 20, 75, 256, False, None, 0)]
+             (1, 2, 2, 20, 75, 256, False, None, 0), (1, 12, 4, 777, 777, 128, True, None, 0)]
 BWD_RTOL = 1e-4  # of each gradient's max-abs: sums over Tq (and the group) in another order
 
 
@@ -2549,6 +2549,48 @@ def test_flash_attention_bwd_matches_plain(case, dtype):
                                    q_offset=off)
     for a, b_ in zip(got, again):  # no atomics: the same bits from run to run
         assert torch.equal(a, b_)
+
+
+# (b, hq, hkv, tq, tk, d, causal, window, q_offset): walks of several query
+# tiles and group members, cut into any number of splits (the planner's
+# choice aside), the fold's sum in split order
+BWD_SPLIT_CASES = [(2, 8, 2, 200, 230, 64, True, None, 30), (1, 6, 2, 100, 150, 112, True, 40, 50),
+                   (1, 8, 1, 150, 150, 256, True, None, 0), (1, 4, 4, 60, 190, 32, False, None, 0)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 16])
+@pytest.mark.parametrize("case", BWD_SPLIT_CASES, ids=_ids(BWD_SPLIT_CASES))
+def test_flash_attention_bwd_bf16_splits(case, splits):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_vjp as fv
+
+    causal, window, off = case[6:]
+    q, k, v, g = _bwd_inputs(case, torch.bfloat16, seed=splits)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off, lse=lse)
+    got = fv._bwd_cuda(q, k, v, out, g, lse, causal, window, off, None, splits)
+    torch.cuda.synchronize()
+    want = fv.flash_bwd_torch(q, k, v, out, g, lse, causal=causal, window=window, q_offset=off)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        _assert_grad_close(a, b_, torch.bfloat16, name)
+    again = fv._bwd_cuda(q, k, v, out, g, lse, causal, window, off, None, splits)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+def test_flash_attention_bwd_plan_on_the_card():
+    """The planner splits the ragged D 128 case's 52 (key tile, kv head)
+    blocks and leaves llama3.2-1b's 1024 whole, by the occupancy query."""
+    from repro_torch.kernels import flash_vjp as fv
+
+    assert fv.blocks_per_sm(128, torch.device("cuda")) >= 1
+    q = torch.empty((1, 12, 777, 128), dtype=torch.bfloat16, device="cuda")
+    k = torch.empty((1, 4, 777, 128), dtype=torch.bfloat16, device="cuda")
+    assert fv.plan_for(q, k).splits > 1
+    q = torch.empty((4, 32, 2048, 64), dtype=torch.bfloat16, device="cuda")
+    k = torch.empty((4, 8, 2048, 64), dtype=torch.bfloat16, device="cuda")
+    assert fv.plan_for(q, k).splits == 1
+    assert fv.plan_for(q.float(), k.float()).splits == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
