@@ -94,12 +94,12 @@ lines; any failure raises and exits non-zero:
                 32 new tokens) and mamba2-780m (B 4, prompts of 512 and 389,
                 32 new tokens) at full width in f32, kernel tokens against
                 the same path with attn_impl="torch" on the card, with the
-                prefill and last-step logits drift: qwen2 at 2 layers, at 24
+                prefill and last-step logits drift: qwen2 at 2 layers, at 12
                 on the reference's init (printed, not gated: chaotic at
                 depth) and at 24 rescaled (condition_attention); mamba2 at 2
                 and 48 layers; recurrentgemma-2b (B 2, prompts of 2600 and
                 2040: the prefill's window band and ring roll, the decode's
-                wrap at 2048; 32 new tokens) at 5 layers, at 26 on the
+                wrap at 2048; 32 new tokens) at 5 layers, at 13 on the
                 reference's init after a generate_sensitivity line (how far
                 two plain computations drift there; printed, not gated:
                 chaotic at depth, as qwen2) and at 26 rescaled. Then one
@@ -116,7 +116,7 @@ lines; any failure raises and exits non-zero:
                 prompts of 128, 16 new), every vision gate set to 1.0 (the
                 reference's init sets it to 0, where tanh(0) erases the cross
                 layer). f32 tokens of the kernels against attn_impl="torch"
-                on the card: whisper at 2 + 2 layers (gated), 32 + 32 on the
+                on the card: whisper at 2 + 2 layers (gated), 16 + 16 on the
                 reference's init (printed, not gated: chaotic at depth) and
                 32 + 32 rescaled (condition_attention, which reaches the
                 encoder's and the cross layers' projections; gated); a
@@ -271,40 +271,64 @@ lines; any failure raises and exits non-zero:
                 up to 16384 terms).
   train_exact   one training step on the kernels (attn_impl="auto":
                 flash_attention forward with its lse, flash_attention_bwd
-                backward) against the plain path (attn_impl="torch":
-                flash_vjp.flash_attention_torch) on the card, f32, TF32 off,
-                the same init_params with the attention projections
+                backward; the scans' forward and backward kernels inside
+                SSDScanFn / RGLRUScanFn) against the plain path
+                (attn_impl="torch": flash_vjp.flash_attention_torch and
+                autograd of ssd_torch / rglru_torch) on the card, f32, TF32
+                off, the same init_params with the attention projections
                 rescaled (condition_attention): llama3.2-1b's width at 2
-                layers (B 2 x 512) and whisper-large-v3's at 2 + 2 layers
-                (448 decoder positions against 1500 frames): loss within
-                1e-5, every gradient leaf within 1e-3 of its max-abs; for
-                llama AdamW's m and v after 1 and 3 steps at lr 0 (f32 and
-                int8 moments) and three steps at lr 1e-3 (see
-                train_exact_phase for the rules). Both kernels launch.
-  train         TrainerLoop at llama3.2-1b's full width (16 layers, d_model
-                2048, 32 / 8 heads of 64, vocab 128256), bf16, remat on, f32
-                moments, B 4 x 2048, 8 steps, checkpoints into a temporary
-                directory with only the final save: step ms p50 (steps
-                2-7), tokens/s, peak memory, each step's loss (finite), the
-                launches a step of both attention kernels (zeroed just
-                before, read just after), the final save's bytes and
-                seconds, then the save restored and every leaf checked bit
-                for bit against the state in memory.
-  train_loop    the smoke config's loop on the card: it learns over 12
-                steps, a second run resumes from its checkpoint, and a run
-                with simulate_failure(at_step=5) restores its latest
-                checkpoint and finishes at step 10.
-  kernels line  {"kernels": [...]} with the numbers of each of the 16
+                layers (B 2 x 512), whisper-large-v3's at 2 + 2 layers
+                (448 decoder positions against 1500 frames), mamba2-780m's
+                at 2 and recurrentgemma-2b's at 3 (rec, rec, local_attn),
+                B 2 x 512: loss within 1e-5, every gradient leaf within
+                1e-3 of its max-abs; for llama AdamW's m and v after 1 and
+                3 steps at lr 0 (f32 and int8 moments) and three steps at
+                lr 1e-3 (see train_exact_phase for the rules). Each
+                family's kernels launch, and the scans' plain twins are
+                called none of the times in the kernels' run.
+  train         TrainerLoop at full width, bf16, remat on, f32 moments, 8
+                steps each, checkpoints into a temporary directory with only
+                the final save: llama3.2-1b (16 layers, d_model 2048, 32 /
+                8 heads of 64, vocab 128256) and mamba2-780m (48 layers,
+                d_model 1536, 48 heads of 64, N 128, vocab 50280) at B 4 x
+                2048, recurrentgemma-2b (26 layers, d_model 2560, MQA 10 /
+                1 of 256, window 2048, vocab 256000) at B 1 x 4096 (the
+                batch cut from 2 to fit 80 GB; listed in the record's
+                ``reduced``): step ms
+                p50 (steps 2-7), tokens/s, peak memory, each step's loss
+                (finite), the launches a step of the family's kernels
+                (zeroed just before, read just after; no plain twin
+                called), the final save's bytes and seconds, then the save
+                restored and every leaf checked bit for bit against the
+                state in memory.
+  train_loop    the smoke configs' loops on the card (llama3.2 and mamba2):
+                each learns over 12 steps, a second run resumes from its
+                checkpoint, and a run with simulate_failure(at_step=5)
+                restores its latest checkpoint and finishes at step 10.
+  kernels line  {"kernels": [...]} with the numbers of each of the 18
                 kernels: the 15 that replace the reference's 15 Pallas
-                functions, and flash_attention_bwd, which replaces its
+                functions, flash_attention_bwd, which replaces its
                 hand-written custom_vjp backward (kernels/flash_vjp.py:94),
-                its launches from the train phase. The kernels phase holds
+                and ssd_scan_bwd / rglru_scan_bwd, which replace the
+                gradients its training path takes by autodiff of its scans
+                (kernels/ops.py:437::ssd_jnp, models/rglru.py:88's
+                associative scan); the backward kernels' launches from the
+                train phase. The kernels phase holds the scans' backward
+                kernels against their plain twins (ssd_bwd_torch,
+                rglru_bwd_torch) at mamba2-780m's (4, 2048, 48, 64), N 128,
+                and recurrentgemma-2b's (2, 4096, 2560), and at ragged t /
+                T with an initial state and a final-state gradient, f32 and
+                bf16, in flash_attention_bwd's rule, two runs bit-equal,
+                device ms beside the twin's and the bound. The kernels phase holds
                 it against the plain backward (flash_bwd_torch) at
                 llama3.2-1b's (4, 32 / 8, 2048, 64) causal, (2, 16 / 2,
                 1024, 128) causal, a 64-key window at D 64, whisper's cross
                 shape (4, 20 / 20, 448 vs 1500, 64) non-causal, D 256 at
-                (1, 8 / 1, 512, 256) and a ragged (1, 12 / 4, 777, 128)
-                causal with q_offset a tensor, f32 (max |err| <= 1e-4 of each
+                (1, 8 / 1, 512, 256), recurrentgemma-2b's local attention
+                (1, 10 / 1, 2600, 256) with window 2048, and a ragged (1,
+                12 / 4, 777, 128) causal with q_offset a tensor (the
+                forward's lse output also held against the plain
+                attention's), f32 (max |err| <= 1e-4 of each
                 gradient's max-abs: its sums over Tq run in another order)
                 and bf16 (within one bf16 ulp of the plain value plus that
                 bound), two runs bit-equal, with device ms beside the
@@ -365,6 +389,12 @@ PORTED = {  # kernel -> (the TPU kernel it replaces, its source)
     # its training path runs (kernels/flash_vjp.py::_bwd)
     "flash_attention_bwd": ("src/repro/kernels/flash_vjp.py:94",
                             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+    # no pallas_call: the gradients the reference's training path takes by
+    # autodiff of its scans (ssd_jnp, and the RG-LRU associative scan)
+    "ssd_scan_bwd": ("src/repro/kernels/ops.py:437",
+                     "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"),
+    "rglru_scan_bwd": ("src/repro/models/rglru.py:88",
+                       "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu"),
 }
 DENSE_PATH = ("paged_decode", "paged_prefill_chunk")
 GENERATE_PATH = ("flash_attention", "flash_decode", "ssd_scan", "rglru_scan")
@@ -1723,18 +1753,25 @@ def generate_timed(arch, smoke=False, device="cuda"):
     return rec
 
 
+# The depth of the runs on the reference's init that are printed, not gated
+# (chaotic at depth): half the model's, which keeps the script's time with the
+# three train cells; the gated runs keep full depth.
+UNGATED_DEPTH = {"qwen2-0.5b": 12, "recurrentgemma-2b": 13, "whisper-large-v3": 16}
+
+
 def generate_phase(smoke=False, device="cuda"):
     """qwen2-0.5b (24 layers), mamba2-780m (48) and recurrentgemma-2b (26) at
     full width: f32 token equality with the plain path (qwen2 at 2 layers on
-    the reference's init, at 24 on it (printed, not gated: chaotic at depth)
-    and at 24 rescaled; mamba2 at 2 and 48 layers; recurrentgemma at 5 (one
-    group and the two-rec remainder), at 26 on the reference's init after a
-    line of how far two plain computations drift there (printed, not gated:
-    chaotic at depth, its MQA wk / wv drawn with std 1) and at 26 rescaled),
+    the reference's init, at UNGATED_DEPTH (12) on it (printed, not gated:
+    chaotic at depth) and at 24 rescaled; mamba2 at 2 and 48 layers;
+    recurrentgemma at 5 (one group and the two-rec remainder), at
+    UNGATED_DEPTH (13) on the reference's init after a line of how far two
+    plain computations drift there (printed, not gated: chaotic at depth, its
+    MQA wk / wv drawn with std 1) and at 26 rescaled),
     then the bf16 timed runs. Returns the launch counts of the bf16 runs (the main path's),
     summed over the cells."""
     generate_exact("qwen2-0.5b", 2, True, smoke=smoke, device=device)
-    generate_exact("qwen2-0.5b", 24, False, smoke=smoke, device=device)
+    generate_exact("qwen2-0.5b", UNGATED_DEPTH["qwen2-0.5b"], False, smoke=smoke, device=device)
     generate_exact("qwen2-0.5b", 24, True, conditioned=True, smoke=smoke, device=device)
     generate_exact("mamba2-780m", 2, True, smoke=smoke, device=device)
     generate_exact("mamba2-780m", 48, True, smoke=smoke, device=device)
@@ -1742,8 +1779,8 @@ def generate_phase(smoke=False, device="cuda"):
     generate_exact(rg, 5, True, smoke=smoke, device=device)
     if not smoke:
         prompt = np.random.default_rng(4).integers(0, 256000, size=2600).tolist()
-        depth_sensitivity(prompt, 26, device=device, arch=rg)
-        generate_exact(rg, 26, False, device=device)
+        depth_sensitivity(prompt, UNGATED_DEPTH[rg], device=device, arch=rg)
+        generate_exact(rg, UNGATED_DEPTH[rg], False, device=device)
         generate_exact(rg, 26, True, conditioned=True, device=device)
     launches = {}
     for arch in GEN_CELLS:
@@ -1962,8 +1999,8 @@ def generate_cross_phase(smoke=False, device="cuda", smi=None):
     """whisper-large-v3 (full size: 32 + 32 layers) and llama-3.2-vision-90b
     (full width, 10 of 100 layers), every vision run's gate at VISION_GATE:
     f32 token equality with the plain path (whisper at 2 + 2 layers on the
-    reference's init, at 32 + 32 on it (printed, not gated: chaotic at depth)
-    and at 32 + 32 rescaled; after a line of how far the plain path drifts
+    reference's init, at UNGATED_DEPTH (16 + 16) on it (printed, not gated:
+    chaotic at depth) and at 32 + 32 rescaled; after a line of how far the plain path drifts
     between the card and the CPU at 2 + 2 on the reference's init, whisper
     at 2 + 2 rescaled with int8 MLP weights against the CPU, quant_matmul
     launched; vision at 5 layers, one group), then the bf16 timed runs, each
@@ -1972,7 +2009,7 @@ def generate_cross_phase(smoke=False, device="cuda", smi=None):
     import gc
 
     runs = [("whisper-large-v3", 2, True, False, False),
-            ("whisper-large-v3", 32, False, False, False),
+            ("whisper-large-v3", UNGATED_DEPTH["whisper-large-v3"], False, False, False),
             ("whisper-large-v3", 32, True, True, False),
             ("whisper-large-v3", 2, True, True, True),
             ("llama-3.2-vision-90b", 5, True, False, False)]
@@ -3216,12 +3253,15 @@ def serve_moe_phase(smoke=False, device="cuda", n_new=16, n_requests=8, smi=None
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 # (name, B, Hq, Hkv, Tq, Tk, D, causal, window): llama3.2-1b's training shape,
 # a D 128 group of 8, a 64-key window, whisper's cross shape (448 decoder
-# positions against 1500 frames: a 28-key tail), D 256's 32-row tiles
+# positions against 1500 frames: a 28-key tail), D 256's 32-row tiles, and
+# recurrentgemma-2b's local attention (a group of 10 at D 256, window 2048,
+# 2600 rows: the band live and a 40-row tail)
 BWD_CASES = (("llama3.2-1b", 4, 32, 8, 2048, 2048, 64, True, None),
              ("d128", 2, 16, 2, 1024, 1024, 128, True, None),
              ("window64", 2, 32, 8, 1024, 1024, 64, True, 64),
              ("whisper_cross", 4, 20, 20, 448, 1500, 64, False, None),
-             ("d256", 1, 8, 1, 512, 512, 256, True, None))
+             ("d256", 1, 8, 1, 512, 512, 256, True, None),
+             ("recurrentgemma", 1, 10, 1, 2600, 2600, 256, True, 2048))
 # a ragged Tq (777: a 9-row tail past the 64-row tiles, a 9-key tail past the
 # 64-key tiles), q_offset passed as a tensor, at D 128's 32-row walk tiles
 BWD_RAGGED = (("ragged_d128", 1, 12, 4, 777, 777, 128, True, None),)
@@ -3240,6 +3280,22 @@ def _grad_excess(got, want, dtype):
     _, e = torch.frexp(w)
     ulp = torch.ldexp(torch.ones_like(w), e - 8)
     return float(d.max()) / max(scale, 1e-30), float((d - ulp - BWD_RTOL * scale).max())
+
+
+def _lse_check(q, k, v, o, lse, kw, dtype):
+    """The forward's lse variant (the kernel's kLse build) at D 256, which the
+    train phase first runs (recurrentgemma-2b), against the plain
+    ``attention_torch(return_lse=True)``: each live row's lse within 1e-5 of
+    max(1, |lse|), out within ``_grad_excess``'s rule."""
+    from repro_torch.kernels import flash_attention as fa
+
+    want_o, want_lse = fa.attention_torch(q, k, v, return_lse=True, **kw)
+    live = want_lse > -1e29
+    lse_err = float((lse - want_lse)[live].abs().max())
+    lse_ok = bool(((lse - want_lse).abs() <= 1e-5 * want_lse.abs().clamp(min=1.0))[live].all())
+    out_rel, out_x = _grad_excess(o, want_o, dtype)
+    return {"lse_max_abs_err": lse_err, "out_rel_err": out_rel, "ok": lse_ok and out_x <= 0,
+            "tolerance": "lse within 1e-5 of max(1, |lse|) on live rows; out as the gradients"}
 
 
 def bwd_checks(bw, g):
@@ -3273,6 +3329,7 @@ def bwd_checks(bw, g):
             lse = torch.empty((b, hq, tq), dtype=torch.float32, device="cuda")
             o = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off, lse=lse)
             kw = dict(causal=causal, window=window, q_offset=off)
+            fwd = _lse_check(q, k, v, o, lse, kw, dtype) if d == 256 else None
             kw_kernel = dict(kw, q_offset=torch.tensor(off, dtype=torch.int32, device="cuda")
                              if ragged else off)
             kernel = lambda: fv.flash_attention_bwd(q, k, v, o, do, lse, **kw_kernel)  # noqa: E731
@@ -3325,10 +3382,10 @@ def bwd_checks(bw, g):
                 "blocks": fv.grid_blocks(b, hq, hkv, tq, tk, d, dtype, plan.splits),
                 "tiles": fv.tiles(d, dtype)._asdict(), "resident_dkdv_blocks_per_sm":
                 fv.blocks_per_sm(d, q.device) if dtype == torch.bfloat16 else None,
-                "q_offset_tensor": ragged, "out_sha256": digest,
+                "q_offset_tensor": ragged, "out_sha256": digest, "forward_with_lse": fwd,
             }
             emit(rec)
-            if not ok or not same:
+            if not ok or not same or (fwd is not None and not fwd["ok"]):
                 raise AssertionError(f"flash_attention_bwd {name} {dtype}: {rec}")
             if dtype == torch.bfloat16:
                 out[name] = rec
@@ -3337,8 +3394,164 @@ def bwd_checks(bw, g):
     return out
 
 
+# (name, b, t, h, p, n, initial state and final-state gradient): mamba2-780m's
+# training shape (B 4 x 2048), and a ragged t (389: a 5-step last chunk)
+SSD_BWD_CASES = (("mamba2-780m", 4, 2048, 48, 64, 128, False),
+                 ("ragged", 2, 389, 48, 64, 128, True))
+# (name, B, T, W, initial state and final-state gradient): recurrentgemma-2b's
+# width at B 2 x 4096 (its train cell runs B 1), and a ragged T (777: a 9-step
+# last stage)
+RGLRU_BWD_CASES = (("recurrentgemma-2b", 2, 4096, 2560, False),
+                   ("ragged", 2, 777, 2560, True))
+
+
+def ssd_bwd_flops(b, t, h, p, n, q=64):
+    """Multiply-adds x 2 that the SSD backward needs at this t, chunk by
+    chunk (qc = the chunk's steps, tri = qc (qc + 1) / 2: L, M, dCB and C . B
+    are lower-triangular): per (sequence, chunk) C . B (tri n); per head the
+    state and adjoint passes (2 qc p n), dy . S, x . Lam, B . Lam^T (3 qc p
+    n), dM and M^T . dy (2 tri p), dCB . B and dCB^T . C (2 tri n)."""
+    total = 0
+    for c0 in range(0, t, q):
+        qc = min(q, t - c0)
+        tri = qc * (qc + 1) // 2
+        total += tri * n + h * (5 * qc * p * n + 2 * tri * p + 2 * tri * n)
+    return 2 * b * total
+
+
+def scan_bwd_case(kind, case, dtype, g):
+    """A case of SSD_BWD_CASES (kind "ssd") or RGLRU_BWD_CASES ("rglru") on
+    the card in ``dtype``, its inputs drawn from generator ``g``. Returns a
+    namespace: ``kernel``, ``plain`` and ``forward`` (calls of the backward
+    wrapper, its plain twin and the forward kernel on these inputs),
+    ``names`` (the gradients' names), ``shape``, ``initial`` (an initial state
+    and a final-state gradient given), and the bound's work: ``nbytes`` (the
+    inputs read once, the outputs written once) and ``flops``."""
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+
+    esz = torch.tensor([], dtype=dtype).element_size()
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda")  # noqa: E731
+    if kind == "ssd":
+        _, b, t, h, p, n, initial = case
+        x, B, C = (rnd(b, t, h, p) * 0.5).to(dtype), (rnd(b, t, 1, n) * 0.3).to(dtype), \
+            (rnd(b, t, 1, n) * 0.3).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(b, t, h) - 1.0)
+        A = -torch.exp(rnd(h) * 0.3)
+        dy = rnd(b, t, h, p).to(dtype)
+        s0 = rnd(b, h, p, n) * 0.2 if initial else None
+        dsf = rnd(b, h, p, n) * 0.5 if initial else None
+        kw = dict(initial_state=s0, d_final_state=dsf)
+        states = 3 * b * h * p * n * 4 if initial else 0  # s0, dsf read; ds0 written
+        return SimpleNamespace(
+            kernel=lambda: ss.ssd_scan_bwd(x, dt, A, B, C, dy, **kw),
+            plain=lambda: ss.ssd_bwd_torch(x, dt, A, B, C, dy, **kw),
+            forward=lambda: ss.ssd_scan(x, dt, A, B, C, initial_state=s0),
+            names=("dx", "ddt", "dA", "dB", "dC", "d_initial_state"),
+            shape={"b": b, "t": t, "h": h, "p": p, "n": n}, initial=initial,
+            nbytes=(3 * x.numel() + 2 * B.numel() + 2 * C.numel()) * esz
+            + 2 * dt.numel() * 4 + 2 * h * 4 + states,
+            flops=ssd_bwd_flops(b, t, h, p, n))
+    _, b, t, w, initial = case
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(rnd(w)) *
+                  torch.sigmoid(rnd(b, t, w))).to(dtype)
+    bt, dy = rnd(b, t, w).to(dtype), rnd(b, t, w).to(dtype)
+    h0 = rnd(b, w) if initial else None
+    dhf = rnd(b, w) if initial else None
+    with torch.no_grad():
+        hs = rs.rglru_scan(a.float(), bt.float(), initial_state=h0)
+    kw = dict(initial_state=h0, d_final_state=dhf)
+    return SimpleNamespace(
+        kernel=lambda: rs.rglru_scan_bwd(a, hs, dy, **kw),
+        plain=lambda: rs.rglru_bwd_torch(a, hs, dy, **kw),
+        forward=lambda: rs.rglru_scan(a, bt, initial_state=h0),
+        names=("da", "db", "dh0"), shape={"B": b, "T": t, "W": w}, initial=initial,
+        nbytes=a.numel() * (4 * esz + 4) + (3 * b * w * 4 if initial else 0),  # a, dy, h; da, db
+        flops=3 * a.numel())
+
+
+def _bwd_record(name, case, dtype, got, want, names, kernel, plain, nbytes, flops, extra):
+    """Check a backward kernel's outputs against its plain twin's (each by
+    ``_grad_excess`` at the output's own type), rerun it for bit-equality,
+    time both; emit and return the record, raising on a miss."""
+    errs = {k: _grad_excess(a, w, a.dtype) for k, a, w in zip(names, got, want) if a is not None}
+    abs_err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want) if a is not None)
+    ok = all(x <= 0 for _, x in errs.values())
+    again = kernel()
+    same = all(torch.equal(a, c) for a, c in zip(got, again) if a is not None)
+    del again
+    t_bytes, t_ops = nbytes / NOMINAL_BW, flops / PEAK_FLOPS[dtype]
+    rec = {"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[1],
+           **extra, "rel_err": {k: e[0] for k, e in errs.items()}, "max_abs_err": abs_err,
+           "tolerance": f"max|err| <= {BWD_RTOL} x each gradient's max-abs, plus one bf16 ulp "
+                        "of the plain value elementwise for bf16 outputs",
+           "ok": ok, "bit_equal_rerun": same,
+           "ms": time_ms(kernel, reps=10), "device_ms": device_ms_per_call(kernel, n=10),
+           "plain_ms": time_ms(plain, reps=3, warmup=1), "library_ms": None,
+           "library": "none: no PyTorch call computes this gradient",
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops}
+    emit(rec)
+    if not ok or not same:
+        raise AssertionError(f"{name} {case} {dtype}: {rec}")
+    return rec
+
+
+def scan_bwd_checks(g):
+    """ssd_scan_bwd and rglru_scan_bwd against their plain twins
+    (ssd_bwd_torch, rglru_bwd_torch) on the card, f32 and bf16, at
+    SSD_BWD_CASES / RGLRU_BWD_CASES: every output within ``_grad_excess``'s
+    rule, two runs bit-equal; event ms, device ms, the twin's ms and the
+    bound (ssd: the flops of ssd_bwd_flops at the input type's peak against
+    the bytes of the inputs read once and the outputs written once; rglru:
+    the bytes of a, dy, h read and da, db written). No PyTorch call computes
+    either gradient (library none). Returns {kernel: the record at the train
+    cells' type: ssd bf16, rglru f32 (the model's a and b are f32)}."""
+    out = {}
+    cases = [("ssd", "ssd_scan_bwd", c) for c in SSD_BWD_CASES] + \
+        [("rglru", "rglru_scan_bwd", c) for c in RGLRU_BWD_CASES]
+    for kind, kernel, case in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            c = scan_bwd_case(kind, case, dtype, g)
+            got = c.kernel()
+            torch.cuda.synchronize()
+            want = c.plain()
+            extra = {**c.shape, "initial_state": c.initial, "d_final_state": c.initial}
+            if kind == "rglru":
+                extra["bit_equal_to_plain"] = all(torch.equal(x_, y_) for x_, y_ in
+                                                  zip(got, want) if x_ is not None)
+            rec = _bwd_record(kernel, case[0], dtype, got, want, c.names, c.kernel, c.plain,
+                              c.nbytes, c.flops, extra)
+            # the train cells' types: ssd bf16, rglru f32 (the model's a and b are f32)
+            if (case, dtype) in ((SSD_BWD_CASES[0], torch.bfloat16),
+                                 (RGLRU_BWD_CASES[0], torch.float32)):
+                out[kernel] = rec
+            del got, want, c
+    torch.cuda.empty_cache()
+    return out
+
+
 TRAIN_EXACT = {"llama3.2-1b": dict(n_layers=2, batch=2, seq=512),
-               "whisper-large-v3": dict(n_layers=2, n_enc_layers=2, batch=2, seq=448)}
+               "whisper-large-v3": dict(n_layers=2, n_enc_layers=2, batch=2, seq=448),
+               "mamba2-780m": dict(n_layers=2, batch=2, seq=512),
+               # rec, rec, local_attn: both block kinds of the hybrid program
+               "recurrentgemma-2b": dict(n_layers=3, batch=2, seq=512)}
+# the kernels each family's train step runs, and the plain twins it must not call
+TRAIN_KERNELS = {"ssm": ("ssd_scan", "ssd_scan_bwd"),
+                 "hybrid": ("rglru_scan", "rglru_scan_bwd", "flash_attention",
+                            "flash_attention_bwd")}
+TRAIN_ATTN_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def plain_twin_calls():
+    """Calls so far of the scans' plain versions (forward and backward)."""
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+
+    return {f.__name__: f.calls for f in (ss.ssd_torch, ss.ssd_bwd_torch, rs.rglru_torch,
+                                          rs.rglru_bwd_torch)}
 TRAIN_EXACT_RTOL = 1e-3  # of each gradient leaf's max-abs, kernels vs the plain path (f32)
 
 
@@ -3424,7 +3637,13 @@ def train_exact_phase(device="cuda", smoke=False):
     on the card, the same init_params, in f32 with TF32 off: llama3.2-1b's
     width at 2 layers (B 2 x 512) and whisper-large-v3's at 2 + 2 layers
     (B 2, 448 decoder positions against 1500 frames: the non-causal Tq != Tk
-    backward inside a model), the attention projections rescaled to their
+    backward inside a model), mamba2-780m's at 2 layers (B 2 x 512:
+    ssd_scan forward, ssd_scan_bwd backward, inside SSDScanFn) and
+    recurrentgemma-2b's at 3 (rec, rec, local_attn; B 2 x 512: rglru_scan
+    and rglru_scan_bwd inside RGLRUScanFn, the flash kernels at D 256), each
+    family's kernels launched in the kernels' run and the scans' plain twins
+    (``plain_twin_calls``) called none of the times there; the attention
+    projections rescaled to their
     fan-in (``condition_attention``, as the CPU tests' weights: on the
     reference's init attention is near-argmax, and the backward through it
     parts the two paths' f32 roundings by 2.4% on a whisper leaf at 2 + 2
@@ -3443,7 +3662,8 @@ def train_exact_phase(device="cuda", smoke=False):
     from repro_torch.models import build_model, get_config
     from repro_torch.train import TrainProfile, loss_and_grads
 
-    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    launches = {k: 0 for k in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                               "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")}
     for arch, spec in TRAIN_EXACT.items():
         shape = {k: v for k, v in spec.items() if k not in ("batch", "seq")}
         cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32",
@@ -3456,11 +3676,15 @@ def train_exact_phase(device="cuda", smoke=False):
         res = {}
         for impl in ("auto", "torch"):
             kernels.reset_launch_counts()
+            twins = plain_twin_calls()
             res[impl] = loss_and_grads(model, params, batch, TrainProfile(), impl)
             if impl == "auto":
                 counts = kernels.launch_counts()
                 for k in launches:
                     launches[k] += counts[k]
+                run_counts = {k: counts[k] for k in TRAIN_KERNELS.get(cfg.family,
+                                                                      TRAIN_ATTN_KERNELS)}
+                twin_calls = {k: v - twins[k] for k, v in plain_twin_calls().items()}
         (la, ga), (lt, gt) = res["auto"], res["torch"]
         where = {}
         grad_rel = _tree_rel(ga, gt, where)
@@ -3470,15 +3694,19 @@ def train_exact_phase(device="cuda", smoke=False):
                "batch": spec["batch"], "seq": seq, "loss_kernels": float(la),
                "loss_plain": float(lt), "loss_rel": loss_rel, "grad_max_rel": grad_rel,
                "grad_worst_leaf": where.get("worst_leaf"),
-               "tolerance": f"loss 1e-5, each gradient leaf {TRAIN_EXACT_RTOL} of its max-abs"}
+               "tolerance": f"loss 1e-5, each gradient leaf {TRAIN_EXACT_RTOL} of its max-abs",
+               "kernel_launches": run_counts, "plain_twin_calls": twin_calls}
         del res, ga, gt
         if arch == "llama3.2-1b":
             rec.update(_train_exact_moments(model, params, cfg, spec["batch"], seq, device))
-        else:
+        elif cfg.family == "encdec":
             rec["reference_init"] = _reference_init_witness(model, cfg, batch, device)
         emit(rec)
         if loss_rel > 1e-5 or grad_rel > TRAIN_EXACT_RTOL:
             raise AssertionError(f"train_exact {arch}: kernels and plain path disagree: {rec}")
+        if device == "cuda" and (not all(run_counts.values()) or any(twin_calls.values())):
+            raise AssertionError(f"train_exact {arch}: a kernel of the path did not launch, or "
+                                 f"a plain twin ran: {rec}")
         del model, params, batch
         torch.cuda.empty_cache()
     if device == "cuda" and not all(launches.values()):
@@ -3621,20 +3849,32 @@ def _train_exact_moments(model, params, cfg, batch, seq, device):
     return out
 
 
-TRAIN_CELL = dict(arch="llama3.2-1b", steps=8, batch=4, seq=2048)
+TRAIN_CELLS = {  # arch -> the cell: steps, batch, seq, and the configuration's source
+    "llama3.2-1b": dict(steps=8, batch=4, seq=2048, source="hf:meta-llama/Llama-3.2-1B"),
+    "mamba2-780m": dict(steps=8, batch=4, seq=2048, source="arXiv:2405.21060"),
+    # B 2 x 4096 does not fit 80 GB on the allocator's default segments: the
+    # 256000-wide loss's f32 logits and their gradient take 7.8 GiB each at
+    # B 2, and the gradient's allocation failed with 20 GiB reserved but
+    # unallocated. So the batch is cut to 1; T (the window band) is kept.
+    "recurrentgemma-2b": dict(steps=8, batch=1, seq=4096, source="arXiv:2402.19427",
+                              reduced=["batch 2 -> 1 (B 2 x 4096 runs out of 80 GB)"]),
+}
 
 
-def train_phase(smi, device="cuda", smoke=False):
-    """TrainerLoop at llama3.2-1b's full width (16 layers, d_model 2048,
-    32 / 8 heads of 64, vocab 128256; hf:meta-llama/Llama-3.2-1B), bf16
-    params, remat on, f32 moments, B 4 x 2048, 8 steps on SyntheticLM
-    batches; the checkpoint directory a TemporaryDirectory and ckpt_every
-    past the last step, so only the final save runs. Prints the step time
-    p50 over steps 2-7, tokens/s, peak memory, each step's loss (all finite),
-    the launches a step of flash_attention and flash_attention_bwd (counts
-    zeroed just before the loop, read just after), the final save's bytes and
-    seconds; then restores the save and checks every leaf bit for bit
-    against the state in memory. Returns the launch counts of the run."""
+def train_phase(smi, device="cuda", smoke=False, arch="llama3.2-1b"):
+    """TrainerLoop at ``arch``'s full width (TRAIN_CELLS: llama3.2-1b 16
+    layers, d_model 2048, 32 / 8 heads of 64, vocab 128256, B 4 x 2048;
+    mamba2-780m 48 layers, d_model 1536, 48 heads of 64, N 128, vocab 50280,
+    B 4 x 2048; recurrentgemma-2b 26 layers, d_model 2560, MQA 10 / 1 of 256,
+    window 2048, vocab 256000, B 1 x 4096: the batch cut to fit), bf16 params, remat on, f32
+    moments, 8 steps on SyntheticLM batches; the checkpoint directory a
+    TemporaryDirectory and ckpt_every past the last step, so only the final
+    save runs. Prints the step time p50 over steps 2-7, tokens/s, peak
+    memory, each step's loss (all finite), the launches a step of the
+    family's kernels (counts zeroed just before the loop, read just after),
+    the final save's bytes and seconds; then restores the save and checks
+    every leaf bit for bit against the state in memory. Returns the launch
+    counts of the run."""
     import tempfile
 
     from repro_torch import kernels
@@ -3642,9 +3882,9 @@ def train_phase(smi, device="cuda", smoke=False):
     from repro_torch.runtime import RunConfig, TrainerLoop
 
     torch.cuda.empty_cache()
-    cell = dict(TRAIN_CELL, **(dict(batch=2, seq=32) if smoke else {}))
+    cell = dict(TRAIN_CELLS[arch], **(dict(batch=2, seq=32) if smoke else {}))
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        run = RunConfig(arch=cell["arch"], smoke=smoke, steps=cell["steps"], batch=cell["batch"],
+        run = RunConfig(arch=arch, smoke=smoke, steps=cell["steps"], batch=cell["batch"],
                         seq=cell["seq"], peak_lr=3e-4, warmup=2, ckpt_dir=ckpt_dir,
                         ckpt_every=10 * cell["steps"], log_every=1, remat=True, device=device)
         loop = TrainerLoop(run)
@@ -3652,8 +3892,10 @@ def train_phase(smi, device="cuda", smoke=False):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        twins = plain_twin_calls()
         out = loop.run_loop()
         counts = kernels.launch_counts()
+        twin_calls = {k: v - twins[k] for k, v in plain_twin_calls().items()}
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
         hist = out["history"]
         losses = [h["loss"] for h in hist]
@@ -3667,41 +3909,45 @@ def train_phase(smi, device="cuda", smoke=False):
         n_leaves = len(tree_leaves(restored))
         del restored
     n = len(hist)
-    rec = {"phase": "train", "nvidia_smi": smi, "arch": cell["arch"],
-           "source": "hf:meta-llama/Llama-3.2-1B", "layers": loop.cfg.n_layers,
-           "d_model": loop.cfg.d_model, "heads": [loop.cfg.n_heads, loop.cfg.n_kv_heads],
-           "vocab": loop.cfg.vocab, "dtype": loop.cfg.dtype, "remat": True,
-           "moments": "f32", "batch": cell["batch"], "seq": cell["seq"], "steps": n,
-           "step_ms_p50_steps_2_7": p50 * 1e3, "step_ms": [h["time_s"] * 1e3 for h in hist],
+    cfg = loop.cfg
+    need = TRAIN_KERNELS.get(cfg.family, TRAIN_ATTN_KERNELS)
+    rec = {"phase": "train", "nvidia_smi": smi, "arch": arch, "source": cell["source"],
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "remat": True, "moments": "f32", "batch": cell["batch"], "seq": cell["seq"],
+           "steps": n, "step_ms_p50_steps_2_7": p50 * 1e3,
+           "step_ms": [h["time_s"] * 1e3 for h in hist],
            "tokens_per_s": cell["batch"] * cell["seq"] / p50,
            "peak_memory_bytes": peak, "losses": losses,
-           "launches_per_step": {k: counts[k] / n for k in ("flash_attention",
-                                                            "flash_attention_bwd")},
+           "launches_per_step": {k: counts[k] / n for k in need},
+           "plain_twin_calls": twin_calls, "reduced": cell.get("reduced", []),
            "final_save": loop.last_save, "restored_leaves": n_leaves,
            "restored_bit_equal": same}
     emit(rec)
     if not all(math.isfinite(x) for x in losses) or n != cell["steps"]:
-        raise AssertionError(f"train: {n} steps, losses {losses}")
+        raise AssertionError(f"train {arch}: {n} steps, losses {losses}")
     if not same:
-        raise AssertionError("train: the restored checkpoint differs from the state in memory")
-    if device == "cuda" and not (counts["flash_attention"] and counts["flash_attention_bwd"]):
-        raise AssertionError(f"train: a kernel of the path did not launch: {counts}")
+        raise AssertionError(f"train {arch}: the restored checkpoint differs from the state in "
+                             "memory")
+    if device == "cuda" and (not all(counts[k] for k in need) or any(twin_calls.values())):
+        raise AssertionError(f"train {arch}: a kernel of the path did not launch, or a plain "
+                             f"twin ran: {counts}, {twin_calls}")
     del loop
     torch.cuda.empty_cache()
     return counts
 
 
-def train_loop_phase(device="cuda"):
-    """The smoke config's trainer loop on the card, with the reference's
-    runtime assertions: it learns (the mean of the last 3 of 12 losses below
-    the first 3's) and its last checkpoint is step 12; a second run resumes
-    from it; a run with simulate_failure(at_step=5) restores its latest
-    checkpoint and finishes at final_step 10."""
+def train_loop_phase(device="cuda", arch="llama3.2-1b"):
+    """``arch``'s smoke config's trainer loop on the card, with the
+    reference's runtime assertions: it learns (the mean of the last 3 of 12
+    losses below the first 3's) and its last checkpoint is step 12; a second
+    run resumes from it; a run with simulate_failure(at_step=5) restores its
+    latest checkpoint and finishes at final_step 10."""
     import tempfile
 
     from repro_torch.runtime import RunConfig, TrainerLoop, simulate_failure
 
-    kw = dict(arch="llama3.2-1b", smoke=True, batch=4, log_every=100, device=device)
+    kw = dict(arch=arch, smoke=True, batch=4, log_every=100, device=device)
     with tempfile.TemporaryDirectory() as d:
         loop = TrainerLoop(RunConfig(steps=12, seq=32, peak_lr=3e-3, warmup=2, ckpt_dir=d,
                                      ckpt_every=5, **kw))
@@ -3715,7 +3961,7 @@ def train_loop_phase(device="cuda"):
         failing = TrainerLoop(RunConfig(steps=10, seq=16, ckpt_dir=d, ckpt_every=2, **kw),
                               failure_hook=simulate_failure(at_step=5).maybe_fail)
         out = failing.run_loop()
-    rec = {"phase": "train_loop", "arch": "llama3.2-smoke", "first3_loss": first,
+    rec = {"phase": "train_loop", "arch": f"{arch} (smoke)", "first3_loss": first,
            "last3_loss": last, "learns": last < first, "latest": latest,
            "resumed_steps": steps_resumed, "restarts": failing.restarts,
            "final_step": out["final_step"], "steps_after_failure": [h["step"] for h in
@@ -3748,7 +3994,7 @@ def main() -> int:
     ptxas = {name: _build.ptxas_report(name) for name in _build.SOURCES}
     new_bodies = {fn: rec for name in ("flash_attention", "paged_attention", "paper_suite",
                                        "quant_matmul", "ssd_scan", "rglru_scan",
-                                       "flash_attention_bwd")
+                                       "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")
                   for fn, rec in ptxas[name].items()
                   if any(k in fn for k in ("flash_mma_kernel", "split_decode_kernel",
                                            "combine_splits_kernel", "matvec_kernel",
@@ -3761,7 +4007,9 @@ def main() -> int:
                                            "tinymatsum_dynamic_kernel", "cb_kernel",
                                            "ssd_kernel", "rglru_kernel",
                                            "stencil3d_kernel", "sum3d_kernel",
-                                           "dkdv_kernel", "dq_kernel", "delta_kernel"))}
+                                           "dkdv_kernel", "dq_kernel", "delta_kernel",
+                                           "state_pass_kernel", "chunk_kernel", "fold_kernel",
+                                           "fold_da_kernel", "rglru_bwd_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
@@ -3840,6 +4088,7 @@ def main() -> int:
     main_recs = kernel_phase(bw)
     bwd = bwd_checks(bw, torch.Generator(device="cuda").manual_seed(29))
     main_recs["flash_attention_bwd"] = bwd["llama3.2-1b"]  # the train phase's shape, bf16
+    main_recs.update(scan_bwd_checks(torch.Generator(device="cuda").manual_seed(31)))
     t_phase["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     paper_recs, paper_launches = paper_phase(bw)
@@ -3918,20 +4167,26 @@ def main() -> int:
     t0 = time.perf_counter()
     train_exact_phase()
     t_phase["train_exact"] = time.perf_counter() - t0
+    train_counts = {}
+    for arch in TRAIN_CELLS:
+        t0 = time.perf_counter()
+        train_counts[arch] = train_phase(smi, arch=arch)
+        t_phase[f"train:{arch}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_counts = train_phase(smi)
-    t_phase["train"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    train_loop_phase()
+    for arch in ("llama3.2-1b", "mamba2-780m"):
+        train_loop_phase(arch=arch)
     t_phase["train_loop"] = time.perf_counter() - t0
     emit({"phase": "train_kernels", "nvidia_smi": smi, "rows": [
-        {"case": name, "dtype": rec["dtype"], "launches_train": train_counts[rec["kernel"]],
+        {"case": name, "kernel": rec["kernel"], "dtype": rec["dtype"],
+         "launches_train": {arch: c[rec["kernel"]] for arch, c in train_counts.items()},
          **{k: rec.get(k) for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library_device_ms")}}
-        for name, rec in bwd.items()]})
+        for name, rec in [*bwd.items(), *((r["kernel"], r) for r in (
+            main_recs["ssd_scan_bwd"], main_recs["rglru_scan_bwd"]))]]})
     launches = {**serve["launches"], **serve_quant["int8"]["launches"],
                 **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches,
-                "flash_attention_bwd": train_counts["flash_attention_bwd"]}
+                **{k: sum(c[k] for c in train_counts.values())
+                   for k in ("flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")}}
     # the D 112 rows: kernel numbers from the kernels phase, launches from
     # kimi-k2's serve_moe run (the dense-cache rows 6-7 do not run there)
     kimi = serve_moe["kimi-k2-1t-a32b"]["launches"]

@@ -65,36 +65,6 @@ constexpr size_t ring_bytes() {
   return static_cast<size_t>(kStages) * 2 * kS * kC * sizeof(T);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  uint64_t state;
-  asm volatile("mbarrier.arrive.shared.b64 %0, [%1];\n"
-               : "=l"(state)
-               : "r"(smem_u32(bar))
-               : "memory");
-  (void)state;
-}
-// arrives on ``bar`` once every cp.async this thread issued before has landed
-__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// waits until the phase of ``bar`` with parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rglru_kernel(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ h0,

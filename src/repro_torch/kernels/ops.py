@@ -45,9 +45,9 @@ from .paged_attention import (
     paged_prefill_chunk_torch,
 )
 from .quant_matmul import quant_matmul, quant_matmul_torch
+from .rglru_scan import RGLRUScanFn, rglru_torch
 from .rglru_scan import rglru_scan as _rglru_kernel
-from .rglru_scan import rglru_torch
-from .ssd_scan import ssd_scan, ssd_torch
+from .ssd_scan import SSDScanFn, ssd_scan, ssd_torch
 from .stencil3d import stencil3d as _stencil3d_kernel
 from .stencil3d import stencil3d_torch
 from .sum3d import sum3d as _sum3d_kernel
@@ -55,6 +55,11 @@ from .sum3d import sum3d_mdspan, sum3d_torch
 from .tinymatsum import tinymatsum_dynamic, tinymatsum_static, tinymatsum_torch
 
 IMPLS = ("auto", "cuda", "torch")
+
+
+def _needs_grad(*tensors) -> bool:
+    """Grad mode on and one of ``tensors`` (None skipped) requiring grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _want_kernel(impl: str, x) -> bool:
@@ -109,7 +114,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     through ``flash_vjp.FlashAttentionFn`` (flash_attention forward,
     flash_attention_bwd backward), with ``impl="torch"`` or on the CPU
     through the plain ``flash_vjp.flash_attention_torch``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _needs_grad(q, k, v):
         if _want_kernel(impl, q):
             return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, scale)
         return flash_attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -222,9 +227,15 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, initial_state=None,
     """Mamba-2 chunked SSD scan. Under "auto", the ssd_scan kernel on CUDA
     tensors for ngroups 1 (B.shape[2] == 1) and the plain chunked version
     otherwise, as the reference dispatches; "cuda" always takes the kernel,
-    which refuses ngroups > 1."""
+    which refuses ngroups > 1. With grad mode on and an input that requires
+    grad, the kernel path is differentiable: ``ssd_scan.SSDScanFn`` (the
+    ssd_scan forward, the ssd_scan_bwd backward); the plain path is through
+    autograd of its torch ops, as the reference trains through ssd_jnp."""
     kw = dict(chunk=chunk, initial_state=initial_state, return_final_state=return_final_state)
     if _want_kernel(impl, x) and (impl == "cuda" or B.shape[2] == 1):
+        if _needs_grad(x, dt, A, B, C, initial_state):
+            y, state = SSDScanFn.apply(x, dt, A, B, C, initial_state)
+            return (y, state) if return_final_state else y
         return ssd_scan(x, dt, A, B, C, **kw)
     return ssd_torch(x, dt, A, B, C, **kw)
 
@@ -252,9 +263,14 @@ def rglru_scan(a, b, *, initial_state=None, return_final_state: bool = False,
     initial state (B, W): y in a's dtype [and the f32 final state]. The
     kernel is rglru_scan (any T, so the reference's ragged-tail padding has
     nothing to do); the plain version is the reference model's associative
-    scan."""
+    scan. With grad mode on and an input that requires grad, the kernel path
+    is differentiable: ``rglru_scan.RGLRUScanFn`` (the rglru_scan forward,
+    the rglru_scan_bwd backward)."""
     kw = dict(initial_state=initial_state, return_final_state=return_final_state)
     if _want_kernel(impl, a):
+        if _needs_grad(a, b, initial_state):
+            y, h_final = RGLRUScanFn.apply(a, b, initial_state)
+            return (y, h_final) if return_final_state else y
         return _rglru_kernel(a, b, **kw)
     return rglru_torch(a, b, **kw)
 

@@ -3,10 +3,16 @@ and the wrapper that launches the hand-written CUDA kernel.
 
 Port of ``repro.kernels.ssd_scan`` and of the reference's chunked jnp twin:
 
-  ssd_torch  <- ops.ssd_jnp (the chunked twin, any ngroups)
-  ssd_scan   <- ssd_scan (Pallas, ngroups 1) — launches
-                csrc/ssd_scan.cu::cb_kernel (C . B once per sequence and
-                chunk, into a workspace) then ::ssd_kernel (the scan)
+  ssd_torch      <- ops.ssd_jnp (the chunked twin, any ngroups)
+  ssd_scan       <- ssd_scan (Pallas, ngroups 1) — launches
+                    csrc/ssd_scan.cu::cb_kernel (C . B once per sequence and
+                    chunk, into a workspace) then ::ssd_kernel (the scan)
+  ssd_bwd_torch  <- the gradient of ops.ssd_jnp, which the reference takes by
+                    autodiff: its plain twin, the chunked dual of the forward
+  ssd_scan_bwd   <- the same gradient (ngroups 1) — launches
+                    csrc/ssd_scan_bwd.cu's six kernels
+  SSDScanFn      the autograd Function the card trains through: ssd_scan
+                    forward, ssd_scan_bwd backward
 
 Per head h, with a_t = exp(dt_t * A_h): S_t = a_t S_{t-1} + dt_t x_t B_t^T and
 y_t = C_t . S_t, computed chunk by chunk (an intra-chunk masked product plus
@@ -22,9 +28,10 @@ ragged tail the same way, so it tiles the chunk = t case of a ragged prompt
 (``models.ssm.apply_ssm``) at a fixed 64 x 64 product; the two differ in
 rounding only.
 
-On CPU tensors the wrapper returns the plain version; on CUDA tensors it
-launches the kernels or raises. Its calls are counted in ``.launches``: one a
-call, the two kernels of the C entry together.
+On CPU tensors the wrappers return the plain versions; on CUDA tensors they
+launch the kernels or raise. Their calls are counted in ``.launches``: one a
+call, the kernels of a C entry together. ``ssd_scan`` has no backward of its
+own (it raises under grad on the card); a gradient goes through SSDScanFn.
 """
 from __future__ import annotations
 
@@ -49,27 +56,36 @@ GEOMETRY = {"chunk": 64, "p_slice": 32, "threads": 256}
 # ---------------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------------
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' working type: f32, or f64 for f64 inputs (the
+    gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def ssd_torch(x, dt, A, B, C, *, chunk: int = 64, initial_state=None,
               return_final_state: bool = False):
-    """Chunked SSD, the reference's ``ssd_jnp``: f32 throughout, a loop over
-    chunks carrying the (b, h, p, n) state."""
+    """Chunked SSD, the reference's ``ssd_jnp``: f32 throughout (f64 for f64
+    inputs), a loop over chunks carrying the (b, h, p, n) state. Its calls
+    are counted in ``.calls``."""
+    ssd_torch.calls += 1
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
+    acc = _acc_dtype(x)
     pad = -t % chunk
     if pad:  # dt = 0, x = 0 steps leave y and the state unchanged
         x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
         B, C = F.pad(B, (0, 0, 0, 0, 0, pad)), F.pad(C, (0, 0, 0, 0, 0, pad))
     tp = t + pad
     nc = tp // chunk
-    xf = x.float().reshape(b, nc, chunk, h, p)
-    dtf = dt.float().reshape(b, nc, chunk, h)
-    Bf = B.float().repeat_interleave(rep, dim=2).reshape(b, nc, chunk, h, n)
-    Cf = C.float().repeat_interleave(rep, dim=2).reshape(b, nc, chunk, h, n)
-    Af = A.float()
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=x.device))
-    S = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-         if initial_state is None else initial_state.float())
+    xf = x.to(acc).reshape(b, nc, chunk, h, p)
+    dtf = dt.to(acc).reshape(b, nc, chunk, h)
+    Bf = B.to(acc).repeat_interleave(rep, dim=2).reshape(b, nc, chunk, h, n)
+    Cf = C.to(acc).repeat_interleave(rep, dim=2).reshape(b, nc, chunk, h, n)
+    Af = A.to(acc)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=acc, device=x.device))
+    S = (torch.zeros((b, h, p, n), dtype=acc, device=x.device)
+         if initial_state is None else initial_state.to(acc))
     ys = []
     for c in range(nc):
         xq, dtq, Bq, Cq = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
@@ -88,6 +104,124 @@ def ssd_torch(x, dt, A, B, C, *, chunk: int = 64, initial_state=None,
     if return_final_state:
         return y, S
     return y
+
+
+ssd_torch.calls = 0
+
+
+def _fold(parts: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum ``parts`` over ``dim`` one slice after another, in index order: the
+    backward kernel's fold (csrc/ssd_scan_bwd.cu::fold_kernel), so the bits
+    follow that order."""
+    out = parts.select(dim, 0).clone()
+    for i in range(1, parts.shape[dim]):
+        out = out + parts.select(dim, i)
+    return out
+
+
+def ssd_bwd_torch(x, dt, A, B, C, dy, *, initial_state=None, d_final_state=None,
+                  chunk: int = 64):
+    """The gradient of ``ssd_torch`` (y and the final state) written out as
+    the chunked dual of the forward: the plain twin of ssd_scan_bwd's
+    kernels, chunk for chunk. dy (b, t, h, p) or None, ``d_final_state``
+    (b, h, p, n) or None. -> (dx, ddt, dA, dB, dC, d_initial_state): dx in
+    x's dtype, dB / dC in B's, the rest in f32 (f64 for f64 inputs);
+    d_initial_state None without an initial state.
+
+    Per chunk, with s the running sum of dt * A inside it, e_t = exp(s_t),
+    w_u = exp(s_Q - s_u) dt_u, L[t, u] = exp(s_t - s_u) (u <= t) and CB =
+    C . B^T:
+      1. the chunk-start states S_c, by the forward's carry (a state pass);
+      2. the state adjoints, a reverse pass over chunks: Lam_c, the adjoint
+         of the state leaving chunk c, starts at d_final_state and
+         Lam_{c-1} = exp(s_Q) Lam_c + G_c with G_c = sum_t e_t dy_t C_t^T;
+         what is left after chunk 0 is d_initial_state;
+      3. per chunk: dM = dy . x^T, M = CB o L o dt, dCB = dM o L o dt,
+         dx = M^T dy + w o (B . Lam^T),
+         dC = e o (dy . S_c) + dCB . B,  dB = w o (x . Lam) + dCB^T . C
+         (per head, then folded over the heads of a group in head order),
+         the log-decay adjoint ds (from e, from L through Z = dM o M, from
+         exp(s_Q) and w), its reverse cumsum r inside the chunk, ddt = the
+         direct terms + A r, and dA = sum dt r per (sequence, chunk), folded
+         over sequences and chunks in order.
+    Padded tail steps (t no multiple of ``chunk``) are dt = x = B = C = dy =
+    0 and add nothing. Its calls are counted in ``.calls``."""
+    ssd_bwd_torch.calls += 1
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    acc = _acc_dtype(x)
+    dev = x.device
+    if dy is None:
+        dy = torch.zeros_like(x)
+    pad = -t % chunk
+    if pad:
+        x, dy = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dy, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B, C = F.pad(B, (0, 0, 0, 0, 0, pad)), F.pad(C, (0, 0, 0, 0, 0, pad))
+    nc, q = (t + pad) // chunk, chunk
+    xf = x.to(acc).reshape(b, nc, q, h, p)
+    dyf = dy.to(acc).reshape(b, nc, q, h, p)
+    dtf = dt.to(acc).reshape(b, nc, q, h)
+    Bf = B.to(acc).repeat_interleave(rep, dim=2).reshape(b, nc, q, h, n)
+    Cf = C.to(acc).repeat_interleave(rep, dim=2).reshape(b, nc, q, h, n)
+    Af = A.to(acc)
+    s = torch.cumsum(dtf * Af, dim=2)  # (b, nc, Q, h)
+    last = s[:, :, -1]  # (b, nc, h)
+    e = torch.exp(s)
+    decay = torch.exp(last)
+    w = torch.exp(last[:, :, None] - s) * dtf
+    # 1. the chunk-start states
+    S = (torch.zeros((b, h, p, n), dtype=acc, device=dev) if initial_state is None
+         else initial_state.to(acc))
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = (S * decay[:, c, :, None, None]
+             + torch.einsum("bqhp,bqhn->bhpn", xf[:, c] * w[:, c, ..., None], Bf[:, c]))
+    S0 = torch.stack(starts, dim=1)  # (b, nc, h, p, n)
+    # 2. the state adjoints, chunk by chunk in reverse
+    lam = (torch.zeros((b, h, p, n), dtype=acc, device=dev) if d_final_state is None
+           else d_final_state.to(acc))
+    lams = [None] * nc
+    for c in reversed(range(nc)):
+        lams[c] = lam
+        lam = (lam * decay[:, c, :, None, None]
+               + torch.einsum("bqhp,bqhn->bhpn", dyf[:, c] * e[:, c, ..., None], Cf[:, c]))
+    d_init = lam if initial_state is not None else None
+    Lam = torch.stack(lams, dim=1)  # (b, nc, h, p, n)
+    # 3. the chunk-local products, every chunk at once: (b, nc, h, t, u)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    sh = s.permute(0, 1, 3, 2)  # (b, nc, h, Q)
+    seg = sh[..., :, None] - sh[..., None, :]
+    L = torch.where(tri, torch.exp(torch.clamp(seg, max=0.0)), 0.0)
+    dtu = dtf.permute(0, 1, 3, 2)[..., None, :]
+    CB = torch.einsum("bcthn,bcuhn->bchtu", Cf, Bf)
+    dM = torch.einsum("bcthp,bcuhp->bchtu", dyf, xf)
+    M = CB * L * dtu
+    dCB = dM * L * dtu
+    Z = dM * M
+    BL = torch.einsum("bcuhn,bchpn->bcuhp", Bf, Lam)
+    dx = torch.einsum("bchtu,bcthp->bcuhp", M, dyf) + w[..., None] * BL
+    dyS = torch.einsum("bcthp,bchpn->bcthn", dyf, S0)
+    xL = torch.einsum("bcuhp,bchpn->bcuhn", xf, Lam)
+    dC = e[..., None] * dyS + torch.einsum("bchtu,bcuhn->bcthn", dCB, Bf)
+    dB = w[..., None] * xL + torch.einsum("bchtu,bcthn->bcuhn", dCB, Cf)
+    xLB = (xL * Bf).sum(-1)  # (b, nc, Q, h)
+    ds = (e * (Cf * dyS).sum(-1) + Z.sum(-1).permute(0, 1, 3, 2)
+          - Z.sum(-2).permute(0, 1, 3, 2) - w * xLB)
+    ds[:, :, -1] += (w * xLB).sum(2) + decay * (Lam * S0).sum((-2, -1))
+    r = torch.flip(torch.cumsum(torch.flip(ds, [2]), dim=2), [2])
+    ddt = ((dM * CB * L).sum(-2).permute(0, 1, 3, 2)
+           + torch.exp(last[:, :, None] - s) * xLB + Af * r)
+    dA = _fold((dtf * r).sum(2).reshape(b * nc, h), 0)
+    dx = dx.reshape(b, nc * q, h, p)[:, :t].to(x.dtype)
+    ddt = ddt.reshape(b, nc * q, h)[:, :t].contiguous()
+    fold = lambda v: _fold(v.reshape(b, nc * q, g, rep, n)[:, :t], 3)  # noqa: E731
+    return dx, ddt, dA, fold(dB).to(B.dtype), fold(dC).to(C.dtype), d_init
+
+
+ssd_bwd_torch.calls = 0
 
 
 # ---------------------------------------------------------------------------------
@@ -180,4 +314,106 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state: Optional[torch.T
 
 ssd_scan.launches = 0
 
-KERNEL_WRAPPERS = {"ssd_scan": ssd_scan}
+
+# ---------------------------------------------------------------------------------
+# the backward: CUDA kernel wrapper and the autograd Function
+# ---------------------------------------------------------------------------------
+# csrc/ssd_scan_bwd.cu's kGeometry, in its order: the chunk, the product tile
+# (p and the state columns), the largest head dim and the threads of a block
+BWD_GEOMETRY = {"chunk": 64, "tile": 64, "max_head_dim": 64, "threads": 256}
+_BWD_LIB = _build.Binding("ssd_scan_bwd", {
+    "repro_ssd_scan_bwd": [_i] + [_p] * 20 + [_i] * 5 + [_p],
+}, geometry=BWD_GEOMETRY)
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, *, initial_state: Optional[torch.Tensor] = None,
+                 d_final_state: Optional[torch.Tensor] = None):
+    """The gradient of ``ssd_scan`` (kernels: csrc/ssd_scan_bwd.cu, C . B a
+    (sequence, chunk), the state pass, the adjoint pass, a block per (chunk,
+    head, sequence) for the products (bf16 on mma.sync, f32 values as hi +
+    lo pairs; f32 on the CUDA cores), then the folds of dB / dC over heads
+    and of dA over (sequence, chunk) in a fixed order). Inputs as
+    ``ssd_scan`` takes them, dy (b, t, h, p) in x's dtype (None: zeros),
+    ``d_final_state`` (b, h, p, n) f32 or None; head dim <= 64. -> (dx, ddt,
+    dA, dB, dC, d_initial_state), as ``ssd_bwd_torch`` returns them. On CPU
+    tensors: ``ssd_bwd_torch``; on CUDA tensors it launches the kernels or
+    raises. Its calls are counted in ``.launches``."""
+    if x.device.type == "cpu":
+        return ssd_bwd_torch(x, dt, A, B, C, dy, initial_state=initial_state,
+                             d_final_state=d_final_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be (b, t, h, p) float32 or bfloat16, got {tuple(x.shape)} "
+                        f"{x.dtype}")
+    b, t, h, p = x.shape
+    if B.dim() != 4 or B.shape[2] != 1:
+        raise ValueError(f"the kernel takes ngroups 1: B (b, t, 1, n), got {tuple(B.shape)}")
+    n = B.shape[3]
+    if not 0 < n <= MAX_STATE:
+        raise ValueError(f"n_state {n} outside 1..{MAX_STATE}")
+    if p > BWD_GEOMETRY["max_head_dim"]:
+        raise ValueError(f"head dim {p} past the backward's {BWD_GEOMETRY['max_head_dim']}")
+    dev = x.device
+    if dy is None:
+        dy = torch.zeros_like(x)
+    for name, ten, shape, dtype in (
+            ("x", x, (b, t, h, p), x.dtype), ("dt", dt, (b, t, h), torch.float32),
+            ("A", A, (h,), torch.float32), ("B", B, (b, t, 1, n), x.dtype),
+            ("C", C, (b, t, 1, n), x.dtype), ("dy", dy, (b, t, h, p), x.dtype)):
+        _check(name, ten, shape, dtype, dev)
+    for name, ten in (("initial_state", initial_state), ("d_final_state", d_final_state)):
+        if ten is not None:
+            _check(name, ten, (b, h, p, n), torch.float32, dev)
+    q = BWD_GEOMETRY["chunk"]
+    nc = -(-t // q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
+    ddt, dA = torch.empty((b, t, h), **f32), torch.empty((h,), **f32)
+    d_init = torch.empty((b, h, p, n), **f32) if initial_state is not None else None
+    states = torch.empty((b, nc, h, p, n), **f32)
+    lams = torch.empty((b, nc, h, p, n), **f32)
+    cb = torch.empty((b, nc, q, q), **f32)
+    dbp, dcp = torch.empty((b, t, h, n), **f32), torch.empty((b, t, h, n), **f32)
+    dap = torch.empty((b, nc, h), **f32)
+    ptr = lambda ten: ten.data_ptr() if ten is not None else None  # noqa: E731
+    _BWD_LIB.launch(
+        "repro_ssd_scan_bwd", "ssd_scan_bwd",
+        _DTYPE_CODE[x.dtype], *map(ptr, (x, dt, A, B, C, dy, initial_state, d_final_state, dx,
+                                         ddt, dA, dB, dC, d_init, states, lams, cb, dbp, dcp,
+                                         dap)),
+        b, t, h, p, n, device=dev,
+    )
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, d_init
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with a gradient: forward on ``ssd_scan``'s kernel,
+    backward on ``ssd_scan_bwd``'s (on CPU tensors their plain versions,
+    ``ssd_torch`` and ``ssd_bwd_torch``, at chunk 64). Returns (y, the final
+    state); either may carry a gradient. Saves only the inputs: the backward
+    recomputes the chunk-start states by its own state pass."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state):
+        y, state = ssd_scan(x, dt, A, B, C, initial_state=initial_state,
+                            return_final_state=True)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        if dy is None and d_state is None:
+            return (None,) * 6
+        x, dt, A, B, C, initial_state = ctx.saved_tensors
+        return ssd_scan_bwd(x, dt, A, B, C, None if dy is None else dy.contiguous(),
+                            initial_state=initial_state,
+                            d_final_state=None if d_state is None else d_state.contiguous())
+
+
+KERNEL_WRAPPERS = {"ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}

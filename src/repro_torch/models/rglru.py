@@ -3,9 +3,11 @@ linear recurrence.
 
 Port of ``repro.models.rglru``. Prefill computes the decay a and the input
 term b eagerly, in the reference's cast order, and runs the recurrence
-through ``kernels.ops.rglru_scan`` (the rglru_scan kernel on CUDA tensors;
-the reference runs ``jax.lax.associative_scan``, the same function, which is
-the kernel's plain version here). Decode is an O(1) state update in plain
+through ``kernels.ops.rglru_scan`` (the rglru_scan kernel on CUDA tensors,
+and under grad ``rglru_scan.RGLRUScanFn``, its backward on the
+rglru_scan_bwd kernel; a and b are f32 and contiguous, as the kernels take
+them; the reference runs ``jax.lax.associative_scan``, the same function,
+which is the kernel's plain version here). Decode is an O(1) state update in plain
 PyTorch, as in the reference, writing the cache in place.
 """
 from __future__ import annotations

@@ -1,9 +1,12 @@
 """Mamba-2 block (SSD) of the port: fused in-proj -> causal conv -> SSD scan
 -> gated norm -> out-proj.
 
-Port of ``repro.models.ssm``. Prefill runs the chunked SSD scan through
-``kernels.ops.ssd`` (the ssd_scan kernel on CUDA tensors, ngroups 1; the
-reference pins its jnp twin here); decode is an O(1)-per-token state update
+Port of ``repro.models.ssm``. Prefill and training run the chunked SSD scan
+through ``kernels.ops.ssd`` (the ssd_scan kernel on CUDA tensors, ngroups 1,
+and under grad ``ssd_scan.SSDScanFn``, its backward on the ssd_scan_bwd
+kernels; the reference pins its jnp twin here), fed as the kernels take it:
+x, B, C contiguous in the compute dtype, dt and A f32 (fresh, contiguous
+tensors); decode is an O(1)-per-token state update
 (``ops.ssd_decode_step``, plain PyTorch as in the reference). The casts
 follow the reference's order, bf16 skip term and gated RMSNorm included.
 """

@@ -615,17 +615,13 @@ class Model:
         / vlm (``batch["frames"]`` / ``batch["image_embeds"]``), plus
         ``aux_weight`` times the MoE aux loss. -> (loss, {"ce", "aux"}).
 
-        On the card the ssm and hybrid families raise NotImplementedError:
-        ssd_scan and rglru_scan have no backward on CUDA yet (ROADMAP item 5),
-        and their plain versions are not a training path there. On the CPU
-        every family trains through the plain versions, as the reference
-        trains through its jnp twins."""
+        Every family trains on the card: the scans through their autograd
+        Functions (``ssd_scan.SSDScanFn``, ``rglru_scan.RGLRUScanFn``: the
+        forward kernels and their hand-written backward kernels), attention
+        through ``flash_vjp.FlashAttentionFn``. On the CPU every family trains
+        through the plain versions, as the reference trains through its jnp
+        twins."""
         tokens = batch["tokens"]
-        if tokens.device.type == "cuda" and self.cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"training the {self.cfg.family} family on CUDA needs a backward for "
-                "ssd_scan / rglru_scan, which the port does not have yet (ROADMAP item 5)"
-            )
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         ctx = self.encode_ctx(params, batch, attn_impl=attn_impl)
         logits, aux = self.forward(params, inp, ctx=ctx, attn_impl=attn_impl, remat=remat,

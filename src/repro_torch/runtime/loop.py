@@ -14,8 +14,8 @@ A restart is for a fault that goes away (the reference's lost node). A
 step that fails again at or before the step of the last restart is a fault
 that comes back, and is raised; so is a ``NotImplementedError``,
 ``ValueError`` or ``TypeError`` at once, as a refusal of the program that
-no restart can cure (``Model.loss_fn`` on the card for the ssm and hybrid
-families, say).
+no restart can cure (a kernel refusing its shapes, say). Every model family
+trains here, on the card and on the CPU.
 
 The reference re-meshes onto the surviving devices after a failure
 (``loop.py:159-183``); that needs a mesh, which waits for ROADMAP item 6,

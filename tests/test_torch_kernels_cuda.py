@@ -2666,23 +2666,168 @@ def test_kernels_without_a_backward_refuse_a_gradient():
         fa.flash_attention(x, k, k)
 
 
-def test_loss_fn_refuses_the_scan_families_on_the_card():
+def test_loss_fn_trains_the_scan_families_on_the_card():
+    """mamba2 and recurrentgemma smoke take a loss_fn backward on the card
+    through the scans' kernels (SSDScanFn, RGLRUScanFn), with finite
+    gradients and the backward kernels launched, none of the scans' plain
+    twins called."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import rglru_scan as trg
+    from repro_torch.kernels import ssd_scan as tss
     from repro_torch.models import build_model, get_config
+    from repro_torch.train import TrainProfile, loss_and_grads
 
-    for arch in ("mamba2-780m", "recurrentgemma-2b"):
+    twins = (tss.ssd_torch, tss.ssd_bwd_torch, trg.rglru_torch, trg.rglru_bwd_torch)
+    for arch, need in (("mamba2-780m", ("ssd_scan", "ssd_scan_bwd")),
+                       ("recurrentgemma-2b", ("rglru_scan", "rglru_scan_bwd",
+                                              "flash_attention_bwd"))):
         cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
         model = build_model(cfg, device="cuda")
         params = model.init_params(torch.Generator("cuda").manual_seed(0))
         tokens = torch.randint(0, cfg.vocab, (2, 17), device="cuda")
-        with pytest.raises(NotImplementedError, match="item 5"):
-            model.loss_fn(params, {"tokens": tokens})
+        calls = [f.calls for f in twins]
+        kernels.reset_launch_counts()
+        loss, grads = loss_and_grads(model, params, {"tokens": tokens}, TrainProfile())
+        counts = kernels.launch_counts()
+        assert math.isfinite(float(loss))
+        assert all(torch.isfinite(g).all() for g in tree_leaves(grads))
+        assert all(counts[k] > 0 for k in need), counts
+        assert [f.calls for f in twins] == calls
 
 
-def test_trainer_loop_raises_the_scan_families_refusal_without_restart(tmp_path):
+def test_trainer_loop_trains_the_scan_families_without_restart(tmp_path):
+    """A mamba2 smoke loop runs its steps on the card without a restart."""
     from repro_torch.runtime import RunConfig, TrainerLoop
 
     loop = TrainerLoop(RunConfig(arch="mamba2-780m", smoke=True, steps=2, batch=2, seq=8,
                                  ckpt_dir=str(tmp_path), device="cuda"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        loop.run_loop()
-    assert loop.restarts == 0
+    out = loop.run_loop()
+    assert loop.restarts == 0 and out["final_step"] == 2
+    assert all(math.isfinite(h["loss"]) for h in out["history"])
+
+
+SSD_BWD_CASES = [(2, 130, 4, 64, 128, True), (1, 64, 48, 64, 128, False), (2, 389, 8, 64, 128, True),
+                 (1, 1, 2, 16, 16, True), (2, 77, 3, 7, 5, False), (1, 200, 2, 32, 256, True)]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=_ids(SSD_BWD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_bwd_matches_its_plain_twin(case, dtype):
+    """ssd_scan_bwd against ssd_bwd_torch on the card (chunk edges, a ragged
+    t, n 256, odd p and n, with and without an initial state and the final
+    state's gradient); two runs bit-equal; one launch counted a call."""
+    from repro_torch.kernels import ssd_scan as tss
+
+    b, t, h, p, n, initial = case
+    x, dt, A, B, C, s0 = _ssd_inputs(b, t, h, p, n, dtype, seed=sum(case))
+    dy = _rand((b, t, h, p), dtype, seed=t + 1)
+    dsf = _rand((b, h, p, n), torch.float32, seed=t + 2) if initial else None
+    kw = dict(initial_state=s0 if initial else None, d_final_state=dsf)
+    launches = tss.ssd_scan_bwd.launches
+    got = tss.ssd_scan_bwd(x, dt, A, B, C, dy, **kw)
+    assert tss.ssd_scan_bwd.launches == launches + 1
+    want = tss.ssd_bwd_torch(x, dt, A, B, C, dy, **kw)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "d_initial_state"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        _assert_grad_close(g, w, torch.float32 if w.dtype == torch.float32 else dtype, name)
+    again = tss.ssd_scan_bwd(x, dt, A, B, C, dy, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again) if a is not None)
+
+
+RGLRU_BWD_CASES = [(2, 32, 16), (1, 64, 128), (2, 37, 24), (3, 5, 40), (2, 600, 2560),
+                   (1, 1, 8), (2, 4096, 2560)]
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=_ids(RGLRU_BWD_CASES))
+@pytest.mark.parametrize("initial", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_bwd_matches_its_plain_twin(case, initial, dtype):
+    """rglru_scan_bwd against rglru_bwd_torch on the card: bit-equal (the
+    same roundings in the same order), on and off the ring's stage edges and
+    16 bytes; two runs bit-equal."""
+    from repro_torch.kernels import rglru_scan as trg
+
+    a, bterm, h0 = _rglru_inputs(*case, dtype=dtype, seed=sum(case))
+    h0 = h0 if initial else None
+    dy = _rand(case, dtype, seed=case[1] + 3)
+    dhf = _rand(case[::2], torch.float32, seed=case[1] + 4) if initial else None
+    with torch.no_grad():
+        hs = trg.rglru_scan(a.float(), bterm.float(), initial_state=h0)
+    got = trg.rglru_scan_bwd(a, hs, dy, initial_state=h0, d_final_state=dhf)
+    want = trg.rglru_bwd_torch(a, hs, dy, initial_state=h0, d_final_state=dhf)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g, w)
+    again = trg.rglru_scan_bwd(a, hs, dy, initial_state=h0, d_final_state=dhf)
+    assert all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
+
+
+def test_rglru_scan_bwd_on_a_view_off_16_bytes():
+    from repro_torch.kernels import rglru_scan as trg
+
+    a, bterm, _ = _rglru_inputs(2, 70, 64, torch.float32, seed=12)
+    dy = _rand((2, 70, 64), torch.float32, seed=13)
+    hs = trg.rglru_scan(a, bterm)
+    buf = torch.empty(a.numel() + 1, device="cuda")
+    view = buf[1:].view(a.shape)  # 4 bytes off 16: the plain loads
+    view.copy_(a)
+    got = trg.rglru_scan_bwd(view, hs, dy)
+    want = trg.rglru_bwd_torch(a, hs, dy)
+    assert all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ops_scans_train_through_their_functions_and_the_raw_wrappers_still_raise(dtype):
+    """Under grad, ops.ssd / ops.rglru_scan launch the forward and backward
+    kernels (SSDScanFn, RGLRUScanFn), their gradients those of the plain
+    path (the RG-LRU on f32 a and b, as the models feed it; bf16 a is
+    refused); the raw wrappers still refuse a gradient."""
+    from repro_torch.kernels import rglru_scan as trg
+    from repro_torch.kernels import ssd_scan as tss
+
+    x, dt, A, B, C, s0 = _ssd_inputs(2, 150, 4, 32, 64, dtype, seed=31)
+    dy = _rand((2, 150, 4, 32), dtype, seed=32)
+    grads = {}
+    for impl in ("auto", "torch"):
+        ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C, s0)]
+        kernels.reset_launch_counts()
+        y, sf = ops.ssd(*ins[:5], initial_state=ins[5], return_final_state=True, impl=impl)
+        grads[impl] = torch.autograd.grad((y.float() * dy.float()).sum() + sf.sum(), ins)
+        counts = kernels.launch_counts()
+        want = 1 if impl == "auto" else 0
+        assert counts["ssd_scan"] == want and counts["ssd_scan_bwd"] == want
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "ds0"), grads["auto"], grads["torch"]):
+        _assert_grad_close(g, w, torch.float32 if w.dtype == torch.float32 else dtype, name)
+    a, bterm, h0 = _rglru_inputs(2, 90, 64, torch.float32, seed=33)
+    dya = _rand((2, 90, 64), torch.float32, seed=34)
+    grads = {}
+    for impl in ("auto", "torch"):
+        ins = [t.clone().requires_grad_() for t in (a, bterm, h0)]
+        kernels.reset_launch_counts()
+        y = ops.rglru_scan(*ins[:2], initial_state=ins[2], impl=impl)
+        grads[impl] = torch.autograd.grad((y.float() * dya.float()).sum(), ins)
+        counts = kernels.launch_counts()
+        want = 1 if impl == "auto" else 0
+        assert counts["rglru_scan"] == want and counts["rglru_scan_bwd"] == want
+    for name, g, w in zip(("da", "db", "dh0"), grads["auto"], grads["torch"]):
+        _assert_grad_close(g, w, torch.float32, name)
+    with pytest.raises(TypeError, match="f32 a and b"):
+        ops.rglru_scan(a.to(torch.bfloat16).requires_grad_(), bterm.to(torch.bfloat16))
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        tss.ssd_scan(x.clone().requires_grad_(), dt, A, B, C)
+    with pytest.raises(RuntimeError, match="rglru_scan"):
+        trg.rglru_scan(a.clone().requires_grad_(), bterm)
+
+
+def test_scan_backward_planners_assume_the_kernels_geometry():
+    from repro_torch.kernels import rglru_scan as trg
+    from repro_torch.kernels import ssd_scan as tss
+
+    for binding, geometry in ((tss._BWD_LIB, tss.BWD_GEOMETRY), (trg._BWD_LIB, trg.BWD_GEOMETRY)):
+        _build.check_geometry(binding.name, binding.lib(), geometry)
+    with pytest.raises(ValueError, match="head dim"):
+        x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 72, 16, torch.float32, seed=35)
+        tss.ssd_scan_bwd(x, dt, A, B, C, x)

@@ -259,6 +259,7 @@ def test_launch_counts_cover_every_kernel():
         "paged_prefill_chunk_quant", "quant_matmul", "sum3d", "stencil3d",
         "tinymatsum_static", "tinymatsum_dynamic", "matvec_right", "matvec_left",
         "flash_attention", "flash_decode", "ssd_scan", "rglru_scan", "flash_attention_bwd",
+        "ssd_scan_bwd", "rglru_scan_bwd",
     }
 
 
@@ -276,3 +277,8 @@ def test_kernel_sources_export_the_wrapped_entries():
     text = open(csrc + "ssd_scan.cu").read()
     for name in ("repro_ssd_scan", "repro_cuda_error_string"):
         assert f"{name}(" in text
+    for source, entry in (("ssd_scan_bwd.cu", "repro_ssd_scan_bwd"),
+                          ("rglru_scan_bwd.cu", "repro_rglru_scan_bwd")):
+        text = open(csrc + source).read()
+        for name in (entry, "repro_geometry", "repro_cuda_error_string"):
+            assert f"{name}(" in text
