@@ -3519,6 +3519,16 @@ def scan_bwd_checks(g):
             torch.cuda.synchronize()
             want = c.plain()
             extra = {**c.shape, "initial_state": c.initial, "d_final_state": c.initial}
+            if kind == "ssd":  # the head groups, the workspaces a call, the chunk blocks an SM
+                from repro_torch.kernels import ssd_scan as ss
+
+                sh = c.shape
+                extra.update({
+                    "head_groups": dict(zip(("heads_a_group", "groups"),
+                                            ss.bwd_head_groups(sh["b"], sh["t"], sh["h"]))),
+                    "workspace_bytes": ss.bwd_workspace_bytes(sh["b"], sh["t"], sh["h"], sh["n"]),
+                    "chunk_blocks_per_sm": ss.bwd_blocks_per_sm(dtype, sh["n"],
+                                                                torch.device("cuda"))})
             if kind == "rglru":
                 extra["bit_equal_to_plain"] = all(torch.equal(x_, y_) for x_, y_ in
                                                   zip(got, want) if x_ is not None)
@@ -4008,8 +4018,8 @@ def main() -> int:
                                            "ssd_kernel", "rglru_kernel",
                                            "stencil3d_kernel", "sum3d_kernel",
                                            "dkdv_kernel", "dq_kernel", "delta_kernel",
-                                           "state_pass_kernel", "chunk_kernel", "fold_kernel",
-                                           "fold_da_kernel", "rglru_bwd_kernel"))}
+                                           "pass_kernel", "lam_kernel", "::s_kernel<",
+                                           "fold_kernel", "fold_da_kernel", "rglru_bwd_kernel"))}
     bw = copy_bandwidth()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,

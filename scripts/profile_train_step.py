@@ -37,7 +37,8 @@ from profile_torch_serve import busy_union_us  # noqa: E402
 
 CLASSES = (  # first match wins, on the kernel's name
     ("ssd_scan", ("ssd_kernel", "cb_kernel")),
-    ("ssd_scan_bwd", ("state_pass_kernel", "chunk_kernel", "fold_kernel", "fold_da_kernel")),
+    ("ssd_scan_bwd", ("pass_kernel", "lam_kernel", "::s_kernel<", "fold_kernel",
+                      "fold_da_kernel")),
     ("rglru_scan", ("rglru_kernel",)),
     ("rglru_scan_bwd", ("rglru_bwd_kernel",)),
     ("flash_attention", ("flash_mma_kernel", "flash_kernel", "flash_attention_kernel")),

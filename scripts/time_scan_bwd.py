@@ -30,8 +30,21 @@ the triangular chunk products counted as triangles; 3 a step for rglru) at
 the input type's peak. No PyTorch call computes either
 gradient, so there is no library yardstick. With ``--profile`` each line
 carries the device ms a call of each kernel the wrapper launched
-(``torch.profiler`` over 5 calls): for ssd_scan_bwd the C . B, state pass,
-adjoint pass, chunk and fold kernels.
+(``torch.profiler`` over 5 calls): for ssd_scan_bwd pass_kernel (the state
+and adjoint passes, one launch), lam_kernel and s_kernel (the chunk kernels
+of a head group), fold_kernel (more than one group) and fold_da_kernel. For
+ssd_scan_bwd each line also carries the head groups, the workspace bytes a
+call and the chunk kernels' blocks an SM by the occupancy query.
+
+With ``--phases`` (this tree's csrc/ssd_scan_bwd.cu), where the SSD
+backward's time goes: the source is copied with one change at a time (a
+textual edit at an anchor, each asserted to be there once), built with nvcc
+and ``_build.FLAGS`` into DIR/build/variants, bound in the wrapper's place
+and timed (device ms, and ms by kernel) at each SSD case: stages4
+(pass_kernel's ring 4 deep: right, checked against the plain twin),
+no_store (the passes write the state of their last chunk only), no_update
+(the passes skip the state's product) and no_stage (the passes stage their
+first chunk only); the cut ones are wrong and only timed.
 
 Cases (f32 and bf16): chip_smoke.py's SSD_BWD_CASES (mamba2-780m's training
 shape (4, 2048, 48, 64), N 128, and a ragged t 389 with an initial state and
@@ -49,6 +62,7 @@ import hashlib
 import importlib
 import importlib.util
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -64,6 +78,81 @@ def digest(tensors):
                                    for t in tensors if t is not None)).hexdigest()
 
 
+# variant -> [(anchor in csrc/ssd_scan_bwd.cu, replacement)]: --phases' copies
+_STORE = "        put_row16(out + (16 * warp + g + 8 * r) * p.np"
+_STAGE_CALLS = ("    stage(vs_at(s), ld, v + (tok * p.heads + hh) * P",
+          "    stage_dt(dts_at(s), p.dt, tok, p.heads, hh, rows);\n    cp_async_commit();\n  };")
+PHASES = {
+    "stages4": [("constexpr int kStages = 2;", "constexpr int kStages = 4;")],
+    "no_store": [(_STORE, "        if (it == p.nc - 1) " + _STORE.lstrip())],
+    "no_update": [("    const float decay = exp2f(sc.last);\n",
+                   "    const float decay = exp2f(sc.last);\n    if (it >= 0) {\n"
+                   "      __syncthreads();\n      continue;\n    }\n")],
+    "no_stage": [(_STAGE_CALLS[0], "    if (it < kStages - 1) {\n" + _STAGE_CALLS[0]),
+                 (_STAGE_CALLS[1], _STAGE_CALLS[1].replace("    cp_async_commit();",
+                                                           "    }\n    cp_async_commit();"))],
+}
+
+
+def build_cut(tree, name, edits):
+    """This tree's csrc/ssd_scan_bwd.cu with ``edits`` applied, built into
+    DIR/build/variants; returns the library's path."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / _build.SOURCES["ssd_scan_bwd"]).read_text()
+    for anchor, new in edits:
+        assert src.count(anchor) == 1, f"{name}: anchor not found once: {anchor!r}"
+        src = src.replace(anchor, new)
+    out = tree / "build" / "variants" / f"ssd_scan_bwd_{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cut = out.with_suffix(".cu")
+    cut.write_text(src)
+    proc = subprocess.run([_build._nvcc(), *_build.FLAGS, f"-I{_build.CSRC}", "-o", str(out),
+                           str(cut)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+    return out
+
+
+def bind_cut(ss, path):
+    """The library at ``path`` with the backward binding's signatures."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in ss._BWD_LIB.signatures.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def time_phases(tree, smoke, ss, card, label, dtypes):
+    """--phases: each PHASES copy in the wrapper's place, at the SSD cases."""
+    real = ss._BWD_LIB.lib()
+    for name, edits in PHASES.items():
+        ss._BWD_LIB._lib = bind_cut(ss, build_cut(tree, name, edits))
+        try:
+            for i, case in enumerate(smoke.SSD_BWD_CASES):
+                for dtype in dtypes:
+                    g = torch.Generator(device="cuda").manual_seed(300 + i)
+                    c = smoke.scan_bwd_case("ssd", case, dtype, g)
+                    rec = {"label": label, "nvidia_smi": card, "phase_cut": name,
+                           "case": case[0], "dtype": str(dtype).split(".")[1],
+                           "device_ms": smoke.device_ms_per_call(c.kernel, n=20),
+                           "kernel_device_ms": kernel_split(c.kernel)}
+                    if "stages" in name:
+                        got, want = c.kernel(), c.plain()
+                        rec["agrees_with_plain"] = all(
+                            smoke._grad_excess(a, w, a.dtype)[1] <= 0
+                            for a, w in zip(got, want) if a is not None)
+                    print(json.dumps(rec), flush=True)
+                    del c
+                    torch.cuda.empty_cache()
+        finally:
+            ss._BWD_LIB._lib = real
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
@@ -76,6 +165,8 @@ def main() -> int:
                     help="also time the plain twins and give the bound")
     ap.add_argument("--profile", action="store_true",
                     help="also give each kernel's device ms a call (torch.profiler)")
+    ap.add_argument("--phases", action="store_true",
+                    help="time copies of this tree's SSD backward with one phase changed or cut")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_scan_bwd: no CUDA device", file=sys.stderr)
@@ -101,6 +192,9 @@ def main() -> int:
                                                                    "rglru_scan_bwd")}}),
           flush=True)
     dtypes = [getattr(torch, args.dtype)] if args.dtype else [torch.float32, torch.bfloat16]
+    if args.phases:
+        time_phases(tree, smoke, ss, card, args.label, dtypes)
+        return 0
     cases = [("ssd", c) for c in smoke.SSD_BWD_CASES] + \
         [("rglru", c) for c in smoke.RGLRU_BWD_CASES]
     for i, (kind, case) in enumerate(cases):
@@ -124,6 +218,14 @@ def main() -> int:
                             "bound_ms": max(t_bytes, t_ops) * 1e3,
                             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                             "bytes": c.nbytes, "flops": c.flops, "library_ms": None})
+            if kind == "ssd":
+                sh = c.shape
+                if hasattr(ss, "bwd_head_groups"):
+                    rec["head_groups"] = ss.bwd_head_groups(sh["b"], sh["t"], sh["h"])
+                    rec["workspace_bytes"] = ss.bwd_workspace_bytes(sh["b"], sh["t"], sh["h"],
+                                                                    sh["n"])
+                    rec["chunk_blocks_per_sm"] = ss.bwd_blocks_per_sm(dtype, sh["n"],
+                                                                      torch.device("cuda"))
             if args.profile:
                 rec["kernel_device_ms"] = kernel_split(call)
             print(json.dumps(rec), flush=True)

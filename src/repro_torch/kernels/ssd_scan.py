@@ -10,7 +10,9 @@ Port of ``repro.kernels.ssd_scan`` and of the reference's chunked jnp twin:
   ssd_bwd_torch  <- the gradient of ops.ssd_jnp, which the reference takes by
                     autodiff: its plain twin, the chunked dual of the forward
   ssd_scan_bwd   <- the same gradient (ngroups 1) — launches
-                    csrc/ssd_scan_bwd.cu's six kernels
+                    csrc/ssd_scan_bwd.cu's kernels: one launch for the
+                    state and adjoint passes, the two chunk kernels of a
+                    (head group, chunk, sequence), the folds
   SSDScanFn      the autograd Function the card trains through: ssd_scan
                     forward, ssd_scan_bwd backward
 
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -111,8 +114,10 @@ ssd_torch.calls = 0
 
 def _fold(parts: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum ``parts`` over ``dim`` one slice after another, in index order: the
-    backward kernel's fold (csrc/ssd_scan_bwd.cu::fold_kernel), so the bits
-    follow that order."""
+    backward kernels' folds (the heads of a group in order in
+    csrc/ssd_scan_bwd.cu's chunk kernels, the groups in order in its
+    fold_kernel, the (sequence, chunk) partials of dA in its fold_da_kernel),
+    so the bits follow that order."""
     out = parts.select(dim, 0).clone()
     for i in range(1, parts.shape[dim]):
         out = out + parts.select(dim, i)
@@ -139,7 +144,9 @@ def ssd_bwd_torch(x, dt, A, B, C, dy, *, initial_state=None, d_final_state=None,
       3. per chunk: dM = dy . x^T, M = CB o L o dt, dCB = dM o L o dt,
          dx = M^T dy + w o (B . Lam^T),
          dC = e o (dy . S_c) + dCB . B,  dB = w o (x . Lam) + dCB^T . C
-         (per head, then folded over the heads of a group in head order),
+         (the terms of a head group's heads folded in head order, the dCB
+         term of the group's summed dCB added after them, then the groups
+         folded in order: ``bwd_head_groups``),
          the log-decay adjoint ds (from e, from L through Z = dM o M, from
          exp(s_Q) and w), its reverse cumsum r inside the chunk, ddt = the
          direct terms + A r, and dA = sum dt r per (sequence, chunk), folded
@@ -205,8 +212,24 @@ def ssd_bwd_torch(x, dt, A, B, C, dy, *, initial_state=None, d_final_state=None,
     dx = torch.einsum("bchtu,bcthp->bcuhp", M, dyf) + w[..., None] * BL
     dyS = torch.einsum("bcthp,bchpn->bcthn", dyf, S0)
     xL = torch.einsum("bcuhp,bchpn->bcuhn", xf, Lam)
-    dC = e[..., None] * dyS + torch.einsum("bchtu,bcuhn->bcthn", dCB, Bf)
-    dB = w[..., None] * xL + torch.einsum("bchtu,bcthn->bcuhn", dCB, Cf)
+    # dB and dC: the heads of each head group folded in order, then the group's
+    # summed dCB term, then the groups folded in order (the kernels' schedule)
+    hg, ng = bwd_head_groups(b, t, rep)
+    hpad = hg * ng - rep
+
+    def by_group(v, dim):  # the head axis ``dim`` (g x rep) -> (g, ng, hg), zeros past rep
+        v = v.unflatten(dim, (g, rep))
+        if hpad:
+            v = torch.cat([v, v.new_zeros(v.shape[:dim + 1] + (hpad,) + v.shape[dim + 2:])],
+                          dim + 1)
+        return v.unflatten(dim + 1, (ng, hg))
+
+    dCBg = _fold(by_group(dCB, 2), 4)  # (b, nc, g, ng, Q, Q)
+    Bg, Cg = B.to(acc).reshape(b, nc, q, g, n), C.to(acc).reshape(b, nc, q, g, n)
+    dCg = (_fold(by_group(e[..., None] * dyS, 3), 5)
+           + torch.einsum("bcgktu,bcugn->bctgkn", dCBg, Bg))
+    dBg = (_fold(by_group(w[..., None] * xL, 3), 5)
+           + torch.einsum("bcgktu,bctgn->bcugkn", dCBg, Cg))
     xLB = (xL * Bf).sum(-1)  # (b, nc, Q, h)
     ds = (e * (Cf * dyS).sum(-1) + Z.sum(-1).permute(0, 1, 3, 2)
           - Z.sum(-2).permute(0, 1, 3, 2) - w * xLB)
@@ -217,8 +240,8 @@ def ssd_bwd_torch(x, dt, A, B, C, dy, *, initial_state=None, d_final_state=None,
     dA = _fold((dtf * r).sum(2).reshape(b * nc, h), 0)
     dx = dx.reshape(b, nc * q, h, p)[:, :t].to(x.dtype)
     ddt = ddt.reshape(b, nc * q, h)[:, :t].contiguous()
-    fold = lambda v: _fold(v.reshape(b, nc * q, g, rep, n)[:, :t], 3)  # noqa: E731
-    return dx, ddt, dA, fold(dB).to(B.dtype), fold(dC).to(C.dtype), d_init
+    fold = lambda v: _fold(v.reshape(b, nc * q, g, ng, n)[:, :t], 3)  # noqa: E731
+    return dx, ddt, dA, fold(dBg).to(B.dtype), fold(dCg).to(C.dtype), d_init
 
 
 ssd_bwd_torch.calls = 0
@@ -318,26 +341,82 @@ ssd_scan.launches = 0
 # ---------------------------------------------------------------------------------
 # the backward: CUDA kernel wrapper and the autograd Function
 # ---------------------------------------------------------------------------------
-# csrc/ssd_scan_bwd.cu's kGeometry, in its order: the chunk, the product tile
-# (p and the state columns), the largest head dim and the threads of a block
-BWD_GEOMETRY = {"chunk": 64, "tile": 64, "max_head_dim": 64, "threads": 256}
+# csrc/ssd_scan_bwd.cu's kGeometry, in its order: the chunk, the state columns a
+# tile (pass blocks, the chunk kernels' S / Lam stages), the largest head dim,
+# the pass kernel's threads and ring stages, the chunk kernels' threads (np <=
+# 128; twice that at np 256) and the blocks the head groups aim for
+BWD_GEOMETRY = {"chunk": 64, "tile": 64, "max_head_dim": 64, "pass_threads": 128,
+                "pass_stages": 2, "chunk_threads": 256, "fill_blocks": 528}
 _BWD_LIB = _build.Binding("ssd_scan_bwd", {
-    "repro_ssd_scan_bwd": [_i] + [_p] * 20 + [_i] * 5 + [_p],
+    "repro_ssd_scan_bwd": [_i] + [_p] * 21 + [_i] * 6 + [_p],
+    "repro_ssd_bwd_blocks_per_sm": [_i, _i, ctypes.POINTER(_i)],  # no stream
 }, geometry=BWD_GEOMETRY)
+
+
+def bwd_head_groups(b: int, t: int, h: int):
+    """(heads a group, groups) of ssd_scan_bwd's chunk kernels for b
+    sequences of t steps and h heads sharing B and C: ``want`` = the groups
+    that make b x ceil(t / 64) x groups reach BWD_GEOMETRY["fill_blocks"]
+    blocks (1 to h), groups of ceil(h / want) heads, a short last group
+    where that does not divide h (rounding the size up may leave fewer
+    groups than ``want``). csrc/ssd_scan_bwd.cu::head_group_size plans the
+    same and refuses another."""
+    nc = -(-t // BWD_GEOMETRY["chunk"])
+    groups = min(h, max(1, -(-BWD_GEOMETRY["fill_blocks"] // (b * nc))))
+    hg = -(-h // groups)
+    return hg, -(-h // hg)
+
+
+def bwd_workspace_shapes(b: int, t: int, h: int, n: int):
+    """The f32 workspaces ssd_scan_bwd allocates a call, by name (None: not
+    allocated): the S_c and Lam_c planes (b, nc, h, 64, np) (np = n rounded up
+    to 64; bf16 keeps a hi and a lo plane in the same bytes), the groups'
+    summed dCB (b, nc, groups, 64, 64), the ds pieces (b, nc, h, 3, 64), the
+    group partials of dB and dC (b, t, groups, n) with more than one group,
+    and dA's partials (b, nc, h)."""
+    q, nt = BWD_GEOMETRY["chunk"], BWD_GEOMETRY["tile"]
+    nc, np_ = -(-t // q), -(-n // nt) * nt
+    _, groups = bwd_head_groups(b, t, h)
+    part = (b, t, groups, n) if groups > 1 else None
+    return {"states": (b, nc, h, q, np_), "lams": (b, nc, h, q, np_),
+            "dcb": (b, nc, groups, q, q), "aux": (b, nc, h, 3, q), "dbp": part, "dcp": part,
+            "dap": (b, nc, h)}
+
+
+def bwd_workspace_bytes(b: int, t: int, h: int, n: int) -> int:
+    """Bytes of the workspaces ssd_scan_bwd allocates a call at this shape."""
+    return sum(4 * math.prod(s) for s in bwd_workspace_shapes(b, t, h, n).values()
+               if s is not None)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_blocks_per_sm(dtype: torch.dtype, n: int, device: torch.device):
+    """Blocks of the backward's chunk kernels (lam_kernel, s_kernel) and of
+    its pass_kernel for ``dtype`` and state size n that fit on one SM of
+    ``device`` at once, and the chunk kernels' shared memory bytes (the
+    library's occupancy query), asked once each."""
+    out = (_i * 5)()
+    with torch.cuda.device(device):
+        rc = _BWD_LIB.lib().repro_ssd_bwd_blocks_per_sm(_DTYPE_CODE[dtype], n, out)
+    if rc != 0:
+        msg = _BWD_LIB.lib().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"ssd_scan_bwd occupancy query failed: CUDA error {rc} ({msg})")
+    return {"lam_kernel": out[0], "s_kernel": out[1], "pass_kernel": out[2],
+            "lam_smem_bytes": out[3], "s_smem_bytes": out[4]}
 
 
 def ssd_scan_bwd(x, dt, A, B, C, dy, *, initial_state: Optional[torch.Tensor] = None,
                  d_final_state: Optional[torch.Tensor] = None):
-    """The gradient of ``ssd_scan`` (kernels: csrc/ssd_scan_bwd.cu, C . B a
-    (sequence, chunk), the state pass, the adjoint pass, a block per (chunk,
-    head, sequence) for the products (bf16 on mma.sync, f32 values as hi +
-    lo pairs; f32 on the CUDA cores), then the folds of dB / dC over heads
-    and of dA over (sequence, chunk) in a fixed order). Inputs as
-    ``ssd_scan`` takes them, dy (b, t, h, p) in x's dtype (None: zeros),
-    ``d_final_state`` (b, h, p, n) f32 or None; head dim <= 64. -> (dx, ddt,
-    dA, dB, dC, d_initial_state), as ``ssd_bwd_torch`` returns them. On CPU
-    tensors: ``ssd_bwd_torch``; on CUDA tensors it launches the kernels or
-    raises. Its calls are counted in ``.launches``."""
+    """The gradient of ``ssd_scan`` (kernels: csrc/ssd_scan_bwd.cu, the state
+    and adjoint passes in one launch, then two chunk kernels a (head group,
+    chunk, sequence) that fold dB and dC over the group's heads on chip (bf16
+    on mma.sync, f32 values as hi + lo planes; f32 on the CUDA cores), then the
+    folds of the group partials and of dA over (sequence, chunk) in a fixed
+    order). Inputs as ``ssd_scan`` takes them, dy (b, t, h, p) in x's dtype
+    (None: zeros), ``d_final_state`` (b, h, p, n) f32 or None; head dim <= 64.
+    -> (dx, ddt, dA, dB, dC, d_initial_state), as ``ssd_bwd_torch`` returns
+    them. On CPU tensors: ``ssd_bwd_torch``; on CUDA tensors it launches the
+    kernels or raises. Its calls are counted in ``.launches``."""
     if x.device.type == "cpu":
         return ssd_bwd_torch(x, dt, A, B, C, dy, initial_state=initial_state,
                              d_final_state=d_final_state)
@@ -365,24 +444,19 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, *, initial_state: Optional[torch.Tensor] = 
     for name, ten in (("initial_state", initial_state), ("d_final_state", d_final_state)):
         if ten is not None:
             _check(name, ten, (b, h, p, n), torch.float32, dev)
-    q = BWD_GEOMETRY["chunk"]
-    nc = -(-t // q)
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
     ddt, dA = torch.empty((b, t, h), **f32), torch.empty((h,), **f32)
     d_init = torch.empty((b, h, p, n), **f32) if initial_state is not None else None
-    states = torch.empty((b, nc, h, p, n), **f32)
-    lams = torch.empty((b, nc, h, p, n), **f32)
-    cb = torch.empty((b, nc, q, q), **f32)
-    dbp, dcp = torch.empty((b, t, h, n), **f32), torch.empty((b, t, h, n), **f32)
-    dap = torch.empty((b, nc, h), **f32)
+    ws = {k: None if s is None else torch.empty(s, **f32)
+          for k, s in bwd_workspace_shapes(b, t, h, n).items()}
     ptr = lambda ten: ten.data_ptr() if ten is not None else None  # noqa: E731
     _BWD_LIB.launch(
         "repro_ssd_scan_bwd", "ssd_scan_bwd",
         _DTYPE_CODE[x.dtype], *map(ptr, (x, dt, A, B, C, dy, initial_state, d_final_state, dx,
-                                         ddt, dA, dB, dC, d_init, states, lams, cb, dbp, dcp,
-                                         dap)),
-        b, t, h, p, n, device=dev,
+                                         ddt, dA, dB, dC, d_init, ws["states"], ws["lams"],
+                                         ws["dcb"], ws["aux"], ws["dbp"], ws["dcp"], ws["dap"])),
+        b, t, h, p, n, bwd_head_groups(b, t, h)[0], device=dev,
     )
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC, d_init

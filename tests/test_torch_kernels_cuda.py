@@ -2706,8 +2706,15 @@ def test_trainer_loop_trains_the_scan_families_without_restart(tmp_path):
     assert all(math.isfinite(h["loss"]) for h in out["history"])
 
 
+# the last three: 11 heads in groups of 4 (a short last group), mamba2-780m's
+# training shape (groups of 10, the last of 8), a grid under one wave (15
+# blocks of one head each)
 SSD_BWD_CASES = [(2, 130, 4, 64, 128, True), (1, 64, 48, 64, 128, False), (2, 389, 8, 64, 128, True),
-                 (1, 1, 2, 16, 16, True), (2, 77, 3, 7, 5, False), (1, 200, 2, 32, 256, True)]
+                 (1, 1, 2, 16, 16, True), (2, 77, 3, 7, 5, False), (1, 200, 2, 32, 256, True),
+                 (3, 4096, 11, 64, 64, True), (4, 2048, 48, 64, 128, False),
+                 (1, 130, 5, 64, 128, True)]
+# (b, t, h) -> (heads a group, groups) for those three
+SSD_BWD_PLANS = {(3, 4096, 11): (4, 3), (4, 2048, 48): (10, 5), (1, 130, 5): (1, 5)}
 
 
 @pytest.mark.parametrize("case", SSD_BWD_CASES, ids=_ids(SSD_BWD_CASES))
@@ -2715,7 +2722,9 @@ SSD_BWD_CASES = [(2, 130, 4, 64, 128, True), (1, 64, 48, 64, 128, False), (2, 38
 def test_ssd_scan_bwd_matches_its_plain_twin(case, dtype):
     """ssd_scan_bwd against ssd_bwd_torch on the card (chunk edges, a ragged
     t, n 256, odd p and n, with and without an initial state and the final
-    state's gradient); two runs bit-equal; one launch counted a call."""
+    state's gradient, head groups that do not divide the heads, mamba2-780m's
+    full shape, a grid under one wave); two runs bit-equal; one launch counted
+    a call."""
     from repro_torch.kernels import ssd_scan as tss
 
     b, t, h, p, n, initial = case
@@ -2723,6 +2732,8 @@ def test_ssd_scan_bwd_matches_its_plain_twin(case, dtype):
     dy = _rand((b, t, h, p), dtype, seed=t + 1)
     dsf = _rand((b, h, p, n), torch.float32, seed=t + 2) if initial else None
     kw = dict(initial_state=s0 if initial else None, d_final_state=dsf)
+    if case[:3] in SSD_BWD_PLANS:  # the schedule edge the case stands for
+        assert tss.bwd_head_groups(*case[:3]) == SSD_BWD_PLANS[case[:3]]
     launches = tss.ssd_scan_bwd.launches
     got = tss.ssd_scan_bwd(x, dt, A, B, C, dy, **kw)
     assert tss.ssd_scan_bwd.launches == launches + 1

@@ -10,8 +10,9 @@ tensors its forward and backward are the plain versions).
   a sum over every (sequence, step) whose terms cancel, within 5e-5).
 - The twin against ``jax.grad`` of the reference's ``ssd_jnp`` on the same
   numpy inputs from a seed (each gradient within 1e-4 of its max-abs).
-- The folds of dB / dC over heads and of dA over (sequence, chunk): in index
-  order, bit for bit, and a reversed order gives other bits.
+- The folds of dB / dC over the heads of a head group, over the groups and
+  of dA over (sequence, chunk): in index order, bit for bit, and a reversed
+  order gives other bits.
 - ``ops.ssd`` routes to SSDScanFn under grad where it would launch the
   kernel (the device check mocked), and the mamba2 smoke model's loss and
   gradients through that route against ``jax.value_and_grad`` of the
@@ -121,22 +122,30 @@ def test_twin_matches_jax_grad_of_ssd_jnp(shape, initial):
 
 
 def test_twin_folds_heads_and_chunks_in_order(monkeypatch):
-    """dB and dC are their heads' partials summed head 0, 1, ...; dA its
-    (sequence, chunk) partials in that order: bit for bit, and the reversed
-    order gives other bits."""
+    """The kernels' schedule: dCB and dB / dC's per-head terms are folded over
+    the heads of each head group in head order (16 heads in groups of 3, the
+    last group short), the group partials over the groups in order, and dA
+    over its (sequence, chunk) partials in order: every fold bit for bit, the
+    returned dA / dB / dC the last folds' sums, and the reversed order gives
+    other bits."""
     seen = []
     real = ss._fold
 
     def spy(parts, dim):
-        seen.append((parts.clone(), dim))
-        return real(parts, dim)
+        out = real(parts, dim)
+        seen.append((parts.clone(), dim, out))
+        return out
 
     monkeypatch.setattr(ss, "_fold", spy)
-    x, dt, A, B, C, s0, dy, dsf = _t(_inputs(2, 200, 8, 16, 32, seed=41))
+    b, t, h = 2, 2560, 16
+    assert ss.bwd_head_groups(b, t, h) == (3, 6)
+    x, dt, A, B, C, s0, dy, dsf = _t(_inputs(b, t, h, 8, 16, seed=41))
     _, _, dA, dB, dC, _ = ss.ssd_bwd_torch(x, dt, A, B, C, dy, initial_state=s0,
                                            d_final_state=dsf)
-    assert len(seen) == 3
-    for (parts, dim), got in zip(seen, (dA, dB, dC)):
+    # dCB, dC's and dB's heads in their groups, dA, then dB's and dC's groups
+    assert [(p.shape[d], d) for p, d, _ in seen] == [(3, 4), (3, 5), (3, 5), (b * 40, 0),
+                                                     (6, 3), (6, 3)]
+    for parts, dim, got in seen:
         k = parts.shape[dim]
         in_order = parts.select(dim, 0)
         for i in range(1, k):
@@ -144,8 +153,32 @@ def test_twin_folds_heads_and_chunks_in_order(monkeypatch):
         backwards = parts.select(dim, k - 1)
         for i in reversed(range(k - 1)):
             backwards = backwards + parts.select(dim, i)
-        assert torch.equal(got.reshape(in_order.shape), in_order)
-        assert not torch.equal(got.reshape(backwards.shape), backwards)
+        assert torch.equal(got, in_order)
+        assert not torch.equal(got, backwards)
+    for (_, _, last), out in zip(seen[3:], (dA, dB, dC)):
+        assert torch.equal(last.reshape(out.shape), out)
+
+
+# (b, t, h) -> (heads a group, groups): mamba2-780m's training shape, the
+# ragged card case, shapes whose group size does not divide h, one chunk, and
+# one group of every head
+HEAD_GROUPS = {(4, 2048, 48): (10, 5), (2, 389, 48): (2, 24), (3, 4096, 11): (4, 3),
+               (2, 2560, 16): (3, 6), (1, 64, 48): (1, 48), (64, 8192, 7): (7, 1)}
+
+
+@pytest.mark.parametrize("shape", list(HEAD_GROUPS), ids=str)
+def test_head_groups_cover_every_head_once(shape):
+    """bwd_head_groups: groups of G heads cover the h heads once, only the
+    last short; one group leaves no dB / dC partial workspace; the
+    workspaces at mamba2-780m's training shape come to 459.8 MB."""
+    b, t, h = shape
+    hg, groups = ss.bwd_head_groups(b, t, h)
+    assert (hg, groups) == HEAD_GROUPS[shape]
+    assert (groups - 1) * hg < h <= groups * hg
+    ws = ss.bwd_workspace_shapes(b, t, h, 128)
+    assert ws["dcb"][2] == groups and (ws["dbp"] is None) == (groups == 1)
+    if shape == (4, 2048, 48):
+        assert ss.bwd_workspace_bytes(b, t, h, 128) == 459_825_152
 
 
 def _kernel_route_for_the_scans(monkeypatch):
