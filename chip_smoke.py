@@ -305,6 +305,28 @@ lines; any failure raises and exits non-zero:
                 each learns over 12 steps, a second run resumes from its
                 checkpoint, and a run with simulate_failure(at_step=5)
                 restores its latest checkpoint and finishes at step 10.
+  train_sharded_exact
+                the sharded train step on SHARDED_W ranks (a process group
+                in this process: NCCL, one rank on the one card, since
+                scripts/probe_card_ranks.py found two ranks on one card
+                failing) on every ("data", "model") mesh SHARDED_W allows:
+                llama3.2-1b's width at 2 layers, f32, TF32 off, B 2 x 512,
+                train_rules, against the port's one-device step on the card
+                (loss within 1e-5, every gradient leaf within 1e-3 of its
+                max-abs, one AdamW step's loss and grad_norm), with
+                flash_attention and flash_attention_bwd launched inside
+                local_map and the plain attention called none of the times;
+                kimi-k2's 2-layer MOE_EXACT_WIDTH model (D 112) the same way,
+                and its layer-0 experts through the expert-parallel block
+                (apply_moe_ep) against the einsum path at capacity factor 8
+                (outputs within 2e-4, gradients within 5e-3).
+  train_sharded llama3.2-1b at full width, bf16, remat, f32 moments, B 4 x
+                2048, train_rules on a (1, SHARDED_W) mesh: 6 steps through
+                TrainerLoop(model_axis=SHARDED_W); step ms p50 of steps 2-5,
+                tokens/s, each rank's peak memory, the collectives' calls
+                and bytes of one step (core.distributed.CollectiveCounter),
+                each step's loss (finite), and the launches a step of
+                flash_attention and flash_attention_bwd.
   kernels line  {"kernels": [...]} with the numbers of each of the 18
                 kernels: the 15 that replace the reference's 15 Pallas
                 functions, flash_attention_bwd, which replaces its
@@ -346,12 +368,14 @@ It needs one GPU and exits non-zero without one (or without the repo).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -3983,6 +4007,270 @@ def train_loop_phase(device="cuda", arch="llama3.2-1b"):
         raise AssertionError(f"train_loop: {rec}")
 
 
+# the ranks of the sharded phases: 1, over NCCL. scripts/probe_card_ranks.py
+# ran 2 gloo ranks ("cpu:gloo,cuda:gloo") on the one card and both died
+# (PERF.md, PR 33); NCCL refuses two ranks on one GPU. A (1, 1) mesh still
+# runs the placements, local_map and the kernels on the card, and sends no
+# bytes between ranks.
+SHARDED_W = 1
+SHARDED_MESHES = sorted({(SHARDED_W, 1), (1, SHARDED_W)})
+SHARDED_EXACT = dict(arch="llama3.2-1b", n_layers=2, batch=2, seq=512)
+SHARDED_MOE_X = (2, 256)  # the EP block's input: B x T tokens at kimi-k2's reduced width
+SHARDED_CELL = dict(arch="llama3.2-1b", steps=6, batch=4, seq=2048,
+                    source="hf:meta-llama/Llama-3.2-1B")
+ATTN_PLAIN = ("flash_attention_torch", "flash_bwd_torch")
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """A torch.distributed group of the SHARDED_W ranks in this process (NCCL
+    on the card, gloo on the CPU) on a file store in a temporary directory."""
+    import torch.distributed as dist
+
+    if SHARDED_W != 1:
+        raise NotImplementedError("more than one rank needs scripts/probe_card_ranks.py to pass "
+                                  "on the card and the ranks spawned as processes")
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method=f"file://{d}/store", world_size=SHARDED_W, rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_mesh(shape, device):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device, torch.arange(SHARDED_W).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+
+
+def attn_plain_calls():
+    """Calls so far of attention's plain differentiable version and its
+    backward."""
+    from repro_torch.kernels import flash_vjp
+
+    return {name: getattr(flash_vjp, name).calls for name in ATTN_PLAIN}
+
+
+def _allclose_excess(got, want, rtol, atol):
+    """max(|got - want| - atol - rtol |want|) over the elements (<= 0: the
+    reference's assert_allclose passes)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float(((got - want).abs() - atol - rtol * want.abs()).max())
+
+
+def _sharded_grads(model, params, batch, mesh, rules, profile=None):
+    """loss_and_grads on ``mesh``: (loss, gradients gathered whole, the
+    launches of the attention kernels, the plain attention's calls)."""
+    from repro_torch import kernels
+    from repro_torch.core.distributed import tree_distribute, tree_full
+    from repro_torch.models.layers import Sharder
+    from repro_torch.train import TrainProfile, loss_and_grads
+    from repro_torch.train.step import place_batch
+
+    pd = tree_distribute(params, model.param_specs(), mesh, rules)
+    kernels.reset_launch_counts()
+    plain = attn_plain_calls()
+    loss, grads = loss_and_grads(model, pd, place_batch(batch, mesh, rules),
+                                 profile or TrainProfile(), "auto", shard=Sharder(mesh, rules))
+    counts = kernels.launch_counts()
+    plain = {k: v - plain[k] for k, v in attn_plain_calls().items()}
+    return loss.full_tensor(), tree_full(grads), {k: counts[k] for k in TRAIN_ATTN_KERNELS}, plain
+
+
+def train_sharded_exact_phase(device="cuda", smoke=False):
+    """The sharded train step against the port's one-device step on the
+    card (f32, TF32 off), on every mesh of SHARDED_W ranks: llama3.2-1b's
+    width at 2 layers (B 2 x 512; smoke: the smoke config at 32 tokens),
+    then kimi-k2's MOE_EXACT_WIDTH at 2 layers (capacity factor 8), whose
+    layer-0 experts also go through apply_moe_ep against apply_moe. The
+    attention projections rescaled to their fan-in (``condition_attention``,
+    as train_exact). Returns the attention kernels' launches in the sharded
+    runs."""
+    from repro_torch.core.distributed import tree_distribute
+    from repro_torch.launch import train_rules
+    from repro_torch.models import build_model, get_config
+    from repro_torch.optim import AdamWConfig, adamw_init, constant
+    from repro_torch.train import TrainProfile, loss_and_grads, make_train_step
+
+    launches = {k: 0 for k in TRAIN_ATTN_KERNELS}
+    spec = SHARDED_EXACT
+    seq = 32 if smoke else spec["seq"]
+    with process_group(device):
+        for arch in (spec["arch"], "kimi-k2-1t-a32b"):
+            cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32")
+            if arch == "kimi-k2-1t-a32b":
+                cfg = dataclasses.replace(cfg, capacity_factor=8.0, **(
+                    {} if smoke else dict(n_layers=2, **MOE_EXACT_WIDTH[arch])))
+            elif not smoke:
+                cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+            model = build_model(cfg, device=device)
+            params = condition_attention(
+                cfg, model.init_params(torch.Generator(device=device).manual_seed(0)))
+            batch = _train_batch(cfg, spec["batch"], seq, device)
+            want_loss, want_grads = loss_and_grads(model, params, batch, TrainProfile(), "auto")
+            opt = AdamWConfig(lr=constant(1e-3))
+            step, _, st_specs = make_train_step(model, opt, TrainProfile())
+            _, _, want_m = step(params, adamw_init(st_specs, device), batch)
+            rules = train_rules(cfg)
+            for shape in SHARDED_MESHES:
+                mesh = sharded_mesh(shape, device)
+                loss, grads, counts, plain = _sharded_grads(model, params, batch, mesh, rules)
+                where = {}
+                grad_rel = _tree_rel(grads, want_grads, where)
+                loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+                sstep, specs, sst = make_train_step(model, opt, TrainProfile(), mesh=mesh,
+                                                    rules=rules)
+                _, _, m = sstep(tree_distribute(params, specs, mesh, rules),
+                                adamw_init(sst, device, mesh, rules), batch)
+                step_rel = {k: abs(float(m[k]) - float(want_m[k])) / abs(float(want_m[k]))
+                            for k in ("loss", "grad_norm")}
+                for k in launches:
+                    launches[k] += counts[k]
+                rec = {"phase": "train_sharded_exact", "arch": arch, "ranks": SHARDED_W,
+                       "mesh": list(shape), "layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+                       "batch": spec["batch"], "seq": seq, "dtype": "float32",
+                       "loss_sharded": float(loss), "loss_one_device": float(want_loss),
+                       "loss_rel": loss_rel, "grad_max_rel": grad_rel,
+                       "grad_worst_leaf": where.get("worst_leaf"), "step_rel": step_rel,
+                       "tolerance": f"loss 1e-5, each gradient leaf {TRAIN_EXACT_RTOL} of its "
+                                    "max-abs, the step's loss 1e-5 and grad_norm 1e-4",
+                       "kernel_launches": counts, "plain_attention_calls": plain}
+                emit(rec)
+                if loss_rel > 1e-5 or grad_rel > TRAIN_EXACT_RTOL or step_rel["loss"] > 1e-5 \
+                        or step_rel["grad_norm"] > 1e-4:
+                    raise AssertionError(f"train_sharded_exact {arch} {shape}: the sharded "
+                                         f"step parts from the one-device step: {rec}")
+                if device == "cuda" and (not all(counts.values()) or any(plain.values())):
+                    raise AssertionError(f"train_sharded_exact {arch} {shape}: an attention "
+                                         f"kernel did not launch, or the plain path ran: {rec}")
+            if cfg.family == "moe":
+                _moe_ep_check(cfg, params, device)
+            del model, params, want_grads, grads
+            torch.cuda.empty_cache()
+    return launches
+
+
+def _moe_ep_check(cfg, params, device):
+    """Layer 0's experts through apply_moe_ep on a (1, SHARDED_W) mesh
+    against apply_moe, both differentiated through sum(y * r): the
+    reference's tolerances (tests/test_multidevice.py:44-46)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.distributed import distribute, tree_distribute
+    from repro_torch.launch import train_rules
+    from repro_torch.models.layers import Sharder
+    from repro_torch.models.moe import apply_moe, apply_moe_ep, moe_specs
+
+    p = params["blocks"][0][0]["moe"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(*SHARDED_MOE_X, cfg.d_model, generator=gen, device=device)
+    r = torch.randn(*SHARDED_MOE_X, cfg.d_model, generator=gen, device=device)
+    pr = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    xr = x.clone().requires_grad_()
+    want, _ = apply_moe(cfg, pr, xr)
+    (want * r).sum().backward()
+    mesh = sharded_mesh((1, SHARDED_W), device)
+    rules = train_rules(cfg)
+    pd = {k: v.requires_grad_() for k, v in
+          tree_distribute({k: v.detach() for k, v in p.items()}, moe_specs(cfg), mesh,
+                          rules).items()}
+    xd = distribute(x, mesh, rules.placements(("batch", "seq", None), x.shape, mesh))
+    xd.requires_grad_()
+    with implicit_replication():
+        got, _ = apply_moe_ep(cfg, pd, xd, Sharder(mesh, rules))
+        (got * distribute(r, mesh, got.placements)).sum().backward()
+    excess = {"y": _allclose_excess(got.full_tensor(), want, 2e-4, 2e-4),
+              "x": _allclose_excess(xd.grad.full_tensor(), xr.grad, 5e-3, 5e-3),
+              **{k: _allclose_excess(pd[k].grad.full_tensor(), pr[k].grad, 5e-3, 5e-3)
+                 for k in pr}}
+    rec = {"phase": "train_sharded_exact", "check": "moe_expert_parallel", "arch": cfg.name,
+           "mesh": [1, SHARDED_W], "tokens": list(SHARDED_MOE_X), "d_model": cfg.d_model,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+           "allclose_excess": excess,
+           "tolerance": "outputs rtol = atol = 2e-4, gradients 5e-3 (allclose)"}
+    emit(rec)
+    if max(excess.values()) > 0:
+        raise AssertionError(f"train_sharded_exact: the expert-parallel block parts from the "
+                             f"einsum path: {rec}")
+
+
+def train_sharded_phase(smi, device="cuda", smoke=False):
+    """SHARDED_CELL through TrainerLoop on a (1, SHARDED_W) mesh: llama3.2-1b
+    at full width (smoke: the smoke config, B 2 x 32), bf16 params, remat,
+    f32 moments, train_rules (heads, ffn and vocab over "model"), 6 steps;
+    the checkpoint directory a TemporaryDirectory, ckpt_every past the last
+    step (only the final save runs, gathered whole). The collectives of step
+    1 are counted (CollectiveCounter: calls and input bytes by op; the
+    counter slows that step, which the p50 of steps 2-5 leaves out).
+    Returns the attention kernels' launches of the run."""
+    from repro_torch import kernels
+    from repro_torch.core.distributed import CollectiveCounter
+    from repro_torch.runtime import RunConfig, TrainerLoop
+
+    torch.cuda.empty_cache()
+    cell = dict(SHARDED_CELL, **(dict(batch=2, seq=32) if smoke else {}))
+    counter = CollectiveCounter()
+    with process_group(device), tempfile.TemporaryDirectory() as ckpt_dir:
+        run = RunConfig(arch=cell["arch"], smoke=smoke, steps=cell["steps"],
+                        batch=cell["batch"], seq=cell["seq"], peak_lr=3e-4, warmup=2,
+                        ckpt_dir=ckpt_dir, ckpt_every=10 * cell["steps"], log_every=1,
+                        remat=True, device=device, model_axis=SHARDED_W)
+        loop = TrainerLoop(run)
+        step_fn, calls = loop.step_fn, []
+
+        def counted(*args):
+            calls.append(None)
+            if len(calls) != 2:
+                return step_fn(*args)
+            with counter:
+                return step_fn(*args)
+
+        loop.step_fn = counted
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        plain = attn_plain_calls()
+        out = loop.run_loop()
+        counts = kernels.launch_counts()
+        plain = {k: v - plain[k] for k, v in attn_plain_calls().items()}
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        mesh, cfg, last_save = list(loop.mesh.shape), loop.cfg, loop.last_save
+        del loop
+    hist = out["history"]
+    n = len(hist)
+    losses = [h["loss"] for h in hist]
+    p50 = statistics.median(h["time_s"] for h in hist[2:6])
+    rec = {"phase": "train_sharded", "nvidia_smi": smi, "arch": cell["arch"],
+           "source": cell["source"], "ranks": SHARDED_W, "mesh": mesh,
+           "rules": "train_rules", "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "remat": True, "moments": "f32", "batch": cell["batch"], "seq": cell["seq"],
+           "steps": n, "step_ms_p50_steps_2_5": p50 * 1e3,
+           "step_ms": [h["time_s"] * 1e3 for h in hist],
+           "rank_step_ms": [[t * 1e3 for t in h["rank_times_s"]] for h in hist],
+           "tokens_per_s": cell["batch"] * cell["seq"] / p50,
+           "peak_memory_bytes_per_rank": [peak], "losses": losses,
+           "collectives_step_1": {"calls": counter.calls, "input_bytes": counter.bytes},
+           "launches_per_step": {k: counts[k] / n for k in TRAIN_ATTN_KERNELS},
+           "plain_attention_calls": plain, "final_save": last_save,
+           "note": "one rank: the collectives run on a one-rank NCCL group and move no "
+                   "bytes between ranks"}
+    emit(rec)
+    if not all(math.isfinite(x) for x in losses) or n != cell["steps"]:
+        raise AssertionError(f"train_sharded: {n} steps, losses {losses}")
+    if device == "cuda" and (not all(counts[k] for k in TRAIN_ATTN_KERNELS)
+                             or any(plain.values())):
+        raise AssertionError(f"train_sharded: an attention kernel did not launch, or the plain "
+                             f"path ran: {counts}, {plain}")
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in TRAIN_ATTN_KERNELS}
+
+
 # =====================================================================================
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4186,7 +4474,16 @@ def main() -> int:
     for arch in ("llama3.2-1b", "mamba2-780m"):
         train_loop_phase(arch=arch)
     t_phase["train_loop"] = time.perf_counter() - t0
-    emit({"phase": "train_kernels", "nvidia_smi": smi, "rows": [
+    t0 = time.perf_counter()
+    sharded_exact = train_sharded_exact_phase()
+    t_phase["train_sharded_exact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = train_sharded_phase(smi)
+    t_phase["train_sharded"] = time.perf_counter() - t0
+    emit({"phase": "train_kernels", "nvidia_smi": smi,
+          # rows 6 and 14 inside local_map, on each of the SHARDED_W ranks
+          "launches_train_sharded": sharded, "launches_train_sharded_exact": sharded_exact,
+          "rows": [
         {"case": name, "kernel": rec["kernel"], "dtype": rec["dtype"],
          "launches_train": {arch: c[rec["kernel"]] for arch, c in train_counts.items()},
          **{k: rec.get(k) for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -4197,6 +4494,8 @@ def main() -> int:
                 **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches,
                 **{k: sum(c[k] for c in train_counts.values())
                    for k in ("flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")}}
+    for k in TRAIN_ATTN_KERNELS:  # the sharded training path's launches, on every rank
+        launches[k] += sharded[k]
     # the D 112 rows: kernel numbers from the kernels phase, launches from
     # kimi-k2's serve_moe run (the dense-cache rows 6-7 do not run there)
     kimi = serve_moe["kimi-k2-1t-a32b"]["launches"]

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Where a train step of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/profile_train_step.py [--arch NAME] [--steps N] [--out DIR]
+    python3 scripts/profile_train_step.py [--arch NAME] [--steps N] [--out DIR] [--sharded]
 
 Builds chip_smoke.py's train cell for NAME (``TRAIN_CELLS``: llama3.2-1b,
 mamba2-780m or recurrentgemma-2b at full width, bf16 params, remat, f32
 AdamW moments, the cell's batch and sequence) through ``TrainerLoop``'s own train
 step, runs two warm-up steps on SyntheticLM batches, then traces N (2) steps
-with torch.profiler. Prints one JSON line with the card's name and power
+with torch.profiler. With ``--sharded`` the step is the sharded one
+(``make_train_step(mesh=, rules=)`` through ``TrainerLoop``'s ``model_axis``)
+on chip_smoke.py's mesh of ``SHARDED_W`` ranks in this process
+(``chip_smoke.process_group``): parameters, gradients and moments DTensors,
+attention and the loss inside ``local_map``; the tables go to
+NAME_sharded. Prints one JSON line with the card's name and power
 limit: each traced step's wall ms (synchronised; the profiler slows the
 host, so step times come from chip_smoke.py's unprofiled train runs), the
 device busy ms a step and the device's idle share of the traced span, the
@@ -23,6 +28,7 @@ chiprun_out/profile_train/NAME).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import tempfile
@@ -65,24 +71,33 @@ def main() -> int:
     ap.add_argument("--arch", default="mamba2-780m")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
-    from repro_torch.runtime import RunConfig, TrainerLoop
-    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi_line()
     cell = chip_smoke.TRAIN_CELLS[args.arch]
     warmup = 2
+    group = chip_smoke.process_group("cuda") if args.sharded else contextlib.nullcontext()
+    with group:
+        return _profile(args, chip_smoke, cell, warmup, smi)
+
+
+def _profile(args, chip_smoke, cell, warmup, smi) -> int:
+    from repro_torch.runtime import RunConfig, TrainerLoop
+    from torch.profiler import ProfilerActivity, profile
+
     with tempfile.TemporaryDirectory() as ckpt_dir:
         loop = TrainerLoop(RunConfig(arch=args.arch, smoke=False, steps=warmup + args.steps,
                                      batch=cell["batch"], seq=cell["seq"], peak_lr=3e-4, warmup=2,
-                                     ckpt_dir=ckpt_dir, remat=True, device="cuda"))
+                                     ckpt_dir=ckpt_dir, remat=True, device="cuda",
+                                     model_axis=chip_smoke.SHARDED_W if args.sharded else 1))
     params, state = loop._init_state()
     batches = [chip_smoke._train_batch(loop.cfg, cell["batch"], cell["seq"], "cuda", seed=i)
                for i in range(warmup + args.steps)]
@@ -114,7 +129,8 @@ def main() -> int:
     averages = prof.key_averages()
     host_top = sorted((e for e in averages if e.self_cpu_time_total > 0),
                       key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
-    out = Path(args.out or ROOT / "chiprun_out" / "profile_train" / args.arch)
+    name = args.arch + ("_sharded" if args.sharded else "")
+    out = Path(args.out or ROOT / "chiprun_out" / "profile_train" / name)
     out.mkdir(parents=True, exist_ok=True)
     for sort in ("self_device_time_total", "self_cpu_time_total"):
         try:
@@ -124,6 +140,8 @@ def main() -> int:
         (out / f"by_{sort}.txt").write_text(table)
     rec = {
         "phase": "train_profile", "nvidia_smi": smi, "arch": args.arch,
+        "sharded": ({"ranks": chip_smoke.SHARDED_W, "mesh": list(loop.mesh.shape)}
+                    if args.sharded else None),
         "batch": cell["batch"], "seq": cell["seq"], "traced_steps": n,
         "step_ms_traced": step_ms, "span_ms": span_us / 1e3,
         "device_busy_ms_per_step": busy_us / 1e3 / n,

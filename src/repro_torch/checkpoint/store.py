@@ -17,7 +17,12 @@ Layout:  <dir>/step_<N>/{manifest.json, <leaf>.npy..., COMMIT}
     reference's nesting (``models.bridge.to_reference_layout``), so a
     checkpoint written by either package restores in the other;
   * async save: a background thread serializes while training continues
-    (the tensors are copied to the host first); keep-N garbage collection.
+    (the tensors are copied to the host first); keep-N garbage collection;
+  * on a mesh (a process group is up): the caller gathers each DTensor leaf
+    whole on every rank, on the main thread (``to_reference_layout`` does, a
+    leaf at a time), and rank 0 alone writes; every rank reads a restore,
+    and the caller lays it onto its mesh (``core.distributed.tree_distribute``),
+    which need not be the mesh that saved.
 
 Leaves are torch tensors or numpy arrays. ``restore`` loads every leaf of a
 target tree by its name and gives it the target leaf's dtype, on the target
@@ -37,6 +42,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_leaves_with_path, tree_map
+
+def is_writer() -> bool:
+    """Rank 0 of an initialized process group, or a process without one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
 
 _LEAF_RX = re.compile(r"[^a-zA-Z0-9_.-]+")
 _STEP_RX = re.compile(r"step_(\d+)")
@@ -183,10 +195,13 @@ class CheckpointManager:
             self._error = e
 
     def save(self, step: int, tree: Any):
-        """Copy ``tree`` to the host now (numpy, bf16 as uint16 with its
-        logical dtype kept) and write it on a thread (or here without
-        ``async_save``)."""
+        """Copy ``tree`` (plain tensors, gathered already on a mesh) to the
+        host now (numpy, bf16 as uint16 with its logical dtype kept) and
+        write it on a thread (or here without ``async_save``), on rank 0
+        alone."""
         self.wait()
+        if not is_writer():
+            return
         host_tree = tree_map(lambda x: _HostLeaf(_to_host(x), _logical(x)), tree)
         if self.async_save:
             self._thread = threading.Thread(target=self._do_save, args=(step, host_tree))

@@ -2,10 +2,12 @@
 accessor) in PyTorch, the port of ``repro.core``.
 
 Exports the reference's ``__all__`` name for name, plus the batched
-``quantize_array`` / ``dequantize_array`` of quantized serving weights. The
-layout's type selects the kernel schedule in ``repro_torch.kernels.ops``
-(``sum3d`` / ``matvec`` on an ``MdSpan``). Not ported yet: the reference's
-``core.distributed`` sharding rules and TensorSpec (ROADMAP Queue 1 item 6).
+``quantize_array`` / ``dequantize_array`` of quantized serving weights and
+the distribution layer of ``core.distributed``: ``DistributedLayout``,
+``ShardingRules`` (logical axes -> mesh axes -> DTensor placements) and the
+``tree_*`` helpers. The layout's type selects the kernel schedule in
+``repro_torch.kernels.ops`` (``sum3d`` / ``matvec`` on an ``MdSpan``). The
+spec class is ``models.layers.ParamSpec``, the reference's TensorSpec.
 """
 from .extents import Extents, dynamic_extent
 from .layouts import (
@@ -33,7 +35,16 @@ from .accessors import (
 from .mdspan import MdSpan, mdspan
 from .submdspan import SliceShape, all_, submdspan
 from . import algorithms
-from .distributed import dequantize_array, quantize_array
+from .distributed import (
+    DistributedLayout,
+    ShardingRules,
+    dequantize_array,
+    quantize_array,
+    tree_distribute,
+    tree_param_bytes,
+    tree_param_count,
+    tree_shardings,
+)
 
 __all__ = [
     "Extents",
@@ -64,4 +75,10 @@ __all__ = [
     "algorithms",
     "dequantize_array",
     "quantize_array",
+    "DistributedLayout",
+    "ShardingRules",
+    "tree_distribute",
+    "tree_param_bytes",
+    "tree_param_count",
+    "tree_shardings",
 ]

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .distributed import (
+from .packing import (
     as_int8_bits,
     pack_int4_adjacent,
     pack_int4_splithalf,

@@ -39,12 +39,28 @@ def pad_to(x: torch.Tensor, shape) -> torch.Tensor:
     return torch.nn.functional.pad(x, flat)
 
 
-# -- the kernels without a backward -------------------------------------------------
+# -- what a kernel wrapper refuses ----------------------------------------------------
+def no_dtensor(name: str, *tensors) -> None:
+    """Raise TypeError where a DTensor reaches the ctypes wrapper of the
+    kernel ``name``: a DTensor is ``is_cuda``, but its data pointer is not
+    the block the kernel would have to read. Sharded callers run the kernel
+    on each rank's local tensors inside ``local_map``."""
+    from repro_torch.core.distributed import is_dtensor
+
+    for t in tensors:
+        if is_dtensor(t):
+            raise TypeError(f"{name}: a DTensor reached the kernel's wrapper; call it on each "
+                            "rank's local tensors inside torch.distributed.tensor.experimental"
+                            ".local_map")
+
+
 def no_grad_through(name: str, *tensors) -> None:
     """Raise where autograd would need a backward that the kernel ``name``
     does not have: grad mode on and an input that requires grad. A kernel's
     output is filled outside autograd (it has no grad_fn), so without this
-    the gradient of everything before it would be lost without a word."""
+    the gradient of everything before it would be lost without a word.
+    A DTensor among ``tensors`` is refused first (``no_dtensor``)."""
+    no_dtensor(name, *tensors)
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(

@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .common import no_grad_through
+from .common import no_dtensor, no_grad_through
 from . import paged_attention as _paged
 from .paged_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF, _check
 
@@ -173,7 +173,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     bytes at a time); Tq and Tk free (Tq != Tk allowed). Output in q's dtype.
     ``lse``, a contiguous f32 (B, Hq, Tq) tensor on q's device, receives each
     row's log-sum-exp (the backward's input; serving passes none). A gradient
-    goes through ``flash_vjp.FlashAttentionFn``, never through this wrapper."""
+    goes through ``flash_vjp.FlashAttentionFn``, never through this wrapper.
+    A DTensor is refused (``no_dtensor``): sharded callers run it inside
+    ``local_map``."""
+    no_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                scale=scale)
@@ -216,6 +219,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
     the current token's slot (an int or a 0-d integer tensor on q's device,
     never read on the host). Any GQA group: G > 8 takes ceil(G / 8) blocks
     per split. Output in q's dtype."""
+    no_dtensor("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale)
     no_grad_through("flash_decode", q, k_cache, v_cache)

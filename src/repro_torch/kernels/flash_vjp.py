@@ -145,7 +145,9 @@ def flash_bwd_torch(q, k, v, out, dout, lse, *, causal: bool = True,
     """The reference's ``_bwd`` over key blocks of ``block_k``: -> (dq, dk,
     dv) in the inputs' dtypes. P is recomputed from ``lse`` and zeroed on dead
     pairs by liveness (a fully masked row has lse NEG_INF and zero
-    gradients); GQA folds each kv head's group of query heads back onto it."""
+    gradients); GQA folds each kv head's group of query heads back onto it.
+    Its calls are counted in ``.calls``."""
+    flash_bwd_torch.calls += 1
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     group = hq // hkv
@@ -177,6 +179,9 @@ def flash_bwd_torch(q, k, v, out, dout, lse, *, causal: bool = True,
         dvs.append(dv_r.reshape(b, hkv, group, n, d).sum(dim=2))
     return (dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
             torch.cat(dvs, dim=2).to(v.dtype))
+
+
+flash_bwd_torch.calls = 0
 
 
 def flash_bwd_split_torch(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -257,8 +262,13 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: Optional[int]
                           q_offset=0, scale: Optional[float] = None,
                           block_k: int = 512) -> torch.Tensor:
     """The plain differentiable attention (``flash_attention_jnp``): forward
-    ``attention_torch``, backward ``flash_bwd_torch``, on any device."""
+    ``attention_torch``, backward ``flash_bwd_torch``, on any device. Its
+    calls are counted in ``.calls``."""
+    flash_attention_torch.calls += 1
     return _FlashTorch.apply(q, k, v, causal, window, q_offset, scale, block_k)
+
+
+flash_attention_torch.calls = 0
 
 
 # ---------------------------------------------------------------------------------

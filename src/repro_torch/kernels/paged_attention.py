@@ -55,7 +55,7 @@ from repro_torch.core.distributed import (  # noqa: F401  (re-exported: the refe
 )
 
 from . import _build
-from .common import no_grad_through
+from .common import no_dtensor, no_grad_through
 
 NEG_INF = -1e30
 # csrc/paged_attention.cu's kGeometry for the bf16 chunk body, in its order
@@ -474,6 +474,7 @@ def _decode_split(q, hkv: int, ps: int, max_pages: int):
 
 
 def _check(name: str, t: torch.Tensor, *, ndim: int, dtype=None, device=None) -> None:
+    no_dtensor(name, t)
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .common import no_grad_through
+from .common import no_dtensor, no_grad_through
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/rglru_scan.cu's kGeometry, in its order; the library is checked against
@@ -214,6 +214,7 @@ def rglru_scan_bwd(a, h, dy, *, initial_state: Optional[torch.Tensor] = None,
     ``rglru_bwd_torch`` returns them (the f32 kernel gives its bits). On CPU
     tensors: ``rglru_bwd_torch``; on CUDA tensors it launches the kernel or
     raises. Its launches are counted in ``.launches``."""
+    no_dtensor("rglru_scan_bwd", a, h, dy, initial_state, d_final_state)
     if a.device.type == "cpu":
         return rglru_bwd_torch(a, h, dy, initial_state=initial_state,
                                d_final_state=d_final_state)

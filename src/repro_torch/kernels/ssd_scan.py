@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .common import no_grad_through
+from .common import no_dtensor, no_grad_through
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 256  # n_state the kernel's shared-memory tiles hold at most
@@ -278,6 +278,7 @@ def blocks_per_sm(dtype: torch.dtype, n: int, device: torch.device) -> int:
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    no_dtensor(name, t)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):

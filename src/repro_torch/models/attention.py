@@ -4,8 +4,12 @@ paged serving paths (one-token decode, one prefill chunk); cross-attention
 over a context (whisper's encoder output, llama-3.2-vision's image
 embeddings) with its K/V cached for decode.
 
-Port of ``repro.models.attention`` without the sharded decode (its slice is
-not ported yet). A dense cache is written IN PLACE
+Port of ``repro.models.attention``. On a mesh (the train path: ``shard``
+a ``Sharder`` and x a DTensor) q, k and v are laid out by batch and heads as
+the reference constrains them, and RoPE and ``ops.attention`` run inside
+``local_map`` on each rank's batch and head shard, so the kernels
+(flash_attention and its backward) see plain local tensors. The
+kv_seq-sharded decode is not ported yet (ROADMAP item 6). A dense cache is written IN PLACE
 at slot ``pos``, a ring buffer at slot ``pos % S``. Page pools are
 (num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
 (serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
@@ -19,9 +23,10 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.distributed import local_shape_and_offset
 from repro_torch.kernels import ops
 
-from .layers import ParamSpec, apply_rope
+from .layers import NULL_SHARDER, ParamSpec, Sharder, apply_rope
 
 
 # ---------------------------------------------------------------------------------
@@ -31,15 +36,15 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
     s = {
-        "wq": ParamSpec((d, h, dh), dt),
-        "wk": ParamSpec((d, hkv, dh), dt),
-        "wv": ParamSpec((d, hkv, dh), dt),
-        "wo": ParamSpec((h, dh, d), dt),
+        "wq": ParamSpec((d, h, dh), dt, logical_axes=("embed", "heads", None)),
+        "wk": ParamSpec((d, hkv, dh), dt, logical_axes=("embed", "kv_heads", None)),
+        "wv": ParamSpec((d, hkv, dh), dt, logical_axes=("embed", "kv_heads", None)),
+        "wo": ParamSpec((h, dh, d), dt, logical_axes=("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((h, dh), torch.float32, "zeros")
-        s["bk"] = ParamSpec((hkv, dh), torch.float32, "zeros")
-        s["bv"] = ParamSpec((hkv, dh), torch.float32, "zeros")
+        s["bq"] = ParamSpec((h, dh), torch.float32, "zeros", logical_axes=("heads", None))
+        s["bk"] = ParamSpec((hkv, dh), torch.float32, "zeros", logical_axes=("kv_heads", None))
+        s["bv"] = ParamSpec((hkv, dh), torch.float32, "zeros", logical_axes=("kv_heads", None))
     return s
 
 
@@ -52,8 +57,9 @@ def cross_attn_specs(cfg) -> Dict[str, ParamSpec]:
 def cache_specs(cfg, batch: int, seq: int) -> Dict[str, ParamSpec]:
     """One layer's dense decode cache, (B, Hkv, S, Dh) for each of k and v."""
     shape = (batch, cfg.n_kv_heads, seq, cfg.head_dim)
-    return {"k": ParamSpec(shape, cfg.param_dtype, "zeros"),
-            "v": ParamSpec(shape, cfg.param_dtype, "zeros")}
+    axes = ("batch", "kv_heads", "kv_seq", None)
+    return {"k": ParamSpec(shape, cfg.param_dtype, "zeros", logical_axes=axes),
+            "v": ParamSpec(shape, cfg.param_dtype, "zeros", logical_axes=axes)}
 
 
 def paged_cache_specs(cfg, num_pages: int, page_size: int, kv_spec=None):
@@ -65,14 +71,16 @@ def paged_cache_specs(cfg, num_pages: int, page_size: int, kv_spec=None):
         def quant():
             return {
                 "q": ParamSpec((num_pages, hkv, page_size, kv_spec.packed_dim(dh)), torch.int8,
-                               "zeros"),
-                "scale": ParamSpec((num_pages, hkv), torch.float32, "zeros"),
+                               "zeros", logical_axes=(None, "kv_heads", None, None)),
+                "scale": ParamSpec((num_pages, hkv), torch.float32, "zeros",
+                                   logical_axes=(None, "kv_heads")),
             }
         return {"k": quant(), "v": quant()}
     shape = (num_pages, hkv, page_size, dh)
+    axes = (None, "kv_heads", None, None)
     return {
-        "k": ParamSpec(shape, cfg.param_dtype, "zeros"),
-        "v": ParamSpec(shape, cfg.param_dtype, "zeros"),
+        "k": ParamSpec(shape, cfg.param_dtype, "zeros", logical_axes=axes),
+        "v": ParamSpec(shape, cfg.param_dtype, "zeros", logical_axes=axes),
     }
 
 
@@ -161,14 +169,81 @@ def _out_proj(p, attn_out: torch.Tensor, x_dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------------
 # self-attention paths
 # ---------------------------------------------------------------------------------
-def self_attention(cfg, p, x: torch.Tensor, *, causal: bool = True,
-                   window: Optional[int] = None, pos_offset: int = 0,
+def _kv_heads_for(q, k):
+    """The local kv heads that serve this rank's q heads: a slice when they
+    are a run, each kv head repeated for an equal share of the q heads (a
+    head-sharded k, or one kv head for a few q heads), else the kv head of
+    each q head in turn. Where the rules replicate k over "model" and shard
+    q (kv_heads not dividing the model axis: the Megatron fallback), a rank
+    holds every kv head but serves only its q heads' groups."""
+    (_, hq, _, _), group = q.shape, q.shape[1] // k.shape[1]
+    (_, hq_loc, _, _), q_off = local_shape_and_offset(q.shape, q.placements, q.device_mesh)
+    (_, hkv_loc, _, _), k_off = local_shape_and_offset(k.shape, k.placements, k.device_mesh)
+    need = [(q_off[1] + i) // group - k_off[1] for i in range(hq_loc)]
+    if min(need) < 0 or max(need) >= hkv_loc:
+        raise ValueError(f"q heads {q_off[1]}..{q_off[1] + hq_loc - 1} need kv heads outside "
+                         f"the local {k_off[1]}..{k_off[1] + hkv_loc - 1}")
+    first, n = need[0], len(set(need))
+    if hq_loc % n == 0 and need == [first + i // (hq_loc // n) for i in range(hq_loc)]:
+        return slice(first, first + n)
+    return torch.tensor(need)
+
+
+def sharded_attention(q, k, v, *, causal: bool, window=None, pos_offset: int = 0,
+                      rope_theta: Optional[float] = None, impl: str = "auto"):
+    """Attention of DTensors q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D) laid
+    out by batch and heads: RoPE (when ``rope_theta`` is given) and
+    ops.attention run inside ``local_map`` on each rank's shard, so the
+    kernels see plain tensors. The output takes q's placements. Where a
+    mesh dim replicates k and v but shards q's heads, each rank's gradient
+    of k and v covers only its heads' groups: it leaves as a Partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qp = list(q.placements)
+    k = k.redistribute(mesh, [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+                              for p in k.placements])
+    kp = list(k.placements)
+    v = v.redistribute(mesh, kp)
+    sel = _kv_heads_for(q, k)
+    kv_grad = [Partial() if isinstance(b, Replicate) and isinstance(a, Shard) and a.dim == 1
+               else b for a, b in zip(qp, kp)]
+
+    def local(q_, k_, v_):
+        if rope_theta is not None:
+            pos = torch.arange(q_.shape[2], device=q_.device) + pos_offset
+            q_ = apply_rope(q_, pos, rope_theta)
+            k_ = apply_rope(k_, pos, rope_theta)
+        k_, v_ = k_[:, sel].contiguous(), v_[:, sel].contiguous()
+        return ops.attention(q_.contiguous(), k_, v_, causal=causal, window=window,
+                             q_offset=pos_offset, impl=impl)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
+
+
+def self_attention(cfg, p, x: torch.Tensor, *, shard: Sharder = NULL_SHARDER,
+                   causal: bool = True, window: Optional[int] = None, pos_offset: int = 0,
                    return_kv: bool = False, impl: str = "auto"):
     """Full-sequence self-attention (forward / monolithic prefill). x: (B, T,
     D); ``impl`` picks ops.attention's kernel (flash_attention) or its plain
-    version."""
+    version. On a mesh (x a DTensor) q, k, v and the output are laid out as
+    ("batch", "heads" / "kv_heads", "seq", None) and attention runs on each
+    rank's shard (``sharded_attention``); the prefill's ``return_kv`` is
+    not sharded yet."""
     t = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
+    if shard.active(x):
+        if return_kv:
+            raise NotImplementedError("a sharded prefill (return_kv on a mesh) waits for "
+                                      "ROADMAP Queue 1 item 6")
+        q = shard(q, "batch", "heads", "seq", None)
+        k = shard(k, "batch", "kv_heads", "seq", None)
+        v = shard(v, "batch", "kv_heads", "seq", None)
+        out = sharded_attention(q, k, v, causal=causal, window=window, pos_offset=pos_offset,
+                                rope_theta=cfg.rope_theta, impl=impl)
+        return _out_proj(p, shard(out, "batch", "heads", "seq", None), x.dtype)
     pos = torch.arange(t, device=x.device) + pos_offset
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
@@ -422,8 +497,8 @@ def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor, cache,
 # ---------------------------------------------------------------------------------
 # cross-attention paths (whisper decoder, vlm image layers)
 # ---------------------------------------------------------------------------------
-def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *, return_kv: bool = False,
-                    impl: str = "auto"):
+def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *,
+                    shard: Sharder = NULL_SHARDER, return_kv: bool = False, impl: str = "auto"):
     """x (B, T, D) queries against ctx (B, Tc, D) keys / values: no RoPE on
     either, non-causal ops.attention (flash_attention on CUDA). A ctx in
     another dtype than x is cast to x's (the reference's einsum would
@@ -436,6 +511,13 @@ def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *, return_kv: bo
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
         v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    if shard.active(x) and not return_kv:
+        q = shard(q, "batch", "heads", "seq", None)
+        k = shard(k, "batch", "kv_heads", "seq", None)
+        v = shard(v, "batch", "kv_heads", "seq", None)
+        out = shard(sharded_attention(q, k, v, causal=False, impl=impl),
+                    "batch", "heads", "seq", None)
+        return _out_proj(p, out, x.dtype)
     k, v = k.contiguous(), v.contiguous()
     out = ops.attention(q.contiguous(), k, v, causal=False, impl=impl)
     y = _out_proj(p, out, x.dtype)

@@ -30,6 +30,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import is_dtensor
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels.common import resolve_device
 
@@ -110,13 +111,16 @@ def to_reference_layout(tree, cfg, *, device=None,
     tensors (detached, moved to ``device`` when given): every program entry's
     layers stacked on a leading dim, a vision group's list of self layers
     stacked first (leaves (G, 4, ...)) and its 0-d gate into (G,), whisper's
-    encoder likewise. A program entry of no layers (the hybrid family's
+    encoder likewise; a DTensor leaf is gathered whole first (leaf by leaf, on
+    every rank). A program entry of no layers (the hybrid family's
     zero-count group) becomes ``empty(spec)`` of each of its ParamSpecs (by
     default a (0, ...) zero tensor of the spec's dtype), as the reference
     keeps an empty stack there."""
     empty = empty or _zero_stack
 
     def leaf(t):
+        if is_dtensor(t):  # a collective: every rank converts the same tree
+            t = t.full_tensor()
         t = t.detach()
         return t.to(device) if device is not None else t
 

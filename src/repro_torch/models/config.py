@@ -76,6 +76,10 @@ class ModelConfig:
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def is_subquadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts (the long_500k shape)?"""
+        return self.family in ("ssm", "hybrid")
+
     # ssm derived
     @property
     def ssm_dinner(self) -> int:

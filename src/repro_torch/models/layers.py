@@ -1,24 +1,34 @@
-"""Dense layers of the port: parameter specs and their init, rmsnorm and
-layernorm, RoPE, the gated MLP (SwiGLU, GeGLU) and the plain gelu MLP with
-biases, embedding and the LM head.
+"""Dense layers of the port: parameter specs and their init, the Sharder,
+rmsnorm and layernorm, RoPE, the gated MLP (SwiGLU, GeGLU) and the plain
+gelu MLP with biases, embedding, the LM head and the loss.
 
 Port of what the model families use of ``repro.models.layers``; weights keep the
 reference's layouts (a dense linear is (d_in, d_out), applied as x @ w; a
 quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
 through ``kernels.ops.matmul``), so a bridged parameter tree is a
-dtype/device copy. Sharding waits for its slice.
+dtype/device copy. Every spec carries the reference's logical axes, which
+``launch.sharding``'s rules bind to mesh axes (``core.distributed``); on a
+mesh the parameters and activations are DTensors, the ``Sharder`` lays
+activations out where the reference constrains them, and the loss runs
+vocab-parallel (``cross_entropy``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.accessors import QuantizedAccessor
-from repro_torch.core.distributed import quantize_array
+from repro_torch.core.distributed import (
+    ShardingRules,
+    is_dtensor,
+    local_shape_and_offset,
+    quantize_array,
+    spec_axes,
+)
 from repro_torch.kernels import ops
 
 
@@ -27,14 +37,52 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """One parameter: shape, dtype and init name ("zeros" | "ones" | "embed" |
-    "normal" | "fan_in"), as in the reference's TensorSpec. With ``quant`` set
-    the parameter is stored as that accessor's {"q", "scale"} buffers."""
+    """One tensor of the model (a parameter or a cache): shape, dtype, init
+    name ("zeros" | "ones" | "embed" | "normal" | "fan_in") and logical axes
+    (one name or None a dim; None: every dim unnamed, so replicated on any
+    mesh), as the reference's TensorSpec. With ``quant`` set the parameter is
+    stored as that accessor's {"q", "scale"} buffers."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
     init: str = "fan_in"
     quant: Optional[QuantizedAccessor] = None
+    logical_axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.logical_axes is not None and len(self.logical_axes) != len(self.shape):
+            raise TypeError(f"axes/shape rank mismatch: {self}")
+
+    @property
+    def axes(self) -> Tuple[Optional[str], ...]:
+        return spec_axes(self)
+
+
+# ---------------------------------------------------------------------------------
+# Sharder: activation layouts from logical axis names
+# ---------------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Sharder:
+    """Lays an activation out by its logical axis names: on a DTensor,
+    ``x.redistribute`` to the placements ``rules`` give on ``mesh`` (the
+    twin of the reference's ``with_sharding_constraint``); ``x`` unchanged
+    off-mesh or on a plain tensor. The same rules table lays out parameters
+    and activations, so a parallelism change is one table edit."""
+
+    mesh: Any = None
+    rules: Optional[ShardingRules] = None
+
+    def active(self, x) -> bool:
+        """On a mesh, and ``x`` a DTensor: the sharded path applies."""
+        return self.mesh is not None and self.rules is not None and is_dtensor(x)
+
+    def __call__(self, x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+        if not self.active(x):
+            return x
+        return x.redistribute(self.mesh, self.rules.placements(logical_axes, x.shape, self.mesh))
+
+
+NULL_SHARDER = Sharder()
 
 
 def init_param(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tensor:
@@ -70,12 +118,12 @@ def init_tree(specs, generator: torch.Generator, device):
 
 
 def rmsnorm_spec(d: int) -> ParamSpec:
-    return ParamSpec((d,), torch.float32, "ones")
+    return ParamSpec((d,), torch.float32, "ones", logical_axes=("embed",))
 
 
 def layernorm_specs(d: int) -> Dict[str, ParamSpec]:
-    return {"scale": ParamSpec((d,), torch.float32, "ones"),
-            "bias": ParamSpec((d,), torch.float32, "zeros")}
+    return {"scale": ParamSpec((d,), torch.float32, "ones", logical_axes=("embed",)),
+            "bias": ParamSpec((d,), torch.float32, "zeros", logical_axes=("embed",))}
 
 
 def norm_specs(cfg):
@@ -95,15 +143,17 @@ def fit_quant(quant: Optional[QuantizedAccessor], d_in: int) -> Optional[Quantiz
     return None
 
 
-def linear_spec(d_in: int, d_out: int, *, dtype, quant: Optional[QuantizedAccessor] = None,
+def linear_spec(d_in: int, d_out: int, axes: Tuple[Optional[str], Optional[str]] = (None, None),
+                *, dtype, quant: Optional[QuantizedAccessor] = None,
                 init: str = "fan_in") -> ParamSpec:
-    """Weight spec. Dense storage: (d_in, d_out). Quantized storage:
-    output-major (d_out, d_in) intN + per-(row, block) scales, the layout
-    quant_matmul reads."""
+    """Weight spec with logical ``axes`` (d_in's, d_out's). Dense storage:
+    (d_in, d_out). Quantized storage: output-major (d_out, d_in) intN +
+    per-(row, block) scales, the layout quant_matmul reads, its axes swapped
+    alike."""
     quant = fit_quant(quant, d_in)
     if quant is not None:
-        return ParamSpec((d_out, d_in), dtype, init, quant)
-    return ParamSpec((d_in, d_out), dtype, init)
+        return ParamSpec((d_out, d_in), dtype, init, quant, (axes[1], axes[0]))
+    return ParamSpec((d_in, d_out), dtype, init, logical_axes=tuple(axes))
 
 
 GATED_ACTS = ("swiglu", "geglu")
@@ -116,22 +166,24 @@ def mlp_specs(cfg, quant: Optional[QuantizedAccessor] = None) -> Dict[str, Param
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
     if cfg.mlp_act in GATED_ACTS:
         return {
-            "w_gate": linear_spec(d, f, dtype=dt, quant=quant),
-            "w_up": linear_spec(d, f, dtype=dt, quant=quant),
-            "w_down": linear_spec(f, d, dtype=dt, quant=quant),
+            "w_gate": linear_spec(d, f, ("embed", "ffn"), dtype=dt, quant=quant),
+            "w_up": linear_spec(d, f, ("embed", "ffn"), dtype=dt, quant=quant),
+            "w_down": linear_spec(f, d, ("ffn", "embed"), dtype=dt, quant=quant),
         }
     return {
-        "w_up": linear_spec(d, f, dtype=dt, quant=quant),
-        "b_up": ParamSpec((f,), torch.float32, "zeros"),
-        "w_down": linear_spec(f, d, dtype=dt, quant=quant),
-        "b_down": ParamSpec((d,), torch.float32, "zeros"),
+        "w_up": linear_spec(d, f, ("embed", "ffn"), dtype=dt, quant=quant),
+        "b_up": ParamSpec((f,), torch.float32, "zeros", logical_axes=("ffn",)),
+        "w_down": linear_spec(f, d, ("ffn", "embed"), dtype=dt, quant=quant),
+        "b_down": ParamSpec((d,), torch.float32, "zeros", logical_axes=("embed",)),
     }
 
 
 def embed_specs(cfg) -> Dict[str, ParamSpec]:
-    s = {"embedding": ParamSpec((cfg.vocab_padded, cfg.d_model), cfg.param_dtype, "embed")}
-    if not cfg.tie_embeddings:
-        s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_padded), cfg.param_dtype)
+    s = {"embedding": ParamSpec((cfg.vocab_padded, cfg.d_model), cfg.param_dtype, "embed",
+                                logical_axes=("vocab", "embed"))}
+    if not cfg.tie_embeddings:  # the head sharded on the vocab: a vocab-parallel loss
+        s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_padded), cfg.param_dtype,
+                                 logical_axes=("embed", "vocab"))
     return s
 
 
@@ -188,23 +240,61 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+              shard: Sharder = NULL_SHARDER) -> torch.Tensor:
     """Gated (swiglu, geglu): act(x @ w_gate) * (x @ w_up) @ w_down, the
     activation in f32 (silu, or tanh-approximated gelu). Otherwise the plain
     MLP: gelu_tanh(x @ w_up + b_up) @ w_down + b_down, the gelu in f32 and
-    each bias cast to x's dtype."""
+    each bias cast to x's dtype. The hidden layer is laid out ("batch",
+    "seq", "ffn") on a mesh."""
     if cfg.mlp_act not in GATED_ACTS:
         h = apply_linear(x, p["w_up"]) + p["b_up"].to(x.dtype)
-        h = gelu_tanh(h.float()).to(x.dtype)
+        h = shard(gelu_tanh(h.float()).to(x.dtype), "batch", "seq", "ffn")
         return apply_linear(h, p["w_down"]) + p["b_down"].to(x.dtype)
     act = F.silu if cfg.mlp_act == "swiglu" else gelu_tanh
     g = apply_linear(x, p["w_gate"])
     u = apply_linear(x, p["w_up"])
-    h = act(g.float()).to(x.dtype) * u
+    h = shard(act(g.float()).to(x.dtype) * u, "batch", "seq", "ffn")
     return apply_linear(h, p["w_down"])
 
 
+def _embed_sharded(table, tokens):
+    """The embedding rows of DTensor ``tokens`` from a DTensor ``table``
+    whose vocab dim may be sharded, inside ``local_map``: each rank looks up
+    the tokens in its own rows (zeros for the others) and the rows are
+    summed over the vocab's mesh dims, so the table is never assembled.
+    The table comes in whole on its embed dim; its gradient leaves as a
+    Partial sum over the mesh dims that shard the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core.distributed import group_sum
+
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    t_pl = [Replicate() if v else p for v, p in zip(vocab, tokens.placements)]
+    tab_pl = [Shard(0) if v else Replicate() for v in vocab]
+    tab_grad = [Shard(0) if v else Partial() if isinstance(p, Shard) else Replicate()
+                for v, p in zip(vocab, t_pl)]
+    groups = [mesh.get_group(i) for i, v in enumerate(vocab) if v]
+    first = local_shape_and_offset(table.shape, tab_pl, mesh)[1][0]
+
+    def local(tab, tok):
+        idx = tok.long() - first
+        live = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return group_sum(torch.where(live[..., None], rows, torch.zeros_like(rows)), groups)
+
+    return local_map(local, out_placements=t_pl, in_placements=(tab_pl, t_pl),
+                     in_grad_placements=(tab_grad, t_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
 def apply_embed(p: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``: an index off-mesh, a vocab-parallel
+    lookup on DTensors (``_embed_sharded``)."""
+    if is_dtensor(tokens):
+        return _embed_sharded(p["embedding"], tokens)
     return p["embedding"][tokens.long()]
 
 
@@ -218,19 +308,59 @@ def apply_lm_head(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Ten
     return logits
 
 
+def _vocab_parallel_nll(logits, labels):
+    """-log softmax(logits)[label] of DTensors, each rank on its own block
+    of the vocab (inside ``local_map``): the row max all-reduced (MAX), the
+    sum of exp(logits - max) all-reduced, and the label's logit picked in
+    the local block (zero where the label lies outside the local vocab range)
+    and all-reduced: the reference's masked reduction, where a gather on the
+    DTensor would assemble whole rows (4 x 2048 x 128256
+    f32 is 4.2 GB a rank at llama3.2-1b's cell). -> nll laid out as the
+    logits' leading dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core.distributed import group_max, group_sum
+
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    lp = list(logits.placements)
+    rows = [p if isinstance(p, Shard) and p.dim < vdim else Replicate() for p in lp]
+    labels = labels.redistribute(mesh, rows)
+    groups = [mesh.get_group(i) for i, p in enumerate(lp)
+              if isinstance(p, Shard) and p.dim == vdim]
+    first = local_shape_and_offset(logits.shape, lp, mesh)[1][vdim]
+
+    def local(lg, lb):
+        lg = lg.float()
+        m = group_max(lg.amax(dim=-1), groups)
+        lse = torch.log(group_sum(torch.exp(lg - m[..., None]).sum(dim=-1), groups)) + m
+        idx = lb.long() - first  # the label's column in this rank's block of the vocab
+        live = (idx >= 0) & (idx < lg.shape[-1])
+        got = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        ll = group_sum(torch.where(live, got, torch.zeros_like(got)), groups)
+        return lse - ll
+
+    return local_map(local, out_placements=rows, in_placements=(lp, rows),
+                     device_mesh=mesh)(logits, labels)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over valid positions, the reference's: logits (..., V) in f32
     (the padded vocab columns already -1e9 from ``apply_lm_head``), a
-    log-sum-exp shifted by the row max, the label's logit picked out (here by
-    ``torch.gather``: the reference's masked reduction over the vocab axis
-    computes the same value, and only pays off with a sharded vocab), and
-    with ``mask`` the sum of nll * mask over max(sum(mask), 1)."""
-    logits = logits.float()
-    m = logits.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    log-sum-exp shifted by the row max, the label's logit picked out, and
+    with ``mask`` the sum of nll * mask over max(sum(mask), 1). Off-mesh the
+    label's logit is picked by ``torch.gather``; on DTensors the whole of it
+    runs vocab-parallel (``_vocab_parallel_nll``), the reference's masked
+    reduction over the vocab axis."""
+    if is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logits = logits.float()
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)

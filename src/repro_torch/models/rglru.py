@@ -31,16 +31,16 @@ def rglru_specs(cfg, *, quant=None) -> Dict[str, ParamSpec]:
     d, w = cfg.d_model, cfg.lru_width
     dt = cfg.param_dtype
     return {
-        "w_x": ParamSpec((d, w), dt),
-        "w_y": ParamSpec((d, w), dt),
-        "conv_w": ParamSpec((cfg.conv_kernel, w), dt, "fan_in"),
-        "conv_b": ParamSpec((w,), torch.float32, "zeros"),
-        "w_input_gate": ParamSpec((w, w), dt),
-        "b_input_gate": ParamSpec((w,), torch.float32, "zeros"),
-        "w_a_gate": ParamSpec((w, w), dt),
-        "b_a_gate": ParamSpec((w,), torch.float32, "zeros"),
-        "a_param": ParamSpec((w,), torch.float32, "ones"),
-        "w_out": ParamSpec((w, d), dt),
+        "w_x": ParamSpec((d, w), dt, logical_axes=("embed", "lru")),
+        "w_y": ParamSpec((d, w), dt, logical_axes=("embed", "lru")),
+        "conv_w": ParamSpec((cfg.conv_kernel, w), dt, "fan_in", logical_axes=(None, "lru")),
+        "conv_b": ParamSpec((w,), torch.float32, "zeros", logical_axes=("lru",)),
+        "w_input_gate": ParamSpec((w, w), dt, logical_axes=("lru", "lru_gate")),
+        "b_input_gate": ParamSpec((w,), torch.float32, "zeros", logical_axes=("lru_gate",)),
+        "w_a_gate": ParamSpec((w, w), dt, logical_axes=("lru", "lru_gate")),
+        "b_a_gate": ParamSpec((w,), torch.float32, "zeros", logical_axes=("lru_gate",)),
+        "a_param": ParamSpec((w,), torch.float32, "ones", logical_axes=("lru",)),
+        "w_out": ParamSpec((w, d), dt, logical_axes=("lru", "embed")),
     }
 
 
@@ -49,8 +49,9 @@ def rglru_cache_specs(cfg, batch: int) -> Dict[str, ParamSpec]:
     pre-conv rows."""
     w = cfg.lru_width
     return {
-        "h": ParamSpec((batch, w), torch.float32, "zeros"),
-        "conv": ParamSpec((batch, cfg.conv_kernel - 1, w), cfg.param_dtype, "zeros"),
+        "h": ParamSpec((batch, w), torch.float32, "zeros", logical_axes=("batch", "lru")),
+        "conv": ParamSpec((batch, cfg.conv_kernel - 1, w), cfg.param_dtype, "zeros",
+                          logical_axes=("batch", None, "lru")),
     }
 
 

@@ -31,14 +31,15 @@ def ssm_specs(cfg, *, quant=None) -> Dict[str, ParamSpec]:
     dt = cfg.param_dtype
     d_in_proj = 2 * di + 2 * g * n + h  # z, x, B, C, dt
     return {
-        "in_proj": ParamSpec((d, d_in_proj), dt),
-        "conv_w": ParamSpec((cfg.conv_kernel, conv_dim), dt, "fan_in"),
-        "conv_b": ParamSpec((conv_dim,), torch.float32, "zeros"),
-        "A_log": ParamSpec((h,), torch.float32, "zeros"),
-        "D_skip": ParamSpec((h,), torch.float32, "ones"),
-        "dt_bias": ParamSpec((h,), torch.float32, "zeros"),
-        "norm": ParamSpec((di,), torch.float32, "ones"),
-        "out_proj": ParamSpec((di, d), dt),
+        "in_proj": ParamSpec((d, d_in_proj), dt, logical_axes=("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.conv_kernel, conv_dim), dt, "fan_in",
+                            logical_axes=(None, "ssm_conv")),
+        "conv_b": ParamSpec((conv_dim,), torch.float32, "zeros", logical_axes=("ssm_conv",)),
+        "A_log": ParamSpec((h,), torch.float32, "zeros", logical_axes=("ssm_heads",)),
+        "D_skip": ParamSpec((h,), torch.float32, "ones", logical_axes=("ssm_heads",)),
+        "dt_bias": ParamSpec((h,), torch.float32, "zeros", logical_axes=("ssm_heads",)),
+        "norm": ParamSpec((di,), torch.float32, "ones", logical_axes=("ssm_inner",)),
+        "out_proj": ParamSpec((di, d), dt, logical_axes=("ssm_inner", "embed")),
     }
 
 
@@ -47,9 +48,10 @@ def ssm_cache_specs(cfg, batch: int) -> Dict[str, ParamSpec]:
     pre-conv xBC rows."""
     h, p, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     return {
-        "state": ParamSpec((batch, h, p, n), torch.float32, "zeros"),
+        "state": ParamSpec((batch, h, p, n), torch.float32, "zeros",
+                           logical_axes=("batch", "ssm_heads", None, None)),
         "conv": ParamSpec((batch, cfg.conv_kernel - 1, cfg.ssm_conv_dim), cfg.param_dtype,
-                          "zeros"),
+                          "zeros", logical_axes=("batch", None, "ssm_conv")),
     }
 
 

@@ -50,6 +50,7 @@ from . import moe as moe_mod
 from . import rglru as rg_mod
 from . import ssm as ssm_mod
 from .layers import (
+    NULL_SHARDER,
     ParamSpec,
     apply_embed,
     apply_lm_head,
@@ -92,19 +93,20 @@ class DenseBlock:
         return attn.cache_specs(cfg, batch, min(seq, w) if w is not None else seq)
 
     @staticmethod
-    def _mlp(cfg, p, x):
-        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]))
+    def _mlp(cfg, p, x, shard=NULL_SHARDER):
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]), shard)
 
     @classmethod
-    def _mlp_aux(cls, cfg, p, x):
-        return cls._mlp(cfg, p, x), 0.0
+    def _mlp_aux(cls, cfg, p, x, shard=NULL_SHARDER):
+        return cls._mlp(cfg, p, x, shard), 0.0
 
-    def train(self, cfg, p, x, impl="auto", ctx=None):
-        """-> (x, aux): aux the layer's router loss (0 without experts)."""
+    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
+        """-> (x, aux): aux the layer's router loss (0 without experts).
+        ``shard`` lays out the activations on a mesh."""
         h = apply_norm(cfg, x, p["ln_attn"])
-        x = x + attn.self_attention(cfg, p["attn"], h, causal=self.causal,
+        x = x + attn.self_attention(cfg, p["attn"], h, shard=shard, causal=self.causal,
                                     window=self._window(cfg), impl=impl)
-        return self._mlp_aux(cfg, p, x)
+        return self._mlp_aux(cfg, p, x, shard)
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
         h = apply_norm(cfg, x, p["ln_attn"])
@@ -164,13 +166,14 @@ class MoEBlock(DenseBlock):
         }
 
     @staticmethod
-    def _mlp_aux(cfg, p, x):
-        y, aux = moe_mod.apply_moe(cfg, p["moe"], apply_norm(cfg, x, p["ln_moe"]))
+    def _mlp_aux(cfg, p, x, shard=NULL_SHARDER):
+        y, aux = moe_mod.apply_moe_dispatch(cfg, p["moe"], apply_norm(cfg, x, p["ln_moe"]),
+                                            shard)
         return x + y, aux
 
     @classmethod
-    def _mlp(cls, cfg, p, x):
-        return cls._mlp_aux(cfg, p, x)[0]
+    def _mlp(cls, cfg, p, x, shard=NULL_SHARDER):
+        return cls._mlp_aux(cfg, p, x, shard)[0]
 
 
 class SSMBlock:
@@ -186,7 +189,7 @@ class SSMBlock:
         return ssm_mod.ssm_cache_specs(cfg, batch)
 
     @staticmethod
-    def train(cfg, p, x, impl="auto", ctx=None):
+    def train(cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
         return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), impl=impl), 0.0
 
     @staticmethod
@@ -221,9 +224,9 @@ class RecBlock:
         return rg_mod.rglru_cache_specs(cfg, batch)
 
     @staticmethod
-    def train(cfg, p, x, impl="auto", ctx=None):
+    def train(cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
         x = x + rg_mod.apply_rglru(cfg, p["rec"], apply_norm(cfg, x, p["ln_rec"]), impl=impl)
-        return DenseBlock._mlp(cfg, p, x), 0.0
+        return DenseBlock._mlp(cfg, p, x, shard), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -250,9 +253,9 @@ class RGGroup:
     def cache_specs(self, cfg, batch: int, seq: int):
         return {name: blk.cache_specs(cfg, batch, seq) for name, blk in self.PARTS}
 
-    def train(self, cfg, p, x, impl="auto", ctx=None):
+    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
         for name, blk in self.PARTS:
-            x, _ = blk.train(cfg, p[name], x, impl=impl)
+            x, _ = blk.train(cfg, p[name], x, impl=impl, shard=shard)
         return x, 0.0
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -295,11 +298,12 @@ class DecBlock:
                 "cross": attn.cache_specs(cfg, batch, cfg.enc_seq)}
 
     @staticmethod
-    def train(cfg, p, x, impl="auto", ctx=None):
-        x = x + attn.self_attention(cfg, p["self"], apply_norm(cfg, x, p["ln_self"]), impl=impl)
+    def train(cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
+        x = x + attn.self_attention(cfg, p["self"], apply_norm(cfg, x, p["ln_self"]),
+                                    shard=shard, impl=impl)
         h = apply_norm(cfg, x, p["ln_cross"])
-        x = x + attn.cross_attention(cfg, p["cross"], h, ctx, impl=impl)
-        return DenseBlock._mlp(cfg, p, x), 0.0
+        x = x + attn.cross_attention(cfg, p["cross"], h, ctx, shard=shard, impl=impl)
+        return DenseBlock._mlp(cfg, p, x, shard), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -324,10 +328,12 @@ class DecBlock:
 
 
 def _stack_specs(specs, n: int):
-    """A (nested) dict of ParamSpecs with a leading dim ``n`` on each."""
+    """A (nested) dict of ParamSpecs with a leading dim ``n`` on each (the
+    logical axis "layers", replicated)."""
     if isinstance(specs, dict):
         return {k: _stack_specs(v, n) for k, v in specs.items()}
-    return dataclasses.replace(specs, shape=(n,) + specs.shape)
+    return dataclasses.replace(specs, shape=(n,) + specs.shape,
+                               logical_axes=("layers",) + specs.axes)
 
 
 class VisGroup:
@@ -348,7 +354,7 @@ class VisGroup:
             "self": [self.DENSE.specs(cfg, quant) for _ in range(self.N_SELF)],
             "ln_cross": norm_specs(cfg),
             "cross": attn.cross_attn_specs(cfg),
-            "gate": ParamSpec((), torch.float32, "zeros"),
+            "gate": ParamSpec((), torch.float32, "zeros", logical_axes=()),
             "ln_mlp": norm_specs(cfg),
             "mlp": mlp_specs(cfg, quant=quant),
         }
@@ -358,14 +364,15 @@ class VisGroup:
                 "cross": attn.cache_specs(cfg, batch, cfg.n_img_tokens)}
 
     @staticmethod
-    def _gated(cfg, p, x, y):
-        return DenseBlock._mlp(cfg, p, x + torch.tanh(p["gate"]).to(x.dtype) * y)
+    def _gated(cfg, p, x, y, shard=NULL_SHARDER):
+        return DenseBlock._mlp(cfg, p, x + torch.tanh(p["gate"]).to(x.dtype) * y, shard)
 
-    def train(self, cfg, p, x, impl="auto", ctx=None):
+    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
         for pl in p["self"]:
-            x, _ = self.DENSE.train(cfg, pl, x, impl=impl)
+            x, _ = self.DENSE.train(cfg, pl, x, impl=impl, shard=shard)
         h = apply_norm(cfg, x, p["ln_cross"])
-        return self._gated(cfg, p, x, attn.cross_attention(cfg, p["cross"], h, ctx, impl=impl)), 0.0
+        y = attn.cross_attention(cfg, p["cross"], h, ctx, shard=shard, impl=impl)
+        return self._gated(cfg, p, x, y, shard), 0.0
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
         caches = []
@@ -564,7 +571,8 @@ class Model:
         return apply_lm_head(self.cfg, params["embed"], x)
 
     # ---- context (stub frontends) ----------------------------------------------------
-    def encode_ctx(self, params, batch: Dict[str, torch.Tensor], *, attn_impl: str = "auto"):
+    def encode_ctx(self, params, batch: Dict[str, torch.Tensor], *, attn_impl: str = "auto",
+                   shard=NULL_SHARDER):
         """The cross-attention context: for whisper the encoder over
         ``batch["frames"]`` (B, enc_seq, D) precomputed frame embeddings, plus
         the f32 sinusoidal table cast to their dtype, through n_enc_layers
@@ -578,7 +586,7 @@ class Model:
                                      frames.device).to(frames.dtype)[None]
             enc_cfg = dataclasses.replace(cfg, mlp_act="gelu")
             for p in params["encoder"]["blocks"][0]:
-                x, _ = KINDS["enc"].train(enc_cfg, p, x, impl=attn_impl)
+                x, _ = KINDS["enc"].train(enc_cfg, p, x, impl=attn_impl, shard=shard)
             return apply_norm(cfg, x, params["encoder"]["final_norm"])
         if cfg.family == "vlm":
             return batch["image_embeds"]
@@ -586,7 +594,7 @@ class Model:
 
     # ---- full-sequence forward -------------------------------------------------------
     def forward(self, params, tokens: torch.Tensor, *, ctx=None, attn_impl: str = "auto",
-                remat: bool = False, remat_policy: Optional[str] = None):
+                remat: bool = False, remat_policy: Optional[str] = None, shard=NULL_SHARDER):
         """tokens (B, T) -> (logits (B, T, Vp), aux): aux the f32 sum of the MoE
         layers' aux losses in layer order (0 for the other blocks). ``ctx``:
         the cross-attention context (``encode_ctx``) for encdec / vlm.
@@ -596,19 +604,23 @@ class Model:
         ``torch.utils.checkpoint`` without reentry); ``remat_policy`` "dots"
         keeps the outputs of the layer's matmuls (``aten.mm`` / ``aten.bmm``)
         and recomputes the rest, None or "nothing" keeps nothing. Without
-        grad mode it changes nothing."""
-        x = self._embed(params, tokens)
+        grad mode it changes nothing.
+
+        On a mesh (``shard`` a Sharder, tokens and params DTensors) the
+        activations are laid out ("batch", "seq", None) after the embedding
+        and the logits ("batch", "seq", "vocab"), as the reference's."""
+        x = shard(self._embed(params, tokens), "batch", "seq", None)
         aux = torch.zeros((), device=x.device)
         run = _remat(remat, remat_policy)
         for blk, layers in self._program(params):
             for p in layers:
-                x, a = run(blk.train, self.cfg, p, x, impl=attn_impl, ctx=ctx)
+                x, a = run(blk.train, self.cfg, p, x, impl=attn_impl, ctx=ctx, shard=shard)
                 aux = aux + a
-        return self._head(params, x), aux
+        return shard(self._head(params, x), "batch", "seq", "vocab"), aux
 
     def loss_fn(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = True,
                 remat_policy: Optional[str] = None, aux_weight: float = 0.01,
-                attn_impl: str = "auto"):
+                attn_impl: str = "auto", shard=NULL_SHARDER):
         """The training loss, as the reference's: next-token CE of
         ``forward(tokens[:, :-1])`` against ``tokens[:, 1:]`` (``batch["mask"]``
         weighting positions when given), the context encoded first for encdec
@@ -623,9 +635,9 @@ class Model:
         twins."""
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]
-        ctx = self.encode_ctx(params, batch, attn_impl=attn_impl)
+        ctx = self.encode_ctx(params, batch, attn_impl=attn_impl, shard=shard)
         logits, aux = self.forward(params, inp, ctx=ctx, attn_impl=attn_impl, remat=remat,
-                                   remat_policy=remat_policy)
+                                   remat_policy=remat_policy, shard=shard)
         loss = cross_entropy(logits, labels, batch.get("mask"))
         return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 

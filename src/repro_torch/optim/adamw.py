@@ -15,6 +15,11 @@ reaches every block's norm scales and biases, as in the reference, and the
 int8 rule (last dim a multiple of ``state_block``) is the reference's. Each
 moment's ``MomentSpec`` carries that reference shape
 (``models.bridge.reference_shapes`` gives it for a model's tree).
+
+Each moment carries its parameter's logical axes, so on a mesh it is laid
+out like its parameter (``adamw_init(mesh=, rules=)``) and the update runs
+on the DTensors; the clip's norm (``clip_by_global_norm``) is then the whole
+gradient's, each rank's partial sums of squares added over the mesh.
 """
 from __future__ import annotations
 
@@ -24,7 +29,12 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.accessors import QuantizedAccessor
-from repro_torch.core.distributed import dequantize_array, quantize_array
+from repro_torch.core.distributed import (
+    dequantize_array,
+    local_shape_and_offset,
+    quantize_array,
+    spec_axes,
+)
 from repro_torch.core.tree import tree_leaves, tree_map
 
 
@@ -48,12 +58,14 @@ class AdamWConfig:
 @dataclasses.dataclass(frozen=True)
 class MomentSpec:
     """One moment leaf: the parameter's shape in the port, its shape in the
-    reference's stacked tree (the decay and int8 rules read it), and the
-    int8 accessor when the moment is quantized."""
+    reference's stacked tree (the decay and int8 rules read it), the int8
+    accessor when the moment is quantized, and the parameter's logical axes
+    (its layout on a mesh)."""
 
     shape: Tuple[int, ...]
     ref_shape: Tuple[int, ...]
     quant: Optional[QuantizedAccessor] = None
+    logical_axes: Optional[Tuple[Optional[str], ...]] = None
 
     def is_quantized(self) -> bool:
         return self.quant is not None
@@ -77,8 +89,8 @@ def moment_spec(pspec, ref_shape, opt: AdamWConfig) -> MomentSpec:
     if (opt.int8_state and pspec.shape and ref_shape[-1] % opt.state_block == 0
             and getattr(pspec, "quant", None) is None):
         acc = QuantizedAccessor(torch.float32, bits=8, block=opt.state_block)
-        return MomentSpec(tuple(pspec.shape), ref_shape, acc)
-    return MomentSpec(tuple(pspec.shape), ref_shape)
+        return MomentSpec(tuple(pspec.shape), ref_shape, acc, spec_axes(pspec))
+    return MomentSpec(tuple(pspec.shape), ref_shape, logical_axes=spec_axes(pspec))
 
 
 def adamw_init_specs(param_specs, opt: AdamWConfig, ref_shapes=None):
@@ -92,16 +104,32 @@ def adamw_init_specs(param_specs, opt: AdamWConfig, ref_shapes=None):
     return {"m": m, "v": m, "step": MomentSpec((), ())}
 
 
-def adamw_init(state_specs, device=None):
+def adamw_init(state_specs, device=None, mesh=None, rules=None):
     """Zeroed optimizer state for ``state_specs`` on ``device``: f32 zeros, or
     the int8 encoding of zeros ({"q": 0, "scale": 1}, as the reference's
-    ``tree_initialize``), and the int32 step 0."""
+    ``tree_initialize``), and the int32 step 0. With ``mesh`` and ``rules``
+    each f32 moment is a DTensor laid out like its parameter, each rank
+    allocating only its block (the step stays a plain tensor on every
+    rank)."""
     def zeros(s: MomentSpec):
+        if mesh is not None:
+            return _zeros_on_mesh(s, device, mesh, rules)
         z = torch.zeros(s.shape, dtype=torch.float32, device=device)
         return quantize_array(z, s.quant) if s.is_quantized() else z
 
     return {"m": tree_map(zeros, state_specs["m"]), "v": tree_map(zeros, state_specs["v"]),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _zeros_on_mesh(s: MomentSpec, device, mesh, rules):
+    from torch.distributed.tensor import DTensor
+
+    if s.is_quantized():
+        raise NotImplementedError("int8 AdamW moments on a mesh wait for ROADMAP Queue 1 item 6")
+    placements = rules.placements(spec_axes(s), s.shape, mesh)
+    local, _ = local_shape_and_offset(s.shape, placements, mesh)
+    return DTensor.from_local(torch.zeros(local, dtype=torch.float32, device=device), mesh,
+                              placements, run_check=False)
 
 
 _V_FLOOR = 1e-12
@@ -131,7 +159,9 @@ def _encode_moment(val: torch.Tensor, spec: MomentSpec, *, log_domain: bool = Fa
 
 def clip_by_global_norm(grads, max_norm: float):
     """Grads scaled by min(1, max_norm / ||g||) (f32, cast back to each
-    grad's dtype) and the f32 global norm."""
+    grad's dtype) and the f32 global norm. On DTensor grads each leaf's sum
+    of squares is a partial sum over its shards, reduced before the square
+    root: the norm of the whole gradient, as one device takes it."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn

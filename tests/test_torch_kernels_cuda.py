@@ -2842,3 +2842,82 @@ def test_scan_backward_planners_assume_the_kernels_geometry():
     with pytest.raises(ValueError, match="head dim"):
         x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 72, 16, torch.float32, seed=35)
         tss.ssd_scan_bwd(x, dt, A, B, C, x)
+
+
+# -- distribution (one rank over NCCL: chip_smoke.SHARDED_W) --------------------------
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    """A one-rank NCCL process group in this process (two ranks cannot share
+    the one card: scripts/probe_card_ranks.py)."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "dbrx-132b", "kimi-k2-1t-a32b"])
+def test_self_attention_through_local_map_matches_the_unsharded_call(one_rank_group, arch):
+    """self_attention on a (1, 1) mesh (q, k, v laid out by batch and heads,
+    RoPE and ops.attention inside local_map: FlashAttentionFn, the forward
+    and backward kernels) against the unsharded call on the card, f32: the
+    output and the gradients of x and every projection, and both kernels
+    launched in the sharded call."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.distributed import distribute, tree_distribute
+    from repro_torch.launch import train_rules
+    from repro_torch.models import get_config
+    from repro_torch.models.attention import attn_specs, self_attention
+    from repro_torch.models.layers import Sharder, init_tree
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1), mesh_dim_names=("data", "model"))
+    rules = train_rules(cfg)
+    specs = attn_specs(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = init_tree(specs, g, "cuda")
+    x = torch.randn(2, 40, cfg.d_model, generator=g, device="cuda")
+    r = torch.randn(2, 40, cfg.d_model, generator=g, device="cuda")
+    pr = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xr = x.clone().requires_grad_()
+    (self_attention(cfg, pr, xr) * r).sum().backward()
+    pd = {k: v.requires_grad_() for k, v in tree_distribute(p, specs, mesh, rules).items()}
+    xd = distribute(x, mesh, rules.placements(("batch", "seq", None), x.shape, mesh))
+    xd.requires_grad_()
+    kernels.reset_launch_counts()
+    with implicit_replication():
+        y = self_attention(cfg, pd, xd, shard=Sharder(mesh, rules))
+        (y * distribute(r, mesh, y.placements)).sum().backward()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    ref = self_attention(cfg, p, x)
+    torch.testing.assert_close(y.full_tensor(), ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(xd.grad.full_tensor(), xr.grad, rtol=1e-4, atol=1e-4)
+    for k in p:
+        torch.testing.assert_close(pd[k].grad.full_tensor(), pr[k].grad, rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_wrappers_refuse_a_dtensor(one_rank_group):
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.core.distributed import distribute
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1), mesh_dim_names=("data", "model"))
+    q = distribute(torch.zeros(1, 2, 8, 64, device="cuda"), mesh, [Replicate(), Replicate()])
+    assert q.is_cuda
+    for call in (lambda: fa.flash_attention(q, q, q), lambda: fa.flash_decode(q, q, q, 0),
+                 lambda: ops.attention(q, q, q, impl="cuda"),
+                 lambda: pa._check("q", q, ndim=4)):
+        with pytest.raises(TypeError, match="local_map"):
+            call()
