@@ -309,24 +309,34 @@ lines; any failure raises and exits non-zero:
                 the sharded train step on SHARDED_W ranks (a process group
                 in this process: NCCL, one rank on the one card, since
                 scripts/probe_card_ranks.py found two ranks on one card
-                failing) on every ("data", "model") mesh SHARDED_W allows:
-                llama3.2-1b's width at 2 layers, f32, TF32 off, B 2 x 512,
-                train_rules, against the port's one-device step on the card
-                (loss within 1e-5, every gradient leaf within 1e-3 of its
-                max-abs, one AdamW step's loss and grad_norm), with
-                flash_attention and flash_attention_bwd launched inside
-                local_map and the plain attention called none of the times;
-                kimi-k2's 2-layer MOE_EXACT_WIDTH model (D 112) the same way,
-                and its layer-0 experts through the expert-parallel block
+                failing) on every ("data", "model") mesh SHARDED_W allows,
+                every block in one block map (core.distributed.block_map),
+                for every family (SHARDED_EXACT): llama3.2-1b's width at 2
+                layers, kimi-k2's 2-layer MOE_EXACT_WIDTH model (D 112),
+                mamba2-780m at 2 layers, recurrentgemma-2b at 3 (rec, rec,
+                local_attn), whisper-large-v3 at 2 + 2 and
+                llama-3.2-vision-90b at one group of a reduced width (gate
+                0.7); f32, TF32 off, B 2 x 512 (whisper 448), train_rules,
+                against the port's one-device step on the card (loss within
+                1e-5, every gradient leaf within 1e-3 of its max-abs, one
+                AdamW step's loss and grad_norm), with each family's kernels
+                (ssd_scan, ssd_scan_bwd, rglru_scan, rglru_scan_bwd,
+                flash_attention, flash_attention_bwd) launched inside the
+                block maps and no plain version called; kimi-k2's layer-0
+                experts also through the expert-parallel block
                 (apply_moe_ep) against the einsum path at capacity factor 8
                 (outputs within 2e-4, gradients within 5e-3).
-  train_sharded llama3.2-1b at full width, bf16, remat, f32 moments, B 4 x
-                2048, train_rules on a (1, SHARDED_W) mesh: 6 steps through
-                TrainerLoop(model_axis=SHARDED_W); step ms p50 of steps 2-5,
-                tokens/s, each rank's peak memory, the collectives' calls
-                and bytes of one step (core.distributed.CollectiveCounter),
-                each step's loss (finite), and the launches a step of
-                flash_attention and flash_attention_bwd.
+  train_sharded llama3.2-1b (B 4 x 2048, the final save), mamba2-780m (B 4 x
+                2048) and recurrentgemma-2b (B 1 x 4096; 2048 if 4096 runs
+                out of memory, listed as a cut) at full width, bf16, remat,
+                f32 moments, train_rules on a (1, SHARDED_W) mesh: 6 steps
+                each through TrainerLoop(model_axis=SHARDED_W); step ms p50
+                of steps 2-5 beside the one-device train cell's of the same
+                call, tokens/s, each rank's peak memory, the collectives'
+                calls and bytes and the DTensor op dispatches and
+                redistributions of one step (core.distributed's
+                CollectiveCounter and DispatchCounter), each step's loss
+                (finite), and the launches a step of the family's kernels.
   kernels line  {"kernels": [...]} with the numbers of each of the 18
                 kernels: the 15 that replace the reference's 15 Pallas
                 functions, flash_attention_bwd, which replaces its
@@ -3594,10 +3604,12 @@ def _train_batch(cfg, batch, seq, device, seed=0):
 
     out = {"tokens": torch.from_numpy(SyntheticLM(DataConfig(
         batch=batch, seq=seq, vocab=cfg.vocab, seed=seed)).batch_at(0)["tokens"]).to(device)}
-    if cfg.family == "encdec":
+    if cfg.family in ("encdec", "vlm"):
         gen = torch.Generator(device=device).manual_seed(seed + 1)
-        out["frames"] = torch.randn(batch, cfg.enc_seq, cfg.d_model, generator=gen,
-                                    device=device).to(cfg.param_dtype)
+        key, n = ("frames", cfg.enc_seq) if cfg.family == "encdec" else \
+            ("image_embeds", cfg.n_img_tokens)
+        out[key] = torch.randn(batch, n, cfg.d_model, generator=gen,
+                               device=device).to(cfg.param_dtype)
     return out
 
 
@@ -3958,6 +3970,8 @@ def train_phase(smi, device="cuda", smoke=False, arch="llama3.2-1b"):
            "final_save": loop.last_save, "restored_leaves": n_leaves,
            "restored_bit_equal": same}
     emit(rec)
+    ONE_DEVICE_TRAIN[arch] = {"step_ms_p50": p50 * 1e3, "peak_memory_bytes": peak,
+                              "batch": cell["batch"], "seq": cell["seq"]}
     if not all(math.isfinite(x) for x in losses) or n != cell["steps"]:
         raise AssertionError(f"train {arch}: {n} steps, losses {losses}")
     if not same:
@@ -4014,11 +4028,41 @@ def train_loop_phase(device="cuda", arch="llama3.2-1b"):
 # bytes between ranks.
 SHARDED_W = 1
 SHARDED_MESHES = sorted({(SHARDED_W, 1), (1, SHARDED_W)})
-SHARDED_EXACT = dict(arch="llama3.2-1b", n_layers=2, batch=2, seq=512)
+# train_sharded_exact: arch -> (the config's cut, batch, seq), f32, against the
+# one-device step; every family of the reference
+SHARDED_EXACT = {
+    "llama3.2-1b": (dict(n_layers=2), 2, 512),
+    "kimi-k2-1t-a32b": (dict(n_layers=2, capacity_factor=8.0,
+                             **MOE_EXACT_WIDTH["kimi-k2-1t-a32b"]), 2, 512),
+    "mamba2-780m": (dict(n_layers=2), 2, 512),
+    # rec, rec, local_attn: both block kinds of the hybrid program
+    "recurrentgemma-2b": (dict(n_layers=3), 2, 512),
+    "whisper-large-v3": (dict(n_layers=2, n_enc_layers=2), 2, 448),
+    # one group (4 self layers and the gated cross layer) at a reduced width
+    # keeping the heads (64 / 8 of 128), the MLP's form and the 6404 image
+    # tokens: 90B's layers at full width take ~3.4 GB each in f32, and the
+    # check holds two gradient trees beside the params
+    "llama-3.2-vision-90b": (dict(n_layers=5, d_model=2048, d_head=128, d_ff=4096), 2, 512),
+}
+SHARDED_VISION_GATE = 0.7  # the CPU tests' gate: tanh(0) would erase the cross layer
 SHARDED_MOE_X = (2, 256)  # the EP block's input: B x T tokens at kimi-k2's reduced width
-SHARDED_CELL = dict(arch="llama3.2-1b", steps=6, batch=4, seq=2048,
-                    source="hf:meta-llama/Llama-3.2-1B")
+# train_sharded: the train cells' configurations through TrainerLoop on the
+# mesh; "seqs" the sequence lengths tried in turn (a shorter one only after
+# the card ran out of memory, listed as a cut)
+SHARDED_CELLS = {
+    "llama3.2-1b": dict(steps=6, batch=4, seqs=(2048,), source="hf:meta-llama/Llama-3.2-1B",
+                        final_save=True),
+    "mamba2-780m": dict(steps=6, batch=4, seqs=(2048,), source="arXiv:2405.21060",
+                        final_save=False),
+    "recurrentgemma-2b": dict(steps=6, batch=1, seqs=(4096, 2048), source="arXiv:2402.19427",
+                              final_save=False,
+                              reduced=["batch 2 -> 1 (B 2 x 4096 runs out of 80 GB, as in the "
+                                       "one-device train cell)"]),
+}
 ATTN_PLAIN = ("flash_attention_torch", "flash_bwd_torch")
+# the one-device train cells' step p50 (ms) and peak bytes, written by
+# train_phase, shown beside the sharded cells of the same call
+ONE_DEVICE_TRAIN = {}
 
 
 @contextlib.contextmanager
@@ -4063,7 +4107,8 @@ def _allclose_excess(got, want, rtol, atol):
 
 def _sharded_grads(model, params, batch, mesh, rules, profile=None):
     """loss_and_grads on ``mesh``: (loss, gradients gathered whole, the
-    launches of the attention kernels, the plain attention's calls)."""
+    launches of the family's kernels, the plain versions' calls: the
+    attention's and the scans' twins)."""
     from repro_torch import kernels
     from repro_torch.core.distributed import tree_distribute, tree_full
     from repro_torch.models.layers import Sharder
@@ -4072,44 +4117,54 @@ def _sharded_grads(model, params, batch, mesh, rules, profile=None):
 
     pd = tree_distribute(params, model.param_specs(), mesh, rules)
     kernels.reset_launch_counts()
-    plain = attn_plain_calls()
+    plain = {**attn_plain_calls(), **plain_twin_calls()}
     loss, grads = loss_and_grads(model, pd, place_batch(batch, mesh, rules),
                                  profile or TrainProfile(), "auto", shard=Sharder(mesh, rules))
     counts = kernels.launch_counts()
-    plain = {k: v - plain[k] for k, v in attn_plain_calls().items()}
-    return loss.full_tensor(), tree_full(grads), {k: counts[k] for k in TRAIN_ATTN_KERNELS}, plain
+    plain = {k: v - plain[k] for k, v in {**attn_plain_calls(), **plain_twin_calls()}.items()}
+    need = TRAIN_KERNELS.get(model.cfg.family, TRAIN_ATTN_KERNELS)
+    return loss.full_tensor(), tree_full(grads), {k: counts[k] for k in need}, plain
 
 
 def train_sharded_exact_phase(device="cuda", smoke=False):
     """The sharded train step against the port's one-device step on the
-    card (f32, TF32 off), on every mesh of SHARDED_W ranks: llama3.2-1b's
-    width at 2 layers (B 2 x 512; smoke: the smoke config at 32 tokens),
-    then kimi-k2's MOE_EXACT_WIDTH at 2 layers (capacity factor 8), whose
-    layer-0 experts also go through apply_moe_ep against apply_moe. The
-    attention projections rescaled to their fan-in (``condition_attention``,
-    as train_exact). Returns the attention kernels' launches in the sharded
-    runs."""
+    card (f32, TF32 off), on every mesh of SHARDED_W ranks, for every family
+    (SHARDED_EXACT; smoke: the smoke configs at 32 tokens): llama3.2-1b's
+    width at 2 layers (B 2 x 512), kimi-k2's MOE_EXACT_WIDTH at 2 layers
+    (capacity factor 8; its layer-0 experts also go through apply_moe_ep
+    against apply_moe), mamba2-780m at 2 layers, recurrentgemma-2b at 3
+    (rec, rec, local_attn), whisper-large-v3 at 2 + 2 (448 positions
+    against 1500 frames) and llama-3.2-vision-90b at one group (5 layers)
+    of a reduced width (gate SHARDED_VISION_GATE): every block in its block
+    map. The attention projections rescaled to their fan-in
+    (``condition_attention``, as train_exact). Gates: the loss within 1e-5,
+    each gradient leaf within TRAIN_EXACT_RTOL of its max-abs, the step's
+    loss 1e-5 and grad_norm 1e-4; the family's kernels (the scans' forward
+    and backward, flash_attention and its backward) launched in the sharded
+    run, inside the block maps, and no plain version called. Returns the
+    launches in the sharded runs, by kernel."""
     from repro_torch.core.distributed import tree_distribute
     from repro_torch.launch import train_rules
     from repro_torch.models import build_model, get_config
     from repro_torch.optim import AdamWConfig, adamw_init, constant
     from repro_torch.train import TrainProfile, loss_and_grads, make_train_step
 
-    launches = {k: 0 for k in TRAIN_ATTN_KERNELS}
-    spec = SHARDED_EXACT
-    seq = 32 if smoke else spec["seq"]
+    launches = {}
     with process_group(device):
-        for arch in (spec["arch"], "kimi-k2-1t-a32b"):
+        for arch, (cut, batch_n, seq) in SHARDED_EXACT.items():
             cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32")
             if arch == "kimi-k2-1t-a32b":
-                cfg = dataclasses.replace(cfg, capacity_factor=8.0, **(
-                    {} if smoke else dict(n_layers=2, **MOE_EXACT_WIDTH[arch])))
-            elif not smoke:
-                cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+                cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+            if not smoke:
+                cfg = dataclasses.replace(cfg, **cut)
+            seq = 32 if smoke else seq
             model = build_model(cfg, device=device)
             params = condition_attention(
                 cfg, model.init_params(torch.Generator(device=device).manual_seed(0)))
-            batch = _train_batch(cfg, spec["batch"], seq, device)
+            if cfg.family == "vlm":
+                for group in params["blocks"][0]:
+                    group["gate"].fill_(SHARDED_VISION_GATE)
+            batch = _train_batch(cfg, batch_n, seq, device)
             want_loss, want_grads = loss_and_grads(model, params, batch, TrainProfile(), "auto")
             opt = AdamWConfig(lr=constant(1e-3))
             step, _, st_specs = make_train_step(model, opt, TrainProfile())
@@ -4120,6 +4175,7 @@ def train_sharded_exact_phase(device="cuda", smoke=False):
                 loss, grads, counts, plain = _sharded_grads(model, params, batch, mesh, rules)
                 where = {}
                 grad_rel = _tree_rel(grads, want_grads, where)
+                del grads
                 loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
                 sstep, specs, sst = make_train_step(model, opt, TrainProfile(), mesh=mesh,
                                                     rules=rules)
@@ -4127,29 +4183,32 @@ def train_sharded_exact_phase(device="cuda", smoke=False):
                                 adamw_init(sst, device, mesh, rules), batch)
                 step_rel = {k: abs(float(m[k]) - float(want_m[k])) / abs(float(want_m[k]))
                             for k in ("loss", "grad_norm")}
-                for k in launches:
-                    launches[k] += counts[k]
-                rec = {"phase": "train_sharded_exact", "arch": arch, "ranks": SHARDED_W,
-                       "mesh": list(shape), "layers": cfg.n_layers, "d_model": cfg.d_model,
-                       "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
-                       "batch": spec["batch"], "seq": seq, "dtype": "float32",
-                       "loss_sharded": float(loss), "loss_one_device": float(want_loss),
-                       "loss_rel": loss_rel, "grad_max_rel": grad_rel,
-                       "grad_worst_leaf": where.get("worst_leaf"), "step_rel": step_rel,
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                rec = {"phase": "train_sharded_exact", "arch": arch, "family": cfg.family,
+                       "ranks": SHARDED_W, "mesh": list(shape), "layers": cfg.n_layers,
+                       "enc_layers": cfg.n_enc_layers if cfg.family == "encdec" else None,
+                       "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+                       "head_dim": cfg.head_dim, "batch": batch_n, "seq": seq,
+                       "dtype": "float32", "loss_sharded": float(loss),
+                       "loss_one_device": float(want_loss), "loss_rel": loss_rel,
+                       "grad_max_rel": grad_rel, "grad_worst_leaf": where.get("worst_leaf"),
+                       "step_rel": step_rel,
                        "tolerance": f"loss 1e-5, each gradient leaf {TRAIN_EXACT_RTOL} of its "
                                     "max-abs, the step's loss 1e-5 and grad_norm 1e-4",
-                       "kernel_launches": counts, "plain_attention_calls": plain}
+                       "kernel_launches_in_block_maps": counts, "plain_calls": plain}
                 emit(rec)
                 if loss_rel > 1e-5 or grad_rel > TRAIN_EXACT_RTOL or step_rel["loss"] > 1e-5 \
                         or step_rel["grad_norm"] > 1e-4:
                     raise AssertionError(f"train_sharded_exact {arch} {shape}: the sharded "
                                          f"step parts from the one-device step: {rec}")
                 if device == "cuda" and (not all(counts.values()) or any(plain.values())):
-                    raise AssertionError(f"train_sharded_exact {arch} {shape}: an attention "
-                                         f"kernel did not launch, or the plain path ran: {rec}")
+                    raise AssertionError(f"train_sharded_exact {arch} {shape}: a kernel of "
+                                         f"the path did not launch, or a plain version ran: "
+                                         f"{rec}")
             if cfg.family == "moe":
                 _moe_ep_check(cfg, params, device)
-            del model, params, want_grads, grads
+            del model, params, want_grads
             torch.cuda.empty_cache()
     return launches
 
@@ -4198,27 +4257,52 @@ def _moe_ep_check(cfg, params, device):
                              f"einsum path: {rec}")
 
 
-def train_sharded_phase(smi, device="cuda", smoke=False):
-    """SHARDED_CELL through TrainerLoop on a (1, SHARDED_W) mesh: llama3.2-1b
-    at full width (smoke: the smoke config, B 2 x 32), bf16 params, remat,
-    f32 moments, train_rules (heads, ffn and vocab over "model"), 6 steps;
-    the checkpoint directory a TemporaryDirectory, ckpt_every past the last
-    step (only the final save runs, gathered whole). The collectives of step
-    1 are counted (CollectiveCounter: calls and input bytes by op; the
-    counter slows that step, which the p50 of steps 2-5 leaves out).
-    Returns the attention kernels' launches of the run."""
+def train_sharded_phase(smi, device="cuda", smoke=False, arch="llama3.2-1b"):
+    """``arch``'s SHARDED_CELLS cell through TrainerLoop on a (1, SHARDED_W)
+    mesh, the train cell's configuration at full width (smoke: the smoke
+    config, B 2 x 32): bf16 params, remat, f32 moments, train_rules (heads,
+    ffn, lru columns, SSM heads and vocab over "model"), 6 steps, each block
+    in its block map; llama3.2-1b's cell ends with the final save (the
+    checkpoint directory a TemporaryDirectory, ckpt_every past the last
+    step, gathered whole), the others save nothing. The collectives of step
+    1 are counted (CollectiveCounter: calls and input bytes by op) and so
+    are its DTensor op dispatches and redistributions (DispatchCounter); the
+    counters slow that step, which the p50 of steps 2-5 leaves out. Where
+    the card runs out of memory at the cell's sequence length, the next of
+    ``seqs`` is tried and the cut listed. Shows the one-device cell of the
+    same call (ONE_DEVICE_TRAIN) beside it. Returns the launches of the run
+    of the family's kernels."""
+    import gc
+
+    cell = SHARDED_CELLS[arch]
+    reduced = list(cell.get("reduced", []))
+    seqs = (32,) if smoke else cell["seqs"]
+    for i, seq in enumerate(seqs):
+        try:
+            return _train_sharded_cell(smi, device, smoke, arch, cell,
+                                       2 if smoke else cell["batch"], seq, reduced)
+        except torch.cuda.OutOfMemoryError as e:
+            if i + 1 == len(seqs):
+                raise
+            reduced.append(f"seq {seq} -> {seqs[i + 1]} (the sharded step ran out of memory "
+                           f"at {seq}: {str(e).splitlines()[0][:160]})")
+            emit({"phase": "train_sharded", "arch": arch, "out_of_memory_at_seq": seq})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_sharded_cell(smi, device, smoke, arch, cell, batch, seq, reduced):
     from repro_torch import kernels
-    from repro_torch.core.distributed import CollectiveCounter
+    from repro_torch.core.distributed import CollectiveCounter, DispatchCounter
     from repro_torch.runtime import RunConfig, TrainerLoop
 
     torch.cuda.empty_cache()
-    cell = dict(SHARDED_CELL, **(dict(batch=2, seq=32) if smoke else {}))
-    counter = CollectiveCounter()
+    counter, dispatch = CollectiveCounter(), DispatchCounter()
     with process_group(device), tempfile.TemporaryDirectory() as ckpt_dir:
-        run = RunConfig(arch=cell["arch"], smoke=smoke, steps=cell["steps"],
-                        batch=cell["batch"], seq=cell["seq"], peak_lr=3e-4, warmup=2,
-                        ckpt_dir=ckpt_dir, ckpt_every=10 * cell["steps"], log_every=1,
-                        remat=True, device=device, model_axis=SHARDED_W)
+        run = RunConfig(arch=arch, smoke=smoke, steps=cell["steps"], batch=batch, seq=seq,
+                        peak_lr=3e-4, warmup=2, ckpt_dir=ckpt_dir,
+                        ckpt_every=10 * cell["steps"], log_every=1, remat=True, device=device,
+                        model_axis=SHARDED_W, final_save=cell["final_save"])
         loop = TrainerLoop(run)
         step_fn, calls = loop.step_fn, []
 
@@ -4226,7 +4310,7 @@ def train_sharded_phase(smi, device="cuda", smoke=False):
             calls.append(None)
             if len(calls) != 2:
                 return step_fn(*args)
-            with counter:
+            with counter, dispatch:
                 return step_fn(*args)
 
         loop.step_fn = counted
@@ -4234,41 +4318,50 @@ def train_sharded_phase(smi, device="cuda", smoke=False):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        plain = attn_plain_calls()
+        plain = {**attn_plain_calls(), **plain_twin_calls()}
         out = loop.run_loop()
         counts = kernels.launch_counts()
-        plain = {k: v - plain[k] for k, v in attn_plain_calls().items()}
+        plain = {k: v - plain[k] for k, v in {**attn_plain_calls(),
+                                              **plain_twin_calls()}.items()}
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
         mesh, cfg, last_save = list(loop.mesh.shape), loop.cfg, loop.last_save
         del loop
+    need = TRAIN_KERNELS.get(cfg.family, TRAIN_ATTN_KERNELS)
     hist = out["history"]
     n = len(hist)
     losses = [h["loss"] for h in hist]
     p50 = statistics.median(h["time_s"] for h in hist[2:6])
-    rec = {"phase": "train_sharded", "nvidia_smi": smi, "arch": cell["arch"],
+    one = ONE_DEVICE_TRAIN.get(arch, {})
+    rec = {"phase": "train_sharded", "nvidia_smi": smi, "arch": arch,
            "source": cell["source"], "ranks": SHARDED_W, "mesh": mesh,
            "rules": "train_rules", "layers": cfg.n_layers, "d_model": cfg.d_model,
            "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab, "dtype": cfg.dtype,
-           "remat": True, "moments": "f32", "batch": cell["batch"], "seq": cell["seq"],
-           "steps": n, "step_ms_p50_steps_2_5": p50 * 1e3,
+           "remat": True, "moments": "f32", "batch": batch, "seq": seq,
+           "reduced": reduced, "steps": n, "step_ms_p50_steps_2_5": p50 * 1e3,
            "step_ms": [h["time_s"] * 1e3 for h in hist],
            "rank_step_ms": [[t * 1e3 for t in h["rank_times_s"]] for h in hist],
-           "tokens_per_s": cell["batch"] * cell["seq"] / p50,
+           "tokens_per_s": batch * seq / p50,
            "peak_memory_bytes_per_rank": [peak], "losses": losses,
+           "one_device": {"step_ms_p50": one.get("step_ms_p50"),
+                          "peak_memory_bytes": one.get("peak_memory_bytes"),
+                          "batch": one.get("batch"), "seq": one.get("seq")},
+           "sharded_over_one_device": (p50 * 1e3 / one["step_ms_p50"]
+                                       if one.get("seq") == seq else None),
            "collectives_step_1": {"calls": counter.calls, "input_bytes": counter.bytes},
-           "launches_per_step": {k: counts[k] / n for k in TRAIN_ATTN_KERNELS},
-           "plain_attention_calls": plain, "final_save": last_save,
+           "dtensor_step_1": {"op_dispatches": dispatch.dtensor_ops,
+                              "redistributions": dispatch.redistributions},
+           "launches_per_step": {k: counts[k] / n for k in need},
+           "plain_calls": plain, "final_save": last_save,
            "note": "one rank: the collectives run on a one-rank NCCL group and move no "
                    "bytes between ranks"}
     emit(rec)
     if not all(math.isfinite(x) for x in losses) or n != cell["steps"]:
-        raise AssertionError(f"train_sharded: {n} steps, losses {losses}")
-    if device == "cuda" and (not all(counts[k] for k in TRAIN_ATTN_KERNELS)
-                             or any(plain.values())):
-        raise AssertionError(f"train_sharded: an attention kernel did not launch, or the plain "
-                             f"path ran: {counts}, {plain}")
+        raise AssertionError(f"train_sharded {arch}: {n} steps, losses {losses}")
+    if device == "cuda" and (not all(counts[k] for k in need) or any(plain.values())):
+        raise AssertionError(f"train_sharded {arch}: a kernel of the path did not launch, or a "
+                             f"plain version ran: {counts}, {plain}")
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in TRAIN_ATTN_KERNELS}
+    return {k: counts[k] for k in need}
 
 
 # =====================================================================================
@@ -4477,11 +4570,15 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded_exact = train_sharded_exact_phase()
     t_phase["train_sharded_exact"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sharded = train_sharded_phase(smi)
-    t_phase["train_sharded"] = time.perf_counter() - t0
+    sharded = {}
+    for arch in SHARDED_CELLS:
+        t0 = time.perf_counter()
+        for k, v in train_sharded_phase(smi, arch=arch).items():
+            sharded[k] = sharded.get(k, 0) + v
+        t_phase[f"train_sharded:{arch}"] = time.perf_counter() - t0
     emit({"phase": "train_kernels", "nvidia_smi": smi,
-          # rows 6 and 14 inside local_map, on each of the SHARDED_W ranks
+          # rows 6, 8, 9, 14 and the scans' backward inside the block maps, on
+          # each of the SHARDED_W ranks
           "launches_train_sharded": sharded, "launches_train_sharded_exact": sharded_exact,
           "rows": [
         {"case": name, "kernel": rec["kernel"], "dtype": rec["dtype"],
@@ -4494,8 +4591,8 @@ def main() -> int:
                 **{k: paper_launches[k] for k in PAPER_PATH}, **gen_launches,
                 **{k: sum(c[k] for c in train_counts.values())
                    for k in ("flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")}}
-    for k in TRAIN_ATTN_KERNELS:  # the sharded training path's launches, on every rank
-        launches[k] += sharded[k]
+    for k, v in sharded.items():  # the sharded training path's launches, on every rank
+        launches[k] += v
     # the D 112 rows: kernel numbers from the kernels phase, launches from
     # kimi-k2's serve_moe run (the dense-cache rows 6-7 do not run there)
     kimi = serve_moe["kimi-k2-1t-a32b"]["launches"]

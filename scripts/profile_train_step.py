@@ -10,9 +10,13 @@ step, runs two warm-up steps on SyntheticLM batches, then traces N (2) steps
 with torch.profiler. With ``--sharded`` the step is the sharded one
 (``make_train_step(mesh=, rules=)`` through ``TrainerLoop``'s ``model_axis``)
 on chip_smoke.py's mesh of ``SHARDED_W`` ranks in this process
-(``chip_smoke.process_group``): parameters, gradients and moments DTensors,
-attention and the loss inside ``local_map``; the tables go to
-NAME_sharded. Prints one JSON line with the card's name and power
+(``chip_smoke.process_group``), for any of the three cells: parameters,
+gradients and moments DTensors, each block in one ``local_map`` on local
+shards (``core.distributed.block_map``), the embedding and the loss in one
+each; one untraced step after the warm-up is counted
+(``core.distributed.DispatchCounter``: the ops dispatched on DTensors and
+DTensor's redistributions a step); the tables go to NAME_sharded. Prints
+one JSON line with the card's name and power
 limit: each traced step's wall ms (synchronised; the profiler slows the
 host, so step times come from chip_smoke.py's unprofiled train runs), the
 device busy ms a step and the device's idle share of the traced span, the
@@ -103,6 +107,14 @@ def _profile(args, chip_smoke, cell, warmup, smi) -> int:
                for i in range(warmup + args.steps)]
     for b in batches[:warmup]:
         params, state, _ = loop.step_fn(params, state, b)
+    dispatch = None
+    if args.sharded:
+        from repro_torch.core.distributed import DispatchCounter
+
+        with DispatchCounter() as c:
+            params, state, _ = loop.step_fn(params, state, batches[0])
+        dispatch = {"op_dispatches": c.dtensor_ops, "redistributions": c.redistributions,
+                    "ops": c.ops}
     torch.cuda.synchronize()
     step_ms = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -143,6 +155,7 @@ def _profile(args, chip_smoke, cell, warmup, smi) -> int:
         "sharded": ({"ranks": chip_smoke.SHARDED_W, "mesh": list(loop.mesh.shape)}
                     if args.sharded else None),
         "batch": cell["batch"], "seq": cell["seq"], "traced_steps": n,
+        "dtensor_per_untraced_step": dispatch,
         "step_ms_traced": step_ms, "span_ms": span_us / 1e3,
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / span_us if span_us else None,

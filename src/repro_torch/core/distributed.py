@@ -14,9 +14,14 @@ its logical axes, so a tree of specs gives a tree of placements
 (``tree_shardings``) and a tree of tensors built alike on every rank is laid
 onto a mesh by ``tree_distribute``.
 
-Also here: the collectives ``local_map`` bodies call with the gradients
-they need (``group_sum``, ``group_mean``, ``group_max``), a counter of the
-collectives a step runs (``CollectiveCounter``), and, re-exported from
+Also here: the block map (``block_map``: a block's body in one
+``local_map`` on local shards, its placements from the parameters' and its
+collectives explicit, ``LocalMesh``), the collectives ``local_map`` bodies
+call with the gradients they need (``group_sum``, ``group_mean``,
+``group_max``; the Megatron entry, the reduce-scatter and the all-gather
+behind ``LocalMesh``), a counter of the collectives a step runs
+(``CollectiveCounter``) and of the DTensor ops and redistributions it
+dispatches (``DispatchCounter``), and, re-exported from
 ``core.packing`` under the reference's module name, ``quantize_array`` /
 ``dequantize_array`` and the int4 packers.
 """
@@ -171,6 +176,30 @@ def _placements_of(binding: Sequence[AxisBinding], mesh) -> List[Any]:
     return out
 
 
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard outside autograd (the optimizer's update): its
+    local tensor as stored, without ``to_local``'s autograd node."""
+    loc = getattr(t, "_local_tensor", None)
+    return loc if loc is not None else t.to_local()
+
+
+def placed_like(local: torch.Tensor, ref) -> torch.Tensor:
+    """``local``, this rank's shard, as a DTensor laid out as DTensor ``ref``
+    (the same mesh, placements and global shape) and outside autograd:
+    ``ref``'s own spec reused where the DTensor class takes one (a few us
+    against ``from_local``'s ~40)."""
+    from torch.distributed.tensor import DTensor
+
+    spec = getattr(ref, "_spec", None)
+    if spec is not None and local.dtype == ref.dtype and local.shape == local_tensor(ref).shape:
+        try:
+            return DTensor(local, spec, requires_grad=False)
+        except TypeError:
+            pass
+    return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
 def local_shape_and_offset(shape: Sequence[int], placements, mesh):
     """This rank's block of a tensor of ``shape`` laid out by ``placements``
     on ``mesh`` (every sharded dim divides evenly, as the rules guarantee):
@@ -249,6 +278,12 @@ def group_mean(x: torch.Tensor, groups, grad_scale: float = 1.0) -> torch.Tensor
     return _Scale.apply(group_sum(x, groups), 1.0 / n, grad_scale / n)
 
 
+def grad_scaled(x: torch.Tensor, grad_scale: float) -> torch.Tensor:
+    """``x`` whose gradient is scaled by ``grad_scale`` (a term every rank
+    computes alike, whose gradients are then summed over the ranks)."""
+    return _Scale.apply(x, 1.0, grad_scale)
+
+
 def group_max(x: torch.Tensor, groups) -> torch.Tensor:
     """The elementwise max of ``x`` over each group (no gradient)."""
     import torch.distributed as dist
@@ -257,6 +292,298 @@ def group_max(x: torch.Tensor, groups) -> torch.Tensor:
     for g in _wide(groups):
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
     return x
+
+
+class _EnterGroup(torch.autograd.Function):
+    """Megatron's entry to a block split over a group: the identity forward;
+    the backward sums the gradient over the group, where each rank's is the
+    part its share of the block (its heads, columns or experts) took."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumBothWays(torch.autograd.Function):
+    """The sum over a group of per-rank partials that each rank then uses for
+    its own share (the gated norm's sum of squares over a split width): the
+    gradient of the sum is the sum of the ranks' gradients, an all-reduce in
+    the backward too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()  # the kernels downstream take contiguous operands
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] * n, *src.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Each rank's partial sum of a whole tensor -> the rank's block of the
+    sum along ``dim`` (a reduce-scatter); the backward all-gathers the
+    blocks' gradients, which every rank's partial term then takes whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_sum(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' blocks along ``dim`` gathered whole on every rank. With
+    ``summed`` the backward reduce-scatters (each rank's gradient of the
+    whole is a part: their sum, back to the block's owner); without it each
+    rank computed the same gradient and keeps its own block of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, summed=True):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.group, ctx.summed = dim, group, summed
+        ctx.rank, ctx.size = dist.get_rank(group), x.shape[dim]
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return _scatter_sum(g, ctx.dim, ctx.group), None, None, None
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None, None
+
+
+# ---------------------------------------------------------------------------------
+# the block map: one local_map a block, its collectives explicit
+# ---------------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LocalMesh:
+    """What a block body running on local shards knows of its mesh: the
+    "model" axis' group (None where the mesh has no model axis or one rank
+    on it), its size and this rank's place on it, and the groups of the mesh
+    dims that shard the block's tokens (its batch). The methods are the
+    block's explicit collectives, each with the gradient the Megatron
+    split needs; on a model axis of one rank each is the identity."""
+
+    model: Any = None
+    model_size: int = 1
+    model_rank: int = 0
+    tokens: Tuple[Any, ...] = ()
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The entry of a split branch: identity forward, the gradient
+        summed over "model" (x, replicated there, gets its whole gradient)."""
+        return x if self.model is None else _EnterGroup.apply(x, self.model)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel exit: the sum over "model", identity backward."""
+        return x if self.model is None else _GroupSum.apply(x, self.model)
+
+    def sum_both(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over "model" of partials each rank goes on to use for its
+        own share: an all-reduce both ways."""
+        return x if self.model is None else _SumBothWays.apply(x, self.model)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Each rank's partial of a whole tensor -> this rank's block of the
+        sum along ``dim`` (reduce-scatter; all-gather backward)."""
+        return x if self.model is None else _ReduceScatter.apply(x, dim, self.model)
+
+    def gather_tokens(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The token shards of ``x`` gathered whole along ``dim`` over the
+        token groups (all-gather; reduce-scatter backward)."""
+        for g in _wide(self.tokens)[::-1]:
+            x = _AllGather.apply(x, dim, g)
+        return x
+
+    def token_rank_and_count(self) -> Tuple[int, int]:
+        """This rank's place among the token shards and their count, in the
+        order ``gather_tokens`` concatenates them (the first group major)."""
+        import torch.distributed as dist
+
+        rank, count = 0, 1
+        for g in self.tokens:
+            n = dist.get_world_size(g)
+            rank, count = rank * n + dist.get_rank(g), count * n
+        return rank, count
+
+
+def local_mesh(mesh, x_placements) -> LocalMesh:
+    """The LocalMesh of ``mesh`` for a block whose input lies in
+    ``x_placements``."""
+    from torch.distributed.tensor import Shard
+
+    names = list(mesh.mesh_dim_names)
+    tokens = tuple(mesh.get_group(i) for i, p in enumerate(x_placements)
+                   if isinstance(p, Shard) and names[i] != "model")
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return LocalMesh(tokens=tokens)
+    i = names.index("model")
+    return LocalMesh(mesh.get_group(i), mesh.size(i), mesh.get_local_rank("model"), tokens)
+
+
+def is_split(t, dim: int) -> bool:
+    """Is DTensor ``t``'s dim ``dim`` sharded over the mesh's "model" axis (of
+    more than one rank)?"""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(t):
+        return False
+    names = list(t.device_mesh.mesh_dim_names)
+    if "model" not in names:
+        return False
+    i = names.index("model")
+    return t.device_mesh.size(i) > 1 and t.placements[i] == Shard(dim % t.dim())
+
+
+def _leaf_plan(t, key, names, rows, whole, partial):
+    """How a block body takes one parameter leaf that comes in as it lies on
+    the mesh: ([(tensor dim, group, sum the gradients)] all-gathers, minor
+    mesh dim first, each with a reduce-scatter backward where the ranks'
+    gradients are parts of the whole, else a slice of the rank's block),
+    [groups] whose ranks' gradients of the leaf are each a part, summed by
+    an all-reduce in the backward). Mesh dims of one rank are skipped: a
+    shard of one is the whole."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    gathers, sums = [], []
+    for i in reversed(range(len(names))):
+        if mesh.size(i) == 1:
+            continue
+        p, group = t.placements[i], mesh.get_group(i)
+        model = names[i] == "model"
+        if isinstance(p, Shard):
+            if not model:  # FSDP: gathered at the block's entry
+                gathers.append((p.dim, group, i in rows))
+            elif key in whole:
+                gathers.append((p.dim, group, key in partial))
+        elif (key in partial) if model else (i in rows):
+            sums.append(group)
+    return gathers, sums
+
+
+def _take_leaf(t: torch.Tensor, plan) -> torch.Tensor:
+    gathers, sums = plan
+    for dim, group, summed in gathers:
+        t = _AllGather.apply(t, dim, group, summed)
+    for group in sums:
+        t = _EnterGroup.apply(t, group)
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockLayout:
+    """What a block map derives from its leaves' placements: each leaf's
+    input placements and entry plan (``_leaf_plan``), and the block's
+    LocalMesh. Every layer of a block kind on one mesh has the same, so a
+    caller may keep it (``block_map(layout=)``)."""
+
+    in_placements: Tuple[Any, ...]
+    plans: Tuple[Any, ...]
+    lm: LocalMesh
+
+
+def block_layout(mesh, x, params, *, whole=(), partial=()) -> BlockLayout:
+    from torch.distributed.tensor import Shard
+
+    from .tree import tree_leaves_with_path
+
+    names = list(mesh.mesh_dim_names)
+    rows = {i for i, p in enumerate(x.placements) if isinstance(p, Shard)}
+    whole, partial = set(whole), set(partial)
+    pairs = tree_leaves_with_path(params)
+    return BlockLayout(tuple(t.placements for _, t in pairs),
+                       tuple(_leaf_plan(t, "/".join(map(str, path)), names, rows, whole, partial)
+                             for path, t in pairs),
+                       local_mesh(mesh, x.placements))
+
+
+def block_map(body, mesh, x, params, extras=(), *, whole=(), partial=(), aux: bool = False,
+              layout: Optional[BlockLayout] = None):
+    """Run ``body(lm, x, params, *extras)`` once, inside one ``local_map``, on
+    this rank's shards: ``lm`` the block's ``LocalMesh``, ``x`` (B, T, D)
+    (sharded over the batch axes, replicated over "model"), ``params`` the
+    block's parameter tree of local tensors, ``extras`` more activations laid
+    out as x (a cross-attention context; None passes through). The body's
+    collectives are its own (``LocalMesh``'s methods); -> y laid out as x
+    (and, with ``aux``, a scalar replicated everywhere).
+
+    Every input comes into the map as it lies (the parameters as the rules
+    laid them out, ``tree_distribute``): DTensor redistributes nothing, and
+    each gradient leaves in its input's placements. At the entry each leaf
+    is made what the body reads, explicitly (``_leaf_plan``): gathered over
+    every mesh dim but "model" (FSDP's all-gather, its backward the
+    reduce-scatter of the ranks' parts; redone in the backward under
+    remat), and over "model" too for the leaves of ``whole`` (paths "a/b"
+    in the tree). A leaf's gradient is summed over "model" for the leaves
+    of ``partial`` (those a split body uses only in its share) and over the
+    batch axes where the batch is sharded and the leaf is not; elsewhere
+    every rank computed the same. x and the extras get their whole gradient
+    (the body enters its split branches through ``lm.enter``). ``layout``:
+    ``block_layout``'s of these arguments, when the caller keeps it."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from .tree import tree_leaves
+
+    if layout is None:
+        layout = block_layout(mesh, x, params, whole=whole, partial=partial)
+    leaves = tree_leaves(params)
+    n, plans, lm = len(leaves), layout.plans, layout.lm
+
+    def local(x_, *rest):
+        it = iter(_take_leaf(t, plan) for t, plan in zip(rest[:n], plans))
+        p_ = tree_map(lambda _: next(it), params)
+        return body(lm, x_, p_, *rest[n:])
+
+    x_pl = list(x.placements)  # a list: local_map reads a tuple as one entry an output
+    out_pl = (x_pl, [Replicate()] * len(x_pl)) if aux else x_pl
+    ex_pl = [None if e is None else e.placements for e in extras]
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(x_pl, *layout.in_placements, *ex_pl),
+                     in_grad_placements=(x_pl, *layout.in_placements, *ex_pl),
+                     device_mesh=mesh)(x, *leaves, *extras)
 
 
 class CollectiveCounter:
@@ -305,6 +632,68 @@ class CollectiveCounter:
     def __exit__(self, *exc):
         self._mode.__exit__(*exc)
         self._mode = None
+        return False
+
+
+class DispatchCounter:
+    """Counts, while it is entered, the ops dispatched on DTensors (an op
+    with a DTensor among its arguments: each pays DTensor's sharding
+    propagation on the host) and the redistributions DTensor runs (its
+    ``redistribute_local_tensor``: the ``redistribute`` calls, a
+    ``local_map``'s input placements, an op's implicit resharding), in the
+    forward and the backward; the ops on plain local tensors inside a
+    ``local_map`` are not counted. By op name in ``ops``."""
+
+    _MODULES = ("_api", "_dispatch", "_redistribute")
+
+    def __init__(self):
+        self.ops: Dict[str, int] = {}
+        self.redistributions = 0
+        self._mode = None
+        self._saved = []
+
+    @property
+    def dtensor_ops(self) -> int:
+        return sum(self.ops.values())
+
+    def __enter__(self):
+        import importlib
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                flat = []
+                for a in list(args) + list(kwargs.values()):
+                    flat.extend(a if isinstance(a, (list, tuple)) else [a])
+                if any(is_dtensor(a) for a in flat):
+                    name = func._schema.name.split("::")[-1]
+                    counter.ops[name] = counter.ops.get(name, 0) + 1
+                return func(*args, **kwargs)
+
+        for name in self._MODULES:
+            mod = importlib.import_module(f"torch.distributed.tensor.{name}")
+            orig = mod.redistribute_local_tensor
+
+            def counted(*a, _orig=orig, **kw):
+                counter.redistributions += 1
+                return _orig(*a, **kw)
+
+            self._saved.append((mod, orig))
+            mod.redistribute_local_tensor = counted
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._mode = None
+        for mod, orig in self._saved:
+            mod.redistribute_local_tensor = orig
+        self._saved = []
         return False
 
 

@@ -4,12 +4,13 @@ paged serving paths (one-token decode, one prefill chunk); cross-attention
 over a context (whisper's encoder output, llama-3.2-vision's image
 embeddings) with its K/V cached for decode.
 
-Port of ``repro.models.attention``. On a mesh (the train path: ``shard``
-a ``Sharder`` and x a DTensor) q, k and v are laid out by batch and heads as
-the reference constrains them, and RoPE and ``ops.attention`` run inside
-``local_map`` on each rank's batch and head shard, so the kernels
-(flash_attention and its backward) see plain local tensors. The
-kv_seq-sharded decode is not ported yet (ROADMAP item 6). A dense cache is written IN PLACE
+Port of ``repro.models.attention``. On a mesh (the train path) attention
+runs inside its block's map (``core.distributed.block_map``) on each rank's
+batch and head shard, as the reference constrains q, k and v: the
+projections, RoPE, ``ops.attention`` and the row-parallel out projection on
+plain local tensors, so the kernels (flash_attention and its backward) see
+plain tensors, and one sum over "model". The kv_seq-sharded decode is not
+ported yet (ROADMAP item 6). A dense cache is written IN PLACE
 at slot ``pos``, a ring buffer at slot ``pos % S``. Page pools are
 (num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
 (serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
@@ -23,7 +24,6 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.distributed import local_shape_and_offset
 from repro_torch.kernels import ops
 
 from .layers import NULL_SHARDER, ParamSpec, Sharder, apply_rope
@@ -169,87 +169,85 @@ def _out_proj(p, attn_out: torch.Tensor, x_dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------------
 # self-attention paths
 # ---------------------------------------------------------------------------------
-def _kv_heads_for(q, k):
-    """The local kv heads that serve this rank's q heads: a slice when they
-    are a run, each kv head repeated for an equal share of the q heads (a
-    head-sharded k, or one kv head for a few q heads), else the kv head of
-    each q head in turn. Where the rules replicate k over "model" and shard
-    q (kv_heads not dividing the model axis: the Megatron fallback), a rank
-    holds every kv head but serves only its q heads' groups."""
-    (_, hq, _, _), group = q.shape, q.shape[1] // k.shape[1]
-    (_, hq_loc, _, _), q_off = local_shape_and_offset(q.shape, q.placements, q.device_mesh)
-    (_, hkv_loc, _, _), k_off = local_shape_and_offset(k.shape, k.placements, k.device_mesh)
-    need = [(q_off[1] + i) // group - k_off[1] for i in range(hq_loc)]
+def _local_kv_heads(cfg, hq_loc: int, hkv_loc: int, lm):
+    """The heads of the local k / v that serve this rank's q heads: a slice
+    when they are a run, each kv head repeated for an equal share of the q
+    heads (a head-sharded k, or one kv head for a few q heads), else the kv
+    head of each q head in turn. Where the rules replicate k over "model"
+    and shard q (kv_heads not dividing the model axis: the Megatron
+    fallback), a rank holds every kv head but serves only its q heads'
+    groups. Off a mesh (``lm`` None), every kv head."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    rank = lm.model_rank if lm is not None else 0
+    q_off = rank * hq_loc if hq_loc < cfg.n_heads else 0
+    k_off = rank * hkv_loc if hkv_loc < cfg.n_kv_heads else 0
+    need = [(q_off + i) // group - k_off for i in range(hq_loc)]
     if min(need) < 0 or max(need) >= hkv_loc:
-        raise ValueError(f"q heads {q_off[1]}..{q_off[1] + hq_loc - 1} need kv heads outside "
-                         f"the local {k_off[1]}..{k_off[1] + hkv_loc - 1}")
+        raise ValueError(f"q heads {q_off}..{q_off + hq_loc - 1} need kv heads outside "
+                         f"the local {k_off}..{k_off + hkv_loc - 1}")
     first, n = need[0], len(set(need))
     if hq_loc % n == 0 and need == [first + i // (hq_loc // n) for i in range(hq_loc)]:
         return slice(first, first + n)
     return torch.tensor(need)
 
 
-def sharded_attention(q, k, v, *, causal: bool, window=None, pos_offset: int = 0,
-                      rope_theta: Optional[float] = None, impl: str = "auto"):
-    """Attention of DTensors q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D) laid
-    out by batch and heads: RoPE (when ``rope_theta`` is given) and
-    ops.attention run inside ``local_map`` on each rank's shard, so the
-    kernels see plain tensors. The output takes q's placements. Where a
-    mesh dim replicates k and v but shards q's heads, each rank's gradient
-    of k and v covers only its heads' groups: it leaves as a Partial sum."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+def attn_partial(p, prefix: str = "") -> set:
+    """The leaves (paths under ``prefix``) of DTensor attention weights
+    ``p`` whose gradient each rank holds only a part of on "model": k's and
+    v's where q is split over "model" and they are not (the Megatron
+    fallback: a rank's gradient covers its q heads' groups)."""
+    from repro_torch.core.distributed import is_split
 
-    mesh = q.device_mesh
-    qp = list(q.placements)
-    k = k.redistribute(mesh, [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
-                              for p in k.placements])
-    kp = list(k.placements)
-    v = v.redistribute(mesh, kp)
-    sel = _kv_heads_for(q, k)
-    kv_grad = [Partial() if isinstance(b, Replicate) and isinstance(a, Shard) and a.dim == 1
-               else b for a, b in zip(qp, kp)]
-
-    def local(q_, k_, v_):
-        if rope_theta is not None:
-            pos = torch.arange(q_.shape[2], device=q_.device) + pos_offset
-            q_ = apply_rope(q_, pos, rope_theta)
-            k_ = apply_rope(k_, pos, rope_theta)
-        k_, v_ = k_[:, sel].contiguous(), v_[:, sel].contiguous()
-        return ops.attention(q_.contiguous(), k_, v_, causal=causal, window=window,
-                             q_offset=pos_offset, impl=impl)
-
-    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
-                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
+    if is_split(p["wq"], 1) and not is_split(p["wk"], 1):
+        return {prefix + k for k in ("wk", "wv", "bk", "bv") if k in p}
+    return set()
 
 
-def self_attention(cfg, p, x: torch.Tensor, *, shard: Sharder = NULL_SHARDER,
+def _mapped(body, shard, x, p, extras=()):
+    """An attention layer alone in one block map (its own entry on a mesh:
+    the blocks map their whole bodies, ``models.transformer``)."""
+    from repro_torch.core.distributed import block_map
+
+    return block_map(body, shard.mesh, x, p, extras, partial=attn_partial(p))
+
+
+def self_attention(cfg, p, x: torch.Tensor, *, shard: Sharder = NULL_SHARDER, lm=None,
                    causal: bool = True, window: Optional[int] = None, pos_offset: int = 0,
                    return_kv: bool = False, impl: str = "auto"):
     """Full-sequence self-attention (forward / monolithic prefill). x: (B, T,
     D); ``impl`` picks ops.attention's kernel (flash_attention) or its plain
-    version. On a mesh (x a DTensor) q, k, v and the output are laid out as
-    ("batch", "heads" / "kv_heads", "seq", None) and attention runs on each
-    rank's shard (``sharded_attention``); the prefill's ``return_kv`` is
-    not sharded yet."""
-    t = x.shape[1]
-    q, k, v = _project_qkv(cfg, p, x)
+    version.
+
+    Inside a block map (``lm``, a ``core.distributed.LocalMesh``) x and the
+    weights are this rank's shards: with the heads split over "model", q, k
+    and v on the rank's heads (its q heads' kv heads where the rules
+    replicate k and v: ``_local_kv_heads``), the kernel, then the
+    row-parallel out projection and one sum over "model". On DTensors
+    (``shard`` active) the layer runs alone in one block map. The prefill's
+    ``return_kv`` is not sharded yet."""
     if shard.active(x):
         if return_kv:
             raise NotImplementedError("a sharded prefill (return_kv on a mesh) waits for "
                                       "ROADMAP Queue 1 item 6")
-        q = shard(q, "batch", "heads", "seq", None)
-        k = shard(k, "batch", "kv_heads", "seq", None)
-        v = shard(v, "batch", "kv_heads", "seq", None)
-        out = sharded_attention(q, k, v, causal=causal, window=window, pos_offset=pos_offset,
-                                rope_theta=cfg.rope_theta, impl=impl)
-        return _out_proj(p, shard(out, "batch", "heads", "seq", None), x.dtype)
+        return _mapped(lambda lm_, x_, p_: self_attention(
+            cfg, p_, x_, lm=lm_, causal=causal, window=window, pos_offset=pos_offset,
+            impl=impl), shard, x, p)
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
+    if split:
+        x = lm.enter(x)
+    t = x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)
     pos = torch.arange(t, device=x.device) + pos_offset
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if lm is not None:
+        sel = _local_kv_heads(cfg, q.shape[1], k.shape[1], lm)
+        k, v = k[:, sel].contiguous(), v[:, sel]
     v = v.contiguous()
     out = ops.attention(q, k, v, causal=causal, window=window, q_offset=pos_offset, impl=impl)
     y = _out_proj(p, out, x.dtype)
+    if split:
+        return lm.sum(y)
     if return_kv:
         return y, (k, v)
     return y
@@ -498,29 +496,38 @@ def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor, cache,
 # cross-attention paths (whisper decoder, vlm image layers)
 # ---------------------------------------------------------------------------------
 def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *,
-                    shard: Sharder = NULL_SHARDER, return_kv: bool = False, impl: str = "auto"):
+                    shard: Sharder = NULL_SHARDER, lm=None, return_kv: bool = False,
+                    impl: str = "auto"):
     """x (B, T, D) queries against ctx (B, Tc, D) keys / values: no RoPE on
     either, non-causal ops.attention (flash_attention on CUDA). A ctx in
     another dtype than x is cast to x's (the reference's einsum would
     promote instead). With ``return_kv`` also (k, v) (B, Hkv, Tc, Dh) for the
-    decode cache."""
+    decode cache. Inside a block map (``lm``) with the heads split over
+    "model", q from x and k, v from ctx on the rank's heads, both entering
+    the split branch (their gradients summed over "model"), then the
+    row-parallel out projection and one sum; on DTensors (``shard``
+    active) the layer runs alone in one block map, ctx an input of it."""
+    if shard.active(x) and not return_kv:
+        return _mapped(lambda lm_, x_, p_, c_: cross_attention(cfg, p_, x_, c_, lm=lm_,
+                                                               impl=impl), shard, x, p, (ctx,))
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
     ctx = ctx.to(x.dtype)
+    if split:
+        x, ctx = lm.enter(x), lm.enter(ctx)
     q = _proj(x, p["wq"])
     k, v = _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
         v = v + p["bv"].to(x.dtype)[None, :, None, :]
-    if shard.active(x) and not return_kv:
-        q = shard(q, "batch", "heads", "seq", None)
-        k = shard(k, "batch", "kv_heads", "seq", None)
-        v = shard(v, "batch", "kv_heads", "seq", None)
-        out = shard(sharded_attention(q, k, v, causal=False, impl=impl),
-                    "batch", "heads", "seq", None)
-        return _out_proj(p, out, x.dtype)
+    if lm is not None:
+        sel = _local_kv_heads(cfg, q.shape[1], k.shape[1], lm)
+        k, v = k[:, sel], v[:, sel]
     k, v = k.contiguous(), v.contiguous()
     out = ops.attention(q.contiguous(), k, v, causal=False, impl=impl)
     y = _out_proj(p, out, x.dtype)
+    if split:
+        return lm.sum(y)
     if return_kv:
         return y, (k, v)
     return y

@@ -8,9 +8,10 @@ quantized one is {"q", "scale"} stored output-major (d_out, d_in), applied
 through ``kernels.ops.matmul``), so a bridged parameter tree is a
 dtype/device copy. Every spec carries the reference's logical axes, which
 ``launch.sharding``'s rules bind to mesh axes (``core.distributed``); on a
-mesh the parameters and activations are DTensors, the ``Sharder`` lays
-activations out where the reference constrains them, and the loss runs
-vocab-parallel (``cross_entropy``).
+mesh the parameters are DTensors, the MLP runs on local shards inside its
+block's map (column- then row-parallel), and the embedding and the loss run
+vocab-parallel in a ``local_map`` each (``apply_embed``,
+``cross_entropy``).
 """
 from __future__ import annotations
 
@@ -59,18 +60,25 @@ class ParamSpec:
 
 
 # ---------------------------------------------------------------------------------
-# Sharder: activation layouts from logical axis names
+# Sharder: the mesh and rules of a sharded step, and the activations' layouts
 # ---------------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Sharder:
-    """Lays an activation out by its logical axis names: on a DTensor,
-    ``x.redistribute`` to the placements ``rules`` give on ``mesh`` (the
-    twin of the reference's ``with_sharding_constraint``); ``x`` unchanged
-    off-mesh or on a plain tensor. The same rules table lays out parameters
-    and activations, so a parallelism change is one table edit."""
+    """The mesh and the rules a sharded step runs on. ``active(x)`` says
+    whether the sharded path applies (each block then runs in one block map,
+    ``core.distributed.block_map``, on local shards); calling it lays an
+    activation out by its logical axis names (``x.redistribute`` to the
+    placements ``rules`` give on ``mesh``, the twin of the reference's
+    ``with_sharding_constraint``), which ``Model.forward`` does at the
+    embedding's output and at the logits, and nothing inside a block; ``x``
+    unchanged off-mesh or on a plain tensor."""
 
     mesh: Any = None
     rules: Optional[ShardingRules] = None
+    # the block maps' layouts, by (block kind, config, input placements):
+    # models.transformer._layout
+    layouts: Dict[Any, Any] = dataclasses.field(default_factory=dict, compare=False,
+                                                repr=False)
 
     def active(self, x) -> bool:
         """On a mesh, and ``x`` a DTensor: the sharded path applies."""
@@ -240,22 +248,29 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
-              shard: Sharder = NULL_SHARDER) -> torch.Tensor:
+def apply_mlp(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, lm=None) -> torch.Tensor:
     """Gated (swiglu, geglu): act(x @ w_gate) * (x @ w_up) @ w_down, the
     activation in f32 (silu, or tanh-approximated gelu). Otherwise the plain
     MLP: gelu_tanh(x @ w_up + b_up) @ w_down + b_down, the gelu in f32 and
-    each bias cast to x's dtype. The hidden layer is laid out ("batch",
-    "seq", "ffn") on a mesh."""
+    each bias cast to x's dtype. Inside a block map (``lm``, a
+    ``core.distributed.LocalMesh``) with the "ffn" columns split over
+    "model": the up / gate matmuls on the local columns (column-parallel),
+    the down matmul on the local rows (row-parallel) and one sum over
+    "model", the down bias after it."""
+    w_up = p["w_up"]
+    split = (lm is not None and lm.model is not None and not isinstance(w_up, dict)
+             and w_up.shape[-1] < cfg.d_ff)
+    if split:
+        x = lm.enter(x)
     if cfg.mlp_act not in GATED_ACTS:
-        h = apply_linear(x, p["w_up"]) + p["b_up"].to(x.dtype)
-        h = shard(gelu_tanh(h.float()).to(x.dtype), "batch", "seq", "ffn")
-        return apply_linear(h, p["w_down"]) + p["b_down"].to(x.dtype)
+        h = apply_linear(x, w_up) + p["b_up"].to(x.dtype)
+        y = apply_linear(gelu_tanh(h.float()).to(x.dtype), p["w_down"])
+        return (lm.sum(y) if split else y) + p["b_down"].to(x.dtype)
     act = F.silu if cfg.mlp_act == "swiglu" else gelu_tanh
     g = apply_linear(x, p["w_gate"])
-    u = apply_linear(x, p["w_up"])
-    h = shard(act(g.float()).to(x.dtype) * u, "batch", "seq", "ffn")
-    return apply_linear(h, p["w_down"])
+    u = apply_linear(x, w_up)
+    y = apply_linear(act(g.float()).to(x.dtype) * u, p["w_down"])
+    return lm.sum(y) if split else y
 
 
 def _embed_sharded(table, tokens):

@@ -17,12 +17,14 @@ Every routed row takes capacity: the caller's padding and inactive decode
 rows are routed like live ones, as in the reference, so the same rows are
 dropped.
 
-On a mesh with a "model" axis of more than one rank the block runs expert
-parallel (``apply_moe_ep``, the reference's ``shard_map`` formulation, here
-inside ``local_map``): tokens sharded over the batch axes and replicated
-over "model", every model rank routes alike and keeps the entries of its own
-``E / ep`` experts (a per-shard capacity), and one sum over "model" of the
-gate-weighted combine merges them. ``apply_moe_dispatch`` picks the path.
+On a mesh the block runs on local shards inside its block's map
+(``moe_local``); with a "model" axis of more than one rank expert parallel
+(``moe_ep_local``, the reference's ``shard_map`` formulation): tokens
+sharded over the batch axes and replicated over "model", every model rank
+routes alike and keeps the entries of its own ``E / ep`` experts (a
+per-shard capacity), and one sum over "model" of the gate-weighted combine
+merges them; without one the token shards are gathered and every rank runs
+the einsum path on the whole batch (``moe_replicated_local``).
 """
 from __future__ import annotations
 
@@ -32,10 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.accessors import QuantizedAccessor
-from repro_torch.core.distributed import dequantize_array, group_mean, group_sum, mesh_sizes
+from repro_torch.core.distributed import dequantize_array, grad_scaled, group_mean, mesh_sizes
 from repro_torch.kernels import ops
 
-from .layers import NULL_SHARDER, ParamSpec, Sharder, fit_quant
+from .layers import ParamSpec, Sharder, fit_quant
 
 
 def moe_specs(cfg, *, quant=None) -> Dict[str, ParamSpec]:
@@ -128,7 +130,7 @@ def apply_moe(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # ------------------------------------------------------------------------------------
-# expert parallelism (the reference's shard_map formulation, in local_map)
+# expert parallelism (the reference's shard_map formulation, on local shards)
 # ------------------------------------------------------------------------------------
 def use_shard_map(shard) -> bool:
     """Expert parallel where the Sharder's mesh has a "model" axis of more
@@ -137,129 +139,93 @@ def use_shard_map(shard) -> bool:
     return mesh is not None and mesh_sizes(mesh).get("model", 1) > 1
 
 
-def _mesh_dim(mesh, name: str) -> int:
-    return list(mesh.mesh_dim_names).index(name)
+def moe_ep_local(cfg, p, x: torch.Tensor, lm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE of this rank's x (B_loc, S, D), inside a block map
+    (``lm`` a ``core.distributed.LocalMesh`` with a model axis).
+
+    x: the rank's tokens (T_loc, D) (sharded over the token axes, replicated
+    over "model"), entering the split block (their gradient summed over
+    "model"), routed as every model rank routes them; the slot table of all
+    E experts at the per-shard capacity ceil8(int(T_loc * k * cf / E) + 1),
+    of which the rank keeps the rows of its e_loc = E / ep experts (``p``'s
+    local expert shards; a gather: the dispatch moves nothing); its experts'
+    SwiGLU; the gate-weighted combine of its experts' contributions at their
+    source tokens, summed over "model" (the one collective of the forward);
+    the aux loss averaged over the token axes. The router's gradient is each
+    model rank's part (its experts' gates); the aux term, computed alike on
+    every model rank, enters each at 1 / ep."""
+    ep = lm.model_size
+    b, s, d = x.shape
+    t_loc = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    if e % ep:
+        raise ValueError(f"expert parallelism needs the {e} experts to divide the model "
+                         f"axis' {ep} ranks")
+    e_loc = e // ep
+    cap = -(-(int(t_loc * k * cfg.capacity_factor / e) + 1) // 8) * 8
+    xt = lm.enter(x.reshape(t_loc, d))
+    gate_vals, eflat, aux, ranks = _route(cfg, xt, p["router"])
+    aux = group_mean(aux, lm.tokens, grad_scale=1.0 / ep)
+    slot = eflat * cap + ranks
+    valid = ranks < cap
+    n = t_loc * k
+    # src[j]: the (token, choice) entry in slot j (n where the slot is empty)
+    src = torch.full((e * cap + 1,), n, dtype=torch.long, device=xt.device)
+    src[torch.where(valid, slot, torch.full_like(slot, e * cap))] = \
+        torch.arange(n, device=xt.device)
+    my = lm.model_rank
+    src_my = src[my * e_loc * cap:(my + 1) * e_loc * cap]
+    live = src_my < n
+    entry = torch.clamp(src_my, max=n - 1)
+    token_of = entry // k
+    zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
+    rows = torch.where(live[:, None], xt[token_of], zero)
+    y = _experts(cfg, p, rows.reshape(e_loc, cap, d), xt.dtype).reshape(e_loc * cap, d)
+    gate = (gate_vals.reshape(-1) * valid.float()).to(xt.dtype)
+    w_src = torch.where(live, gate[entry], zero)
+    contrib = torch.zeros((t_loc + 1, d), dtype=xt.dtype, device=xt.device)
+    contrib = contrib.index_add(0, torch.where(live, token_of, torch.full_like(token_of, t_loc)),
+                                y * w_src[:, None])
+    return lm.sum(contrib[:t_loc]).reshape(b, s, d), aux
+
+
+def moe_replicated_local(cfg, p, x: torch.Tensor, lm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The einsum path inside a block map without a model axis: the token
+    shards gathered whole (the reference's global capacity), the block on
+    the whole batch on every rank, this rank's rows of the output kept. Each
+    rank's gradient then covers its own rows' outputs and, at 1 / the shard
+    count, the aux loss every rank computes alike; the gather's backward
+    sums them over the ranks."""
+    rank, count = lm.token_rank_and_count()
+    y, aux = apply_moe(cfg, p, lm.gather_tokens(x))
+    b = x.shape[0]
+    return y[rank * b:(rank + 1) * b], grad_scaled(aux, 1.0 / count)
+
+
+def moe_local(cfg, p, x: torch.Tensor, lm=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MoE on local tensors: ``apply_moe`` off a mesh (``lm``
+    None), expert parallel on a model axis, else the replicated einsum
+    path."""
+    if lm is None:
+        return apply_moe(cfg, p, x)
+    if lm.model is not None:
+        return moe_ep_local(cfg, p, x, lm)
+    return moe_replicated_local(cfg, p, x, lm)
+
+
+def moe_partial(p, prefix: str = "") -> set:
+    """The leaves of DTensor MoE weights ``p`` whose gradient each model
+    rank holds a part of: the router's, under expert parallelism."""
+    from repro_torch.core.distributed import is_split
+
+    return {prefix + "router"} if is_split(p["w_gate"], 0) else set()
 
 
 def apply_moe_ep(cfg, p, x: torch.Tensor, shard: Sharder) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expert-parallel MoE of x (B, S, D), a DTensor, on ``shard``'s mesh.
+    """The expert-parallel block alone in one block map on ``shard``'s mesh
+    (x and p DTensors; ``moe_ep_local`` on each rank's shards). The experts
+    come in whole over the batch axes and sharded by expert over "model"."""
+    from repro_torch.core.distributed import block_map
 
-    Inside ``local_map``, on each rank: its tokens (T_loc, D) (sharded over
-    the batch axes, replicated over "model"), routed as every model rank
-    routes them; the slot table of all E experts at the per-shard capacity
-    ceil8(int(T_loc * k * cf / E) + 1), of which the rank keeps the rows of
-    its e_loc = E / ep experts (a gather: the dispatch moves nothing); its
-    experts' SwiGLU; the gate-weighted combine of its experts'
-    contributions at their source tokens, summed over "model" (the one
-    collective of the forward); the aux loss averaged over the token axes.
-    The experts come in whole over the batch axes and sharded by expert over
-    "model". Gradients: a token's, the router's and (over the token axes)
-    an expert's sum over the ranks (Partial); the aux term, computed alike
-    on every model rank, enters each at 1 / ep."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = shard.mesh
-    sizes = mesh_sizes(mesh)
-    ep = sizes["model"]
-    tok_axes = tuple(a for a in ("pod", "data") if a in sizes)
-    n_tok = 1
-    for a in tok_axes:
-        n_tok *= sizes[a]
-    b, s, d = x.shape
-    t = b * s
-    e, k = cfg.n_experts, cfg.top_k
-    if t % n_tok or e % ep:
-        raise ValueError(f"expert parallelism needs the {t} tokens to divide the token axes' "
-                         f"{n_tok} ranks and the {e} experts the model axis' {ep}")
-    t_loc, e_loc = t // n_tok, e // ep
-    cap = -(-(int(t_loc * k * cfg.capacity_factor / e) + 1) // 8) * 8
-    model_dim = _mesh_dim(mesh, "model")
-    tok_dims = [_mesh_dim(mesh, a) for a in tok_axes]
-    tok_groups = [mesh.get_group(i) for i in tok_dims]
-    model_group = mesh.get_group(model_dim)
-    ndim = len(mesh.mesh_dim_names)
-
-    def pl(on_tokens, on_model):
-        return [on_tokens if i in tok_dims else on_model if i == model_dim else Replicate()
-                for i in range(ndim)]
-
-    x_pl, x_grad = pl(Shard(0), Replicate()), pl(Shard(0), Partial())
-    r_pl, r_grad = pl(Replicate(), Replicate()), pl(Partial(), Partial())
-    w_pl, w_grad = pl(Replicate(), Shard(0)), pl(Partial(), Shard(0))
-    names = ("w_gate", "w_up", "w_down")
-    quantized = isinstance(p["w_gate"], dict)
-
-    def local(xt, router, *ws):
-        my = mesh.get_local_rank("model")
-        gate_vals, eflat, aux, ranks = _route(cfg, xt, router)
-        aux = group_mean(aux, tok_groups, grad_scale=1.0 / ep)
-        slot = eflat * cap + ranks
-        valid = ranks < cap
-        n = t_loc * k
-        # src[j]: the (token, choice) entry in slot j (n where the slot is empty)
-        src = torch.full((e * cap + 1,), n, dtype=torch.long, device=xt.device)
-        src[torch.where(valid, slot, torch.full_like(slot, e * cap))] = \
-            torch.arange(n, device=xt.device)
-        src_my = src[my * e_loc * cap:(my + 1) * e_loc * cap]
-        live = src_my < n
-        entry = torch.clamp(src_my, max=n - 1)
-        token_of = entry // k
-        rows = torch.where(live[:, None], xt[token_of], torch.zeros((), dtype=xt.dtype,
-                                                                      device=xt.device))
-        if quantized:
-            w = {nm: {"q": ws[2 * i], "scale": ws[2 * i + 1]} for i, nm in enumerate(names)}
-        else:
-            w = dict(zip(names, ws))
-        y = _experts(cfg, w, rows.reshape(e_loc, cap, d), xt.dtype).reshape(e_loc * cap, d)
-        gate = (gate_vals.reshape(-1) * valid.float()).to(xt.dtype)
-        w_src = torch.where(live, gate[entry], torch.zeros((), dtype=xt.dtype,
-                                                           device=xt.device))
-        contrib = torch.zeros((t_loc + 1, d), dtype=xt.dtype, device=xt.device)
-        contrib = contrib.index_add(0, torch.where(live, token_of, torch.full_like(token_of,
-                                                                                  t_loc)),
-                                    y * w_src[:, None])
-        return group_sum(contrib[:t_loc], [model_group]), aux
-
-    if quantized:
-        wts = [p[nm][part] for nm in names for part in ("q", "scale")]
-    else:
-        wts = [p[nm] for nm in names]
-    xt = x.reshape(t, d)
-    out, aux = local_map(
-        local, out_placements=(x_pl, r_pl),
-        in_placements=(x_pl, r_pl, *([w_pl] * len(wts))),
-        in_grad_placements=(x_grad, r_grad, *([w_grad] * len(wts))),
-        device_mesh=mesh, redistribute_inputs=True)(xt, p["router"], *wts)
-    return out.reshape(b, s, d), aux
-
-
-def _apply_moe_replicated(cfg, p, x: torch.Tensor, shard: Sharder):
-    """The einsum path on a mesh without a model axis: every rank computes
-    the whole block on the whole batch (the reference's global capacity),
-    inside ``local_map`` on replicated inputs."""
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.core.tree import tree_leaves, tree_map
-
-    mesh = shard.mesh
-    rep = [Replicate()] * len(mesh.mesh_dim_names)
-    leaves = tree_leaves(p)
-
-    def local(x_, *ws):
-        it = iter(ws)
-        return apply_moe(cfg, tree_map(lambda _: next(it), p), x_)
-
-    return local_map(local, out_placements=(rep, rep), in_placements=(rep,) * (1 + len(leaves)),
-                     device_mesh=mesh, redistribute_inputs=True)(x, *leaves)
-
-
-def apply_moe_dispatch(cfg, p, x: torch.Tensor, shard: Sharder = NULL_SHARDER):
-    """The block's entry: expert parallel where ``use_shard_map`` says so,
-    else the einsum path (on a mesh, whole on every rank)."""
-    if shard.active(x):
-        if use_shard_map(shard):
-            return apply_moe_ep(cfg, p, x, shard)
-        return _apply_moe_replicated(cfg, p, x, shard)
-    return apply_moe(cfg, p, x)
+    return block_map(lambda lm, x_, p_: moe_ep_local(cfg, p_, x_, lm), shard.mesh, x, p,
+                     partial=moe_partial(p), aux=True)

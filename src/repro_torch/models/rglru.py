@@ -67,28 +67,72 @@ def _log_a(p, ag: torch.Tensor) -> torch.Tensor:
     return -RG_C * F.softplus(p["a_param"].float()) * torch.sigmoid(ag.float())
 
 
-def _decay_and_input(p, xc: torch.Tensor):
-    """a = exp(log a) and b = sqrt(max(1 - a^2, 1e-12)) * sigmoid(i) * xc, f32."""
-    ig, ag = _gates(p, xc)
+def _decay_and_input(p, xc: torch.Tensor, gates=None):
+    """a = exp(log a) and b = sqrt(max(1 - a^2, 1e-12)) * sigmoid(i) * xc, f32
+    (``gates`` the (input gate, a gate) pre-activations, else ``_gates``)."""
+    ig, ag = gates if gates is not None else _gates(p, xc)
     a = torch.exp(_log_a(p, ag))
     gated = torch.sigmoid(ig.float()) * xc.float()
     return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
 
 
-def apply_rglru(cfg, p, x: torch.Tensor, *, initial_state=None, return_state: bool = False,
-                impl: str = "auto"):
+def _split_gates(p, xc: torch.Tensor, lm):
+    """The gates of this rank's lru columns, where "lru" is split over
+    "model": its rows of w_input_gate / w_a_gate times its columns of xc are
+    a partial sum of the whole gate, reduce-scattered to its own columns;
+    the replicated biases sliced to them."""
+    w = xc.shape[-1]
+    cols = slice(lm.model_rank * w, (lm.model_rank + 1) * w)
+    ig = lm.scatter(torch.matmul(xc, p["w_input_gate"].to(xc.dtype)), -1)
+    ag = lm.scatter(torch.matmul(xc, p["w_a_gate"].to(xc.dtype)), -1)
+    return (ig + p["b_input_gate"][cols].to(xc.dtype),
+            ag + p["b_a_gate"][cols].to(xc.dtype))
+
+
+def apply_rglru(cfg, p, x: torch.Tensor, *, lm=None, initial_state=None,
+                return_state: bool = False, impl: str = "auto"):
     """x (B, S, D) -> (B, S, D) [+ the decode cache {"h", "conv"}]. ``impl``
     picks the recurrence (kernels.ops.rglru_scan); ``initial_state`` (B, W)
-    f32 is the kernel's h0, where the reference folds it into b_0."""
+    f32 is the kernel's h0, where the reference folds it into b_0.
+
+    Inside a block map (``lm``) with "lru" split over "model" (the local
+    w_x narrower than lru_width): x enters the split block, w_x / w_y are
+    column-parallel, the conv, a_param and the recurrence run on the local
+    columns with no collective, the gates are reduce-scattered
+    (``_split_gates``) and w_out is row-parallel, summed over "model"."""
+    split = lm is not None and lm.model is not None and p["w_x"].shape[-1] < cfg.lru_width
+    if split:
+        if return_state or initial_state is not None:
+            raise NotImplementedError("an lru-split RG-LRU block runs the train step only")
+        x = lm.enter(x)
     xb = torch.matmul(x, p["w_x"].to(x.dtype))
     yb = gelu_tanh(torch.matmul(x, p["w_y"].to(x.dtype)).float()).to(x.dtype)
     xc = _causal_conv(xb, p["conv_w"], p["conv_b"])
-    a, b = _decay_and_input(p, xc)
+    a, b = _decay_and_input(p, xc, _split_gates(p, xc, lm) if split else None)
     h = ops.rglru_scan(a, b, initial_state=initial_state, impl=impl).to(x.dtype)
     out = torch.matmul(h * yb, p["w_out"].to(x.dtype))
+    if split:
+        return lm.sum(out)
     if return_state:
         return out, {"h": h[:, -1].float(), "conv": conv_tail(xb, cfg.conv_kernel)}
     return out
+
+
+def rglru_whole(p, prefix: str = "") -> set:
+    """The leaves of DTensor RG-LRU weights ``p`` a block map takes whole on
+    "model": every leaf where "lru" is not split (each rank then runs the
+    whole block); none where it is (the gate biases are replicated)."""
+    from repro_torch.core.distributed import is_split
+
+    return set() if is_split(p["w_x"], 1) else {prefix + k for k in p}
+
+
+def rglru_partial(p, prefix: str = "") -> set:
+    """The gate biases where "lru" is split: a rank's gradient covers the
+    columns it slices."""
+    from repro_torch.core.distributed import is_split
+
+    return {prefix + "b_input_gate", prefix + "b_a_gate"} if is_split(p["w_x"], 1) else set()
 
 
 def apply_rglru_decode(cfg, p, x: torch.Tensor, cache, pos):

@@ -75,29 +75,80 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return (acc + b).to(xbc.dtype)
 
 
-def _gated_out(cfg, p, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def _gated_out(cfg, p, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor, lm=None,
+               split: bool = False) -> torch.Tensor:
     """The skip term in y's dtype, then mamba2's RMSNormGated (normalize the
-    GATED value) and the out projection; y / xh (..., H, P), z (..., Di)."""
+    GATED value) and the out projection; y / xh (..., H, P), z (..., Di).
+    Split over "model" (``split``, inside a block map: the rank's heads) the
+    norm's mean of squares is the sum over "model" of each rank's over
+    its columns, divided by the whole width, and the out projection is
+    row-parallel, summed over "model"."""
     y = y + xh.float().to(y.dtype) * p["D_skip"].to(y.dtype)[:, None]
-    y = y.reshape(*y.shape[:-2], cfg.ssm_dinner)
-    y = apply_rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"])
-    return torch.matmul(y, p["out_proj"].to(y.dtype))
+    y = y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1])
+    g = y * F.silu(z.float()).to(y.dtype)
+    if not split:
+        return torch.matmul(apply_rmsnorm(g, p["norm"]), p["out_proj"].to(y.dtype))
+    gf = g.float()
+    var = lm.sum_both(torch.sum(gf * gf, dim=-1, keepdim=True)) / cfg.ssm_dinner
+    g = (gf * torch.rsqrt(var + 1e-6) * p["norm"]).to(y.dtype)
+    return lm.sum(torch.matmul(g, p["out_proj"].to(y.dtype)))
 
 
-def apply_ssm(cfg, p, x: torch.Tensor, *, initial_state=None, return_state: bool = False,
-              impl: str = "auto"):
+def split_columns(cfg, h_loc: int, rank: int, device):
+    """The columns of the fused in_proj (z | x | B | C | dt) and of the fused
+    conv (x | B | C) that a rank with heads rank * h_loc .. + h_loc reads:
+    its heads' z, x and dt, and B and C whole (ngroups 1: every head reads
+    them)."""
+    di, gn, hd = cfg.ssm_dinner, cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_headdim
+    lo, w = rank * h_loc * hd, h_loc * hd
+
+    def run(a, n):
+        return torch.arange(a, a + n, device=device)
+
+    proj = torch.cat([run(lo, w), run(di + lo, w), run(2 * di, 2 * gn),
+                      run(2 * di + 2 * gn + rank * h_loc, h_loc)])
+    conv = torch.cat([run(lo, w), run(di, 2 * gn)])
+    return proj, conv
+
+
+def apply_ssm(cfg, p, x: torch.Tensor, *, lm=None, initial_state=None,
+              return_state: bool = False, impl: str = "auto"):
     """x (B, S, D) -> y (B, S, D) [+ the decode cache {"state", "conv"}].
-    ``impl`` picks the SSD scan (kernels.ops.ssd)."""
+    ``impl`` picks the SSD scan (kernels.ops.ssd).
+
+    Inside a block map (``lm``) with the heads split over "model" (the
+    local ``A_log`` shorter than the heads): the fused in_proj, conv_w and
+    conv_b come in whole (their columns cut across z | x | B | C | dt), x
+    enters the split block, and the rank reads its heads' z, x and dt
+    columns and B and C whole (``split_columns``), runs the conv and
+    ``ops.ssd`` on its heads, the norm with its sum over "model" and the
+    row-parallel out projection (``_gated_out``). B's and C's gradients are
+    each rank's part, summed over "model" with in_proj's."""
     b, s, _ = x.shape
     di, g, n, h, hd = (cfg.ssm_dinner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
                        cfg.ssm_headdim)
-    zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))
-    z, xbc, dtp = _split_proj(cfg, zxbcdt)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    h_loc = p["A_log"].shape[0]
+    split = lm is not None and lm.model is not None and h_loc < h
+    if split:
+        if return_state or initial_state is not None or g != 1:
+            raise NotImplementedError("a head-split SSM block runs the train step only, "
+                                      "at ngroups 1")
+        proj, conv = split_columns(cfg, h_loc, lm.model_rank, x.device)
+        x = lm.enter(x)
+        zxbcdt = torch.matmul(x, p["in_proj"].index_select(1, proj).to(x.dtype))
+        z, xbc, dtp = (zxbcdt[..., :h_loc * hd], zxbcdt[..., h_loc * hd:-h_loc],
+                       zxbcdt[..., -h_loc:])
+        conv_w, conv_b = p["conv_w"].index_select(1, conv), p["conv_b"].index_select(0, conv)
+    else:
+        zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))
+        z, xbc, dtp = _split_proj(cfg, zxbcdt)
+        conv_w, conv_b = p["conv_w"], p["conv_b"]
+    xbc = _causal_conv(xbc, conv_w, conv_b)
     xbc = F.silu(xbc.float()).to(x.dtype)
-    xh = xbc[..., :di].reshape(b, s, h, hd).contiguous()
-    Bm = xbc[..., di:di + g * n].reshape(b, s, g, n).contiguous()
-    Cm = xbc[..., di + g * n:].reshape(b, s, g, n).contiguous()
+    dl = h_loc * hd
+    xh = xbc[..., :dl].reshape(b, s, h_loc, hd).contiguous()
+    Bm = xbc[..., dl:dl + g * n].reshape(b, s, g, n).contiguous()
+    Cm = xbc[..., dl + g * n:].reshape(b, s, g, n).contiguous()
     dt = F.softplus(dtp.float() + p["dt_bias"])  # (B, S, H)
     A = -torch.exp(p["A_log"])  # (H,)
     chunk = min(cfg.ssm_chunk, s)
@@ -105,10 +156,31 @@ def apply_ssm(cfg, p, x: torch.Tensor, *, initial_state=None, return_state: bool
         chunk = s
     y, state = ops.ssd(xh, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
                        return_final_state=True, impl=impl)
-    out = _gated_out(cfg, p, y, xh, z)
+    out = _gated_out(cfg, p, y, xh, z, lm, split)
     if return_state:
         return out, {"state": state, "conv": xbc_raw_tail(cfg, x, p, zxbcdt)}
     return out
+
+
+def ssm_whole(p, prefix: str = "") -> set:
+    """The leaves of DTensor SSM weights ``p`` a block map takes whole on
+    "model": the fused in_proj and conv, whose columns cut across the parts,
+    and, where the heads are not split, every leaf (each rank then runs the
+    whole block)."""
+    from repro_torch.core.distributed import is_split
+
+    if is_split(p["A_log"], 0):
+        return {prefix + k for k in ("in_proj", "conv_w", "conv_b")}
+    return {prefix + k for k in p}
+
+
+def ssm_partial(p, prefix: str = "") -> set:
+    """The leaves whose gradient each model rank holds a part of: the fused
+    in_proj and conv where the heads are split (B's and C's columns take
+    every rank's heads' part; the others are the rank's own)."""
+    from repro_torch.core.distributed import is_split
+
+    return ssm_whole(p, prefix) if is_split(p["A_log"], 0) else set()
 
 
 def conv_tail(x_raw: torch.Tensor, k: int) -> torch.Tensor:

@@ -29,6 +29,12 @@ cache only: the paged entry points refuse them, as the reference's do.
 dense-cache path (flash_attention, flash_decode, ssd_scan, rglru_scan:
 "auto" | "cuda" | "torch", as kernels.ops), so an oracle can force the plain
 versions.
+
+On a mesh (the sharded train step: a ``Sharder`` and DTensor params) each
+block kind's ``train`` runs its whole body, ``local``, on this rank's shards
+in one ``local_map`` (``core.distributed.block_map``): the norms on the
+replicated width, attention, the MLP, the MoE, the SSM and the RG-LRU split
+over "model" with their collectives explicit (``LocalMesh``).
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.kernels.common import resolve_device
+
+from repro_torch.core.distributed import block_layout, block_map
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -64,7 +72,58 @@ from .layers import (
 )
 
 
-class DenseBlock:
+def _layout(blk, cfg, p, x, shard):
+    """The block map's layout for a layer of ``blk`` (``block_layout``, with
+    ``blk.whole`` / ``blk.partial`` naming the leaves taken whole on "model"
+    and those whose gradient a rank holds a part of): the same for every
+    layer of a kind, so the Sharder keeps it."""
+    key = (blk, cfg, tuple(x.placements))
+    layout = shard.layouts.get(key)
+    if layout is None:
+        layout = shard.layouts[key] = block_layout(shard.mesh, x, p, whole=blk.whole(p),
+                                                   partial=blk.partial(p))
+    return layout
+
+
+def _mapped(blk, cfg, p, x, impl, ctx, shard):
+    """``blk.local`` in one block map on ``shard``'s mesh (x and p DTensors,
+    ctx too where the kind attends to it), its layout kept (``_layout``)."""
+    extras = (ctx,) if blk.USES_CTX else ()
+    kw = dict(layout=_layout(blk, cfg, p, x, shard))
+    if blk.AUX:
+        return block_map(lambda lm, x_, p_, *c: blk.local(cfg, p_, x_, lm, impl, *c),
+                         shard.mesh, x, p, extras, aux=True, **kw)
+    return block_map(lambda lm, x_, p_, *c: blk.local(cfg, p_, x_, lm, impl, *c)[0],
+                     shard.mesh, x, p, extras, **kw), 0.0
+
+
+class _Block:
+    """What every kind's ``train`` shares: off a mesh, ``local`` on the
+    plain tensors; on one (``shard`` active, x and p DTensors), ``local`` on
+    this rank's shards inside one block map (``_mapped``), whose
+    collectives are the body's own. A kind's ``local(cfg, p, x, lm, impl[,
+    ctx]) -> (x, aux)`` is its whole body (``lm`` None off a mesh); ``AUX``
+    says its aux is a tensor (the MoE's router loss), ``USES_CTX`` that it
+    attends to the cross-attention context, and ``whole(p)`` /
+    ``partial(p)`` name its leaves for the block map (paths under p)."""
+
+    AUX = False
+    USES_CTX = False
+
+    def whole(self, p) -> set:
+        return set()
+
+    def partial(self, p) -> set:
+        return set()
+
+    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
+        """-> (x, aux): aux the layer's router loss (0 without experts)."""
+        if shard.active(x):
+            return _mapped(self, cfg, p, x, impl, ctx, shard)
+        return self.local(cfg, p, x, None, impl, *((ctx,) if self.USES_CTX else ()))
+
+
+class DenseBlock(_Block):
     """Pre-norm self-attention (+ a local window for ``use_window``, the
     hybrid family's local_attn kind; non-causal for ``causal=False``, the
     whisper encoder's enc kind) + MLP; decode and the paged paths write one
@@ -93,20 +152,23 @@ class DenseBlock:
         return attn.cache_specs(cfg, batch, min(seq, w) if w is not None else seq)
 
     @staticmethod
-    def _mlp(cfg, p, x, shard=NULL_SHARDER):
-        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]), shard)
+    def _mlp(cfg, p, x, lm=None):
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln_mlp"]), lm)
 
     @classmethod
-    def _mlp_aux(cls, cfg, p, x, shard=NULL_SHARDER):
-        return cls._mlp(cfg, p, x, shard), 0.0
+    def _mlp_aux(cls, cfg, p, x, lm=None):
+        return cls._mlp(cfg, p, x, lm), 0.0
 
-    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
-        """-> (x, aux): aux the layer's router loss (0 without experts).
-        ``shard`` lays out the activations on a mesh."""
+    def partial(self, p, prefix: str = "") -> set:
+        return attn.attn_partial(p["attn"], prefix + "attn/")
+
+    def local(self, cfg, p, x, lm, impl="auto"):
+        """The block's body: the norms run on the whole (replicated) width,
+        attention and the MLP split over "model" inside a block map."""
         h = apply_norm(cfg, x, p["ln_attn"])
-        x = x + attn.self_attention(cfg, p["attn"], h, shard=shard, causal=self.causal,
+        x = x + attn.self_attention(cfg, p["attn"], h, lm=lm, causal=self.causal,
                                     window=self._window(cfg), impl=impl)
-        return self._mlp_aux(cfg, p, x, shard)
+        return self._mlp_aux(cfg, p, x, lm)
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
         h = apply_norm(cfg, x, p["ln_attn"])
@@ -165,18 +227,22 @@ class MoEBlock(DenseBlock):
             "moe": moe_mod.moe_specs(cfg, quant=quant),
         }
 
+    AUX = True
+
+    def partial(self, p, prefix: str = "") -> set:
+        return super().partial(p, prefix) | moe_mod.moe_partial(p["moe"], prefix + "moe/")
+
     @staticmethod
-    def _mlp_aux(cfg, p, x, shard=NULL_SHARDER):
-        y, aux = moe_mod.apply_moe_dispatch(cfg, p["moe"], apply_norm(cfg, x, p["ln_moe"]),
-                                            shard)
+    def _mlp_aux(cfg, p, x, lm=None):
+        y, aux = moe_mod.moe_local(cfg, p["moe"], apply_norm(cfg, x, p["ln_moe"]), lm)
         return x + y, aux
 
     @classmethod
-    def _mlp(cls, cfg, p, x, shard=NULL_SHARDER):
-        return cls._mlp_aux(cfg, p, x, shard)[0]
+    def _mlp(cls, cfg, p, x, lm=None):
+        return cls._mlp_aux(cfg, p, x, lm)[0]
 
 
-class SSMBlock:
+class SSMBlock(_Block):
     """Pre-norm Mamba-2 mixer (no MLP); decode updates one layer's state and
     conv rows in place."""
 
@@ -188,9 +254,16 @@ class SSMBlock:
     def cache_specs(cfg, batch: int, seq: int):
         return ssm_mod.ssm_cache_specs(cfg, batch)
 
+    def whole(self, p) -> set:
+        return ssm_mod.ssm_whole(p["ssm"], "ssm/")
+
+    def partial(self, p) -> set:
+        return ssm_mod.ssm_partial(p["ssm"], "ssm/")
+
     @staticmethod
-    def train(cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
-        return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), impl=impl), 0.0
+    def local(cfg, p, x, lm, impl="auto"):
+        return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), lm=lm,
+                                     impl=impl), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -206,7 +279,7 @@ class SSMBlock:
         return x + y, cache
 
 
-class RecBlock:
+class RecBlock(_Block):
     """Pre-norm RG-LRU temporal block + gated MLP; decode updates one layer's
     state and conv rows in place."""
 
@@ -223,10 +296,17 @@ class RecBlock:
     def cache_specs(cfg, batch: int, seq: int):
         return rg_mod.rglru_cache_specs(cfg, batch)
 
+    def whole(self, p, prefix: str = "") -> set:
+        return rg_mod.rglru_whole(p["rec"], prefix + "rec/")
+
+    def partial(self, p, prefix: str = "") -> set:
+        return rg_mod.rglru_partial(p["rec"], prefix + "rec/")
+
     @staticmethod
-    def train(cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
-        x = x + rg_mod.apply_rglru(cfg, p["rec"], apply_norm(cfg, x, p["ln_rec"]), impl=impl)
-        return DenseBlock._mlp(cfg, p, x, shard), 0.0
+    def local(cfg, p, x, lm, impl="auto"):
+        x = x + rg_mod.apply_rglru(cfg, p["rec"], apply_norm(cfg, x, p["ln_rec"]), lm=lm,
+                                   impl=impl)
+        return DenseBlock._mlp(cfg, p, x, lm), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -241,9 +321,10 @@ class RecBlock:
         return DenseBlock._mlp(cfg, p, x + y), cache
 
 
-class RGGroup:
+class RGGroup(_Block):
     """RecurrentGemma's repeating unit: [rec, rec, local_attn], with nested
-    {"rec0", "rec1", "attn"} parameters and caches."""
+    {"rec0", "rec1", "attn"} parameters and caches; on a mesh the three run
+    in the group's one block map."""
 
     PARTS = (("rec0", RecBlock()), ("rec1", RecBlock()), ("attn", DenseBlock(use_window=True)))
 
@@ -253,9 +334,16 @@ class RGGroup:
     def cache_specs(self, cfg, batch: int, seq: int):
         return {name: blk.cache_specs(cfg, batch, seq) for name, blk in self.PARTS}
 
-    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
+    def whole(self, p) -> set:
+        return set().union(*(blk.whole(p[name], name + "/") for name, blk in self.PARTS
+                             if isinstance(blk, RecBlock)))
+
+    def partial(self, p) -> set:
+        return set().union(*(blk.partial(p[name], name + "/") for name, blk in self.PARTS))
+
+    def local(self, cfg, p, x, lm, impl="auto"):
         for name, blk in self.PARTS:
-            x, _ = blk.train(cfg, p[name], x, impl=impl, shard=shard)
+            x, _ = blk.local(cfg, p[name], x, lm, impl)
         return x, 0.0
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -275,7 +363,7 @@ def _cross_cache(cfg, k, v):
     return {"k": k.to(cfg.param_dtype), "v": v.to(cfg.param_dtype)}
 
 
-class DecBlock:
+class DecBlock(_Block):
     """Whisper's decoder layer: pre-norm causal self-attention,
     cross-attention over the encoder's output, then the MLP. Its cache is
     {"self": the dense decode cache, "cross": the context's K/V (B, Hkv,
@@ -297,13 +385,18 @@ class DecBlock:
         return {"self": attn.cache_specs(cfg, batch, seq),
                 "cross": attn.cache_specs(cfg, batch, cfg.enc_seq)}
 
+    USES_CTX = True
+
+    def partial(self, p) -> set:
+        return attn.attn_partial(p["self"], "self/") | attn.attn_partial(p["cross"], "cross/")
+
     @staticmethod
-    def train(cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
-        x = x + attn.self_attention(cfg, p["self"], apply_norm(cfg, x, p["ln_self"]),
-                                    shard=shard, impl=impl)
+    def local(cfg, p, x, lm, impl="auto", ctx=None):
+        x = x + attn.self_attention(cfg, p["self"], apply_norm(cfg, x, p["ln_self"]), lm=lm,
+                                    impl=impl)
         h = apply_norm(cfg, x, p["ln_cross"])
-        x = x + attn.cross_attention(cfg, p["cross"], h, ctx, shard=shard, impl=impl)
-        return DenseBlock._mlp(cfg, p, x, shard), 0.0
+        x = x + attn.cross_attention(cfg, p["cross"], h, ctx, lm=lm, impl=impl)
+        return DenseBlock._mlp(cfg, p, x, lm), 0.0
 
     @staticmethod
     def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
@@ -336,7 +429,7 @@ def _stack_specs(specs, n: int):
                                logical_axes=("layers",) + specs.axes)
 
 
-class VisGroup:
+class VisGroup(_Block):
     """llama-3.2-vision's unit: N_SELF dense self-attention layers, then a
     gated cross-attention layer over the image embeddings and the MLP. The
     gate, tanh of a learned f32 scalar cast to x's dtype, scales the
@@ -363,16 +456,25 @@ class VisGroup:
         return {"self": _stack_specs(self.DENSE.cache_specs(cfg, batch, seq), self.N_SELF),
                 "cross": attn.cache_specs(cfg, batch, cfg.n_img_tokens)}
 
-    @staticmethod
-    def _gated(cfg, p, x, y, shard=NULL_SHARDER):
-        return DenseBlock._mlp(cfg, p, x + torch.tanh(p["gate"]).to(x.dtype) * y, shard)
+    USES_CTX = True
 
-    def train(self, cfg, p, x, impl="auto", ctx=None, shard=NULL_SHARDER):
+    @staticmethod
+    def _gated(cfg, p, x, y, lm=None):
+        return DenseBlock._mlp(cfg, p, x + torch.tanh(p["gate"]).to(x.dtype) * y, lm)
+
+    def partial(self, p) -> set:
+        return set().union(attn.attn_partial(p["cross"], "cross/"),
+                           *(self.DENSE.partial(pl, f"self/{i}/")
+                             for i, pl in enumerate(p["self"])))
+
+    def local(self, cfg, p, x, lm, impl="auto", ctx=None):
+        """The group's body: its self layers, the gated cross layer (the gate
+        a replicated scalar) and the MLP, in one block map on a mesh."""
         for pl in p["self"]:
-            x, _ = self.DENSE.train(cfg, pl, x, impl=impl, shard=shard)
+            x, _ = self.DENSE.local(cfg, pl, x, lm, impl)
         h = apply_norm(cfg, x, p["ln_cross"])
-        y = attn.cross_attention(cfg, p["cross"], h, ctx, shard=shard, impl=impl)
-        return self._gated(cfg, p, x, y, shard), 0.0
+        y = attn.cross_attention(cfg, p["cross"], h, ctx, lm=lm, impl=impl)
+        return self._gated(cfg, p, x, y, lm), 0.0
 
     def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
         caches = []
@@ -608,7 +710,10 @@ class Model:
 
         On a mesh (``shard`` a Sharder, tokens and params DTensors) the
         activations are laid out ("batch", "seq", None) after the embedding
-        and the logits ("batch", "seq", "vocab"), as the reference's."""
+        and the logits ("batch", "seq", "vocab"), as the reference's, and
+        each block runs on local shards in one block map (``_Block.train``):
+        remat wraps the mapped block, so its FSDP gathers are redone in the
+        backward, as the reference's ``jax.checkpoint`` redoes them."""
         x = shard(self._embed(params, tokens), "batch", "seq", None)
         aux = torch.zeros((), device=x.device)
         run = _remat(remat, remat_policy)

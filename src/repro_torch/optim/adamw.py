@@ -17,9 +17,14 @@ moment's ``MomentSpec`` carries that reference shape
 (``models.bridge.reference_shapes`` gives it for a model's tree).
 
 Each moment carries its parameter's logical axes, so on a mesh it is laid
-out like its parameter (``adamw_init(mesh=, rules=)``) and the update runs
-on the DTensors; the clip's norm (``clip_by_global_norm``) is then the whole
-gradient's, each rank's partial sums of squares added over the mesh.
+out like its parameter (``adamw_init(mesh=, rules=)``; an int8 moment's
+{"q", "scale"} as ``core.distributed.q_bindings`` lays a quantized leaf
+out), and the update runs on each rank's local shards: it is elementwise,
+and an int8 moment's blocks lie whole in a shard (``train.step.check_mesh``
+refuses a leaf where they would not). The clip's norm
+(``clip_by_global_norm``) is the whole gradient's: each rank's sums of
+squares over its shards, each over the ranks that replicate it, added over
+the mesh in one all-reduce a mesh dim.
 """
 from __future__ import annotations
 
@@ -31,9 +36,13 @@ import torch
 from repro_torch.core.accessors import QuantizedAccessor
 from repro_torch.core.distributed import (
     dequantize_array,
+    is_dtensor,
     local_shape_and_offset,
+    local_tensor,
+    placed_like,
     quantize_array,
     spec_axes,
+    tree_shardings,
 )
 from repro_torch.core.tree import tree_leaves, tree_map
 
@@ -108,9 +117,9 @@ def adamw_init(state_specs, device=None, mesh=None, rules=None):
     """Zeroed optimizer state for ``state_specs`` on ``device``: f32 zeros, or
     the int8 encoding of zeros ({"q": 0, "scale": 1}, as the reference's
     ``tree_initialize``), and the int32 step 0. With ``mesh`` and ``rules``
-    each f32 moment is a DTensor laid out like its parameter, each rank
-    allocating only its block (the step stays a plain tensor on every
-    rank)."""
+    each moment is laid out like its parameter (an int8 one as its {"q",
+    "scale"} DTensors), each rank allocating and encoding only its block
+    (the step stays a plain tensor on every rank)."""
     def zeros(s: MomentSpec):
         if mesh is not None:
             return _zeros_on_mesh(s, device, mesh, rules)
@@ -124,12 +133,26 @@ def adamw_init(state_specs, device=None, mesh=None, rules=None):
 def _zeros_on_mesh(s: MomentSpec, device, mesh, rules):
     from torch.distributed.tensor import DTensor
 
-    if s.is_quantized():
-        raise NotImplementedError("int8 AdamW moments on a mesh wait for ROADMAP Queue 1 item 6")
-    placements = rules.placements(spec_axes(s), s.shape, mesh)
-    local, _ = local_shape_and_offset(s.shape, placements, mesh)
-    return DTensor.from_local(torch.zeros(local, dtype=torch.float32, device=device), mesh,
-                              placements, run_check=False)
+    placements = tree_shardings(s, mesh, rules)
+    pl = placements["q"] if s.is_quantized() else placements
+    local, _ = local_shape_and_offset(s.shape, pl, mesh)
+    z = torch.zeros(local, dtype=torch.float32, device=device)
+    if not s.is_quantized():
+        return DTensor.from_local(z, mesh, placements, run_check=False)
+    return {k: DTensor.from_local(v, mesh, placements[k], run_check=False)
+            for k, v in quantize_array(z, s.quant).items()}
+
+
+def _local(t):
+    """A DTensor's local shard, a tree of them leaf by leaf; a plain tensor as
+    it is."""
+    return tree_map(lambda x: local_tensor(x) if is_dtensor(x) else x, t)
+
+
+def _placed(t, like):
+    """Local shard(s) ``t`` back as DTensors laid out as ``like`` (leaf by
+    leaf for an int8 moment's {"q", "scale"})."""
+    return tree_map(lambda x, ref: placed_like(x, ref) if is_dtensor(ref) else x, t, like)
 
 
 _V_FLOOR = 1e-12
@@ -157,14 +180,39 @@ def _encode_moment(val: torch.Tensor, spec: MomentSpec, *, log_domain: bool = Fa
     return val
 
 
+def _sum_of_squares(grads) -> torch.Tensor:
+    """The f32 sum of squares of every gradient element. On DTensor grads
+    each rank sums its shards, each leaf's divided by the ranks that
+    replicate it, and the sums are added over every mesh dim."""
+    leaves = tree_leaves(grads)
+    if not any(is_dtensor(g) for g in leaves):
+        return sum(torch.sum(torch.square(g.float())) for g in leaves)
+    import torch.distributed as dist
+
+    mesh = next(g for g in leaves if is_dtensor(g)).device_mesh
+    total = 0.0
+    for g in leaves:
+        rep = 1
+        for i, p in enumerate(g.placements):
+            if p.is_replicate():
+                rep *= mesh.size(i)
+            elif not p.is_shard():
+                raise ValueError(f"a gradient placed {g.placements}: a pending sum")
+        total = total + torch.sum(torch.square(local_tensor(g).float())) / rep
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(total, group=mesh.get_group(i))
+    return total
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Grads scaled by min(1, max_norm / ||g||) (f32, cast back to each
-    grad's dtype) and the f32 global norm. On DTensor grads each leaf's sum
-    of squares is a partial sum over its shards, reduced before the square
-    root: the norm of the whole gradient, as one device takes it."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    grad's dtype) and the f32 global norm. On DTensor grads the norm is the
+    whole gradient's (``_sum_of_squares``), a plain tensor alike on every
+    rank, and each rank scales its own shards."""
+    gn = torch.sqrt(_sum_of_squares(grads))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+    return tree_map(lambda g: _placed((_local(g).float() * scale).to(g.dtype), g), grads), gn
 
 
 def _is_moment(x) -> bool:
@@ -192,6 +240,12 @@ def adamw_update(params, grads, state, state_specs, opt: AdamWConfig):
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), sf)
 
     def one(mspec, p, g, m, v):
+        if is_dtensor(p):  # elementwise: on the local shards
+            if tuple(g.placements) != tuple(p.placements):
+                raise ValueError(f"a gradient placed {g.placements} for a parameter placed "
+                                 f"{p.placements}")
+            new = one(mspec, *map(_local, (p, g, m, v)))
+            return _placed(new[0], p), _placed(new[1], m), _placed(new[2], v)
         gf = g.float()
         mf = _decode_moment(m, mspec)
         vf = _decode_moment(v, mspec, log_domain=True)

@@ -92,6 +92,7 @@ class RunConfig:
     resume: bool = True
     device: Optional[str] = None  # None: CUDA, as every entry point of the port
     model_axis: int = 1  # the mesh's "model" width, where a process group is up
+    final_save: bool = True  # checkpoint the last step (off: a timed run that keeps nothing)
 
 
 def _dist():
@@ -109,6 +110,7 @@ class TrainerLoop:
         self.model = build_model(self.cfg, device=self.device)
         self.ckpt = CheckpointManager(run.ckpt_dir, keep=3)
         self.history: List[Dict[str, float]] = []
+        self.last_save: Optional[Dict[str, Any]] = None  # the final save's step, seconds, bytes
         self.straggler = StragglerPolicy()
         self.restarts = 0
         self.left = False
@@ -276,13 +278,14 @@ class TrainerLoop:
             if step > 0 and step % r.ckpt_every == 0:
                 self._save(step, params, opt_state)
         final = min(step + 1, r.steps)
-        t0 = time.monotonic()
-        self._save(final, params, opt_state)
-        self.ckpt.wait()
-        self._barrier()
-        written = self.ckpt.dir / f"step_{final:08d}"
-        self.last_save = {"step": final, "seconds": time.monotonic() - t0,
-                          "bytes": sum(f.stat().st_size for f in written.iterdir())}
+        if r.final_save:
+            t0 = time.monotonic()
+            self._save(final, params, opt_state)
+            self.ckpt.wait()
+            self._barrier()
+            written = self.ckpt.dir / f"step_{final:08d}"
+            self.last_save = {"step": final, "seconds": time.monotonic() - t0,
+                              "bytes": sum(f.stat().st_size for f in written.iterdir())}
         self.params, self.opt_state = params, opt_state
         return {"history": self.history, "final_step": final}
 

@@ -12,12 +12,13 @@ accumulation) and the AdamW update; the port of ``repro.train.step``.
   * on a mesh (``mesh`` a ``DeviceMesh`` with dim names, ``rules`` the
     ``launch.sharding`` table): parameters, gradients and AdamW moments are
     DTensors laid out by the rules (``core.distributed.tree_distribute``,
-    ``optim.adamw_init``), the batch is placed over the batch axes, the
-    activations by the model's ``Sharder``, attention, the loss and the MoE
-    run on each rank's shard inside ``local_map``, and the update runs on
-    the DTensors (the clip's norm is the whole gradient's). The dense and
-    MoE families train on a mesh; the SSM, hybrid, encoder-decoder and
-    vision families and int8 moments are refused there (``check_mesh``).
+    ``optim.adamw_init``), the batch is placed over the batch axes, each
+    block runs on local shards in one ``local_map`` with explicit
+    collectives (``core.distributed.block_map``), the embedding and the
+    loss in one each, and the update runs on each rank's shards (the clip's
+    norm is the whole gradient's). Every family trains on a mesh, with f32
+    or int8 moments; ``check_mesh`` refuses only an int8 moment whose quant
+    block a shard would split.
 """
 from __future__ import annotations
 
@@ -27,13 +28,11 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.distributed import distribute, is_dtensor
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.distributed import distribute, is_dtensor, q_bindings
+from repro_torch.core.tree import tree_leaves, tree_leaves_with_path, tree_map
 from repro_torch.models.bridge import reference_shapes
 from repro_torch.models.layers import NULL_SHARDER, Sharder
 from repro_torch.optim import AdamWConfig, adamw_init_specs, adamw_update
-
-SHARDED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,15 +80,26 @@ def _placed_like(g, t):
     return g
 
 
-def check_mesh(cfg, opt: AdamWConfig) -> None:
-    """The refusals of the sharded step: the families whose kernels have no
-    ``local_map`` wrappers yet, and int8 moments (ROADMAP Queue 1 item 6)."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"a sharded train step of the {cfg.family} family waits for ROADMAP Queue 1 item "
-            "6: its scan and attention kernels need local_map wrappers of their own")
-    if opt.int8_state:
-        raise NotImplementedError("int8 AdamW moments on a mesh wait for ROADMAP Queue 1 item 6")
+def check_mesh(state_specs, mesh, rules) -> None:
+    """The refusal of the sharded step: an int8 moment whose quant block a
+    shard would split (the local last dim of its q buffer no multiple of
+    the block), named by its leaf; each rank encodes its own blocks."""
+    from repro_torch.core.distributed import mesh_sizes, spec_axes
+
+    sizes = mesh_sizes(mesh)
+    for path, s in tree_leaves_with_path(state_specs["m"], is_leaf=lambda x: hasattr(x, "quant")):
+        if not s.is_quantized():
+            continue
+        last = q_bindings(s, mesh, rules)["q"][-1]
+        n = 1
+        for a in (() if last is None else (last,) if isinstance(last, str) else last):
+            n *= sizes[a]
+        if (s.shape[-1] // n) % s.quant.block:
+            name = "/".join(map(str, path))
+            raise NotImplementedError(
+                f"int8 AdamW moment of {name} {tuple(s.shape)} (axes {spec_axes(s)}): its last "
+                f"dim is split {n} ways to {s.shape[-1] // n}, no multiple of the quant block "
+                f"{s.quant.block}; a shard would split a block")
 
 
 def place_batch(batch, mesh, rules):
@@ -123,7 +133,7 @@ def make_train_step(model, opt: AdamWConfig, profile: TrainProfile = TrainProfil
     state_specs = adamw_init_specs(param_specs, opt, reference_shapes(param_specs, model.cfg))
     shard = Sharder(mesh, rules) if mesh is not None else NULL_SHARDER
     if mesh is not None:
-        check_mesh(model.cfg, opt)
+        check_mesh(state_specs, mesh, rules)
 
     def grads_of(params, batch):
         if mesh is not None:

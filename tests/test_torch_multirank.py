@@ -10,7 +10,11 @@ vocab-parallel embedding against the unsharded ones, the global grad norm of
 ``clip_by_global_norm`` on DTensor grads, self-attention with kv_heads that
 do not divide the model axis (the Megatron fallback: KV replicated, Q
 sharded) and with kv_heads that do, the DTensor guard of the kernel
-wrappers, and expert-parallel MoE (kimi smoke, f32) on a (2, 2) mesh against
+wrappers, the sharded step built for every family with f32 and int8
+moments and its one refusal (an int8 quant block split by a shard), the
+DTensor dispatches a layer of the block-mapped forward (``DispatchCounter``:
+within the block's leaves plus a constant), and expert-parallel MoE (kimi
+smoke, f32) on a (2, 2) mesh against
 the port's einsum path at capacity factor 8 and, through the ranks' saved
 outputs and gradients, against the reference's ``apply_moe_ep`` run once in
 a JAX subprocess with 4 host devices on the same numpy weights and input, at
@@ -426,11 +430,16 @@ def case_collective_counter(rank, workdir):
     assert torch.equal(z.grad, torch.ones_like(x))
 
 
+FAMILY_ARCHS = ("llama3.2-1b", "dbrx-132b", "mamba2-780m", "recurrentgemma-2b",
+                "whisper-large-v3", "llama-3.2-vision-90b")
+
+
 def case_refusals(rank, workdir):
-    """On a mesh the step refuses the families whose kernels have no
-    local_map wrappers (ssm, hybrid, encdec, vlm), on a model axis and on a
-    data-only mesh alike, and int8 moments; the dense and MoE families
-    build."""
+    """On (2, 2) and (4, 1) every family builds a sharded step, with f32
+    moments and with int8 ones (quant block 16); the one refusal left is an
+    int8 moment whose quant block a shard would split: at the default block
+    of 64, llama smoke's embedding (512, 64) has its embed dim split over
+    "data" to 32 or 16 columns, and the step names that leaf."""
     from repro_torch.launch import train_rules
     from repro_torch.models import build_model, get_config
     from repro_torch.optim import AdamWConfig
@@ -438,29 +447,72 @@ def case_refusals(rank, workdir):
 
     for shape in ((2, 2), (4, 1)):
         mesh = mesh_of(shape)
-        for arch in ("mamba2-780m", "recurrentgemma-2b", "whisper-large-v3",
-                     "llama-3.2-vision-90b"):
+        for arch in FAMILY_ARCHS:
             cfg = get_config(arch, smoke=True)
-            try:
-                make_train_step(build_model(cfg, device="cpu"), AdamWConfig(), mesh=mesh,
+            for opt in (AdamWConfig(), AdamWConfig(int8_state=True, state_block=16)):
+                make_train_step(build_model(cfg, device="cpu"), opt, mesh=mesh,
                                 rules=train_rules(cfg))
-            except NotImplementedError as e:
-                assert "ROADMAP Queue 1 item 6" in str(e), e
-            else:
-                raise AssertionError(f"{arch} built a sharded step on {shape}")
         cfg = get_config("llama3.2-1b", smoke=True)
-        model = build_model(cfg, device="cpu")
         try:
-            make_train_step(model, AdamWConfig(int8_state=True), mesh=mesh,
-                            rules=train_rules(cfg))
+            make_train_step(build_model(cfg, device="cpu"), AdamWConfig(int8_state=True),
+                            mesh=mesh, rules=train_rules(cfg))
         except NotImplementedError as e:
-            assert "ROADMAP Queue 1 item 6" in str(e), e
+            assert "embed/embedding" in str(e) and "quant block 64" in str(e), e
         else:
-            raise AssertionError("int8 moments built a sharded step")
-        for arch in ("llama3.2-1b", "dbrx-132b"):
-            cfg = get_config(arch, smoke=True)
-            make_train_step(build_model(cfg, device="cpu"), AdamWConfig(), mesh=mesh,
-                            rules=train_rules(cfg))
+            raise AssertionError(f"int8 moments split by a shard built a step on {shape}")
+
+
+DISPATCH_SLACK = 4  # redistributions and DTensor ops a layer beyond its leaves
+
+
+def case_dispatch_count(rank, workdir):
+    """One forward of llama smoke on (2, 2), at 2 and at 4 layers: the
+    redistributions and the DTensor op dispatches a layer (the difference
+    over the 2 extra layers) stay within the block's parameter leaves plus
+    DISPATCH_SLACK: the FSDP gather of each leaf at the block map's entry,
+    and nothing a block runs op by op on DTensors. The Sharder lays
+    activations out only at the embedding's output and at the logits."""
+    import dataclasses
+
+    from repro_torch.core.distributed import DispatchCounter, tree_distribute
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train_rules
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.layers import Sharder
+    from repro_torch.train.step import on_mesh, place_batch
+
+    mesh = mesh_of((2, 2))
+    counts, sharder_calls = {}, {}
+    original = Sharder.__call__
+    for layers in (2, 4):
+        cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True), dtype="float32",
+                                  n_layers=layers)
+        model = build_model(cfg, device="cpu")
+        rules = train_rules(cfg)
+        shard = Sharder(mesh, rules)
+        params = tree_distribute(model.init_params(torch.Generator().manual_seed(0)),
+                                 model.param_specs(), mesh, rules)
+        batch = place_batch({"tokens": torch.randint(0, cfg.vocab, (4, 17),
+                                                     generator=torch.Generator().manual_seed(1))},
+                            mesh, rules)
+        calls = []
+
+        def counted(self, *a, **kw):
+            calls.append(None)
+            return original(self, *a, **kw)
+
+        Sharder.__call__ = counted
+        try:
+            with torch.no_grad(), on_mesh(shard), DispatchCounter() as c:
+                model.loss_fn(params, batch, shard=shard)
+        finally:
+            Sharder.__call__ = original
+        counts[layers] = (c.redistributions, c.dtensor_ops)
+        sharder_calls[layers] = len(calls)
+        leaves = len(tree_leaves(params["blocks"][0][0]))
+    redist, ops = ((counts[4][i] - counts[2][i]) / 2 for i in range(2))
+    assert redist + ops <= leaves + DISPATCH_SLACK, (counts, leaves)
+    assert sharder_calls == {2: 2, 4: 2}, sharder_calls
 
 
 CASES = {"probe": case_probe, "sharder_round_trips": case_sharder_round_trips,
@@ -471,7 +523,7 @@ CASES = {"probe": case_probe, "sharder_round_trips": case_sharder_round_trips,
          "attention_kv_heads_divide": case_attention_kv_heads_divide,
          "kernel_wrappers_refuse_dtensors": case_kernel_wrappers_refuse_dtensors,
          "moe_expert_parallel": case_moe_expert_parallel, "refusals": case_refusals,
-         "collective_counter": case_collective_counter}
+         "collective_counter": case_collective_counter, "dispatch_count": case_dispatch_count}
 
 JAX_MOE = r"""
 import dataclasses, sys

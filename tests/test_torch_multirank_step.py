@@ -1,20 +1,27 @@
 """The sharded train step on 4 gloo ranks on the CPU, against the port's
 one-device step and the JAX package's single-device step: llama3.2 smoke
-here, dbrx smoke in ``test_torch_multirank_step_moe.py`` (with this file's
-helpers).
+here, dbrx smoke in ``test_torch_multirank_step_moe.py``, mamba2 in
+``_ssm.py``, recurrentgemma in ``_hybrid.py``, whisper and the vision
+model in ``_cross.py`` and llama with int8 AdamW moments in ``_int8.py``
+(each with this file's helpers and gates; ``ALL_ARCHS`` names their
+configs).
 
 llama3.2 smoke and dbrx smoke in f32, on (2, 2), (4, 1) and (1, 4)
 ("data", "model") meshes with ``train_rules`` (FSDP on the embed dim,
 heads, vocab, ffn and experts on "model"; on (1, 4) dbrx's 2 kv heads do
 not divide the model axis, so KV is replicated while Q is sharded). One
 group of 4 ranks (``test_torch_multirank.spawn_group``) runs each (arch,
-mesh): ``loss_and_grads`` on the mesh and one ``make_train_step(mesh=,
-rules=)`` step (AdamW at lr 1e-3, f32 moments), gathered whole by rank 0.
+mesh): ``loss_and_grads`` on the mesh (the scans' operands checked
+contiguous, as their CUDA kernels take them: ``kernel_operands_checked``)
+and one ``make_train_step(mesh=, rules=)`` step (AdamW at lr 1e-3, f32
+moments), gathered whole by rank 0.
 Here, in the pytest process, the same weights (``bridged_pair``: the port's
 seeded init as the reference's tree) and batch go through the port's step
 without a mesh and through the reference's single-device
-``jax.value_and_grad(loss_fn)`` and ``make_train_step`` (its own sharded
-test fails in the reference, ROADMAP Queue 3). The loss within 1e-5; each
+``jax.value_and_grad(loss_fn)`` and the AdamW update of
+``make_train_step`` (its step at one microbatch: that update of those
+gradients, jitted alone; its own sharded test fails in the reference,
+ROADMAP Queue 3). The loss within 1e-5; each
 gradient leaf within 1e-4 of its max-abs (the gates of
 ``test_torch_train_step.py``); the params after the step where |g| > 1e-3
 max|g| of their leaf, within 1e-5 |p| + 1e-6 (Adam's first update is about
@@ -30,6 +37,7 @@ whole batch's, so that case weighs the aux loss 0 in both steps (the EP aux
 and its gradients are held against the reference's EP in
 ``test_torch_multirank.py``).
 """
+import contextlib
 import sys
 from pathlib import Path
 
@@ -39,7 +47,19 @@ torch = pytest.importorskip("torch")
 
 from test_torch_multirank import check_case, mesh_of, rank_main, spawn_group  # noqa: E402
 
-ALL_ARCHS = {"llama": ("llama3.2-1b", {}), "dbrx": ("dbrx-132b", {"capacity_factor": 8.0})}
+ALL_ARCHS = {"llama": ("llama3.2-1b", {}), "dbrx": ("dbrx-132b", {"capacity_factor": 8.0}),
+             "mamba2": ("mamba2-780m", {}), "rg": ("recurrentgemma-2b", {}),
+             # 3 heads divide no model axis of 2 or 4: the rules replicate q,
+             # k, v and wo there, and every model rank runs the attention whole
+             # (one group: the attention is what differs)
+             "rg_heads3": ("recurrentgemma-2b", {"n_heads": 3, "n_layers": 3}),
+             "whisper": ("whisper-large-v3", {}), "vision": ("llama-3.2-vision-90b", {}),
+             "llama_int8": ("llama3.2-1b", {})}
+# int8 AdamW moments, at a quant block of 16: at the default 64 every
+# quantized leaf of the smoke config is split to 16 or 32 columns a shard
+# on these meshes, which the step refuses (test_torch_multirank.py's
+# refusal case)
+INT8_ARCHS = {"llama_int8": 16}
 ARCHS = ("llama",)
 MESHES = ((2, 2), (4, 1), (1, 4))
 LR = 1e-3
@@ -63,10 +83,49 @@ def _aux_weight(arch, shape) -> float:
     return 0.0 if arch == "dbrx" and min(shape) > 1 else TrainProfile().aux_weight
 
 
-def _opt():
+def _opt(arch):
     from repro_torch.optim import AdamWConfig, constant
 
+    if arch in INT8_ARCHS:
+        return AdamWConfig(lr=constant(LR), int8_state=True, state_block=INT8_ARCHS[arch])
     return AdamWConfig(lr=constant(LR))
+
+
+def _jax_opt(arch):
+    from repro.optim import AdamWConfig as JAdamW
+    from repro.optim import constant as jconstant
+
+    if arch in INT8_ARCHS:
+        return JAdamW(lr=jconstant(LR), int8_state=True, state_block=INT8_ARCHS[arch])
+    return JAdamW(lr=jconstant(LR))
+
+
+def load_batch(workdir, arch):
+    return {k: torch.from_numpy(v) for k, v in np.load(workdir / f"{arch}_batch.npz").items()}
+
+
+@contextlib.contextmanager
+def kernel_operands_checked():
+    """``ops.ssd`` and ``ops.rglru_scan`` wrapped to assert what their CUDA
+    kernels require of their operands (contiguous: ``ssd_scan._check``,
+    ``rglru_scan``'s wrapper), so a CPU run, on their plain versions, fails
+    where the card would refuse a block map's operands."""
+    from repro_torch.kernels import ops
+
+    def checked(fn, names):
+        def wrapper(*args, **kw):
+            for name, t in zip(names, args):
+                assert t.is_contiguous(), f"{fn.__name__}: {name} is not contiguous"
+            return fn(*args, **kw)
+        return wrapper
+
+    saved = ops.ssd, ops.rglru_scan
+    ops.ssd = checked(ops.ssd, ("x", "dt", "A", "B", "C"))
+    ops.rglru_scan = checked(ops.rglru_scan, ("a", "b"))
+    try:
+        yield
+    finally:
+        ops.ssd, ops.rglru_scan = saved
 
 
 def _case(arch, shape):
@@ -82,14 +141,15 @@ def _case(arch, shape):
         cfg = _cfg(arch)
         model = build_model(cfg, device="cpu")
         params = torch.load(workdir / f"{arch}_params.pt")
-        batch = {"tokens": torch.from_numpy(np.load(workdir / f"{arch}_batch.npy"))}
+        batch = load_batch(workdir, arch)
         mesh, rules = mesh_of(shape), train_rules(cfg)
         profile = TrainProfile(aux_weight=_aux_weight(arch, shape))
-        step, specs, state_specs = make_train_step(model, _opt(), profile, mesh=mesh,
+        step, specs, state_specs = make_train_step(model, _opt(arch), profile, mesh=mesh,
                                                    rules=rules)
         pd = tree_distribute(params, specs, mesh, rules)
-        loss, grads = loss_and_grads(model, pd, place_batch(batch, mesh, rules), profile,
-                                     shard=Sharder(mesh, rules))
+        with kernel_operands_checked():
+            loss, grads = loss_and_grads(model, pd, place_batch(batch, mesh, rules), profile,
+                                         shard=Sharder(mesh, rules))
         grads = to_jax_layout(tree_full(grads), cfg)
         p1, s1, metrics = step(pd, adamw_init(state_specs, "cpu", mesh, rules), batch)
         p1 = to_jax_layout(p1, cfg)
@@ -117,24 +177,29 @@ CASES = cases_of(ARCHS)
 
 
 def make_pairs(archs):
-    from test_torch_cross_attention import bridged_pair
+    """Per arch: (cfg, the JAX model, its params, the port's model, its
+    params, the batch as numpy: tokens, and the context's frames or image
+    embeddings for whisper and the vision model)."""
+    from test_torch_cross_attention import bridged_pair, context_inputs
 
     out = {}
     for arch in archs:
         name, kw = ALL_ARCHS[arch]
         cfg, model_j, params_j, model, params = bridged_pair(name, seed=0, **kw)
         rng = np.random.default_rng(1)
-        tokens = rng.integers(0, cfg.vocab, (BATCH, T + 1)).astype(np.int32)
-        out[arch] = (cfg, model_j, params_j, model, params, tokens)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, T + 1)).astype(np.int32)}
+        if cfg.family in ("encdec", "vlm"):
+            batch.update(context_inputs(cfg, BATCH, seed=2))
+        out[arch] = (cfg, model_j, params_j, model, params, batch)
     return out
 
 
 def run_group(script, pairs, workdir):
     """The ranks' results, the workdir, and the one-device references
     (computed here while the ranks run)."""
-    for arch, (_, _, _, _, params, tokens) in pairs.items():
+    for arch, (_, _, _, _, params, batch) in pairs.items():
         torch.save(params, workdir / f"{arch}_params.pt")
-        np.save(workdir / f"{arch}_batch.npy", tokens)
+        np.savez(workdir / f"{arch}_batch.npz", **batch)
     results = spawn_group(script, workdir, meanwhile=lambda: make_references(pairs))
     return results, workdir, results["_meanwhile"]
 
@@ -162,8 +227,7 @@ def make_references(pairs):
     import jax.numpy as jnp
 
     from repro.core.distributed import tree_initialize
-    from repro.optim import AdamWConfig as JAdamW
-    from repro.optim import constant as jconstant
+    from repro.optim import adamw_update as jax_adamw_update
     from repro.train import TrainProfile as JProfile
     from repro.train import make_train_step as jax_make_train_step
     from repro_torch.models import to_jax_layout
@@ -171,21 +235,25 @@ def make_references(pairs):
     from repro_torch.train import TrainProfile, loss_and_grads, make_train_step
 
     out = {}
-    for arch, (cfg, model_j, params_j, model, params, tokens) in pairs.items():
+    for arch, (cfg, model_j, params_j, model, params, np_batch) in pairs.items():
         for aw in sorted({_aux_weight(arch, s) for s in MESHES}):
-            batch = {"tokens": torch.from_numpy(tokens)}
+            batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
             loss, grads = loss_and_grads(model, params, batch, TrainProfile(aux_weight=aw))
-            step, _, state_specs = make_train_step(model, _opt(), TrainProfile(aux_weight=aw))
+            step, _, state_specs = make_train_step(model, _opt(arch),
+                                                   TrainProfile(aux_weight=aw))
             p1, _, m = step(params, adamw_init(state_specs, "cpu"), batch)
             port = {"loss": float(loss), "grad": to_jax_layout(grads, cfg),
                     "param": to_jax_layout(p1, cfg), "grad_norm": float(m["grad_norm"])}
-            jb = {"tokens": jnp.asarray(tokens)}
-            (loss_j, _), grads_j = jax.value_and_grad(
-                lambda p: model_j.loss_fn(p, jb, aux_weight=aw), has_aux=True)(params_j)
-            step_j, _, specs_j = jax_make_train_step(model_j, JAdamW(lr=jconstant(LR)),
-                                                     JProfile(aux_weight=aw))
-            p1_j, _, m_j = jax.jit(step_j)(params_j, tree_initialize(specs_j, jax.random.key(1)),
-                                           jb)
+            jb = {k: jnp.asarray(v) for k, v in np_batch.items()}
+            (loss_j, _), grads_j = jax.jit(jax.value_and_grad(
+                lambda p: model_j.loss_fn(p, jb, aux_weight=aw), has_aux=True))(params_j)
+            # the reference's step at one microbatch is its AdamW update of
+            # these gradients: jitted alone, not the whole step a second time
+            _, pspecs_j, specs_j = jax_make_train_step(model_j, _jax_opt(arch),
+                                                       JProfile(aux_weight=aw))
+            p1_j, _, m_j = jax.jit(lambda p, g, s: jax_adamw_update(
+                p, g, s, pspecs_j, specs_j, _jax_opt(arch)))(
+                    params_j, grads_j, tree_initialize(specs_j, jax.random.key(1)))
             ref = {"loss": float(loss_j), "grad": jax.tree.map(np.asarray, grads_j),
                    "param": jax.tree.map(np.asarray, p1_j), "grad_norm": float(m_j["grad_norm"])}
             out[arch, aw] = {"port": port, "jax": ref}
