@@ -337,6 +337,33 @@ lines; any failure raises and exits non-zero:
                 redistributions of one step (core.distributed's
                 CollectiveCounter and DispatchCounter), each step's loss
                 (finite), and the launches a step of the family's kernels.
+  serve_sharded_exact
+                serving on the (SHARDED_W, 1) mesh (one NCCL rank) against
+                the one-device path, f32, TF32 off, serve_rules: every
+                family at SHARDED_EXACT's cut through make_prefill(mesh,
+                rules) + 8 greedy make_serve_step steps (B 2 x 64), tokens
+                identical; the paged engine (chunked, page 16) for
+                qwen2-0.5b and kimi-k2 at 2 layers, streams identical; the
+                family's kernels launched inside the serving maps, no plain
+                version (ops' plain versions counted while it runs).
+  serve_sharded the serve workload (qwen2-0.5b, 16 requests) through
+                ServeEngine(mesh, serve_rules) and llama3.2-1b's dense-cache
+                generate at full width (B 8, a 4096-token prompt in a
+                32768-slot cache, 32 new) through the mesh, each beside its
+                one-device run of the same call (one device, mesh, mesh, one
+                device), bf16: tokens identical, step p50 over the one
+                device's, the idle share of 4 mesh steps (torch.profiler),
+                one step's DTensor dispatches and collectives. The kernels
+                phase also holds flash_decode's lse output (row 7's local
+                step of the kv_seq-sharded decode) at D 64 / 112 / 128 /
+                256 against decode_attention_torch(return_lse=True), at a
+                negative and a past-the-end local position, its output
+                bit-equal without lse, and 4 slices of llama3.2-1b's decode
+                cache (B 8, 32 / 8 heads, S 32768, D 64) and of D 128 / 112
+                / 256 caches (S 8192) attended at their local positions and
+                merged against the unsplit kernel and the plain version,
+                with the device ms of one slice's step and of the whole's
+                (a seqshard_kernels line repeats them with the launches).
   kernels line  {"kernels": [...]} with the numbers of each of the 18
                 kernels: the 15 that replace the reference's 15 Pallas
                 functions, flash_attention_bwd, which replaces its
@@ -1661,18 +1688,23 @@ GEN_CELLS = {  # arch -> batch, prompt lengths (the first also for the bf16 timi
 }
 
 
-def generate(model, params, prompts, n_new, attn_impl, batch_inputs=None):
+def generate(model, params, prompts, n_new, attn_impl="auto", batch_inputs=None, *, mesh=None,
+             rules=None, slots=None, state=None):
     """Greedy serving on the dense cache as a user drives it:
     make_prefill(max_len) then make_serve_step, one token per row per step;
     ``batch_inputs`` (whisper's frames, the vision model's image embeddings)
-    goes to the prefill, which encodes it and caches its K/V. Returns
-    (tokens (B, n_new) as lists, the prefill's and the last step's logits,
-    prefill seconds, per-step seconds)."""
+    goes to the prefill, which encodes it and caches its K/V. ``mesh`` and
+    ``rules``: through the mesh (params then ``distribute_params``'s);
+    ``slots``: the cache's capacity (default the prompt and n_new);
+    ``state``, a list, receives (the step, the caches, the last token, the
+    next position) to step on. Returns (tokens (B, n_new) as lists, the
+    prefill's and the last step's logits, prefill seconds, per-step
+    seconds)."""
     from repro_torch.serving import make_prefill, make_serve_step
 
     vocab, s = model.cfg.vocab, prompts.shape[1]
-    prefill = make_prefill(model, max_len=s + n_new, attn_impl=attn_impl)
-    step = make_serve_step(model, attn_impl=attn_impl)
+    prefill = make_prefill(model, mesh, rules, max_len=slots or s + n_new, attn_impl=attn_impl)
+    step = make_serve_step(model, mesh, rules, attn_impl=attn_impl)
     sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -1688,6 +1720,8 @@ def generate(model, params, prompts, n_new, attn_impl, batch_inputs=None):
         sync()
         steps.append(time.perf_counter() - t0)
         out.append(nxt)
+    if state is not None:
+        state[:] = [step, caches, nxt, s + n_new - 1]
     return torch.stack(out, dim=1).tolist(), (first, logits.float()), prefill_s, steps
 
 
@@ -2613,16 +2647,17 @@ def json_grammar(vocab, n_items=3):
     return dfa, eos, lambda toks: "".join(JSON_ARRAY_CHARS[t] for t in toks if t != eos)
 
 
-def run_jobs(model, params, config, device, jobs, prepare=None):
+def run_jobs(model, params, config, device, jobs, prepare=None, engine_kw=None):
     """One engine run of ``jobs`` [(prompt, GenerationParams kwargs, rid)]
     with launch counts zeroed just before and read just after: (rid ->
     [(tokens, cumulative_logprob, finish_reason)] a sequence, metrics,
-    launches, wall seconds, engine). ``prepare(engine)`` runs before."""
+    launches, wall seconds, engine). ``prepare(engine)`` runs before;
+    ``engine_kw`` (a mesh and its rules) goes to ServeEngine."""
     from repro_torch import kernels
     from repro_torch.serving import GenerationParams
     from repro_torch.serving.engine import ServeEngine
 
-    eng = ServeEngine(model, params, config, device=device)
+    eng = ServeEngine(model, params, config, device=device, **(engine_kw or {}))
     if prepare is not None:
         prepare(eng)
     handles = {rid: eng.submit(p, GenerationParams(**g), rid=rid) for p, g, rid in jobs}
@@ -4365,6 +4400,492 @@ def _train_sharded_cell(smi, device, smoke, arch, cell, batch, seq, reduced):
 
 
 # =====================================================================================
+# phases: serving on a mesh (the kv_seq-sharded decode's kernel rows, serve_sharded_exact,
+# serve_sharded)
+# =====================================================================================
+SEQSHARD_SLICES = 4  # the "model" ranks the kernels phase emulates on one card
+# (name, B, Hq, Hkv, S, D): llama3.2-1b's decode shape, then D 128, kimi-k2's
+# D 112 heads and recurrentgemma-2b's D 256 MQA group at S 8192
+SEQSHARD_CASES = (("llama3.2-1b", 8, 32, 8, 32768, 64), ("d128", 8, 32, 8, 8192, 128),
+                  ("kimi-k2_d112", 8, 64, 8, 8192, 112), ("recurrentgemma-2b_d256", 8, 10, 1,
+                                                                          8192, 256))
+# (D, Hq, Hkv): flash_decode's lse rows, S 1024
+LSE_CASES = ((64, 8, 2), (112, 64, 8), (128, 32, 8), (256, 10, 1))
+SERVE_SHARDED_STEPS = 8  # serve_sharded_exact's greedy steps after the prefill
+SERVE_SHARDED_PROMPT = (2, 64)  # B x T of serve_sharded_exact's prompts
+SERVE_KERNELS = {"dense": ("flash_attention", "flash_decode"),
+                 "moe": ("flash_attention", "flash_decode"),
+                 "ssm": ("ssd_scan",), "hybrid": ("flash_attention", "flash_decode", "rglru_scan"),
+                 "encdec": ("flash_attention", "flash_decode"),
+                 "vlm": ("flash_attention", "flash_decode")}
+# serve_sharded's llama3.2-1b dense-cache cell: B, prompt, cache slots, new tokens
+SERVE_SHARDED_GEN = dict(batch=8, prompt=4096, slots=32768, new=32,
+                         source="hf:meta-llama/Llama-3.2-1B")
+PLAIN_SERVE = ("attention_torch", "decode_attention_torch", "paged_decode_attention_torch",
+               "paged_prefill_chunk_torch", "paged_decode_attention_quant_torch",
+               "paged_prefill_chunk_quant_torch", "ssd_torch", "rglru_torch")
+
+
+@contextlib.contextmanager
+def plain_serve_calls():
+    """Counts, while entered, the calls ``kernels.ops`` makes of the serving
+    kernels' plain versions (the dict it yields, by name)."""
+    from repro_torch.kernels import ops
+
+    calls, saved = {n: 0 for n in PLAIN_SERVE}, {n: getattr(ops, n) for n in PLAIN_SERVE}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(ops, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x.float()), e - 8)
+
+
+def _merge_close(got, want, dtype, slack=None):
+    """(ok, max |got - want|): f32 allclose rtol = atol = 2e-5; bf16 within one
+    bf16 ulp of want + BF16_ATOL + ``slack`` (elementwise: the merged
+    slices' own rounding, ``_merge_slack``), elementwise."""
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        return bool(torch.allclose(got.float(), want.float(), rtol=2e-5, atol=2e-5)), err
+    bound = _bf16_ulp(want) + BF16_ATOL + (0.0 if slack is None else slack)
+    return float(((got.float() - want.float()).abs() - bound).max()) <= 0.0, err
+
+
+def _merge_slack(outs, lses):
+    """sum_r w_r ulp(o_r) with w_r = exp(lse_r - M) / sum exp(lse - M): the
+    most the merge can inherit from each slice's output rounded to bf16
+    before it (one ulp of each, twice the half ulp a rounding costs)."""
+    lse = torch.stack([x.float() for x in lses])
+    m = lse.amax(dim=0)
+    w = torch.where(torch.isneginf(lse), torch.zeros_like(lse), torch.exp(lse - m))
+    w = w / w.sum(dim=0).clamp_min(1e-30)
+    return sum(w_r[..., None] * _bf16_ulp(o) for w_r, o in zip(w, outs))
+
+
+def _lse_close(got, want):
+    """The same -inf rows, finite rows within 1e-5 + 1e-5 |want|."""
+    dead = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), dead):
+        return False, float("inf")
+    err = float((got[~dead] - want[~dead]).abs().max()) if bool((~dead).any()) else 0.0
+    return bool(torch.allclose(got[~dead], want[~dead], rtol=1e-5, atol=1e-5)), err
+
+
+def seqshard_checks(bw, g):
+    """The kv_seq-sharded decode's local step on the card:
+    ``flash_decode`` with its lse output (the combine's compile-time
+    epilogue) against ``decode_attention_torch(return_lse=True)`` at every
+    head dim, f32 and bf16, at a local position inside the slice, one before
+    it (negative: zeros, lse -inf) and one past it (every slot live), and its
+    output bit-equal to the decode without lse (the serving path reads as
+    before); then SEQSHARD_SLICES slices of each SEQSHARD_CASES cache, each
+    attended by the kernel at its local position with lse and merged
+    (``core.distributed.merge_lse_parts``, the ranks' merge emulated) against
+    the unsplit kernel and the plain version, at pos S - 1 and at 5 S / 8
+    (the last slice dead; bf16 within one ulp + BF16_ATOL + the slices' own
+    rounding, ``_merge_slack``), timed (check_and_time: the emulated step of
+    all slices) with the device ms of one slice's step (slice 0, every slot
+    live) and of the whole cache's.
+    Returns the records by case."""
+    from repro_torch.core.distributed import merge_lse_parts
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for d, hq, hkv in LSE_CASES:
+            s_len = 1024
+            q = torch.randn(4, hq, 1, d, generator=g, device="cuda").to(dtype)
+            kc = torch.randn(4, hkv, s_len, d, generator=g, device="cuda").to(dtype)
+            vc = torch.randn(4, hkv, s_len, d, generator=g, device="cuda").to(dtype)
+            worst, ok, same = {"out": 0.0, "lse": 0.0}, True, True
+            for pos, off in ((700, 0), (100, 512), (2000, 0), (1800, 1024)):
+                pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+                lse = torch.empty(4, hq, 1, dtype=torch.float32, device="cuda")
+                got = fa.flash_decode(q, kc, vc, pos_t, key_offset=off, lse=lse)
+                plain = fa.decode_attention_torch(q, kc, vc, pos, key_offset=off,
+                                                  return_lse=True)
+                good_o, err_o = _merge_close(got, plain[0], dtype)
+                good_l, err_l = _lse_close(lse, plain[1])
+                bare = fa.flash_decode(q, kc, vc, pos_t, key_offset=off)
+                same = same and torch.equal(bare, got)
+                ok = ok and good_o and good_l
+                worst = {"out": max(worst["out"], err_o), "lse": max(worst["lse"], err_l)}
+            rec = {"phase": "kernels", "kernel": "flash_decode", "check": "lse", "dtype": name,
+                   "B": 4, "Hq": hq, "Hkv": hkv, "S": s_len, "D": d,
+                   "positions_and_offsets": [[700, 0], [100, 512], [2000, 0], [1800, 1024]],
+                   "max_abs_err": worst, "out_bit_equal_without_lse": same, "ok": ok and same,
+                   "tolerance": "out as the f32 / bf16 rule; lse 1e-5 + 1e-5 |lse|, -inf rows "
+                                "equal"}
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"flash_decode's lse output disagrees: {rec}")
+    for case, b, hq, hkv, s_len, d in SEQSHARD_CASES:
+        for dtype in ((torch.float32, torch.bfloat16) if case == "llama3.2-1b"
+                      else (torch.bfloat16,)):
+            esz = torch.tensor([], dtype=dtype).element_size()
+            q = torch.randn(b, hq, 1, d, generator=g, device="cuda").to(dtype)
+            kc = torch.randn(b, hkv, s_len, d, generator=g, device="cuda").to(dtype)
+            vc = torch.randn(b, hkv, s_len, d, generator=g, device="cuda").to(dtype)
+            s_loc = s_len // SEQSHARD_SLICES
+            ks = [kc[:, :, r * s_loc:(r + 1) * s_loc].contiguous() for r in range(SEQSHARD_SLICES)]
+            vs = [vc[:, :, r * s_loc:(r + 1) * s_loc].contiguous() for r in range(SEQSHARD_SLICES)]
+            for pos in (s_len - 1, 5 * s_len // 8):
+                pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+
+                def parts():
+                    return [ops.decode_attention(q, ks[r], vs[r], pos_t, key_offset=r * s_loc,
+                                                 return_lse=True, impl="cuda")
+                            for r in range(SEQSHARD_SLICES)]
+
+                def merged():
+                    got = parts()
+                    return merge_lse_parts([p[0] for p in got], [p[1] for p in got])
+
+                first = parts()
+                slack = (_merge_slack([p[0] for p in first], [p[1] for p in first])
+                         if dtype == torch.bfloat16 else None)
+                whole = fa.flash_decode(q, kc, vc, pos_t)
+                good_w, err_w = _merge_close(merged(), whole, dtype, slack)
+                n_live = pos + 1
+                rec = check_and_time(
+                    "flash_decode", dtype, merged,
+                    lambda: fa.decode_attention_torch(q, kc, vc, pos), None,
+                    2 * q.numel() * esz + 2 * b * hkv * n_live * d * esz,
+                    4 * b * hq * d * n_live, bw,
+                    {"check": "seq_sharded_merge", "case": case, "slices": SEQSHARD_SLICES,
+                     "B": b, "Hq": hq, "Hkv": hkv, "S": s_len, "D": d, "pos": pos},
+                    tolerance=lambda got, want: (
+                        _merge_close(got, want, dtype, slack)[0],
+                        f"f32 allclose 2e-5; bf16 one ulp of the plain output + {BF16_ATOL} + "
+                        "sum_r w_r ulp(o_r) (each slice's output o_r rounds to bf16 before "
+                        "the merge, w_r its weight)"),
+                    phase="kernels")
+                slice_ms = device_ms_per_call(
+                    lambda: ops.decode_attention(q, ks[0], vs[0], pos_t, return_lse=True,
+                                                 impl="cuda"), n=50)
+                whole_ms = device_ms_per_call(lambda: fa.flash_decode(q, kc, vc, pos_t), n=50)
+                slice_bytes = 2 * b * hkv * s_loc * d * esz  # slice 0: every slot live
+                whole_bytes = 2 * b * hkv * n_live * d * esz
+                rec2 = {"phase": "kernels", "kernel": "flash_decode", "check": "seq_sharded_times",
+                        "case": case, "dtype": str(dtype).split(".")[1], "pos": pos,
+                        "merged_vs_unsplit_kernel_max_abs_err": err_w,
+                        "merged_vs_unsplit_ok": good_w,
+                        "slice_device_ms": slice_ms, "whole_device_ms": whole_ms,
+                        "slice_bound_ms": slice_bytes / NOMINAL_BW * 1e3,
+                        "whole_bound_ms": whole_bytes / NOMINAL_BW * 1e3,
+                        "whole_bytes": whole_bytes,
+                        "merge_bytes_per_rank": b * hq * (d + 2) * 4}
+                emit(rec2)
+                if not good_w:
+                    raise AssertionError(f"the merged slices part from the unsplit kernel: {rec2}")
+                out[f"{case}:{rec['dtype']}:{pos}"] = {**rec, **rec2}
+            del q, kc, vc, ks, vs
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_sharded_exact_phase(device="cuda", smoke=False):
+    """Serving on the (SHARDED_W, 1) mesh (one NCCL rank on the card) against
+    the one-device path, f32 with TF32 off: every family at SHARDED_EXACT's
+    cut (smoke: the smoke configs), seeded weights with the attention
+    projections rescaled to their fan-in and the vision gate
+    SHARDED_VISION_GATE, ``serve_rules`` (with FSDP on "embed" for kimi-k2,
+    ``needs_fsdp_for_serving``), make_prefill(mesh, rules) over B 2 x 64 and
+    SERVE_SHARDED_STEPS greedy steps: tokens identical, logits' drift
+    printed; then the paged engine (chunked prefill, page 16) for qwen2-0.5b
+    and kimi-k2 at 2 layers (kimi at MOE_EXACT_WIDTH, capacity factor 8): the
+    mesh engine's streams equal the one-device engine's. The family's
+    kernels must launch inside the serving maps and no plain version run.
+    Returns the launches in the mesh runs, by kernel."""
+    from repro_torch import kernels
+    from repro_torch.launch import needs_fsdp_for_serving, serve_rules
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import distribute_params
+
+    launches = {}
+    b, t = SERVE_SHARDED_PROMPT
+    t = 16 if smoke else t
+    with process_group(device):
+        mesh = sharded_mesh((SHARDED_W, 1), device)
+        for arch, (cut, _, _) in SHARDED_EXACT.items():
+            cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32")
+            if arch == "kimi-k2-1t-a32b":
+                cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+            if not smoke:
+                cfg = dataclasses.replace(cfg, **cut)
+            model = build_model(cfg, device=device)
+            params = condition_attention(
+                cfg, model.init_params(torch.Generator(device=device).manual_seed(0)))
+            if cfg.family == "vlm":
+                for grp in params["blocks"][0]:
+                    grp["gate"].fill_(SHARDED_VISION_GATE)
+            prompts, bi = serve_inputs(cfg, b, t, device)
+            want, (_, want_last), _, _ = generate(model, params, prompts, SERVE_SHARDED_STEPS,
+                                                  batch_inputs=bi)
+            rules = serve_rules(cfg, fsdp_params=needs_fsdp_for_serving(get_config(arch)))
+            pd = distribute_params(model, params, mesh, rules)
+            kernels.reset_launch_counts()
+            with plain_serve_calls() as plain:
+                got, (_, last), _, _ = generate(model, pd, prompts, SERVE_SHARDED_STEPS,
+                                                batch_inputs=bi, mesh=mesh, rules=rules)
+            counts = kernels.launch_counts()
+            need = SERVE_KERNELS[cfg.family]
+            for k in need:
+                launches[k] = launches.get(k, 0) + counts[k]
+            rec = {"phase": "serve_sharded_exact", "arch": arch, "family": cfg.family,
+                   "mesh": [SHARDED_W, 1], "rules": "serve_rules", "fsdp_params":
+                   needs_fsdp_for_serving(get_config(arch)), "layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+                   "head_dim": cfg.head_dim, "batch": b, "prompt": t,
+                   "new_tokens": SERVE_SHARDED_STEPS, "dtype": "float32",
+                   "tokens_equal": got == want,
+                   "last_logits_max_abs_diff": float((last - want_last).abs().max()),
+                   "kernel_launches_in_serving_maps": {k: counts[k] for k in need},
+                   "plain_calls": {k: v for k, v in plain.items() if v}}
+            emit(rec)
+            if got != want:
+                raise AssertionError(f"serve_sharded_exact {arch}: the mesh's tokens differ: {rec}")
+            if device == "cuda" and (not all(counts[k] for k in need) or any(plain.values())):
+                raise AssertionError(f"serve_sharded_exact {arch}: a kernel of the path did not "
+                                     f"launch, or a plain version ran: {rec}")
+            del model, params, pd
+            torch.cuda.empty_cache() if device == "cuda" else None
+        for arch in ("qwen2-0.5b", "kimi-k2-1t-a32b"):
+            cfg = dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32")
+            if not smoke:
+                cfg = dataclasses.replace(cfg, n_layers=2, **MOE_EXACT_WIDTH.get(arch, {}))
+            if cfg.family == "moe":
+                cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+            model = build_model(cfg, device=device)
+            params = model.init_params(torch.Generator(device=device).manual_seed(0))
+            prompts = exact_requests(cfg.vocab)
+            jobs = [(p, dict(max_new_tokens=SERVE_SHARDED_STEPS), i) for i, p in enumerate(prompts)]
+            config = exact_config(58, chunked_prefill=True, chunk_tokens=128)
+            want, _, _, _, _ = run_jobs(model, params, config, device, jobs)
+            rules = serve_rules(cfg, fsdp_params=needs_fsdp_for_serving(get_config(arch)))
+            with plain_serve_calls() as plain:
+                got, m, counts, wall, _ = run_jobs(model, params, config, device, jobs,
+                                                   engine_kw=dict(mesh=mesh, rules=rules))
+            need = DENSE_PATH
+            for k in need:
+                launches[k] = launches.get(k, 0) + counts[k]
+            rec = {"phase": "serve_sharded_exact", "arch": arch, "engine": "paged",
+                   "mesh": [SHARDED_W, 1], "rules": "serve_rules", "layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "requests": len(prompts),
+                   "new_tokens": SERVE_SHARDED_STEPS, "dtype": "float32",
+                   "streams_equal": _tokens_of(got) == _tokens_of(want),
+                   "preemptions": m["preemptions"], "wall_s": wall,
+                   "kernel_launches_in_serving_maps": {k: counts[k] for k in need},
+                   "plain_calls": {k: v for k, v in plain.items() if v}}
+            emit(rec)
+            if _tokens_of(got) != _tokens_of(want):
+                raise AssertionError(f"serve_sharded_exact {arch}: the mesh engine's streams "
+                                     f"differ: {rec}")
+            if device == "cuda" and (not all(counts[k] for k in need) or any(plain.values())):
+                raise AssertionError(f"serve_sharded_exact {arch} (paged): a kernel of the path "
+                                     f"did not launch, or a plain version ran: {rec}")
+            del model, params
+            torch.cuda.empty_cache() if device == "cuda" else None
+    return launches
+
+
+def serve_inputs(cfg, batch, prompt, device, seed=5):
+    """Seeded prompts (batch, prompt) and, for whisper and the vision model,
+    the stub frontend's input (``cross_inputs``; None for the other
+    families)."""
+    if cfg.family in ("encdec", "vlm"):
+        return cross_inputs(cfg, dict(batch=batch, prompt=prompt), device, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (batch, prompt), generator=g, device=device), None
+
+
+def _busy_union_us(spans):
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_idle_share(fn):
+    """The device's idle share of the span torch.profiler traces around
+    ``fn()`` (1 - the union of its kernels' times over the span), or None
+    where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [(e.time_range.start, e.time_range.end) for e in events
+           if getattr(e, "device_type", None) == cuda and not e.name.startswith("ProfilerStep")]
+    if not dev or not events:
+        return None
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    return 1.0 - _busy_union_us(dev) / span if span else None
+
+
+def _counted_once(fn, at, counters):
+    """``fn`` whose ``at``-th call (from 1) runs inside ``counters``."""
+    calls = []
+
+    def wrapper(*a, **kw):
+        calls.append(None)
+        if len(calls) != at:
+            return fn(*a, **kw)
+        with contextlib.ExitStack() as st:
+            for c in counters:
+                st.enter_context(c)
+            return fn(*a, **kw)
+    return wrapper
+
+
+def serve_sharded_phase(smi, device="cuda", smoke=False):
+    """Serving through the (SHARDED_W, 1) mesh beside the one-device path of
+    the same call, in the config dtype (bfloat16), runs alternating (one
+    device, mesh, mesh, one device): the ``serve`` workload (qwen2-0.5b at
+    full size, 16 requests, 32 new tokens) through ``ServeEngine(mesh=,
+    rules=serve_rules)``, and llama3.2-1b's dense-cache generate at full
+    width (SERVE_SHARDED_GEN: B 8, a 4096-token prompt in a 32768-slot
+    cache, 32 new tokens) through make_prefill / make_serve_step(mesh,
+    rules). Tokens identical to the one-device runs; step p50 over the
+    one-device step's, the device's idle share over 4 mesh steps
+    (torch.profiler), and one step's DTensor dispatches and collectives
+    (DispatchCounter, CollectiveCounter). Returns the launches in the mesh
+    runs."""
+    from repro_torch import kernels
+    from repro_torch.core.distributed import CollectiveCounter, DispatchCounter
+    from repro_torch.launch import serve_rules
+    from repro_torch.serving import distribute_params
+    from repro_torch.serving.engine import ServeEngine
+
+    launches = {}
+    w = serve_setup(smoke=smoke, device=device)
+    with process_group(device):
+        mesh = sharded_mesh((SHARDED_W, 1), device)
+        rules = serve_rules(w.cfg)
+        runs = {"one_device": [], "mesh": []}
+        dispatch, coll = DispatchCounter(), CollectiveCounter()
+        for kind in ("one_device", "mesh", "mesh", "one_device"):
+            eng = (w.engine() if kind == "one_device" else
+                   ServeEngine(w.model, w.params, w.config, device=device, mesh=mesh,
+                               rules=rules))
+            if kind == "mesh" and not runs["mesh"]:
+                eng._step = _counted_once(eng._step, 5, (dispatch, coll))
+            kernels.reset_launch_counts()
+            eng.run(w.requests())
+            m = eng.metrics()
+            counts = kernels.launch_counts()
+            if kind == "mesh":
+                for k in DENSE_PATH:
+                    launches[k] = launches.get(k, 0) + counts[k]
+            runs[kind].append({"tokens": [eng.results[i].generated for i in range(len(w.prompts))],
+                               **{k: m[k] for k in ("step_ms_p50", "tokens_per_s", "chunk_ms_p50",
+                                                    "ttft_s_p95", "decode_steps")},
+                               "launches": {k: counts[k] for k in DENSE_PATH}})
+        same = all(r["tokens"] == runs["one_device"][0]["tokens"]
+                   for r in runs["mesh"] + runs["one_device"])
+        one = statistics.median(r["step_ms_p50"] for r in runs["one_device"])
+        shd = statistics.median(r["step_ms_p50"] for r in runs["mesh"])
+        rec = {"phase": "serve_sharded", "cell": "serve", "nvidia_smi": smi, "model": w.cfg.name,
+               "dtype": w.cfg.dtype, "mesh": [SHARDED_W, 1], "rules": "serve_rules",
+               "requests": len(w.prompts), "new_tokens": w.n_new, "tokens_equal": same,
+               "runs": {k: [{kk: vv for kk, vv in r.items() if kk != "tokens"} for r in v]
+                        for k, v in runs.items()},
+               "step_ms_p50_one_device": one, "step_ms_p50_mesh": shd,
+               "mesh_over_one_device": shd / one,
+               "dtensor_step": {"op_dispatches": dispatch.dtensor_ops,
+                                "redistributions": dispatch.redistributions},
+               "collectives_step": {"calls": coll.calls, "input_bytes": coll.bytes},
+               "note": "one rank: the collectives run on a one-rank NCCL group"}
+        emit(rec)
+        if not same:
+            raise AssertionError(f"serve_sharded: the mesh engine's tokens differ: {rec}")
+        if device == "cuda" and not all(runs["mesh"][0]["launches"].values()):
+            raise AssertionError(f"serve_sharded: a kernel of the path did not launch: {rec}")
+        del w
+        torch.cuda.empty_cache() if device == "cuda" else None
+        gen = SERVE_SHARDED_GEN
+        cfg, model, params = generate_model("llama3.2-1b", "bfloat16", None, smoke, device)
+        b, s, slots, n_new = ((2, 16, 32, 8) if smoke else
+                              (gen["batch"], gen["prompt"], gen["slots"], gen["new"]))
+        prompts = torch.tensor(np.random.default_rng(6).integers(0, cfg.vocab, size=(b, s)),
+                               device=device)
+        rules = serve_rules(cfg)
+        pd = distribute_params(model, params, mesh, rules)
+        res = {"one_device": [], "mesh": []}
+        idle, dispatch, coll = None, DispatchCounter(), CollectiveCounter()
+        for kind in ("one_device", "mesh", "mesh", "one_device"):
+            on = kind == "mesh"
+            kernels.reset_launch_counts()
+            st = []
+            toks, _, _, steps = generate(model, pd if on else params, prompts, n_new,
+                                         mesh=mesh if on else None, rules=rules if on else None,
+                                         slots=slots, state=st)
+            step, caches, nxt, pos = st
+            counts = kernels.launch_counts()
+            res[kind].append({"tokens": toks, "step_ms_p50": statistics.median(steps) * 1e3,
+                              "launches": {k: counts[k] for k in GENERATE_PATH[:2]}})
+            if on:
+                for k in GENERATE_PATH[:2]:
+                    launches[k] = launches.get(k, 0) + counts[k]
+            if on and idle is None:
+                with dispatch, coll:
+                    step(pd, caches, nxt, pos)
+                if device == "cuda":
+                    idle = device_idle_share(lambda: [step(pd, caches, nxt, pos + 1 + i)
+                                                      for i in range(4)])
+            del caches
+        same = all(r["tokens"] == res["one_device"][0]["tokens"]
+                   for r in res["mesh"] + res["one_device"])
+        one = statistics.median(r["step_ms_p50"] for r in res["one_device"])
+        shd = statistics.median(r["step_ms_p50"] for r in res["mesh"])
+        rec = {"phase": "serve_sharded", "cell": "generate", "nvidia_smi": smi,
+               "model": cfg.name, "source": gen["source"], "dtype": cfg.dtype,
+               "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "heads": [cfg.n_heads, cfg.n_kv_heads], "batch": b, "prompt": s,
+               "cache_slots": slots, "new_tokens": n_new, "mesh": [SHARDED_W, 1],
+               "rules": "serve_rules", "tokens_equal": same,
+               "step_ms_p50_runs": {k: [r["step_ms_p50"] for r in v] for k, v in res.items()},
+               "step_ms_p50_one_device": one, "step_ms_p50_mesh": shd,
+               "mesh_over_one_device": shd / one, "device_idle_share_mesh_4_steps": idle,
+               "dtensor_step": {"op_dispatches": dispatch.dtensor_ops,
+                                "redistributions": dispatch.redistributions},
+               "collectives_step": {"calls": coll.calls, "input_bytes": coll.bytes},
+               "launches_mesh_run": res["mesh"][0]["launches"]}
+        emit(rec)
+        if not same:
+            raise AssertionError(f"serve_sharded generate: the mesh's tokens differ: {rec}")
+        if device == "cuda" and not all(res["mesh"][0]["launches"].values()):
+            raise AssertionError(f"serve_sharded generate: a kernel did not launch: {rec}")
+        del model, params, pd
+        torch.cuda.empty_cache() if device == "cuda" else None
+    return launches
+
+
+# =====================================================================================
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -4480,6 +5001,7 @@ def main() -> int:
     bwd = bwd_checks(bw, torch.Generator(device="cuda").manual_seed(29))
     main_recs["flash_attention_bwd"] = bwd["llama3.2-1b"]  # the train phase's shape, bf16
     main_recs.update(scan_bwd_checks(torch.Generator(device="cuda").manual_seed(31)))
+    seqshard = seqshard_checks(bw, torch.Generator(device="cuda").manual_seed(35))
     t_phase["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     paper_recs, paper_launches = paper_phase(bw)
@@ -4576,6 +5098,22 @@ def main() -> int:
         for k, v in train_sharded_phase(smi, arch=arch).items():
             sharded[k] = sharded.get(k, 0) + v
         t_phase[f"train_sharded:{arch}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_sharded_exact = serve_sharded_exact_phase()
+    t_phase["serve_sharded_exact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_sharded = serve_sharded_phase(smi)
+    t_phase["serve_sharded"] = time.perf_counter() - t0
+    emit({"phase": "seqshard_kernels", "nvidia_smi": smi,
+          # row 7's local step of the kv_seq-sharded decode, and the launches
+          # of every serving kernel inside the serving block maps
+          "launches_serve_sharded": serve_sharded,
+          "launches_serve_sharded_exact": serve_sharded_exact, "rows": [
+              {"case": name, **{k: rec.get(k) for k in (
+                  "dtype", "pos", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "slice_device_ms", "whole_device_ms", "slice_bound_ms", "whole_bound_ms",
+                  "merged_vs_unsplit_kernel_max_abs_err", "merge_bytes_per_rank")}}
+              for name, rec in seqshard.items()]})
     emit({"phase": "train_kernels", "nvidia_smi": smi,
           # rows 6, 8, 9, 14 and the scans' backward inside the block maps, on
           # each of the SHARDED_W ranks
@@ -4593,6 +5131,9 @@ def main() -> int:
                    for k in ("flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")}}
     for k, v in sharded.items():  # the sharded training path's launches, on every rank
         launches[k] += v
+    for counts in (serve_sharded_exact, serve_sharded):  # the serving maps' launches
+        for k, v in counts.items():
+            launches[k] += v
     # the D 112 rows: kernel numbers from the kernels phase, launches from
     # kimi-k2's serve_moe run (the dense-cache rows 6-7 do not run there)
     kimi = serve_moe["kimi-k2-1t-a32b"]["launches"]

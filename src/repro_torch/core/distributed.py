@@ -396,6 +396,31 @@ class _AllGather(torch.autograd.Function):
 # ---------------------------------------------------------------------------------
 # the block map: one local_map a block, its collectives explicit
 # ---------------------------------------------------------------------------------
+def _lse_weighted(out: torch.Tensor, lse: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(w out | w) in f32, w = exp(lse - m) and 0 where lse is -inf (a part
+    with no live key): one part's share of ``merge_lse``'s sums."""
+    lse = lse.float()
+    live = lse > -math.inf
+    w = torch.where(live, torch.exp(lse - torch.where(live, m, lse)), torch.zeros_like(lse))
+    return torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+
+
+def _lse_normalized(buf: torch.Tensor, dtype) -> torch.Tensor:
+    den = buf[..., -1:]
+    res = torch.where(den > 0, buf[..., :-1] / torch.where(den > 0, den, torch.ones_like(den)),
+                      torch.zeros_like(buf[..., :-1]))
+    return res.to(dtype)
+
+
+def merge_lse_parts(outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``LocalMesh.merge_lse`` over parts held in one process (each part
+    the attention over one slice of the keys, in rank order): the ranks'
+    merge emulated, for checks on one device."""
+    m = torch.stack([lse.float() for lse in lses]).amax(dim=0)
+    buf = sum(_lse_weighted(o, lse, m) for o, lse in zip(outs, lses))
+    return _lse_normalized(buf, outs[0].dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:
     """What a block body running on local shards knows of its mesh: the
@@ -435,6 +460,31 @@ class LocalMesh:
         for g in _wide(self.tokens)[::-1]:
             x = _AllGather.apply(x, dim, g)
         return x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The "model" ranks' blocks of ``x`` along ``dim`` gathered whole on
+        every rank (all-gather; serving's, no backward): a head-split q
+        before a sharded decode, vocab-split logits."""
+        return x if self.model is None else _gather(x, dim, self.model)
+
+    def merge_lse(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """The exact log-sum-exp merge over "model" of attention partials,
+        each rank's over its own slice of the keys: ``out`` (..., D) the
+        rank's normalized output, ``lse`` (...) its natural log-sum-exp of
+        the scaled scores (-inf: no live key, weight 0). With M the ranks'
+        max lse and w = exp(lse - M), the result is sum(w out) / sum(w) (0
+        where every weight is 0): the reference's pmax(m), psum(l w),
+        psum(acc w), as one MAX all-reduce of lse and one SUM all-reduce of
+        (w out | w) in f32. Out in ``out``'s dtype. No backward."""
+        if self.model is None:
+            return out
+        import torch.distributed as dist
+
+        m = lse.float().clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.model)
+        buf = _lse_weighted(out, lse, m)
+        dist.all_reduce(buf, group=self.model)
+        return _lse_normalized(buf, out.dtype)
 
     def token_rank_and_count(self) -> Tuple[int, int]:
         """This rank's place among the token shards and their count, in the

@@ -368,12 +368,18 @@ __device__ __forceinline__ uint32_t nib2_to_bf16x2(uint32_t b) {
 // order. The splits are read in parallel, not one after another: a row of 64
 // splits (the ring decode's) costs a few load latencies. Fixed order: the same
 // bits every run. Dynamic shared memory: ``splits`` floats.
+//
+// kLse (a compile-time flag, so the serving decode's instantiation is the one
+// it always was) also writes each row's natural log-sum-exp of the scaled
+// scores, m* + log l*, into lse[row] (-inf for a row with no live key): the
+// partial a rank holding one slice of a sequence-split cache hands the
+// cross-rank merge (models/attention.py). Block (0, row) writes it.
 constexpr int kCombineWarps = 8;
 
-template <typename T>
+template <typename T, bool kLse = false>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 combine_splits_kernel(const float* __restrict__ ws, T* __restrict__ out, int rows, int splits,
-                      int D) {
+                      int D, float* __restrict__ lse = nullptr) {
   extern __shared__ float w_s[];  // splits: the weight of each split, 0 for a dead one
   __shared__ float part[kCombineWarps][32];
   __shared__ float l_star;
@@ -395,6 +401,9 @@ combine_splits_kernel(const float* __restrict__ ws, T* __restrict__ out, int row
     }
     ls = warp_sum(ls);
     if (lane == 0) l_star = ls;
+    if constexpr (kLse) {
+      if (lane == 0 && blockIdx.x == 0) lse[r] = ls > 0.f ? mx + logf(ls) : -CUDART_INF_F;
+    }
   }
   __syncthreads();
   const int d = blockIdx.x * 32 + lane;
@@ -418,12 +427,17 @@ combine_splits_kernel(const float* __restrict__ ws, T* __restrict__ out, int row
 
 template <typename T>
 cudaError_t combine_splits(const float* ws, T* out, int rows, int splits, int D,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, float* lse = nullptr) {
   if (rows > 65535 || static_cast<size_t>(splits) * sizeof(float) > 48 * 1024)
     return cudaErrorInvalidValue;
-  combine_splits_kernel<T><<<dim3((D + 31) / 32, rows), kCombineWarps * 32,
-                             static_cast<size_t>(splits) * sizeof(float), stream>>>(
-      ws, out, rows, splits, D);
+  const dim3 grid((D + 31) / 32, rows);
+  const size_t smem = static_cast<size_t>(splits) * sizeof(float);
+  if (lse != nullptr)
+    combine_splits_kernel<T, true><<<grid, kCombineWarps * 32, smem, stream>>>(
+        ws, out, rows, splits, D, lse);
+  else
+    combine_splits_kernel<T><<<grid, kCombineWarps * 32, smem, stream>>>(ws, out, rows,
+                                                                         splits, D);
   return cudaGetLastError();
 }
 

@@ -429,11 +429,12 @@ split_decode_kernel(const T* __restrict__ q, Pool pool, Keys keys, float* __rest
 
 // The split body over ``splits`` splits of ``keys_per_split`` keys, then the
 // log-sum-exp combine into out (B, Hq, 1, D) in T. ws: B * Hq * splits * (D +
-// 2) floats.
+// 2) floats. ``lse``, when not null, receives each row's log-sum-exp (B, Hq)
+// f32 from the combine's kLse epilogue.
 template <typename T, int D, typename Pool, typename Keys>
 cudaError_t launch_split_decode(const void* q, Pool pool, Keys keys, void* out, void* ws,
                                 int batch, int hq, int hkv, int splits, int keys_per_split,
-                                float scale, cudaStream_t stream) {
+                                float scale, cudaStream_t stream, float* lse = nullptr) {
   const int G = hq / hkv;
   const int rblocks = (G + kDecodeRows - 1) / kDecodeRows;
   split_decode_kernel<T, D, Pool, Keys><<<dim3(splits, hkv * rblocks, batch), kDecodeThreads,
@@ -443,7 +444,7 @@ cudaError_t launch_split_decode(const void* q, Pool pool, Keys keys, void* out, 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return combine_splits<T>(static_cast<const float*>(ws), static_cast<T*>(out), batch * hq,
-                           splits, D, stream);
+                           splits, D, stream, lse);
 }
 
 }  // namespace

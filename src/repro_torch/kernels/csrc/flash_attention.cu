@@ -367,13 +367,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, f
 // One-token decode over the dense cache: the split body, then the combine.
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k_cache, const void* v_cache, void* out,
-                          void* ws, const void* pos_ptr, int pos, int batch, int hq, int hkv,
-                          int s_len, int has_window, int window, int splits,
+                          void* ws, float* lse, const void* pos_ptr, int pos, int batch, int hq,
+                          int hkv, int s_len, int has_window, int window, int splits,
                           int keys_per_split, float scale, cudaStream_t stream) {
   const DensePool<T, D> pool{static_cast<const T*>(k_cache), static_cast<const T*>(v_cache)};
   const DenseKeys keys{static_cast<const int*>(pos_ptr), pos, s_len, hkv, has_window, window};
   return launch_split_decode<T, D>(q, pool, keys, out, ws, batch, hq, hkv, splits,
-                                   keys_per_split, scale, stream);
+                                   keys_per_split, scale, stream, lse);
 }
 
 #define REPRO_DISPATCH(FN, ...)                                                      \
@@ -457,11 +457,16 @@ int repro_flash_attention(int dtype, const void* q, const void* k, const void* v
 // runs of ``keys_per_split`` (splits * keys_per_split >= S), one block per
 // (split, KV head and 8-row block of its group, sequence), merged in a second
 // kernel; ``workspace`` holds B * Hq * splits * (D + 2) floats (common.cuh's
-// combine_splits_kernel).
+// combine_splits_kernel). ``lse``, when not null, receives each row's (B, Hq)
+// f32 log-sum-exp of the scaled scores, -inf for a row with no live key (a
+// rank's slice of a sequence-split cache lying wholly after the token: pos
+// negative); serving's one-device decode passes null and runs the combine
+// without that epilogue. pos may be negative (no live key) or past the cache
+// (every slot live).
 int repro_flash_decode(int dtype, const void* q, const void* k_cache, const void* v_cache,
-                       void* out, void* workspace, const void* pos_ptr, int pos, int batch,
-                       int hq, int hkv, int s_len, int head_dim, int has_window, int window,
-                       int splits, int keys_per_split, float scale, void* stream) {
+                       void* out, void* workspace, float* lse, const void* pos_ptr, int pos,
+                       int batch, int hq, int hkv, int s_len, int head_dim, int has_window,
+                       int window, int splits, int keys_per_split, float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || batch <= 0 || batch > 65535 || hkv <= 0 || hq % hkv != 0 ||
       s_len <= 0 || splits <= 0 || keys_per_split <= 0 ||
       static_cast<long long>(splits) * keys_per_split < s_len ||
@@ -470,8 +475,8 @@ int repro_flash_decode(int dtype, const void* q, const void* k_cache, const void
   }
   (void)cudaGetLastError();
   auto run = [&]() -> cudaError_t {
-    REPRO_DISPATCH(launch_decode, q, k_cache, v_cache, out, workspace, pos_ptr, pos, batch, hq,
-                   hkv, s_len, has_window, window, splits, keys_per_split, scale,
+    REPRO_DISPATCH(launch_decode, q, k_cache, v_cache, out, workspace, lse, pos_ptr, pos,
+                   batch, hq, hkv, s_len, has_window, window, splits, keys_per_split, scale,
                    static_cast<cudaStream_t>(stream))
   };
   return static_cast<int>(run());

@@ -87,23 +87,47 @@ def attention_torch(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return out
 
 
+def _local_pos(pos, key_offset: int):
+    """The current token's slot in a cache whose slot 0 is key ``key_offset``
+    (a rank's slice of a sequence-split cache): ``pos - key_offset``, on the
+    device for a tensor ``pos``. Negative: the slice lies wholly after the
+    token (no live key); at or past the slice's end: every slot is live."""
+    if not key_offset:
+        return pos
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(()) - int(key_offset)
+    return int(pos) - int(key_offset)
+
+
 def decode_attention_torch(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, key_offset: int = 0,
+                           return_lse: bool = False):
     """One-token decode against a (B, Hkv, S, D) cache: slot ``pos`` is the
-    current token, slots past it are masked (the reference's jnp twin)."""
-    return attention_torch(q, k_cache, v_cache, causal=True, window=window, q_offset=pos,
-                           scale=scale)
+    current token, slots past it are masked (the reference's jnp twin).
+    ``key_offset``: slot 0 holds key ``key_offset`` (``_local_pos``).
+    ``return_lse`` also returns the f32 (B, Hq, 1) natural log-sum-exp of the
+    scaled scores, -inf on a row with no live key (whose output is 0)."""
+    pos = _local_pos(pos, key_offset)
+    out = attention_torch(q, k_cache, v_cache, causal=True, window=window, q_offset=pos,
+                          scale=scale, return_lse=return_lse)
+    if not return_lse:
+        return out
+    out, lse = out
+    return out, torch.where(lse <= NEG_INF, torch.full_like(lse, -math.inf), lse)
 
 
 def decode_partials_torch(q, k_cache, v_cache, pos, *, keys_per_split: int,
-                          window: Optional[int] = None, scale: Optional[float] = None):
+                          window: Optional[int] = None, scale: Optional[float] = None,
+                          key_offset: int = 0):
     """The split-K decode's partials over a dense cache: slots [s * K, (s +
     1) * K) (K = ``keys_per_split``) are split s, slot j live iff j <= pos
     and, with a window, j > pos - window (paged_attention's
-    split_partials_torch). Returns m, l (B, Hq, splits) and acc (B, Hq,
-    splits, D), f32; ``combine_splits_torch`` of them is the decode."""
+    split_partials_torch), pos counted from ``key_offset`` (``_local_pos``).
+    Returns m, l (B, Hq, splits) and acc (B, Hq, splits, D), f32;
+    ``combine_splits_torch`` of them is the decode."""
     b, _, _, d = q.shape
     s_len = k_cache.shape[2]
+    pos = _local_pos(pos, key_offset)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     j = torch.arange(s_len, device=q.device)
     live = j <= pos
@@ -120,8 +144,8 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = _build.Binding("flash_attention", {
     "repro_flash_attention": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                               _i, _f, _p],
-    "repro_flash_decode": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
-                           _f, _p],
+    "repro_flash_decode": [_i, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                           _i, _f, _p],
 })
 
 
@@ -211,17 +235,34 @@ flash_attention.launches = 0
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, key_offset: int = 0,
+                 lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token GQA decode against a dense cache (kernel: the split-K decode
     body over the cache's slots, split as plan_decode_splits picks for S
     one-slot pages, then the combine). q (B, Hq, 1, D); caches (B, Hkv, S,
     D), on 16-byte boundaries (the kernel loads 16 bytes at a time); ``pos``
     the current token's slot (an int or a 0-d integer tensor on q's device,
     never read on the host). Any GQA group: G > 8 takes ceil(G / 8) blocks
-    per split. Output in q's dtype."""
+    per split. Output in q's dtype.
+
+    A rank's slice of a sequence-split cache: ``key_offset`` is the global
+    key its slot 0 holds, and the kernel attends slot j <= pos - key_offset
+    (computed on the device for a tensor ``pos``; negative: no live key,
+    the rows come out 0; past the slice: every slot live). ``lse``, a
+    contiguous f32 (B, Hq, 1) tensor on q's device, receives each row's
+    natural log-sum-exp of the scaled scores (-inf with no live key), from
+    the combine's compile-time lse epilogue; the one-device decode passes
+    none and runs the combine it always ran. On the CPU the plain version
+    fills it."""
     no_dtensor("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
-        return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale)
+        if lse is None:
+            return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale,
+                                          key_offset=key_offset)
+        out, got = decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale,
+                                          key_offset=key_offset, return_lse=True)
+        lse.copy_(got)
+        return out
     no_grad_through("flash_decode", q, k_cache, v_cache)
     _check_qkv(q, k_cache, v_cache)
     b, hq, tq, d = q.shape
@@ -231,7 +272,11 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    pos_t, p = _offset(pos, q.device)
+    if lse is not None:
+        _check("lse", lse, ndim=3, dtype=torch.float32, device=q.device)
+        if tuple(lse.shape) != (b, hq, 1):
+            raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, 1)}")
+    pos_t, p = _offset(_local_pos(pos, key_offset), q.device)
     has_w, w = _window(window)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     splits, kps, ws = _paged._decode_split(q, hkv, 1, s_len)
@@ -239,8 +284,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
     _LIB.launch(
         "repro_flash_decode", "flash_decode",
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), pos_t.data_ptr() if pos_t is not None else None, p, b,
-        hq, hkv, s_len, d, has_w, w, splits, kps, scale, device=q.device,
+        out.data_ptr(), ws.data_ptr(), lse.data_ptr() if lse is not None else None,
+        pos_t.data_ptr() if pos_t is not None else None, p, b, hq, hkv, s_len, d, has_w, w,
+        splits, kps, scale, device=q.device,
     )
     flash_decode.launches += 1
     return out

@@ -127,14 +127,27 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
-                     scale: Optional[float] = None, impl: str = "auto") -> torch.Tensor:
+                     scale: Optional[float] = None, impl: str = "auto", key_offset: int = 0,
+                     return_lse: bool = False):
     """One-token GQA decode against a dense (B, Hkv, S, D) cache; ``pos`` (an
     int or a 0-d tensor) is the current token's slot, slots past it are
     masked. The kernel is flash_decode; the plain version is ``attention``
-    with Tq == 1, causal, q_offset = pos, as in the reference."""
+    with Tq == 1, causal, q_offset = pos, as in the reference.
+
+    A rank's slice of a sequence-split cache (the sharded decode,
+    ``models.attention``): ``key_offset`` is the global key of its slot 0;
+    with ``return_lse`` -> (out, lse (B, Hq, 1) f32, -inf on a row with no
+    live key), the partial the ranks merge."""
     if _want_kernel(impl, q):
-        return flash_decode(q, k_cache, v_cache, pos, window=window, scale=scale)
-    return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale)
+        if not return_lse:
+            return flash_decode(q, k_cache, v_cache, pos, window=window, scale=scale,
+                                key_offset=key_offset)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = flash_decode(q, k_cache, v_cache, pos, window=window, scale=scale,
+                           key_offset=key_offset, lse=lse)
+        return out, lse
+    return decode_attention_torch(q, k_cache, v_cache, pos, window=window, scale=scale,
+                                  key_offset=key_offset, return_lse=return_lse)
 
 
 # ---------------------------------------------------------------------------------

@@ -4,13 +4,20 @@ paged serving paths (one-token decode, one prefill chunk); cross-attention
 over a context (whisper's encoder output, llama-3.2-vision's image
 embeddings) with its K/V cached for decode.
 
-Port of ``repro.models.attention``. On a mesh (the train path) attention
-runs inside its block's map (``core.distributed.block_map``) on each rank's
-batch and head shard, as the reference constrains q, k and v: the
-projections, RoPE, ``ops.attention`` and the row-parallel out projection on
-plain local tensors, so the kernels (flash_attention and its backward) see
-plain tensors, and one sum over "model". The kv_seq-sharded decode is not
-ported yet (ROADMAP item 6). A dense cache is written IN PLACE
+Port of ``repro.models.attention``. On a mesh attention runs inside its
+block's map (``core.distributed.block_map``) on each rank's batch and head
+shard, as the reference constrains q, k and v: the projections, RoPE,
+``ops.attention`` and the row-parallel out projection on plain local
+tensors, so the kernels (flash_attention and its backward, flash_decode, the
+paged kernels) see plain tensors, and one sum over "model". Serving on a
+mesh (``serve_rules``: kv_heads replicated, the dense cache split along S
+over "model") runs the reference's kv_seq-sharded decode
+(``_decode_attention_seq_sharded``): q's heads gathered over "model", the
+new K/V written by the rank whose slice holds the slot, the rank's slice
+attended by flash_decode at its local position with the log-sum-exp out,
+and the ranks' partials merged exactly (``LocalMesh.merge_lse``). Page pools
+are whole on every rank: each rank writes every row's K/V and attends its
+rows with q's heads gathered. A dense cache is written IN PLACE
 at slot ``pos``, a ring buffer at slot ``pos % S``. Page pools are
 (num_pages, Hkv, page_size, Dh) per layer, or with a ``kv_spec``
 (serving.engine.kvquant.PagedQuantSpec) {"q": intN page bytes, "scale": one
@@ -203,6 +210,46 @@ def attn_partial(p, prefix: str = "") -> set:
     return set()
 
 
+def _serve_heads(cfg, q: torch.Tensor, k: torch.Tensor, lm):
+    """Serving on a mesh: (q on the heads the attention runs, the slice of
+    its output heads that are this rank's, or None). Where q is split over
+    "model" and k / v hold every kv head (``serve_rules`` replicate
+    kv_heads), q's heads are gathered, as the reference replicates q for its
+    sharded decode, so the kernels see whole caches or pools and every head
+    of q; where k / v are split alike (kv_heads dividing the model axis
+    under other rules) each rank's q heads meet their own kv heads."""
+    if lm is None or lm.model is None or q.shape[1] == cfg.n_heads:
+        return q, None
+    if k.shape[1] < cfg.n_kv_heads:
+        _local_kv_heads(cfg, q.shape[1], k.shape[1], lm)  # refuses a selection across ranks
+        return q, None
+    n = q.shape[1]
+    return lm.gather(q.contiguous(), 1), slice(lm.model_rank * n, (lm.model_rank + 1) * n)
+
+
+def _own_heads(out: torch.Tensor, heads) -> torch.Tensor:
+    return out if heads is None else out[:, heads]
+
+
+def _rows(lm, t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a whole-batch tensor (the block map's token
+    shard: ``LocalMesh.token_rank_and_count``); the tensor itself off a
+    mesh or where the batch is not split."""
+    if lm is None or not lm.tokens:
+        return t
+    rank, count = lm.token_rank_and_count()
+    n = t.shape[0] // count
+    return t[rank * n:(rank + 1) * n]
+
+
+def _all_rows(lm, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t`` (the batch's shards gathered): what a
+    rank writes into its copy of the whole page pools."""
+    if lm is None or not lm.tokens:
+        return t
+    return lm.gather_tokens(t.contiguous(), 0)
+
+
 def _mapped(body, shard, x, p, extras=()):
     """An attention layer alone in one block map (its own entry on a mesh:
     the blocks map their whole bodies, ``models.transformer``)."""
@@ -222,16 +269,27 @@ def self_attention(cfg, p, x: torch.Tensor, *, shard: Sharder = NULL_SHARDER, lm
     weights are this rank's shards: with the heads split over "model", q, k
     and v on the rank's heads (its q heads' kv heads where the rules
     replicate k and v: ``_local_kv_heads``), the kernel, then the
-    row-parallel out projection and one sum over "model". On DTensors
-    (``shard`` active) the layer runs alone in one block map. The prefill's
-    ``return_kv`` is not sharded yet."""
+    row-parallel out projection and one sum over "model". ``return_kv``
+    then returns the rank's k and v as the rules lay them out (every kv head
+    where kv_heads is replicated: the prefill's cache rows). On DTensors
+    (``shard`` active) the layer runs alone in one block map, its k and v
+    coming out as DTensors laid out as x on the batch and as wk on the
+    heads."""
     if shard.active(x):
-        if return_kv:
-            raise NotImplementedError("a sharded prefill (return_kv on a mesh) waits for "
-                                      "ROADMAP Queue 1 item 6")
-        return _mapped(lambda lm_, x_, p_: self_attention(
-            cfg, p_, x_, lm=lm_, causal=causal, window=window, pos_offset=pos_offset,
-            impl=impl), shard, x, p)
+        kv = []
+
+        def body(lm_, x_, p_):
+            y = self_attention(cfg, p_, x_, lm=lm_, causal=causal, window=window,
+                               pos_offset=pos_offset, return_kv=return_kv, impl=impl)
+            if not return_kv:
+                return y
+            kv.append(y[1])
+            return y[0]
+
+        y = _mapped(body, shard, x, p)
+        if not return_kv:
+            return y
+        return y, tuple(_kv_dtensor(t, x, p["wk"]) for t in kv[0])
     split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
     if split:
         x = lm.enter(x)
@@ -240,17 +298,29 @@ def self_attention(cfg, p, x: torch.Tensor, *, shard: Sharder = NULL_SHARDER, lm
     pos = torch.arange(t, device=x.device) + pos_offset
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    v = v.contiguous()
+    kv = (k, v)
     if lm is not None:
         sel = _local_kv_heads(cfg, q.shape[1], k.shape[1], lm)
-        k, v = k[:, sel].contiguous(), v[:, sel]
-    v = v.contiguous()
+        k, v = k[:, sel].contiguous(), v[:, sel].contiguous()
     out = ops.attention(q, k, v, causal=causal, window=window, q_offset=pos_offset, impl=impl)
     y = _out_proj(p, out, x.dtype)
     if split:
-        return lm.sum(y)
+        y = lm.sum(y)
     if return_kv:
-        return y, (k, v)
+        return y, kv
     return y
+
+
+def _kv_dtensor(local: torch.Tensor, x, wk):
+    """A block map's local k or v (B_loc, Hkv_loc, T, Dh) as a DTensor:
+    sharded on the batch as x (B, T, D) is, on the heads as wk (D, Hkv, Dh)
+    is, replicated elsewhere."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = [Shard(0) if xp == Shard(0) else Shard(1) if wp == Shard(1) else Replicate()
+          for xp, wp in zip(x.placements, wk.placements)]
+    return DTensor.from_local(local.contiguous(), x.device_mesh, pl, run_check=False)
 
 
 class DecodePos(NamedTuple):
@@ -263,7 +333,8 @@ class DecodePos(NamedTuple):
 
 
 def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos, *,
-                          window: Optional[int] = None, impl: str = "auto"):
+                          window: Optional[int] = None, impl: str = "auto", lm=None,
+                          seq_split: bool = False):
     """One-token decode against one layer's dense cache or ring buffer.
 
     x: (B, 1, D); cache k/v: (B, Hkv, S, Dh); ``pos`` (an int, a one-element
@@ -286,8 +357,23 @@ def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor
     wrapped, the written prefix before. Softmax does not depend on the order
     of the slots, so ops.decode_attention at position min(pos, S - 1), with
     no window, computes the reference's function: the flash_decode kernel
-    runs unchanged and nothing waits on the host."""
+    runs unchanged and nothing waits on the host.
+
+    Inside a serving block map (``lm``) q is on the rank's heads; with
+    ``seq_split`` the cache is this rank's slice of S_total = S * model
+    slots, [r * S, (r + 1) * S), the reference's ``_decode_attention_seq_sharded``
+    (which it takes without a window; the ring's live set above makes the
+    same step exact on a split ring, as GSPMD computes it there): q's
+    heads gathered, the K/V written on the device at local slot (pos or pos
+    % S_total) - r * S only where that lies in the slice, flash_decode over
+    the slice at local position min(pos, S_total - 1) - r * S with its
+    log-sum-exp (negative: no live key, lse -inf; past the slice: every slot
+    live), the exact merge over "model", the rank's heads kept for the
+    row-parallel out projection and its sum. Without ``seq_split`` every
+    rank holds the whole cache (S not dividing the model axis) and attends
+    with q's heads gathered alike."""
     s_len = cache["k"].shape[2]
+    s_total = s_len * lm.model_size if seq_split else s_len
     if isinstance(pos, DecodePos):
         host, posv = pos.host, pos.dev.reshape(1)
     elif isinstance(pos, torch.Tensor):
@@ -295,18 +381,36 @@ def self_attention_decode(cfg, p, x: torch.Tensor, cache: Dict[str, torch.Tensor
     else:
         host = int(pos)
         posv = torch.full((1,), host, dtype=torch.int32, device=x.device)
-    if window is None and host is not None and host >= s_len:
+    if window is None and host is not None and host >= s_total:
         raise ValueError(f"decode at position {host} past the dense cache's capacity of "
-                         f"{s_len} tokens (make the cache with a larger max_len)")
+                         f"{s_total} tokens (make the cache with a larger max_len)")
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
+    if split:
+        x = lm.enter(x)
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
-    idx = (posv if window is None else posv % s_len).long()
-    cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
-    last = posv if window is None else torch.clamp(posv, max=s_len - 1)
-    out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], last, impl=impl)
-    return _out_proj(p, out, x.dtype), cache
+    slot = posv if window is None else posv % s_total
+    last = posv if window is None else torch.clamp(posv, max=s_total - 1)
+    q, heads = _serve_heads(cfg, q, k, lm)
+    if seq_split:
+        off = lm.model_rank * s_len
+        loc = slot - off
+        live = (loc >= 0) & (loc < s_len)
+        idx = loc.clamp(0, s_len - 1).long()
+        for name, t in (("k", k), ("v", v)):
+            c = cache[name]
+            c.index_copy_(2, idx, torch.where(live, t.to(c.dtype), c.index_select(2, idx)))
+        out, lse = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], last,
+                                        key_offset=off, return_lse=True, impl=impl)
+        out = lm.merge_lse(out, lse)
+    else:
+        idx = slot.long()
+        cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
+        out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], last, impl=impl)
+    y = _out_proj(p, _own_heads(out, heads), x.dtype)
+    return (lm.sum(y) if split else y), cache
 
 
 def _page_size(cache, kv_spec) -> int:
@@ -328,7 +432,8 @@ def _quant_append(buf: Dict[str, torch.Tensor], tok: torch.Tensor, page: torch.T
 
 
 def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: torch.Tensor,
-                                context_lens: torch.Tensor, kv_spec=None, block_pages=None):
+                                context_lens: torch.Tensor, kv_spec=None, block_pages=None,
+                                lm=None):
     """One-token decode against one layer's page pool.
 
     x: (B, 1, D); cache k/v: (num_pages, Hkv, ps, Dh), or with ``kv_spec``
@@ -338,36 +443,49 @@ def self_attention_decode_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
     ps], slot len % ps), quantized at scatter time over a quantized pool,
     then attention covers positions < len + 1. ``block_pages`` is the tuned
     decode block-shape knob, forwarded verbatim to
-    ops.paged_decode_attention{,_quant} (None = unblocked)."""
-    b = x.shape[0]
+    ops.paged_decode_attention{,_quant} (None = unblocked).
+
+    Inside a serving block map (``lm``) x is the rank's rows and q its
+    heads, the tables and lengths whole: the rank's copy of the whole pools
+    takes every row's K/V (the batch's shards gathered), then its rows
+    attend with q's heads gathered (``_serve_heads``), the row-parallel out
+    projection summed over "model"."""
     ps = _page_size(cache, kv_spec)
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
+    if split:
+        x = lm.enter(x)
     q, k, v = _project_qkv(cfg, p, x)
-    pos = context_lens.to(torch.int32)
+    pos_all = context_lens.to(torch.int32)
+    pos = _rows(lm, pos_all)
+    tables = _rows(lm, block_tables)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
-    page = block_tables[rows, (pos // ps).long()].long()
-    slot = (pos % ps).long()
+    k = _all_rows(lm, apply_rope(k, pos[:, None], cfg.rope_theta))
+    v = _all_rows(lm, v)
+    rows = torch.arange(block_tables.shape[0], device=x.device)
+    page = block_tables[rows, (pos_all // ps).long()].long()
+    slot = (pos_all % ps).long()
+    q, heads = _serve_heads(cfg, q, k, lm)
     if kv_spec is not None:
         _quant_append(cache["k"], k[:, :, 0, :], page, slot, kv_spec)
         _quant_append(cache["v"], v[:, :, 0, :], page, slot, kv_spec)
         ck, cv = cache["k"], cache["v"]
         out = ops.paged_decode_attention_quant(
-            q.contiguous(), ck["q"], ck["scale"], cv["q"], cv["scale"], block_tables, pos + 1,
+            q.contiguous(), ck["q"], ck["scale"], cv["q"], cv["scale"], tables, pos + 1,
             bits=kv_spec.bits, block_pages=block_pages,
         )
     else:
         cache["k"][page, :, slot, :] = k[:, :, 0, :].to(cache["k"].dtype)
         cache["v"][page, :, slot, :] = v[:, :, 0, :].to(cache["v"].dtype)
         out = ops.paged_decode_attention(
-            q.contiguous(), cache["k"], cache["v"], block_tables, pos + 1,
+            q.contiguous(), cache["k"], cache["v"], tables, pos + 1,
             block_pages=block_pages,
         )
-    return _out_proj(p, out, x.dtype), cache
+    y = _out_proj(p, _own_heads(out, heads), x.dtype)
+    return (lm.sum(y) if split else y), cache
 
 
 def self_attention_verify_paged(cfg, p, x: torch.Tensor, cache, block_tables: torch.Tensor,
-                                context_lens: torch.Tensor, kv_spec=None):
+                                context_lens: torch.Tensor, kv_spec=None, lm=None):
     """Speculative verify: C = K + 1 tokens a row scored in one chunk call.
 
     x: (B, C, D), the embeddings of [current token, draft_1 .. draft_K];
@@ -382,19 +500,28 @@ def self_attention_verify_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
     all C rows against the past and the causal present. Rejected positions
     need no undo: they lie past the rolled-back lens and later appends
     overwrite them. Inactive rows (nulled table and lens) write the null
-    page."""
-    b, c, _ = x.shape
+    page. Inside a serving block map (``lm``) every row's K/V is appended
+    to the rank's whole pools and the rank's rows are scored with q's heads
+    gathered, as in ``self_attention_decode_paged``."""
+    c = x.shape[1]
     ps = _page_size(cache, kv_spec)
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
+    if split:
+        x = lm.enter(x)
     q, k, v = _project_qkv(cfg, p, x)  # (B, H, C, Dh)
-    lens = context_lens.to(torch.int32)
-    pos = lens[:, None] + torch.arange(c, device=x.device, dtype=torch.int32)[None, :]
+    lens_all = context_lens.to(torch.int32)
+    ar = torch.arange(c, device=x.device, dtype=torch.int32)[None, :]
+    pos_all = lens_all[:, None] + ar
+    lens, block_tables_all, block_tables = _rows(lm, lens_all), block_tables, _rows(lm, block_tables)
+    pos = lens[:, None] + ar
     q = apply_rope(q, pos, cfg.rope_theta).contiguous()
-    k = apply_rope(k, pos, cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
+    k = _all_rows(lm, apply_rope(k, pos, cfg.rope_theta))
+    v = _all_rows(lm, v)
+    rows = torch.arange(block_tables_all.shape[0], device=x.device)
     pages, slots = [], []
     for j in range(c):
-        pj = pos[:, j]
-        page = block_tables[rows, (pj // ps).long()].long()
+        pj = pos_all[:, j]
+        page = block_tables_all[rows, (pj // ps).long()].long()
         slot = (pj % ps).long()
         pages.append(page)
         slots.append(slot)
@@ -404,7 +531,9 @@ def self_attention_verify_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
         else:
             cache["k"][page, :, slot, :] = k[:, :, j, :].to(cache["k"].dtype)
             cache["v"][page, :, slot, :] = v[:, :, j, :].to(cache["v"].dtype)
-    pg, sl = torch.stack(pages, dim=1), torch.stack(slots, dim=1)  # (B, C)
+    pg = _rows(lm, torch.stack(pages, dim=1))  # (B, C): the rank's rows
+    sl = _rows(lm, torch.stack(slots, dim=1))
+    q, heads = _serve_heads(cfg, q, k, lm)
     ck, cv = cache["k"], cache["v"]
     if kv_spec is not None:
         k_pres = kv_spec.decode_pages(ck["q"][pg, :, sl, :][:, :, :, None, :],
@@ -422,7 +551,8 @@ def self_attention_verify_paged(cfg, p, x: torch.Tensor, cache, block_tables: to
         )
     else:
         out = ops.paged_prefill_chunk_attention(q, k_pres, v_pres, ck, cv, block_tables, lens)
-    return _out_proj(p, out, x.dtype), cache
+    y = _out_proj(p, _own_heads(out, heads), x.dtype)
+    return (lm.sum(y) if split else y), cache
 
 
 def _scatter_chunk_pages(cache, kp: torch.Tensor, vp: torch.Tensor, dest: torch.Tensor,
@@ -449,7 +579,7 @@ def _scatter_chunk_pages(cache, kp: torch.Tensor, vp: torch.Tensor, dest: torch.
 def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor, cache,
                                        block_tables: torch.Tensor,
                                        write_tables: torch.Tensor, cursors: torch.Tensor,
-                                       n_new: torch.Tensor, kv_spec=None):
+                                       n_new: torch.Tensor, kv_spec=None, lm=None):
     """One prefill CHUNK against one layer's page pool.
 
     x: (B, C, D), C a page multiple; block_tables: the READ view (every
@@ -459,37 +589,48 @@ def self_attention_prefill_chunk_paged(cfg, p, x: torch.Tensor, cache,
     tokens (pages past it route to the null page). The chunk's K/V is
     scattered IN PLACE into its pages, then its queries attend the past (pool
     positions < cursor) and the chunk's own K/V (causal), which stays in the
-    compute dtype over a quantized pool (``kv_spec``)."""
-    b, c, _ = x.shape
+    compute dtype over a quantized pool (``kv_spec``). Inside a serving
+    block map (``lm``) every row's chunk is scattered into the rank's whole
+    pools and the rank's rows attend with q's heads gathered, as in
+    ``self_attention_decode_paged``."""
+    c = x.shape[1]
     ps = _page_size(cache, kv_spec)
     npg = c // ps
     max_pages = block_tables.shape[1]
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
+    if split:
+        x = lm.enter(x)
     q, k, v = _project_qkv(cfg, p, x)
     ar_c = torch.arange(c, device=x.device)
-    pos = cursors[:, None] + ar_c[None, :]  # (B, C)
+    cur = _rows(lm, cursors)
+    pos = cur[:, None] + ar_c[None, :]  # (B, C)
     q = apply_rope(q, pos, cfg.rope_theta).contiguous()
     k = apply_rope(k, pos, cfg.rope_theta).contiguous()
     v = v.contiguous()
-    hkv, dh = k.shape[1], k.shape[3]
-    kp = k.reshape(b, hkv, npg, ps, dh).transpose(1, 2)  # (B, nP, Hkv, ps, Dh)
-    vp = v.reshape(b, hkv, npg, ps, dh).transpose(1, 2)
+    k_all, v_all = _all_rows(lm, k), _all_rows(lm, v)
+    b, hkv, _, dh = k_all.shape
+    kp = k_all.reshape(b, hkv, npg, ps, dh).transpose(1, 2)  # (B, nP, Hkv, ps, Dh)
+    vp = v_all.reshape(b, hkv, npg, ps, dh).transpose(1, 2)
     ar_p = torch.arange(npg, device=x.device)
     logical = (cursors[:, None] // ps + ar_p[None, :]).clamp(0, max_pages - 1).long()
     gathered = torch.gather(write_tables, 1, logical)
     valid = ar_p[None, :] * ps < n_new[:, None]
     dest = torch.where(valid, gathered, torch.zeros_like(gathered))
     _scatter_chunk_pages(cache, kp, vp, dest, kv_spec)
+    tables = _rows(lm, block_tables)
+    q, heads = _serve_heads(cfg, q, k, lm)
     if kv_spec is not None:
         ck, cv = cache["k"], cache["v"]
         out = ops.paged_prefill_chunk_attention_quant(
-            q, k, v, ck["q"], ck["scale"], cv["q"], cv["scale"], block_tables, cursors,
+            q, k, v, ck["q"], ck["scale"], cv["q"], cv["scale"], tables, cur,
             bits=kv_spec.bits,
         )
     else:
         out = ops.paged_prefill_chunk_attention(
-            q, k, v, cache["k"], cache["v"], block_tables, cursors
+            q, k, v, cache["k"], cache["v"], tables, cur
         )
-    return _out_proj(p, out, x.dtype), cache
+    y = _out_proj(p, _own_heads(out, heads), x.dtype)
+    return (lm.sum(y) if split else y), cache
 
 
 # ---------------------------------------------------------------------------------
@@ -505,11 +646,24 @@ def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *,
     decode cache. Inside a block map (``lm``) with the heads split over
     "model", q from x and k, v from ctx on the rank's heads, both entering
     the split branch (their gradients summed over "model"), then the
-    row-parallel out projection and one sum; on DTensors (``shard``
-    active) the layer runs alone in one block map, ctx an input of it."""
-    if shard.active(x) and not return_kv:
-        return _mapped(lambda lm_, x_, p_, c_: cross_attention(cfg, p_, x_, c_, lm=lm_,
-                                                               impl=impl), shard, x, p, (ctx,))
+    row-parallel out projection and one sum (``return_kv``: the rank's k and
+    v as the rules lay them out, every kv head under ``serve_rules``); on
+    DTensors (``shard`` active) the layer runs alone in one block map, ctx
+    an input of it."""
+    if shard.active(x):
+        kv = []
+
+        def body(lm_, x_, p_, c_):
+            y = cross_attention(cfg, p_, x_, c_, lm=lm_, return_kv=return_kv, impl=impl)
+            if not return_kv:
+                return y
+            kv.append(y[1])
+            return y[0]
+
+        y = _mapped(body, shard, x, p, (ctx,))
+        if not return_kv:
+            return y
+        return y, tuple(_kv_dtensor(t, x, p["wk"]) for t in kv[0])
     split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
     ctx = ctx.to(x.dtype)
     if split:
@@ -520,30 +674,50 @@ def cross_attention(cfg, p, x: torch.Tensor, ctx: torch.Tensor, *,
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
         v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    k, v = k.contiguous(), v.contiguous()
+    kv = (k, v)
     if lm is not None:
         sel = _local_kv_heads(cfg, q.shape[1], k.shape[1], lm)
-        k, v = k[:, sel], v[:, sel]
-    k, v = k.contiguous(), v.contiguous()
+        k, v = k[:, sel].contiguous(), v[:, sel].contiguous()
     out = ops.attention(q.contiguous(), k, v, causal=False, impl=impl)
     y = _out_proj(p, out, x.dtype)
     if split:
-        return lm.sum(y)
+        y = lm.sum(y)
     if return_kv:
-        return y, (k, v)
+        return y, kv
     return y
 
 
-def cross_attention_decode(cfg, p, x: torch.Tensor, kv, impl: str = "auto"):
+def cross_attention_decode(cfg, p, x: torch.Tensor, kv, impl: str = "auto", lm=None,
+                           seq_split: bool = False):
     """One query row a sequence, x (B, 1, D), against the cached context K/V
     (B, Hkv, Tc, Dh), cast to x's dtype. The reference runs non-causal
     attention at Tq = 1; every slot of the cache is live, so that is the
     dense decode at position Tc - 1, and ops.decode_attention runs it on
     flash_decode's split-K body (flash_attention would give each head one
-    64-row block with one live row, walking all Tc keys in series)."""
+    64-row block with one live row, walking all Tc keys in series).
+
+    Inside a serving block map (``lm``) q is on the rank's heads, gathered
+    (``_serve_heads``); with ``seq_split`` the context's K/V is the rank's
+    slice of Tc_total = Tc * model keys, attended at local position
+    Tc_total - 1 - r * Tc (every slot live) with its log-sum-exp and merged
+    over "model", as the sharded self-attention decode."""
+    split = lm is not None and lm.model is not None and p["wq"].shape[1] < cfg.n_heads
+    if split:
+        x = lm.enter(x)
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
     k, v = kv
-    out = ops.decode_attention(q.contiguous(), k.to(x.dtype), v.to(x.dtype), k.shape[2] - 1,
-                               impl=impl)
-    return _out_proj(p, out, x.dtype)
+    q, heads = _serve_heads(cfg, q, k, lm)
+    q, k, v = q.contiguous(), k.to(x.dtype), v.to(x.dtype)
+    if seq_split:
+        t_loc = k.shape[2]
+        off = lm.model_rank * t_loc
+        out, lse = ops.decode_attention(q, k, v, t_loc * lm.model_size - 1, key_offset=off,
+                                        return_lse=True, impl=impl)
+        out = lm.merge_lse(out, lse)
+    else:
+        out = ops.decode_attention(q, k, v, k.shape[2] - 1, impl=impl)
+    y = _out_proj(p, _own_heads(out, heads), x.dtype)
+    return lm.sum(y) if split else y

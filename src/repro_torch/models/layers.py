@@ -89,6 +89,16 @@ class Sharder:
             return x
         return x.redistribute(self.mesh, self.rules.placements(logical_axes, x.shape, self.mesh))
 
+    def place(self, x: Optional[torch.Tensor], *logical_axes: Optional[str]):
+        """A plain tensor every rank holds whole (a serving batch's tokens,
+        a context) as a DTensor laid out by ``logical_axes``: each rank keeps
+        its block, nothing is sent. A DTensor or None passes unchanged."""
+        if x is None or is_dtensor(x):
+            return x
+        from repro_torch.core.distributed import distribute
+
+        return distribute(x, self.mesh, self.rules.placements(logical_axes, x.shape, self.mesh))
+
 
 NULL_SHARDER = Sharder()
 

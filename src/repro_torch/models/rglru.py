@@ -99,11 +99,12 @@ def apply_rglru(cfg, p, x: torch.Tensor, *, lm=None, initial_state=None,
     w_x narrower than lru_width): x enters the split block, w_x / w_y are
     column-parallel, the conv, a_param and the recurrence run on the local
     columns with no collective, the gates are reduce-scattered
-    (``_split_gates``) and w_out is row-parallel, summed over "model"."""
+    (``_split_gates``) and w_out is row-parallel, summed over "model".
+    ``initial_state`` is then the rank's columns, and ``return_state`` (the
+    serving prefill) gives the cache whole on "model": h and the conv tail
+    gathered over the columns."""
     split = lm is not None and lm.model is not None and p["w_x"].shape[-1] < cfg.lru_width
     if split:
-        if return_state or initial_state is not None:
-            raise NotImplementedError("an lru-split RG-LRU block runs the train step only")
         x = lm.enter(x)
     xb = torch.matmul(x, p["w_x"].to(x.dtype))
     yb = gelu_tanh(torch.matmul(x, p["w_y"].to(x.dtype)).float()).to(x.dtype)
@@ -112,10 +113,13 @@ def apply_rglru(cfg, p, x: torch.Tensor, *, lm=None, initial_state=None,
     h = ops.rglru_scan(a, b, initial_state=initial_state, impl=impl).to(x.dtype)
     out = torch.matmul(h * yb, p["w_out"].to(x.dtype))
     if split:
-        return lm.sum(out)
-    if return_state:
-        return out, {"h": h[:, -1].float(), "conv": conv_tail(xb, cfg.conv_kernel)}
-    return out
+        out = lm.sum(out)
+    if not return_state:
+        return out
+    h_last, tail = h[:, -1].float(), conv_tail(xb, cfg.conv_kernel)
+    if split:
+        h_last, tail = lm.gather(h_last.contiguous(), 1), lm.gather(tail.contiguous(), 2)
+    return out, {"h": h_last, "conv": tail}
 
 
 def rglru_whole(p, prefix: str = "") -> set:
@@ -135,9 +139,15 @@ def rglru_partial(p, prefix: str = "") -> set:
     return {prefix + "b_input_gate", prefix + "b_a_gate"} if is_split(p["w_x"], 1) else set()
 
 
-def apply_rglru_decode(cfg, p, x: torch.Tensor, cache, pos):
+def apply_rglru_decode(cfg, p, x: torch.Tensor, cache, pos, lm=None):
     """x (B, 1, D); cache {"h": (B, W) f32, "conv": (B, K - 1, W)}, updated IN
-    PLACE -> (y (B, 1, D), cache)."""
+    PLACE -> (y (B, 1, D), cache). Inside a serving block map (``lm``) with
+    "lru" split over "model", the rank's columns (the cache's "lru" columns
+    too): w_x / w_y column-parallel, the gates reduce-scattered
+    (``_split_gates``), w_out row-parallel and summed."""
+    split = lm is not None and lm.model is not None and p["w_x"].shape[-1] < cfg.lru_width
+    if split:
+        x = lm.enter(x)
     xb = torch.matmul(x[:, 0], p["w_x"].to(x.dtype))  # (B, W)
     yb = gelu_tanh(torch.matmul(x[:, 0], p["w_y"].to(x.dtype)).float()).to(x.dtype)
     k = cfg.conv_kernel
@@ -146,9 +156,11 @@ def apply_rglru_decode(cfg, p, x: torch.Tensor, cache, pos):
     for i in range(k - 1):
         conv = conv + cache["conv"][:, i].float() * w[i].float()
     xc = conv.to(x.dtype)
-    a, b = _decay_and_input(p, xc)
+    a, b = _decay_and_input(p, xc, _split_gates(p, xc, lm) if split else None)
     h = a * cache["h"] + b
     out = torch.matmul(h.to(x.dtype) * yb, p["w_out"].to(x.dtype))[:, None, :]
+    if split:
+        out = lm.sum(out)
     cache["conv"].copy_(torch.cat([cache["conv"][:, 1:], xb[:, None].to(cache["conv"].dtype)],
                                   dim=1))
     cache["h"].copy_(h)

@@ -123,16 +123,19 @@ def apply_ssm(cfg, p, x: torch.Tensor, *, lm=None, initial_state=None,
     columns and B and C whole (``split_columns``), runs the conv and
     ``ops.ssd`` on its heads, the norm with its sum over "model" and the
     row-parallel out projection (``_gated_out``). B's and C's gradients are
-    each rank's part, summed over "model" with in_proj's."""
+    each rank's part, summed over "model" with in_proj's. With
+    ``return_state`` (the serving prefill) the cache comes out whole on
+    "model": the heads' final states gathered, the conv tail's pre-conv xBC
+    rows from the whole in_proj (``initial_state`` is the rank's heads')."""
     b, s, _ = x.shape
     di, g, n, h, hd = (cfg.ssm_dinner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
                        cfg.ssm_headdim)
     h_loc = p["A_log"].shape[0]
     split = lm is not None and lm.model is not None and h_loc < h
     if split:
-        if return_state or initial_state is not None or g != 1:
-            raise NotImplementedError("a head-split SSM block runs the train step only, "
-                                      "at ngroups 1")
+        if g != 1:
+            raise NotImplementedError("a head-split SSM block runs at ngroups 1 (every head "
+                                      "reads the one group's B and C)")
         proj, conv = split_columns(cfg, h_loc, lm.model_rank, x.device)
         x = lm.enter(x)
         zxbcdt = torch.matmul(x, p["in_proj"].index_select(1, proj).to(x.dtype))
@@ -157,9 +160,14 @@ def apply_ssm(cfg, p, x: torch.Tensor, *, lm=None, initial_state=None,
     y, state = ops.ssd(xh, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
                        return_final_state=True, impl=impl)
     out = _gated_out(cfg, p, y, xh, z, lm, split)
-    if return_state:
-        return out, {"state": state, "conv": xbc_raw_tail(cfg, x, p, zxbcdt)}
-    return out
+    if not return_state:
+        return out
+    if split:
+        k = cfg.conv_kernel
+        xbc_cols = p["in_proj"][:, di:2 * di + 2 * g * n].to(x.dtype)
+        tail = conv_tail(torch.matmul(x[:, -(k - 1):], xbc_cols), k)
+        return out, {"state": lm.gather(state.contiguous(), 1), "conv": tail}
+    return out, {"state": state, "conv": xbc_raw_tail(cfg, x, p, zxbcdt)}
 
 
 def ssm_whole(p, prefix: str = "") -> set:
@@ -200,27 +208,47 @@ def xbc_raw_tail(cfg, x, p, zxbcdt: torch.Tensor) -> torch.Tensor:
     return conv_tail(xbc_raw, cfg.conv_kernel)
 
 
-def apply_ssm_decode(cfg, p, x: torch.Tensor, cache, pos):
+def apply_ssm_decode(cfg, p, x: torch.Tensor, cache, pos, lm=None):
     """x (B, 1, D); cache {"state": (B, H, P, N) f32, "conv": (B, K - 1,
-    conv_dim)} -> (y (B, 1, D), the new cache as fresh tensors)."""
+    conv_dim)} -> (y (B, 1, D), the new cache as fresh tensors).
+
+    Inside a serving block map (``lm``): the fused in_proj and conv come in
+    whole (``ssm_whole``), so the new xBC row and the conv run on every
+    column, over the conv cache gathered whole where ``serve_rules`` split
+    it ("ssm_conv"); with the heads split the state update, the gated norm
+    (its sum over "model") and the row-parallel out projection run on the
+    rank's heads, whose state the cache holds ("ssm_heads"). The new conv
+    cache is the rank's columns of the whole one."""
     b = x.shape[0]
     di, g, n, h, hd = (cfg.ssm_dinner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
                        cfg.ssm_headdim)
+    h_loc = p["A_log"].shape[0]
+    split = lm is not None and lm.model is not None and h_loc < h
+    if split:
+        x = lm.enter(x)
     zxbcdt = torch.matmul(x[:, 0], p["in_proj"].to(x.dtype))  # (B, ...)
     z, xbc_new, dtp = _split_proj(cfg, zxbcdt)
     k = cfg.conv_kernel
     w = p["conv_w"]
+    c_loc = cache["conv"].shape[2]
+    past = cache["conv"] if c_loc == cfg.ssm_conv_dim else lm.gather(cache["conv"], 2)
     # conv over [cache, new]: b + w[k-1] * new + sum_{i < k-1} w[i] * cache[i]
     conv = p["conv_b"].float() + xbc_new.float() * w[k - 1].float()
     for i in range(k - 1):
-        conv = conv + cache["conv"][:, i].float() * w[i].float()
-    new_conv = torch.cat([cache["conv"][:, 1:], xbc_new[:, None].to(cache["conv"].dtype)], dim=1)
+        conv = conv + past[:, i].float() * w[i].float()
+    new_conv = torch.cat([past[:, 1:], xbc_new[:, None].to(past.dtype)], dim=1)
+    if c_loc < cfg.ssm_conv_dim:
+        new_conv = new_conv[..., lm.model_rank * c_loc:(lm.model_rank + 1) * c_loc]
     xbc = F.silu(conv).to(x.dtype)
     xh = xbc[..., :di].reshape(b, h, hd)
     Bm = xbc[..., di:di + g * n].reshape(b, g, n)
     Cm = xbc[..., di + g * n:].reshape(b, g, n)
+    if split:
+        r = lm.model_rank
+        xh, dtp = xh[:, r * h_loc:(r + 1) * h_loc], dtp[:, r * h_loc:(r + 1) * h_loc]
+        z = z[:, r * h_loc * hd:(r + 1) * h_loc * hd]
     dt = F.softplus(dtp.float() + p["dt_bias"])  # (B, H)
     A = -torch.exp(p["A_log"])
     state, y = ops.ssd_decode_step(cache["state"], xh, dt, A, Bm, Cm)
-    out = _gated_out(cfg, p, y, xh, z)[:, None, :]
+    out = _gated_out(cfg, p, y, xh, z, lm, split)[:, None, :]
     return out, {"state": state, "conv": new_conv}

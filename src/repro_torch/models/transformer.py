@@ -38,6 +38,7 @@ over "model" with their collectives explicit (``LocalMesh``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Dict, List, Optional
@@ -170,47 +171,54 @@ class DenseBlock(_Block):
                                     window=self._window(cfg), impl=impl)
         return self._mlp_aux(cfg, p, x, lm)
 
-    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
+    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None, lm=None):
+        """-> (x, the layer's cache); inside a serving block map (``lm``) the
+        cache is whole on "model" (every kv head under ``serve_rules``) and
+        the rank's rows: ``Model`` keeps each rank's block of it."""
         h = apply_norm(cfg, x, p["ln_attn"])
         w = self._window(cfg)
-        y, (k, v) = attn.self_attention(cfg, p["attn"], h, causal=self.causal, window=w,
+        y, (k, v) = attn.self_attention(cfg, p["attn"], h, lm=lm, causal=self.causal, window=w,
                                         return_kv=True, impl=impl)
-        x = self._mlp(cfg, p, x + y)
+        x = self._mlp(cfg, p, x + y, lm)
         return x, attn.pack_kv_cache(cfg, k, v, max_len=max_len, window=w)
 
-    def decode(self, cfg, p, x, cache, pos, impl="auto"):
+    def decode(self, cfg, p, x, cache, pos, impl="auto", lm=None, seq_split=False):
+        """One token against the layer's cache, in place; ``seq_split``: the
+        cache is this rank's slice of S (``self_attention_decode``)."""
         h = apply_norm(cfg, x, p["ln_attn"])
         y, cache = attn.self_attention_decode(cfg, p["attn"], h, cache, pos,
-                                              window=self._window(cfg), impl=impl)
-        return self._mlp(cfg, p, x + y), cache
+                                              window=self._window(cfg), impl=impl, lm=lm,
+                                              seq_split=bool(seq_split))
+        return self._mlp(cfg, p, x + y, lm), cache
 
     @classmethod
     def decode_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None,
-                     block_pages=None):
+                     block_pages=None, lm=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         y, _ = attn.self_attention_decode_paged(
             cfg, p["attn"], h, cache, block_tables, context_lens, kv_spec=kv_spec,
-            block_pages=block_pages,
+            block_pages=block_pages, lm=lm,
         )
-        return cls._mlp(cfg, p, x + y)
+        return cls._mlp(cfg, p, x + y, lm)
 
     @classmethod
     def prefill_chunk_paged(cls, cfg, p, x, cache, block_tables, write_tables,
-                            cursors, n_new, kv_spec=None):
+                            cursors, n_new, kv_spec=None, lm=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         y, _ = attn.self_attention_prefill_chunk_paged(
             cfg, p["attn"], h, cache, block_tables, write_tables, cursors, n_new,
-            kv_spec=kv_spec,
+            kv_spec=kv_spec, lm=lm,
         )
-        return cls._mlp(cfg, p, x + y)
+        return cls._mlp(cfg, p, x + y, lm)
 
     @classmethod
-    def verify_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None):
+    def verify_paged(cls, cfg, p, x, cache, block_tables, context_lens, kv_spec=None,
+                     lm=None):
         h = apply_norm(cfg, x, p["ln_attn"])
         y, _ = attn.self_attention_verify_paged(
-            cfg, p["attn"], h, cache, block_tables, context_lens, kv_spec=kv_spec,
+            cfg, p["attn"], h, cache, block_tables, context_lens, kv_spec=kv_spec, lm=lm,
         )
-        return cls._mlp(cfg, p, x + y)
+        return cls._mlp(cfg, p, x + y, lm)
 
 
 class MoEBlock(DenseBlock):
@@ -266,14 +274,15 @@ class SSMBlock(_Block):
                                      impl=impl), 0.0
 
     @staticmethod
-    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
+    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None, lm=None):
         h = apply_norm(cfg, x, p["ln"])
-        y, cache = ssm_mod.apply_ssm(cfg, p["ssm"], h, return_state=True, impl=impl)
+        y, cache = ssm_mod.apply_ssm(cfg, p["ssm"], h, lm=lm, return_state=True, impl=impl)
         return x + y, cache
 
     @staticmethod
-    def decode(cfg, p, x, cache, pos, impl="auto"):
-        y, new = ssm_mod.apply_ssm_decode(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), cache, pos)
+    def decode(cfg, p, x, cache, pos, impl="auto", lm=None, seq_split=None):
+        y, new = ssm_mod.apply_ssm_decode(cfg, p["ssm"], apply_norm(cfg, x, p["ln"]), cache, pos,
+                                          lm=lm)
         for name, t in new.items():
             cache[name].copy_(t)
         return x + y, cache
@@ -309,16 +318,16 @@ class RecBlock(_Block):
         return DenseBlock._mlp(cfg, p, x, lm), 0.0
 
     @staticmethod
-    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
+    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None, lm=None):
         h = apply_norm(cfg, x, p["ln_rec"])
-        y, cache = rg_mod.apply_rglru(cfg, p["rec"], h, return_state=True, impl=impl)
-        return DenseBlock._mlp(cfg, p, x + y), cache
+        y, cache = rg_mod.apply_rglru(cfg, p["rec"], h, lm=lm, return_state=True, impl=impl)
+        return DenseBlock._mlp(cfg, p, x + y, lm), cache
 
     @staticmethod
-    def decode(cfg, p, x, cache, pos, impl="auto"):
+    def decode(cfg, p, x, cache, pos, impl="auto", lm=None, seq_split=None):
         h = apply_norm(cfg, x, p["ln_rec"])
-        y, cache = rg_mod.apply_rglru_decode(cfg, p["rec"], h, cache, pos)
-        return DenseBlock._mlp(cfg, p, x + y), cache
+        y, cache = rg_mod.apply_rglru_decode(cfg, p["rec"], h, cache, pos, lm=lm)
+        return DenseBlock._mlp(cfg, p, x + y, lm), cache
 
 
 class RGGroup(_Block):
@@ -346,15 +355,16 @@ class RGGroup(_Block):
             x, _ = blk.local(cfg, p[name], x, lm, impl)
         return x, 0.0
 
-    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
+    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None, lm=None):
         caches = {}
         for name, blk in self.PARTS:
-            x, caches[name] = blk.prefill(cfg, p[name], x, max_len=max_len, impl=impl)
+            x, caches[name] = blk.prefill(cfg, p[name], x, max_len=max_len, impl=impl, lm=lm)
         return x, caches
 
-    def decode(self, cfg, p, x, cache, pos, impl="auto"):
+    def decode(self, cfg, p, x, cache, pos, impl="auto", lm=None, seq_split=None):
         for name, blk in self.PARTS:
-            x, _ = blk.decode(cfg, p[name], x, cache[name], pos, impl=impl)
+            x, _ = blk.decode(cfg, p[name], x, cache[name], pos, impl=impl, lm=lm,
+                              seq_split=(seq_split or {}).get(name))
         return x, cache
 
 
@@ -399,25 +409,29 @@ class DecBlock(_Block):
         return DenseBlock._mlp(cfg, p, x, lm), 0.0
 
     @staticmethod
-    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None):
+    def prefill(cfg, p, x, max_len=None, impl="auto", ctx=None, lm=None):
         h = apply_norm(cfg, x, p["ln_self"])
-        y, (k, v) = attn.self_attention(cfg, p["self"], h, return_kv=True, impl=impl)
+        y, (k, v) = attn.self_attention(cfg, p["self"], h, lm=lm, return_kv=True, impl=impl)
         x = x + y
         h = apply_norm(cfg, x, p["ln_cross"])
-        y, (ck, cv) = attn.cross_attention(cfg, p["cross"], h, ctx, return_kv=True, impl=impl)
-        return DenseBlock._mlp(cfg, p, x + y), {
+        y, (ck, cv) = attn.cross_attention(cfg, p["cross"], h, ctx, lm=lm, return_kv=True,
+                                           impl=impl)
+        return DenseBlock._mlp(cfg, p, x + y, lm), {
             "self": attn.pack_kv_cache(cfg, k, v, max_len=max_len),
             "cross": _cross_cache(cfg, ck, cv)}
 
     @staticmethod
-    def decode(cfg, p, x, cache, pos, impl="auto"):
+    def decode(cfg, p, x, cache, pos, impl="auto", lm=None, seq_split=None):
+        sp = seq_split or {}
         h = apply_norm(cfg, x, p["ln_self"])
-        y, _ = attn.self_attention_decode(cfg, p["self"], h, cache["self"], pos, impl=impl)
+        y, _ = attn.self_attention_decode(cfg, p["self"], h, cache["self"], pos, impl=impl, lm=lm,
+                                          seq_split=bool(sp.get("self")))
         x = x + y
         h = apply_norm(cfg, x, p["ln_cross"])
         kv = (cache["cross"]["k"], cache["cross"]["v"])
-        x = x + attn.cross_attention_decode(cfg, p["cross"], h, kv, impl=impl)
-        return DenseBlock._mlp(cfg, p, x), cache
+        x = x + attn.cross_attention_decode(cfg, p["cross"], h, kv, impl=impl, lm=lm,
+                                            seq_split=bool(sp.get("cross")))
+        return DenseBlock._mlp(cfg, p, x, lm), cache
 
 
 def _stack_specs(specs, n: int):
@@ -476,23 +490,27 @@ class VisGroup(_Block):
         y = attn.cross_attention(cfg, p["cross"], h, ctx, lm=lm, impl=impl)
         return self._gated(cfg, p, x, y, lm), 0.0
 
-    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None):
+    def prefill(self, cfg, p, x, max_len=None, impl="auto", ctx=None, lm=None):
         caches = []
         for pl in p["self"]:
-            x, c = self.DENSE.prefill(cfg, pl, x, max_len=max_len, impl=impl)
+            x, c = self.DENSE.prefill(cfg, pl, x, max_len=max_len, impl=impl, lm=lm)
             caches.append(c)
         h = apply_norm(cfg, x, p["ln_cross"])
-        y, (ck, cv) = attn.cross_attention(cfg, p["cross"], h, ctx, return_kv=True, impl=impl)
-        return self._gated(cfg, p, x, y), {"self": _stack(caches),
-                                          "cross": _cross_cache(cfg, ck, cv)}
+        y, (ck, cv) = attn.cross_attention(cfg, p["cross"], h, ctx, lm=lm, return_kv=True,
+                                           impl=impl)
+        return self._gated(cfg, p, x, y, lm), {"self": _stack(caches),
+                                              "cross": _cross_cache(cfg, ck, cv)}
 
-    def decode(self, cfg, p, x, cache, pos, impl="auto"):
+    def decode(self, cfg, p, x, cache, pos, impl="auto", lm=None, seq_split=None):
+        sp = seq_split or {}
         for i, pl in enumerate(p["self"]):
-            x, _ = self.DENSE.decode(cfg, pl, x, _layer(cache["self"], i), pos, impl=impl)
+            x, _ = self.DENSE.decode(cfg, pl, x, _layer(cache["self"], i), pos, impl=impl, lm=lm,
+                                     seq_split=sp.get("self"))
         h = apply_norm(cfg, x, p["ln_cross"])
         kv = (cache["cross"]["k"], cache["cross"]["v"])
-        return self._gated(cfg, p, x, attn.cross_attention_decode(cfg, p["cross"], h, kv,
-                                                                  impl=impl)), cache
+        y = attn.cross_attention_decode(cfg, p["cross"], h, kv, impl=impl, lm=lm,
+                                        seq_split=bool(sp.get("cross")))
+        return self._gated(cfg, p, x, y, lm), cache
 
 
 KINDS = {
@@ -572,6 +590,33 @@ def _layer(tree, l: int):
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
     return tree[l]
+
+
+def _seq_splits(tree):
+    """For a DTensor cache tree: each {"k", "v"} dict -> whether its S dim
+    (the second last) is split over "model" (the sharded decode applies),
+    any other leaf -> None."""
+    from repro_torch.core.distributed import is_split
+
+    if isinstance(tree, dict):
+        if set(tree) == {"k", "v"} and not isinstance(tree["k"], dict):
+            return is_split(tree["k"], tree["k"].dim() - 2)
+        return {n: _seq_splits(t) for n, t in tree.items()}
+    return None
+
+
+@contextlib.contextmanager
+def _on_mesh(shard):
+    """Where serving runs on ``shard``'s mesh: no grad, and plain tensors
+    mixed with DTensors (RoPE tables, the gemma scale, masks) read as
+    replicated. Nothing off a mesh."""
+    if shard.mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with torch.no_grad(), implicit_replication():
+        yield
 
 
 def _stack(layers: List[Dict]) -> Dict:
@@ -684,6 +729,8 @@ class Model:
         cfg = self.cfg
         if cfg.family == "encdec":
             frames = batch["frames"]
+            if shard.mesh is not None:  # a serving batch, whole on every rank
+                frames = shard.place(frames, "batch", None, None)
             x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
                                      frames.device).to(frames.dtype)[None]
             enc_cfg = dataclasses.replace(cfg, mlp_act="gelu")
@@ -746,9 +793,144 @@ class Model:
         loss = cross_entropy(logits, labels, batch.get("mask"))
         return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
+    # ---- serving on a mesh ------------------------------------------------------------
+    def _head_mesh(self, params, x, shard, last=None, index=None):
+        """The final norm and the LM head in one block map on ``shard``'s mesh,
+        the logits gathered whole: the vocab's blocks over "model" inside the
+        map, the batch's shards after it (``full_tensor``), so the sampler,
+        ``top_logprobs`` and ``record_logits`` read whole (B, T', Vp) rows,
+        a plain tensor, the same on every rank. ``last``: the one row of T
+        read (an int); ``index`` (B,): each row's own (a whole-batch
+        tensor)."""
+        from .attention import _rows
+
+        cfg = self.cfg
+        hp = {"final_norm": params["final_norm"], "embed": params["embed"]}
+
+        def body(lm, x_, p_):
+            if last is not None:
+                x_ = x_[:, last:last + 1]
+            elif index is not None:
+                rows = torch.arange(x_.shape[0], device=x_.device)
+                x_ = x_[rows, _rows(lm, index).long()][:, None]
+            h = apply_norm(cfg, x_, p_["final_norm"])
+            w = p_["embed"]["embedding"].t() if cfg.tie_embeddings else p_["embed"]["lm_head"]
+            logits = torch.matmul(h, w.to(h.dtype))
+            if logits.shape[-1] < cfg.vocab_padded:
+                logits = lm.gather(logits.contiguous(), logits.dim() - 1)
+            vp = logits.shape[-1]
+            if vp != cfg.vocab:
+                mask = torch.arange(vp, device=logits.device) < cfg.vocab
+                logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+            return logits
+
+        return block_map(body, shard.mesh, x, hp).full_tensor()
+
+    def _mapped_serve(self, blk, p, x, shard, body, ctx=None):
+        """``body(lm, x_local, p_local[, ctx_local])`` of one layer of ``blk``
+        in one block map under no grad, its layout kept (``_layout``)."""
+        extras = (ctx,) if blk.USES_CTX and ctx is not None else ()
+        return block_map(body, shard.mesh, x, p, extras,
+                         layout=_layout(blk, self.cfg, p, x, shard))
+
+    def _cache_layout(self, blk, x, shard):
+        """(cut, place) for a program entry's caches on ``shard``'s mesh. A
+        serving block map computes each layer's cache whole on "model" and
+        holding the rank's rows; ``cut(cache)`` keeps the rank's block of it
+        as the rules lay out its specs' logical axes (the dense cache its
+        slice of S over "model" where S divides it, an SSM state its heads,
+        an RG-LRU state its columns), layer by layer, so no layer's whole
+        cache outlives its map; ``place(per_layer)`` stacks the blocks and
+        wraps them as DTensors with a leading layer dim."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        from repro_torch.core.distributed import is_spec
+        from repro_torch.core.tree import tree_map
+
+        mesh, rules = shard.mesh, shard.rules
+        count = 1
+        for i, pl in enumerate(x.placements):
+            if isinstance(pl, Shard) and pl.dim == 0:
+                count *= mesh.size(i)
+        coord = mesh.get_coordinate()
+        axes_of = blk.cache_specs(self.cfg, count, 1)  # the logical axes; shapes from the tensors
+        shapes = {}
+
+        def cut(spec, t):
+            axes = spec.axes
+            shape = list(t.shape)
+            shape[axes.index("batch")] *= count
+            shapes[id(spec)] = shape
+            for i, pl in enumerate(rules.placements(axes, shape, mesh)):
+                if isinstance(pl, Shard) and axes[pl.dim] != "batch":
+                    n = t.shape[pl.dim] // mesh.size(i)
+                    t = t.narrow(pl.dim, coord[i] * n, n)
+            return t.contiguous()
+
+        def place(per_layer, batch: int, seq: int):
+            if per_layer:
+                stacked = _stack(per_layer)
+            else:  # an entry of no layers keeps its empty (0, ...) cache
+                one = self._zeros(blk.cache_specs(self.cfg, batch // count, seq), 1)
+                stacked = tree_map(lambda t: t[None][:0],
+                                   tree_map(cut, axes_of, tree_map(lambda t: t[0], one),
+                                            is_leaf=is_spec))
+
+            def wrap(spec, t):
+                shape = [len(per_layer)] + shapes[id(spec)]
+                pls = rules.placements(("layers",) + spec.axes, shape, mesh)
+                strides = [1] * len(shape)
+                for d in range(len(shape) - 2, -1, -1):
+                    strides[d] = strides[d + 1] * shape[d + 1]
+                return DTensor.from_local(t, mesh, pls, run_check=False,
+                                          shape=torch.Size(shape), stride=tuple(strides))
+
+            return tree_map(wrap, axes_of, stacked, is_leaf=is_spec)
+
+        return (lambda cache: tree_map(cut, axes_of, cache, is_leaf=is_spec)), place
+
+    def _prefill_mesh(self, params, tokens, ctx, max_len, last_index, attn_impl, shard):
+        cfg = self.cfg
+        tokens = shard.place(tokens, "batch", None)
+        x = self._embed(params, tokens)
+        seq = max_len or tokens.shape[1]
+        caches = []
+        for blk, layers in self._program(params):
+            per_layer = []
+            cut, place = self._cache_layout(blk, x, shard)
+            for p in layers:
+                def body(lm, x_, p_, *c, blk=blk):
+                    y, cache = blk.prefill(cfg, p_, x_, max_len=max_len, impl=attn_impl,
+                                           ctx=c[0] if c else None, lm=lm)
+                    per_layer.append(cut(cache))
+                    return y
+
+                x = self._mapped_serve(blk, p, x, shard, body, ctx)
+            caches.append(place(per_layer, tokens.shape[0], seq))
+        last = tokens.shape[1] - 1 if last_index is None else int(last_index)
+        return self._head_mesh(params, x, shard, last=last), caches
+
+    def _decode_mesh(self, params, caches, tokens, pos, attn_impl, shard):
+        from repro_torch.core.distributed import local_tensor
+        from repro_torch.core.tree import tree_map
+
+        cfg = self.cfg
+        x = self._embed(params, shard.place(tokens[:, None], "batch", None))
+        for (blk, layers), cache in zip(self._program(params), caches):
+            splits = _seq_splits(cache)
+            loc = tree_map(local_tensor, cache)
+            for l, p in enumerate(layers):
+                def body(lm, x_, p_, blk=blk, c=_layer(loc, l)):
+                    return blk.decode(cfg, p_, x_, c, pos, impl=attn_impl, lm=lm,
+                                      seq_split=splits)[0]
+
+                x = self._mapped_serve(blk, p, x, shard, body)
+        return self._head_mesh(params, x, shard)[:, 0], caches
+
     # ---- serving ---------------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor, *, ctx=None, batch_inputs=None,
-                max_len: Optional[int] = None, last_index=None, attn_impl: str = "auto"):
+                max_len: Optional[int] = None, last_index=None, attn_impl: str = "auto",
+                shard=NULL_SHARDER):
         """tokens (B, S) -> (logits (B, 1, Vp), caches). The logits are read at
         ``last_index`` (default: the last column) — the engine right-pads
         prompts to whole pages; leave it None for the SSM family, whose final
@@ -756,7 +938,22 @@ class Model:
         {"k", "v": (L, B, Hkv, max_len, Dh)} (dense) or {"state", "conv"} (ssm),
         {"self", "cross"} (dec, vis_group). ``ctx`` is the cross-attention
         context; without it, ``batch_inputs`` ({"frames"} or
-        {"image_embeds"}) goes through ``encode_ctx`` first."""
+        {"image_embeds"}) goes through ``encode_ctx`` first.
+
+        On a mesh (``shard`` a Sharder, params the DTensor tree
+        ``tree_distribute`` lays out by its rules; tokens and the context
+        whole on every rank) the batch is placed over its axes, each layer
+        runs in one block map under no grad (``_prefill_mesh``), the caches
+        come back as DTensors laid out by the rules' cache axes (under
+        ``serve_rules`` the dense cache split along S over "model" where S
+        divides it, the scan states by heads or columns) and the logits
+        whole on every rank (``_head_mesh``)."""
+        if shard.mesh is not None:
+            with _on_mesh(shard):
+                if ctx is None and batch_inputs is not None:
+                    ctx = self.encode_ctx(params, batch_inputs, attn_impl=attn_impl, shard=shard)
+                return self._prefill_mesh(params, tokens, shard.place(ctx, "batch", None, None),
+                                          max_len, last_index, attn_impl, shard)
         if ctx is None and batch_inputs is not None:
             ctx = self.encode_ctx(params, batch_inputs, attn_impl=attn_impl)
         x = self._embed(params, tokens)
@@ -779,16 +976,25 @@ class Model:
         return logits, caches
 
     def decode_step(self, params, caches, tokens: torch.Tensor, pos, *,
-                    attn_impl: str = "auto"):
+                    attn_impl: str = "auto", shard=NULL_SHARDER):
         """One token per row against the dense-cache state prefill returned:
         tokens (B,) at position ``pos`` (an int or a one-element integer
         tensor on the model's device, the same for every row). The caches are
         updated in place and returned. An int ``pos`` at or past the capacity of
         a dense cache without a window raises ValueError. -> (logits (B, Vp),
-        caches)."""
+        caches).
+
+        On a mesh (``shard``; params and the caches ``prefill(shard=)``
+        returned, tokens whole on every rank) each layer runs in one block
+        map on the cache's local tensors (written in place): a dense cache
+        split along S takes the sharded decode (``self_attention_decode``'s
+        ``seq_split``). The logits come back whole on every rank."""
         if not isinstance(pos, torch.Tensor):
             pos = attn.DecodePos(int(pos), torch.full((1,), int(pos), dtype=torch.int32,
                                                       device=self.device))
+        if shard.mesh is not None:
+            with _on_mesh(shard):
+                return self._decode_mesh(params, caches, tokens, pos, attn_impl, shard)
         x = self._embed(params, tokens[:, None])
         for (blk, layers), cache in zip(self._program(params), caches):
             for l, p in enumerate(layers):
@@ -799,7 +1005,7 @@ class Model:
                           block_tables: torch.Tensor, context_lens: torch.Tensor, *,
                           kv_spec=None, write_tables=None, n_new=None,
                           last_index=None, active=None, spec_verify: bool = False,
-                          block_pages=None):
+                          block_pages=None, shard=NULL_SHARDER):
         """The mixed serving step; the page pools in ``caches`` are updated in
         place and returned.
 
@@ -829,6 +1035,13 @@ class Model:
         ``block_pages`` (decode only) is the tuned decode block-shape knob,
         forwarded to the paged decode attention (None = unblocked).
 
+        On a mesh (``shard``; params DTensors, everything else whole on every
+        rank, the pools each rank's copy of the whole pools, as
+        ``serve_rules`` lay them out) each layer runs in one block map:
+        every rank writes every row's K/V into its pools and attends its own
+        rows (the batch split over its axes) with q's heads gathered; the
+        logits come back whole on every rank.
+
         Returns (logits (B, Vp), caches)."""
         self._paged_only_dense()
         cfg = self.cfg
@@ -837,24 +1050,43 @@ class Model:
             on = active > 0
             block_tables = torch.where(on[:, None], block_tables, torch.zeros_like(block_tables))
             context_lens = torch.where(on, context_lens, torch.zeros_like(context_lens))
-        x = self._embed(params, tokens if tokens.dim() == 2 else tokens[:, None])
-        pool = caches[0]
+        with _on_mesh(shard):
+            return self._paged_layers(params, caches, tokens, block_tables, context_lens,
+                                      kv_spec, write_tables, n_new, last_index, spec_verify,
+                                      block_pages, shard)
+
+    def _paged_layers(self, params, caches, tokens, block_tables, context_lens, kv_spec,
+                      write_tables, n_new, last_index, spec_verify, block_pages, shard):
+        """``decode_step_paged``'s layers and head, each layer in one block
+        map on a mesh (its body the same call with the map's ``lm``)."""
+        cfg = self.cfg
+        chunk = tokens.dim() == 2 and not spec_verify
+        mapped = shard.mesh is not None
+        x = tokens if tokens.dim() == 2 else tokens[:, None]
+        x = self._embed(params, shard.place(x, "batch", None) if mapped else x)
         blk = KINDS[block_program(cfg)[0][0]]
-        for l, p in enumerate(params["blocks"][0]):
-            cache = _layer(pool, l)
+
+        def layer(lm, x_, p_, cache):
             if spec_verify:
-                x = blk.verify_paged(cfg, p, x, cache, block_tables, context_lens,
-                                     kv_spec=kv_spec)
-            elif chunk:
-                x = blk.prefill_chunk_paged(
-                    cfg, p, x, cache, block_tables, write_tables, context_lens, n_new,
-                    kv_spec=kv_spec,
-                )
+                return blk.verify_paged(cfg, p_, x_, cache, block_tables, context_lens,
+                                        kv_spec=kv_spec, lm=lm)
+            if chunk:
+                return blk.prefill_chunk_paged(cfg, p_, x_, cache, block_tables, write_tables,
+                                               context_lens, n_new, kv_spec=kv_spec, lm=lm)
+            return blk.decode_paged(cfg, p_, x_, cache, block_tables, context_lens,
+                                    kv_spec=kv_spec, block_pages=block_pages, lm=lm)
+
+        for l, p in enumerate(params["blocks"][0]):
+            cache = _layer(caches[0], l)
+            if mapped:
+                x = self._mapped_serve(blk, p, x, shard,
+                                       lambda lm, x_, p_, c=cache: layer(lm, x_, p_, c))
             else:
-                x = blk.decode_paged(
-                    cfg, p, x, cache, block_tables, context_lens, kv_spec=kv_spec,
-                    block_pages=block_pages,
-                )
+                x = layer(None, x, p, cache)
+        if mapped:
+            # the head's block map reads each row's requested position itself
+            logits = self._head_mesh(params, x, shard, index=last_index if chunk else None)
+            return (logits if spec_verify else logits[:, 0]), caches
         if spec_verify:
             # row j of the window decides draft j + 1 (the last row the bonus)
             return self._head(params, x), caches

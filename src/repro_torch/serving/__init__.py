@@ -15,6 +15,7 @@ from .params import (
 )
 from .sampling import GREEDY, SamplingParams, stream_seed
 from .step import (
+    distribute_params,
     make_chunked_prefill_step,
     make_paged_serve_multistep,
     make_paged_serve_step,
@@ -34,6 +35,7 @@ __all__ = [
     "SamplingParams",
     "Sequence",
     "TokenDFA",
+    "distribute_params",
     "fixed_json_array_dfa",
     "json_array_dfa",
     "make_chunked_prefill_step",

@@ -252,12 +252,47 @@ def _top_pairs(vals: np.ndarray, ids: np.ndarray, n: int) -> List[Tuple[int, flo
     return [(int(t), float(v)) for t, v in zip(ids[:n], vals[:n])]
 
 
+def _check_pools_whole(model, cache, mesh, rules) -> None:
+    """The engine keeps each rank's pools as plain tensors holding the whole
+    pools, as ``serve_rules`` lay them out (kv_heads replicated): rules that
+    would split a pool are refused by name."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core.distributed import is_placements, tree_shardings
+    from repro_torch.core.tree import tree_leaves_with_path
+
+    specs = model.paged_cache_specs(cache.num_pages, cache.page_size, kv_spec=cache.kv_spec)
+    for path, pl in tree_leaves_with_path(tree_shardings(specs, mesh, rules),
+                                          is_leaf=is_placements):
+        if any(isinstance(p, Shard) for p in pl):
+            raise NotImplementedError(
+                f"page pool leaf {'/'.join(map(str, path))} would be split by these rules "
+                f"({pl}); the engine serves on a mesh with whole pools (serve_rules)")
+
+
 class ServeEngine:
-    def __init__(self, model, params, config: EngineConfig = EngineConfig(), device=None):
+    def __init__(self, model, params, config: EngineConfig = EngineConfig(), device=None,
+                 mesh=None, rules=None):
+        """``mesh`` and ``rules`` (``launch.serve_rules``) serve on a mesh:
+        every rank runs this engine loop on the same requests, seeds and
+        scheduling, so each makes the same host decisions; ``params`` (a
+        tree every rank holds whole, or already ``distribute_params``'s
+        DTensors) are laid out by the rules, each step runs on the mesh
+        (``Model.decode_step_paged(shard=)``) and returns the logits whole,
+        and the page pools are each rank's plain copy of the whole pools, as
+        ``serve_rules`` lay them out (their kv_heads replicated: rules that
+        split a pool are refused)."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
         self.model = model
+        self.mesh, self.rules = mesh, rules
+        if mesh is not None:
+            from repro_torch.core.distributed import is_dtensor, tree_leaves
+            from repro_torch.serving.step import distribute_params
+
+            if not any(is_dtensor(t) for t in tree_leaves(params)):
+                params = distribute_params(model, params, mesh, rules)
         self.params = params
         # autotune resolves the block shapes before the pool is sized: a
         # deferred page_size materializes here; a table hit is a file read
@@ -284,6 +319,8 @@ class ServeEngine:
             host_pool_pages=config.host_pool_pages,
             swap_budget_pages_per_step=config.swap_budget_pages_per_step,
         )
+        if mesh is not None:
+            _check_pools_whole(model, self.cache, mesh, rules)
         self.scheduler = Scheduler(
             self.cache, SchedulerConfig(config.max_batch, config.watermark_pages)
         )
@@ -331,15 +368,17 @@ class ServeEngine:
             self._grammar_used = 0
         kv_spec = self.cache.kv_spec
         block_pages = config.decode_block_pages or None
+        on_mesh = dict(mesh=mesh, rules=rules)
         self._step = make_paged_serve_step(model, kv_spec, logprobs_k=self._lp_k,
-                                           grammar=self._grammar_on, block_pages=block_pages)
+                                           grammar=self._grammar_on, block_pages=block_pages,
+                                           **on_mesh)
         # recording needs every step's rows on the host, so it forces K = 1
         self._k = 1 if config.record_logits else int(config.multi_step)
         if self._k > 1:
             self._multistep = make_paged_serve_multistep(model, self._k, kv_spec,
                                                          logprobs_k=self._lp_k,
                                                          grammar=self._grammar_on,
-                                                         block_pages=block_pages)
+                                                         block_pages=block_pages, **on_mesh)
         # speculative decoding (serving/speculative.py): the window step is a
         # sibling of the multistep, plus the proposer's two per-slot device
         # arrays (hist, table), updated in place by each window; rows are
@@ -357,6 +396,7 @@ class ServeEngine:
             )
             self._spec_step = make_paged_serve_spec_multistep(
                 model, self._spec_windows, self._proposer, kv_spec, logprobs_k=self._lp_k,
+                **on_mesh,
             )
             b = config.max_batch
             self._hist_dev = torch.zeros((b, hist_len), dtype=torch.int32, device=self.device)
@@ -374,7 +414,7 @@ class ServeEngine:
             self._c_spec_accepted = self.registry.counter("spec_accepted_tokens")
             self._c_spec_hits = self.registry.counter("spec_draft_hits")
             self._c_spec_rollback = self.registry.counter("spec_rollback_tokens")
-        self._prefill = make_prefill(model)
+        self._prefill = make_prefill(model, **on_mesh)
         # per-slot device vectors for the fused step: fed-back tokens + the
         # packed policy/phase arrays (slot_f32 (2, B): temperature, top_p;
         # slot_i32 (3, B): active, top_k, seed bits). Re-uploaded only when
@@ -397,7 +437,7 @@ class ServeEngine:
                     f"chunk_tokens {self._chunk_tokens} must be a multiple of page_size "
                     f"{config.page_size} (chunk boundaries are page-aligned)"
                 )
-            self._chunk_step = make_chunked_prefill_step(model, self.cache.kv_spec)
+            self._chunk_step = make_chunked_prefill_step(model, self.cache.kv_spec, **on_mesh)
         self.results: Dict[int, RequestState] = {}
         self._next_rid = 0
         # rid -> {n: the logits row that produced generated[n]} (record_logits),
@@ -537,6 +577,10 @@ class ServeEngine:
             tokens = torch.tensor([list(ctx) + [0] * (padded - len(ctx))], dtype=torch.int32,
                                   device=self.device)
             logits, caches = self._prefill(self.params, tokens, last_index=len(ctx) - 1)
+            if self.mesh is not None:  # the prompt's K/V whole, for the whole pools
+                from repro_torch.core.distributed import tree_full
+
+                caches = tree_full(caches)
             self.cache.write_prefill(slot, caches)
             self.cache.set_len(slot, len(ctx))
             self._c_pf_computed.inc(padded)

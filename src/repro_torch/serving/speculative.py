@@ -211,7 +211,7 @@ class ModelDraftProposer(DraftProposer):
 
 
 def make_paged_serve_spec_multistep(model, windows: int, proposer, kv_spec=None,
-                                    logprobs_k: int = 0):
+                                    logprobs_k: int = 0, mesh=None, rules=None):
     """S speculative windows in one dispatch, the speculative sibling of
     step.make_paged_serve_multistep: a host loop of S windows with no
     device-to-host transfer inside it.
@@ -222,8 +222,14 @@ def make_paged_serve_spec_multistep(model, windows: int, proposer, kv_spec=None,
     (rollback: the rejected suffix is not covered), and folds the committed
     tokens into hist / table for the next window's proposal. Legal under the
     same event-free-horizon contract as the plain multistep, with
-    tokens_per_step = K + 1, and the window's pages reserved beforehand."""
+    tokens_per_step = K + 1, and the window's pages reserved beforehand. On a
+    mesh (``mesh``, ``rules``) every rank verifies on the whole logits and
+    draws the same acceptances; the windows stay free of device-to-host
+    transfers (the collectives are device work)."""
+    from repro_torch.models.layers import Sharder
+
     vocab = model.cfg.vocab
+    shard = Sharder(mesh, rules)
     c = proposer.spec_tokens + 1
 
     def spec_multistep(params, caches, tokens, block_tables, context_lens, slot_f32,
@@ -247,7 +253,7 @@ def make_paged_serve_spec_multistep(model, windows: int, proposer, kv_spec=None,
             present = torch.cat([toks[:, None], draft.to(toks.dtype)], dim=1)  # (B, C)
             logits, caches = model.decode_step_paged(
                 params, caches, present, block_tables, lens, kv_spec=kv_spec, active=active,
-                spec_verify=True,
+                spec_verify=True, shard=shard,
             )  # (B, C, Vp)
             tok_out, committed, lp = ops.verify_draft_tokens(
                 logits, draft, slot_f32[0], slot_i32[1], slot_f32[1], slot_i32[2], lens + 1,

@@ -26,18 +26,34 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import Sharder
 
 
-def make_serve_step(model, attn_impl: str = "auto"):
+def make_serve_step(model, mesh=None, rules=None, attn_impl: str = "auto"):
     """The dense-cache decode step (``Model.decode_step``): one token per row
-    against the caches ``make_prefill(model, max_len)`` returned."""
+    against the caches ``make_prefill(model, max_len)`` returned. With
+    ``mesh`` and ``rules`` (``launch.serve_rules``) the step runs on the
+    mesh (``Sharder(mesh, rules)``): params the DTensor tree
+    ``serving.distribute_params`` gives, the caches the DTensors the sharded
+    prefill returned, tokens whole on every rank; the logits come back
+    whole on every rank."""
+    shard = Sharder(mesh, rules)
 
     def serve_step(params, caches, tokens, pos):
         """tokens (B,) int; pos an int or a one-element int tensor -> (logits
         (B, Vp), caches updated in place)."""
-        return model.decode_step(params, caches, tokens, pos, attn_impl=attn_impl)
+        return model.decode_step(params, caches, tokens, pos, attn_impl=attn_impl, shard=shard)
 
     return serve_step
+
+
+def distribute_params(model, params, mesh, rules):
+    """A parameter tree every rank built alike (the same seed, or the same
+    checkpoint) laid onto ``mesh`` by ``rules`` on the model's specs: each
+    rank keeps its block (``core.distributed.tree_distribute``)."""
+    from repro_torch.core.distributed import tree_distribute
+
+    return tree_distribute(params, model.param_specs(), mesh, rules)
 
 
 def top_logprobs(logits: torch.Tensor, vocab: int, k: int):
@@ -50,7 +66,8 @@ def top_logprobs(logits: torch.Tensor, vocab: int, k: int):
 
 
 def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
-                  context_lens, slot_f32, slot_i32, sampled, grammar=None, block_pages=None):
+                  context_lens, slot_f32, slot_i32, sampled, grammar=None, block_pages=None,
+                  shard=Sharder()):
     """One fused decode iteration: append -> attend -> sample, on the device.
 
     slot_f32 (2, B): [temperature, top_p]; slot_i32 (3, B): [active, top_k,
@@ -71,7 +88,7 @@ def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
     active = slot_i32[0]
     logits, caches = model.decode_step_paged(
         params, caches, tokens, block_tables, context_lens, kv_spec=kv_spec, active=active,
-        block_pages=block_pages,
+        block_pages=block_pages, shard=shard,
     )
     mask = None
     if grammar is not None:
@@ -91,10 +108,13 @@ def _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
 
 
 def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: bool = False,
-                          block_pages: Optional[int] = None):
+                          block_pages: Optional[int] = None, mesh=None, rules=None):
     """The fused decode step over the engine's pools (``kv_spec``: their
-    quantized element representation, None for dense pages)."""
+    quantized element representation, None for dense pages). With ``mesh``
+    and ``rules`` it runs on the mesh (``Model.decode_step_paged(shard=)``):
+    the logits whole on every rank, so every rank samples the same ids."""
     vocab = model.cfg.vocab
+    shard = Sharder(mesh, rules)
 
     def fused_serve_step(params, caches, tokens, block_tables, context_lens, slot_f32,
                          slot_i32, *g, sampled: Optional[bool] = None):
@@ -107,7 +127,8 @@ def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: boo
         grammar][, (vals, ids) (B, logprobs_k) when logprobs_k])."""
         out = _fused_decode(model, kv_spec, vocab, params, caches, tokens, block_tables,
                             context_lens, slot_f32, slot_i32, sampled,
-                            grammar=tuple(g) if grammar else None, block_pages=block_pages)
+                            grammar=tuple(g) if grammar else None, block_pages=block_pages,
+                            shard=shard)
         if not logprobs_k:
             return out
         return out + (top_logprobs(out[1], vocab, logprobs_k),)
@@ -116,7 +137,8 @@ def make_paged_serve_step(model, kv_spec=None, logprobs_k: int = 0, grammar: boo
 
 
 def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: int = 0,
-                               grammar: bool = False, block_pages: Optional[int] = None):
+                               grammar: bool = False, block_pages: Optional[int] = None,
+                               mesh=None, rules=None):
     """K fused decode iterations in one dispatch: a host loop of K
     _fused_decode calls with no device-to-host transfer inside it (the
     reference's ``lax.scan``). Legal only over an event-free horizon
@@ -124,8 +146,11 @@ def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: in
     capacity, no CoW, no max-token finish within K, so the loop never needs
     the host. Each sampled token feeds the next iteration's embedding lookup,
     and the lengths and (with ``grammar``) the per-slot automaton states
-    advance on the device, as the reference's scan carry does."""
+    advance on the device, as the reference's scan carry does. On a mesh
+    (``mesh``, ``rules``) the collectives are device work: the loop still
+    makes no device-to-host transfer."""
     vocab = model.cfg.vocab
+    shard = Sharder(mesh, rules)
 
     def fused_multistep(params, caches, tokens, block_tables, context_lens, slot_f32,
                         slot_i32, *g, sampled: Optional[bool] = None):
@@ -143,6 +168,7 @@ def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: in
                 model, kv_spec, vocab, params, caches, tokens, block_tables, context_lens,
                 slot_f32, slot_i32, sampled,
                 grammar=(gstate, g[1], g[2]) if grammar else None, block_pages=block_pages,
+                shard=shard,
             )
             tokens, logits, context_lens, caches, lp = out[:5]
             if grammar:
@@ -163,7 +189,9 @@ def make_paged_serve_multistep(model, k_steps: int, kv_spec=None, logprobs_k: in
     return fused_multistep
 
 
-def make_chunked_prefill_step(model, kv_spec=None):
+def make_chunked_prefill_step(model, kv_spec=None, mesh=None, rules=None):
+    shard = Sharder(mesh, rules)
+
     def chunk_prefill_step(params, caches, tokens, block_tables, write_tables, cursors,
                            n_new, last_index):
         """One prefill chunk per row: tokens (B, C) -> (logits (B, Vp) at
@@ -171,20 +199,25 @@ def make_chunked_prefill_step(model, kv_spec=None):
         (shared prefix included), ``write_tables`` the write view."""
         return model.decode_step_paged(
             params, caches, tokens, block_tables, cursors, kv_spec=kv_spec,
-            write_tables=write_tables, n_new=n_new, last_index=last_index,
+            write_tables=write_tables, n_new=n_new, last_index=last_index, shard=shard,
         )
 
     return chunk_prefill_step
 
 
-def make_prefill(model, max_len: Optional[int] = None, attn_impl: str = "auto"):
+def make_prefill(model, mesh=None, rules=None, max_len: Optional[int] = None,
+                 attn_impl: str = "auto"):
     """Monolithic prefill; with ``max_len`` the dense caches are padded to it
     (the capacity ``make_serve_step`` decodes into). ``batch_inputs`` carries
     the encoder-decoder / vision context ({"frames"} or {"image_embeds"},
-    through ``Model.encode_ctx``), whose K/V the caches then hold."""
+    through ``Model.encode_ctx``), whose K/V the caches then hold. With
+    ``mesh`` and ``rules`` the prefill runs on the mesh: the caches come back
+    as DTensors laid out by the rules (``Model.prefill(shard=)``), the
+    logits whole on every rank."""
+    shard = Sharder(mesh, rules)
 
     def prefill(params, tokens, batch_inputs=None, last_index=None):
         return model.prefill(params, tokens, batch_inputs=batch_inputs, max_len=max_len,
-                             last_index=last_index, attn_impl=attn_impl)
+                             last_index=last_index, attn_impl=attn_impl, shard=shard)
 
     return prefill

@@ -971,6 +971,34 @@ def test_flash_decode_kernel_matches_plain(case, window, dtype):
             _assert_kernel_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("d,hq,hkv", [(64, 8, 2), (112, 64, 8), (128, 32, 8), (256, 10, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_lse_and_local_positions_match_plain(d, hq, hkv, dtype):
+    """The kv_seq-sharded decode's local step: flash_decode with its lse
+    output at a local position inside the slice, before it (negative: zeros
+    and lse -inf) and past it (every slot live), the position a tensor or an
+    int, against decode_attention_torch(return_lse=True); the output is
+    bit-equal to the decode without lse."""
+    from repro_torch.kernels import flash_attention as fa
+
+    s = 300
+    q, kc, vc = _rand((3, hq, 1, d), dtype, 21), _rand((3, hkv, s, d), dtype, 22), \
+        _rand((3, hkv, s, d), dtype, 23)
+    for pos, off in ((170, 0), (20, 100), (900, 0), (250, 300), (299, 299)):
+        for p in (pos, torch.tensor([pos], dtype=torch.int32, device="cuda")):
+            lse = torch.empty(3, hq, 1, dtype=torch.float32, device="cuda")
+            got = fa.flash_decode(q, kc, vc, p, key_offset=off, lse=lse)
+            want, want_lse = fa.decode_attention_torch(q, kc, vc, pos, key_offset=off,
+                                                       return_lse=True)
+            _assert_kernel_close(got, want, dtype)
+            dead = torch.isneginf(want_lse)
+            assert torch.equal(torch.isneginf(lse), dead)
+            torch.testing.assert_close(lse[~dead], want_lse[~dead], rtol=1e-5, atol=1e-5)
+            if bool(dead.all()):
+                assert torch.count_nonzero(got) == 0
+            assert torch.equal(fa.flash_decode(q, kc, vc, p, key_offset=off), got)
+
+
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
     from repro_torch.kernels import flash_attention as fa
 
@@ -2921,3 +2949,78 @@ def test_kernel_wrappers_refuse_a_dtensor(one_rank_group):
                  lambda: pa._check("q", q, ndim=4)):
         with pytest.raises(TypeError, match="local_map"):
             call()
+
+
+def _one_rank_serve(cfg):
+    from repro_torch.launch import serve_rules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(1, device_type="cuda"), serve_rules(cfg)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_mesh_windows_make_no_host_sync(one_rank_group, kv_dtype):
+    """On the (1, 1) mesh under serve_rules: the fused K = 4 window and S = 2
+    speculative windows make no device-to-host transfer inside the dispatch
+    (set_sync_debug_mode("error")), launch the paged kernels inside the
+    serving maps, and sample the one-device window's tokens."""
+    from repro_torch.serving import distribute_params
+    from repro_torch.serving.speculative import NGramProposer, make_paged_serve_spec_multistep
+    from repro_torch.serving.step import make_paged_serve_multistep
+
+    cfg, model, params, spec, caches, bt, lens, toks, f32, i32 = _smoke_serving_state(kv_dtype)
+    mesh, rules = _one_rank_serve(cfg)
+    pd = distribute_params(model, params, mesh, rules)
+    want = make_paged_serve_multistep(model, 4, spec)(params, _tree(torch.clone, caches), toks,
+                                                      bt, lens, f32, i32, sampled=True)
+    multi = make_paged_serve_multistep(model, 4, spec, mesh=mesh, rules=rules)
+    prop = NGramProposer(spec_tokens=4, ngram=2, table_size=64, vocab=cfg.vocab, hist_len=60)
+    spec_step = make_paged_serve_spec_multistep(model, 2, prop, spec, mesh=mesh, rules=rules)
+    hist = torch.zeros((4, 60), dtype=torch.int32, device="cuda")
+    table = torch.zeros((4, 65), dtype=torch.int32, device="cuda")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = multi(pd, _tree(torch.clone, caches), toks, bt, lens, f32, i32, sampled=True)
+        spec_step(pd, _tree(torch.clone, caches), toks, bt, lens, f32, i32, hist, table,
+                  sampled=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launch_counts()
+    decode = "paged_decode" if spec is None else "paged_decode_quant"
+    chunk = "paged_prefill_chunk" if spec is None else "paged_prefill_chunk_quant"
+    assert counts[decode] == 4 * cfg.n_layers and counts[chunk] == 2 * cfg.n_layers
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+
+
+def test_mesh_dense_serve_equals_the_one_device_serve(one_rank_group):
+    """make_prefill + make_serve_step on the (1, 1) mesh against the one-device
+    path, qwen2 smoke in f32 on the card: logits bit-equal (no collective runs,
+    the same kernels in the same order), flash_attention and flash_decode
+    launched inside the serving maps."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import distribute_params, make_prefill, make_serve_step
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    mesh, rules = _one_rank_serve(cfg)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 16)),
+                        device="cuda")
+    outs = []
+    for p, m, r in ((params, None, None), (distribute_params(model, params, mesh, rules), mesh,
+                                           rules)):
+        kernels.reset_launch_counts()
+        logits, caches = make_prefill(model, m, r, max_len=24)(p, toks)
+        step = make_serve_step(model, m, r)
+        seq = [logits[:, -1]]
+        for i in range(6):
+            nxt = torch.argmax(seq[-1][:, :cfg.vocab], dim=-1).to(torch.int32)
+            lg, caches = step(p, caches, nxt, 16 + i)
+            seq.append(lg)
+        outs.append(torch.stack(seq))
+        counts = kernels.launch_counts()
+        assert counts["flash_attention"] == cfg.n_layers
+        assert counts["flash_decode"] == 6 * cfg.n_layers
+    assert torch.equal(outs[0], outs[1])
