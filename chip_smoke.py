@@ -364,6 +364,19 @@ lines; any failure raises and exits non-zero:
                 merged against the unsplit kernel and the plain version,
                 with the device ms of one slice's step and of the whole's
                 (a seqshard_kernels line repeats them with the launches).
+  dryrun        the dry run (repro_torch.launch.dryrun) in subprocesses on
+                the host's CPU, on this machine's torch: its CLI for
+                llama3.2-1b train_4k on pod16x16 (rank 0 of a fake world of
+                256, traced at full depth, the two-probe fit beside it), its
+                JSON summary and trace seconds; and the (1, 1) cells of
+                train_sharded (llama3.2-1b, B 4 x 2048) and serve_sharded's
+                generate (B 8, 32768 slots), whose argument bytes by group
+                (params, moments, caches, inputs) must equal the local bytes
+                those phases handed their steps on the card, exactly; the
+                train cell's model flops (the traced matmuls, the attention's
+                T x T products counted for their causal live half) over
+                train_sharded's step p50: a model-flops utilisation against
+                the data sheet's 989e12.
   kernels line  {"kernels": [...]} with the numbers of each of the 18
                 kernels: the 15 that replace the reference's 15 Pallas
                 functions, flash_attention_bwd, which replaces its
@@ -409,6 +422,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4329,6 +4343,7 @@ def train_sharded_phase(smi, device="cuda", smoke=False, arch="llama3.2-1b"):
 def _train_sharded_cell(smi, device, smoke, arch, cell, batch, seq, reduced):
     from repro_torch import kernels
     from repro_torch.core.distributed import CollectiveCounter, DispatchCounter
+    from repro_torch.launch.dryrun import argument_bytes
     from repro_torch.runtime import RunConfig, TrainerLoop
 
     torch.cuda.empty_cache()
@@ -4339,12 +4354,13 @@ def _train_sharded_cell(smi, device, smoke, arch, cell, batch, seq, reduced):
                         ckpt_every=10 * cell["steps"], log_every=1, remat=True, device=device,
                         model_axis=SHARDED_W, final_save=cell["final_save"])
         loop = TrainerLoop(run)
-        step_fn, calls = loop.step_fn, []
+        step_fn, calls, args_bytes = loop.step_fn, [], {}
 
         def counted(*args):
             calls.append(None)
             if len(calls) != 2:
                 return step_fn(*args)
+            args_bytes.update(argument_bytes(args, ("params", "moments", "inputs")))
             with counter, dispatch:
                 return step_fn(*args)
 
@@ -4390,6 +4406,9 @@ def _train_sharded_cell(smi, device, smoke, arch, cell, batch, seq, reduced):
            "note": "one rank: the collectives run on a one-rank NCCL group and move no "
                    "bytes between ranks"}
     emit(rec)
+    if arch == "llama3.2-1b":
+        DRYRUN_CARD["train"] = {"batch": batch, "seq": seq, "step_ms_p50": p50 * 1e3,
+                                "argument_bytes_by_group": args_bytes}
     if not all(math.isfinite(x) for x in losses) or n != cell["steps"]:
         raise AssertionError(f"train_sharded {arch}: {n} steps, losses {losses}")
     if device == "cuda" and (not all(counts[k] for k in need) or any(plain.values())):
@@ -4778,6 +4797,7 @@ def serve_sharded_phase(smi, device="cuda", smoke=False):
     from repro_torch import kernels
     from repro_torch.core.distributed import CollectiveCounter, DispatchCounter
     from repro_torch.launch import serve_rules
+    from repro_torch.launch.dryrun import argument_bytes
     from repro_torch.serving import distribute_params
     from repro_torch.serving.engine import ServeEngine
 
@@ -4845,6 +4865,10 @@ def serve_sharded_phase(smi, device="cuda", smoke=False):
                                          mesh=mesh if on else None, rules=rules if on else None,
                                          slots=slots, state=st)
             step, caches, nxt, pos = st
+            if on and "decode" not in DRYRUN_CARD:
+                DRYRUN_CARD["decode"] = {
+                    "batch": b, "seq": slots, "argument_bytes_by_group": argument_bytes(
+                        (pd, caches, nxt, pos), ("params", "caches", "inputs", "inputs"))}
             counts = kernels.launch_counts()
             res[kind].append({"tokens": toks, "step_ms_p50": statistics.median(steps) * 1e3,
                               "launches": {k: counts[k] for k in GENERATE_PATH[:2]}})
@@ -4883,6 +4907,107 @@ def serve_sharded_phase(smi, device="cuda", smoke=False):
         del model, params, pd
         torch.cuda.empty_cache() if device == "cuda" else None
     return launches
+
+
+# =====================================================================================
+# phase: the dry run's cells beside the card's
+# =====================================================================================
+# the steps' argument bytes by group (rank 0's local tensors) and the cells'
+# dims, written by train_sharded (llama3.2-1b) and serve_sharded's generate
+DRYRUN_CARD = {}
+DRYRUN_TIMEOUT = 240  # seconds for the dry run's subprocesses together
+
+
+def train_model_flops(cost_keys, seq: int) -> float:
+    """A dense train step's model flops from its traced flops by op: the
+    plain attention (``kernels.flash_attention.attention_torch``) runs every
+    T x T score block as a bmm, the masked ones too, where the card's
+    kernels skip them; so its bmm flops count for the causal live share,
+    (T + 1) / 2T, and the projections' mm flops whole. The dense model's
+    only bmm are its attention's."""
+    causal = (seq + 1) / (2 * seq)
+    return sum(v * (causal if op == "bmm" else 1.0) for op, v in cost_keys.items())
+
+
+def dryrun_phase(smi):
+    """Three cells of the dry run, each in a subprocess on the host's CPU (no
+    card: ``CUDA_VISIBLE_DEVICES`` empty), at once: llama3.2-1b train_4k on
+    pod16x16 through the CLI (``--full``: traced at full depth, the probes'
+    fit beside it), and the (1, 1) cells of the train_sharded and
+    serve_sharded runs this script made on the card (DRYRUN_CARD). Their
+    argument bytes by group must equal the card's; any failed cell, or a
+    subprocess past DRYRUN_TIMEOUT, fails the phase."""
+    tr, dec = DRYRUN_CARD["train"], DRYRUN_CARD["decode"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--full"]
+    with tempfile.TemporaryDirectory() as d:
+        cmds = {
+            "pod16x16": base + ["--shape", "train_4k", "--mesh", "single", "--out", d],
+            "train_sharded": base + ["--shape", "train_4k", "--mesh-shape", "1x1", "--batch",
+                                     str(tr["batch"]), "--seq", str(tr["seq"]), "--out", d],
+            "serve_sharded": base + ["--shape", "decode_32k", "--mesh-shape", "1x1", "--batch",
+                                     str(dec["batch"]), "--seq", str(dec["seq"]), "--out", d],
+        }
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                 for k, c in cmds.items()}
+        logs, failed = {}, []
+        for k, p in procs.items():
+            try:
+                logs[k], _ = p.communicate(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t0),
+                                                       1))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs[k], _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(k)
+        wall = time.perf_counter() - t0
+        if failed:
+            raise AssertionError(f"dryrun: {failed} failed: "
+                                 f"{ {k: logs[k][-2000:] for k in failed} }")
+        cells = {k: json.loads(Path(d, name).read_text()) for k, name in (
+            ("pod16x16", "llama3.2-1b__train_4k__pod16x16.json"),
+            ("train_sharded", f"llama3.2-1b__train_4k_b{tr['batch']}_s{tr['seq']}__mesh1x1.json"),
+            ("serve_sharded",
+             f"llama3.2-1b__decode_32k_b{dec['batch']}_s{dec['seq']}__mesh1x1.json"))}
+    keys = ("world", "seconds", "figures_from", "flops", "bytes_accessed", "memory",
+            "argument_bytes_by_group", "collective_calls", "params_total")
+    prod = cells["pod16x16"]
+    emit({"phase": "dryrun", "cell": "llama3.2-1b__train_4k__pod16x16", "nvidia_smi": smi,
+          "torch": torch.__version__, **{k: prod.get(k) for k in keys},
+          "collectives": {op: v["count"] for op, v in prod["collectives"]["per_op"].items()},
+          "moved_bytes_per_device": prod["collectives"]["moved_bytes_per_device"],
+          "fit_over_full_trace_minus_1": prod["extrapolated"]["fit_over_full_trace_minus_1"],
+          "wall_s": wall})
+    rows = {}
+    for name, card in (("train_sharded", tr), ("serve_sharded", dec)):
+        cell = cells[name]
+        want = card["argument_bytes_by_group"]
+        got = cell["argument_bytes_by_group"]
+        rows[name] = {"batch": card["batch"], "seq": card["seq"], "card": want, "dryrun": got,
+                      "argument_size_in_bytes": cell["memory"]["argument_size_in_bytes"],
+                      "card_sum": sum(want.values()), "trace_s": cell["seconds"]["trace"],
+                      "equal": got == want
+                      and cell["memory"]["argument_size_in_bytes"] == sum(want.values())}
+    flops = cells["train_sharded"]["flops"]
+    model_flops = train_model_flops(cells["train_sharded"]["cost_keys"], tr["seq"])
+    mfu_rate = model_flops / (tr["step_ms_p50"] / 1e3)
+    emit({"phase": "dryrun", "cell": "one_rank_cells", "nvidia_smi": smi, "rows": rows,
+          "train_step_flops_traced": flops, "train_step_model_flops": model_flops,
+          "train_sharded_step_ms_p50": tr["step_ms_p50"],
+          "model_tflops_per_s": mfu_rate / 1e12,
+          "peak_tflops_bf16": PEAK_FLOPS[torch.bfloat16] / 1e12,
+          "mfu": mfu_rate / PEAK_FLOPS[torch.bfloat16],
+          "note": "model flops over the card's step p50, a model-flops utilisation, not a "
+                  "measured rate: the plain path's matmuls traced on the CPU (remat's "
+                  "recompute included), its T x T attention products counted for the "
+                  "causal half that is live, as the card's flash kernels skip the rest"})
+    bad = [k for k, r in rows.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"dryrun: argument bytes differ from the card's: "
+                             f"{ {k: rows[k] for k in bad} }")
+    return cells
 
 
 # =====================================================================================
@@ -5104,6 +5229,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_sharded = serve_sharded_phase(smi)
     t_phase["serve_sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dryrun_phase(smi)
+    t_phase["dryrun"] = time.perf_counter() - t0
     emit({"phase": "seqshard_kernels", "nvidia_smi": smi,
           # row 7's local step of the kv_seq-sharded decode, and the launches
           # of every serving kernel inside the serving block maps

@@ -643,17 +643,35 @@ class CollectiveCounter:
     port's ``local_map`` bodies) and the functional ones DTensor's
     redistributions run (``_c10d_functional``), in the forward and the
     backward, through a ``TorchDispatchMode``; every op pays a Python call
-    while it is entered, so count one step, not a timed one."""
+    while it is entered, so count one step, not a timed one. A call's bytes
+    are those of all its tensor arguments, an all-gather's or a
+    reduce-scatter's output buffer among them. The redistributions DTensor
+    runs inside an op's dispatch (a ``local_map``'s inputs, a gradient's
+    placement) happen while the mode is off the stack and are not counted;
+    ``launch.dryrun.StepTracer`` counts those too.
+
+    With ``record`` each call is also kept in ``records``: its op name, the
+    shape and dtype of what the rank hands it (``input_bytes``, without the
+    output buffer), its group's size, and its origin, the innermost frame of
+    the port outside this module and the files of ``origin_skip`` as
+    "file:line function"."""
 
     NAMESPACES = ("c10d", "_c10d_functional")
-    SKIP = ("wait_tensor", "barrier", "monitored_barrier")
+    # not collectives: a wait, the barriers, and the autograd wrapper a
+    # functional collective's output gets outside FakeTensorMode
+    SKIP = ("wait_tensor", "barrier", "monitored_barrier", "_wrap_tensor_autograd")
+    INPUTS = ("tensors", "input", "input_tensor", "input_tensors")
 
-    def __init__(self):
+    def __init__(self, record: bool = False, origin_skip: Sequence[str] = ()):
         self.calls: Dict[str, int] = {}
         self.bytes: Dict[str, int] = {}
+        self.record = record
+        self.origin_skip = ("core/distributed.py",) + tuple(origin_skip)
+        self.records: List[Dict[str, Any]] = []
         self._mode = None
 
-    def _seen(self, func, args, kwargs) -> None:
+    def seen(self, func, args, kwargs) -> None:
+        """Count one dispatched op (nothing unless it is a collective)."""
         name = func._schema.name.split("::")[-1]
         if func.namespace not in self.NAMESPACES or name in self.SKIP:
             return
@@ -663,6 +681,8 @@ class CollectiveCounter:
         n = sum(t.numel() * t.element_size() for t in flat if isinstance(t, torch.Tensor))
         self.calls[name] = self.calls.get(name, 0) + 1
         self.bytes[name] = self.bytes.get(name, 0) + n
+        if self.record:
+            self.records.append(_collective_record(name, func, args, kwargs, self.origin_skip))
 
     def __enter__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -672,7 +692,7 @@ class CollectiveCounter:
         class _Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 kwargs = kwargs or {}
-                counter._seen(func, args, kwargs)
+                counter.seen(func, args, kwargs)
                 return func(*args, **kwargs)
 
         self._mode = _Mode()
@@ -683,6 +703,48 @@ class CollectiveCounter:
         self._mode.__exit__(*exc)
         self._mode = None
         return False
+
+
+def _group_size(named: Dict[str, Any]) -> int:
+    """The size of a collective's group: its ProcessGroup's (c10d ops), or
+    the group the functional ops name."""
+    from torch.distributed import ProcessGroup
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    pg = named.get("process_group")
+    if pg is not None:
+        return int(ProcessGroup.unbox(pg).size())
+    return int(_resolve_process_group(named["group_name"]).size())
+
+
+def _origin(skip: Sequence[str]) -> str:
+    """The innermost frame of the port whose file (relative to the package)
+    is not in ``skip``, as "file:line function"."""
+    import os
+    import traceback
+
+    port = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for fr in reversed(traceback.extract_stack()):
+        path = os.path.abspath(fr.filename)
+        if path.startswith(port + os.sep):
+            rel = os.path.relpath(path, port).replace(os.sep, "/")
+            if rel not in skip:
+                return f"{rel}:{fr.lineno} {fr.name}"
+    return "?"
+
+
+def _collective_record(name, func, args, kwargs, origin_skip) -> Dict[str, Any]:
+    names = [a.name for a in func._schema.arguments]
+    named = {**dict(zip(names, args)), **kwargs}
+    ins = []
+    for k in CollectiveCounter.INPUTS:
+        v = named.get(k)
+        ins.extend(v if isinstance(v, (list, tuple)) else [v] if v is not None else [])
+    ins = [t for t in ins if isinstance(t, torch.Tensor)]
+    return {"op": name, "shape": [list(t.shape) for t in ins],
+            "dtype": str(ins[0].dtype) if ins else None, "group_size": _group_size(named),
+            "input_bytes": sum(t.numel() * t.element_size() for t in ins),
+            "origin": _origin(origin_skip)}
 
 
 class DispatchCounter:
